@@ -1,0 +1,145 @@
+"""Edge -> node aggregation over static edge lists (kernel B).
+
+Counterpart of `gencast_tpu.ops.segment`. Three strategies, as there:
+
+1. Uniform degree: mesh2grid edges are receiver-sorted with exactly 3
+   senders per grid node, so the sum is a dense reshape + sum (and the
+   receiver gather a broadcast).
+2. Planned sum (`segment_sum_planned`) over a `graph.plans.AggPlan`, for the
+   skewed mesh-side degree distributions: on a CUDA tensor the
+   hand-written CSR row reduction `csrc/segment_sum.cu`, on a CPU tensor
+   `planned_segment_sum_plain` (an index_add_ in float32).
+3. Plain `index_add_` for everything else.
+
+`gather_planned`'s forward is a plain gather; its backward (the planned sum)
+belongs to training and is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from gencast_tpu_torch.ops import cuda_lib
+
+KERNEL = cuda_lib.KernelCounter(
+    'segment_sum', 'gencast_tpu_torch/csrc/segment_sum.cu',
+    'gencast_tpu/ops/segment.py:189')
+
+
+def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int, f32_accumulate: bool = False,
+                       normalization: Optional[float] = None,
+                       uniform_k: Optional[int] = None) -> torch.Tensor:
+  """Sum of `data` rows [E, ...] per receiver segment -> [num_segments, ...].
+
+  uniform_k, when the ids are repeat(arange(num_segments), k) (see
+  graph.plans.uniform_degree), takes the dense reshape-sum. f32_accumulate
+  upcasts the messages to float32 for the reduction and casts back (the
+  reference's f32_aggregation).
+  """
+  dtype = data.dtype
+  if f32_accumulate:
+    data = data.float()
+  if uniform_k is not None:
+    out = data.reshape((num_segments, uniform_k) + data.shape[1:]).sum(dim=1)
+  else:
+    out = data.new_zeros((num_segments,) + data.shape[1:]).index_add_(
+        0, segment_ids, data)
+  if normalization is not None:
+    out = out / normalization
+  return out.to(dtype)
+
+
+def gather(nodes: torch.Tensor, indices: torch.Tensor,
+           uniform_k: Optional[int] = None) -> torch.Tensor:
+  """nodes[indices] along the leading axis; [N, ...] -> [E, ...]. With
+  uniform_k (indices == repeat(arange(N), k)) a broadcast, not a gather."""
+  if uniform_k is not None:
+    n = nodes.shape[0]
+    return nodes.unsqueeze(1).expand((n, uniform_k) + nodes.shape[1:]) \
+        .reshape((n * uniform_k,) + nodes.shape[1:])
+  return nodes.index_select(0, indices)
+
+
+def gather_planned(nodes: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+  """nodes[indices] for an edge side that carries an AggPlan. The reference
+  makes its backward the planned sum; serving needs only the forward."""
+  return nodes.index_select(0, indices)
+
+
+def planned_segment_sum_plain(data: torch.Tensor, row_ptr: torch.Tensor,
+                              perm: Optional[torch.Tensor]) -> torch.Tensor:
+  """Plain PyTorch version of kernel B: [E, F] -> [N, F], float32 sums."""
+  n = row_ptr.shape[0] - 1
+  e = data.shape[0]
+  src = data if perm is None else data.index_select(0, perm.long())
+  counts = (row_ptr[1:] - row_ptr[:-1]).long()
+  seg = torch.repeat_interleave(
+      torch.arange(n, device=data.device), counts, output_size=e)
+  out = torch.zeros(n, data.shape[1], dtype=torch.float32, device=data.device)
+  return out.index_add_(0, seg, src.float()).to(data.dtype)
+
+
+def planned_segment_sum_cuda(data: torch.Tensor, row_ptr: torch.Tensor,
+                             perm: Optional[torch.Tensor]) -> torch.Tensor:
+  """Launches kernel B: data [E, F] float32 -> [N, F] float32."""
+  if data.dtype != torch.float32:
+    raise TypeError(f'segment-sum kernel takes float32 (accumulate with '
+                    f'f32_accumulate=True), got {data.dtype}')
+  if not data.is_cuda or data.dim() != 2 or not data.is_contiguous():
+    raise ValueError('data must be a contiguous [E, F] CUDA tensor')
+  e, f = data.shape
+  if (row_ptr.dtype != torch.int32 or row_ptr.dim() != 1
+      or row_ptr.device != data.device or not row_ptr.is_contiguous()):
+    raise ValueError('row_ptr must be a contiguous int32 vector on the '
+                     'data device')
+  if perm is not None and (perm.dtype != torch.int32 or perm.shape != (e,)
+                           or perm.device != data.device
+                           or not perm.is_contiguous()):
+    raise ValueError('perm must be a contiguous int32 [E] on the data device')
+  n = row_ptr.shape[0] - 1
+  out = torch.empty(n, f, dtype=torch.float32, device=data.device)
+  lib = cuda_lib.library()
+  stream = torch.cuda.current_stream(data.device).cuda_stream
+  code = lib.gt_segment_sum(
+      data.data_ptr(), row_ptr.data_ptr(),
+      None if perm is None else perm.data_ptr(), out.data_ptr(), n, f, stream)
+  cuda_lib.check(code, 'gt_segment_sum')
+  KERNEL.launches += 1
+  return out
+
+
+def planned_segment_sum(data: torch.Tensor, row_ptr: torch.Tensor,
+                        perm: Optional[torch.Tensor]) -> torch.Tensor:
+  """[E, F] -> [N, F]: kernel B on a CUDA tensor, the plain version on a
+  CPU tensor."""
+  if not data.is_cuda:
+    return planned_segment_sum_plain(data, row_ptr, perm)
+  return planned_segment_sum_cuda(data, row_ptr, perm)
+
+
+def segment_sum_planned(data: torch.Tensor, row_ptr: torch.Tensor,
+                        perm: Optional[torch.Tensor],
+                        f32_accumulate: bool = False,
+                        normalization: Optional[float] = None,
+                        use_kernel: bool = True) -> torch.Tensor:
+  """Planned segment sum of [E, B, C] data -> [N, B, C].
+
+  use_kernel=False takes the plain version on any device (the reference
+  path for comparisons on the card). The kernel sums float32 only: on the
+  card, bf16 data needs f32_accumulate=True.
+  """
+  e = data.shape[0]
+  rest = data.shape[1:]
+  dtype = data.dtype
+  x = data.reshape(e, -1)
+  if f32_accumulate:
+    x = x.float()
+  x = x.contiguous()
+  fn = planned_segment_sum if use_kernel else planned_segment_sum_plain
+  out = fn(x, row_ptr, perm)
+  if normalization is not None:
+    out = out / normalization
+  return out.to(dtype).reshape((row_ptr.shape[0] - 1,) + rest)
