@@ -1,7 +1,7 @@
 """Builds shared libraries from sources in the checkout, at first use.
 
 Outputs go to `build/gencast_tpu_torch/` at the repository root (listed in
-.gitignore), keyed by a hash of the sources and the compiler command, so a
+.gitignore), keyed by a hash of the sources and the compiler commands, so a
 changed source or flag rebuilds and an unchanged one is reused.
 """
 
@@ -16,18 +16,21 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(REPO_ROOT, 'build', 'gencast_tpu_torch')
 
 
-def compile_shared(command: Sequence[str], sources: Sequence[str],
-                   stem: str, headers: Sequence[str] = ()) -> Tuple[str, str]:
-  """Runs `command + ['-o', out] + sources` unless `out` already exists.
+def compile_shared(compile_cmd: Sequence[str], link_cmd: Sequence[str],
+                   sources: Sequence[str], stem: str,
+                   headers: Sequence[str] = ()) -> Tuple[str, str]:
+  """Builds `sources` into one shared library unless it already exists.
 
-  `headers` are hashed with the sources (so editing one rebuilds) but not
-  passed to the compiler.
+  Every source is compiled to an object at the same time, one compiler
+  process each (`compile_cmd + ['-c', src, '-o', obj]`); the objects are
+  then linked by `link_cmd + ['-o', out] + objects`. `headers` are hashed
+  with the sources (so editing one rebuilds) but not passed to the compiler.
 
-  Returns (path of the shared library, the compiler's stderr; empty when
+  Returns (path of the shared library, the compilers' stderr; empty when
   the library was already built). Raises subprocess.CalledProcessError
-  (with the compiler's output attached) when the compiler fails.
+  (with the compiler's output attached) when a compiler fails.
   """
-  h = hashlib.sha256(' '.join(command).encode())
+  h = hashlib.sha256(' '.join([*compile_cmd, '|', *link_cmd]).encode())
   for src in list(sources) + list(headers):
     with open(src, 'rb') as f:
       h.update(f.read())
@@ -36,7 +39,28 @@ def compile_shared(command: Sequence[str], sources: Sequence[str],
     return out, ''
   os.makedirs(BUILD_DIR, exist_ok=True)
   tmp = f'{out}.tmp{os.getpid()}'
-  done = subprocess.run(list(command) + ['-o', tmp] + list(sources),
-                        check=True, capture_output=True, text=True)
+  objects = [f'{tmp}.{i}.o' for i in range(len(sources))]
+  procs = [subprocess.Popen([*compile_cmd, '-c', src, '-o', obj],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+           for src, obj in zip(sources, objects)]
+  logs = []
+  failed = None
+  for proc in procs:
+    stdout, stderr = proc.communicate()
+    logs.append(stderr)
+    if proc.returncode and failed is None:
+      failed = subprocess.CalledProcessError(proc.returncode, proc.args,
+                                             stdout, stderr)
+  try:
+    if failed is not None:
+      raise failed
+    done = subprocess.run([*link_cmd, '-o', tmp, *objects], check=True,
+                          capture_output=True, text=True)
+    logs.append(done.stderr)
+  finally:
+    for obj in objects:
+      if os.path.exists(obj):
+        os.remove(obj)
   os.replace(tmp, out)
-  return out, done.stderr
+  return out, ''.join(logs)

@@ -70,16 +70,15 @@ def load_reference_params(model: nn.Module,
                    f'{" ..." if len(missing) > 5 else ""}')
 
 
-def export_reference_params(model: nn.Module) -> Dict[str, np.ndarray]:
-  """The inverse of load_reference_params: the port's parameters as a flat
-  dict in the reference's keys and layouts (float32 numpy)."""
+def _export(named: Iterator[Tuple[str, torch.Tensor]]
+            ) -> Dict[str, np.ndarray]:
   flat: Dict[str, np.ndarray] = {}
   stacked: Dict[str, Dict[int, np.ndarray]] = {}
-  for name, p in model.named_parameters():
+  for name, p in named:
     path = name.replace('.', '/')
     prefix, leaf = path.rsplit('/', 1)
     key_leaf = {v: k for k, v in _LEAVES.items()}[leaf]
-    a = p.detach().float().cpu().numpy()
+    a = p.detach().float().cpu().numpy().copy()  # not a view of p
     if key_leaf == 'kernel':
       a = np.swapaxes(a, -1, -2)
     if _STACKED in path:
@@ -92,6 +91,20 @@ def export_reference_params(model: nn.Module) -> Dict[str, np.ndarray]:
   for key, layers in stacked.items():
     flat[key] = np.stack([layers[i] for i in range(len(layers))])
   return flat
+
+
+def export_reference_params(model: nn.Module) -> Dict[str, np.ndarray]:
+  """The inverse of load_reference_params: the port's parameters as a flat
+  dict in the reference's keys and layouts (float32 numpy)."""
+  return _export(model.named_parameters())
+
+
+def export_reference_grads(model: nn.Module) -> Dict[str, np.ndarray]:
+  """The port's parameter gradients (`.grad`, zeros where None) in the
+  reference's keys and layouts, to hold them against the reference's
+  gradients of the same loss."""
+  return _export((name, p.grad if p.grad is not None else torch.zeros_like(p))
+                 for name, p in model.named_parameters())
 
 
 def perturbed(flat: Mapping[str, np.ndarray], seed: int

@@ -42,8 +42,12 @@ class ModelSpec:
   # Planned aggregation for skewed edge sides, and its degree gate.
   use_agg_plans: bool = False
   agg_plan_min_degree: int = 32
-  # Serve under models.casting.Bfloat16Cast (bf16 compute).
+  # Run under models.casting.Bfloat16Cast (bf16 compute, float32 masters).
   cast_bf16: bool = False
+  # Transformer remat in the backward pass (nn.transformer.TransformerConfig):
+  # 'full' recomputes whole blocks, 'save_attention' keeps the attention
+  # half and recomputes only LN/FiLM/FFW.
+  remat_policy: str = 'full'
 
 
 # CPU-sized configuration for tests; not a reference preset.
@@ -53,16 +57,17 @@ TINY = ModelSpec(
     attention_k_hop=4, ffw_hidden=128, attention_tile_size=32)
 
 # GenCast 1 degree: splits 5, full variable set, bf16, churn 2.5, planned
-# aggregation, as the reference's ONE_DEG. The tile is the port's own: the
-# reference's 768 was a TPU on-chip-memory choice. On the k-hop-16 mask,
-# tiles of 64 and 128 cover nearly the same masked area (10,601 pairs of
-# 64 x 64 = 43.4 M entries against 2,741 pairs of 128 x 128 = 44.9 M), and
-# 64 keeps one attention block at 85 KB of shared memory (two per SM).
+# aggregation, save_attention remat, as the reference's ONE_DEG. The tile
+# is the port's own: the reference's 768 was a TPU on-chip-memory choice.
+# On the k-hop-16 mask, tiles of 64 and 128 cover nearly the same masked
+# area (10,601 pairs of 64 x 64 = 43.4 M entries against 2,741 pairs of
+# 128 x 128 = 44.9 M), and 64 keeps one attention block at 85 KB of shared
+# memory (two per SM).
 ONE_DEG = ModelSpec(
     name='1deg', task=registry.GENCAST_TASK_FULL, resolution_deg=1.0,
     mesh_splits=5, d_model=512, num_layers=16, num_heads=4,
     attention_k_hop=16, attention_tile_size=64, stochastic_churn_rate=2.5,
-    use_agg_plans=True, cast_bf16=True)
+    use_agg_plans=True, cast_bf16=True, remat_policy='save_attention')
 
 
 def grid_for_resolution(deg: float) -> Tuple[np.ndarray, np.ndarray]:
@@ -91,14 +96,16 @@ def build_gencast(spec: ModelSpec, *, seed: int = 0,
   normalization / bf16 stack) on `device`, plus its graph statics.
 
   Parameters are initialized from torch.Generator seeded with `seed`.
-  use_kernels=False routes the two kernel ops through their plain PyTorch
-  versions on every device (for comparing the two paths on the card).
+  use_kernels=False routes the attention and planned-sum forwards through
+  their plain PyTorch versions on every device (for comparing the two
+  serving paths on the card).
   """
   if statics is None:
     statics = build_statics(spec)
   transformer = TransformerConfig(
       d_model=spec.d_model, num_layers=spec.num_layers,
-      num_heads=spec.num_heads, ffw_hidden=spec.ffw_hidden)
+      num_heads=spec.num_heads, ffw_hidden=spec.ffw_hidden,
+      remat_policy=spec.remat_policy)
   model = GenCast(
       spec.task, statics, transformer,
       denoiser_config=DenoiserConfig(

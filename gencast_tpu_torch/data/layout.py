@@ -4,14 +4,15 @@ A packed tensor has shape [batch, lat, lon, channels]. Channels are ordered
 by sorted variable name, time-major / level-minor within each variable, the
 same order as `gencast_tpu.data.layout`, so channel indices are
 interchangeable between the two packages. This module carries the numpy
-half of that file: layouts, merge permutations, statistics and the
-per-channel vectors derived from them. `pack`/`unpack` are not ported yet.
+half of that file: layouts, merge permutations, `pack`, statistics and the
+per-channel vectors derived from them, and the loss weights. `unpack` is
+not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -55,6 +56,9 @@ class ChannelLayout:
     v = self.var_names.index(name)
     return np.nonzero(self.channel_var == v)[0]
 
+  def channels_per_var(self) -> Dict[str, int]:
+    return {name: len(self.var_channels(name)) for name in self.var_names}
+
 
 def build_layout(
     var_names: Sequence[str],
@@ -86,6 +90,46 @@ def build_layout(
       channel_time=np.asarray(ct, dtype=np.int32),
       channel_level=np.asarray(cl, dtype=np.int32),
   )
+
+
+def pack(fields: Mapping[str, np.ndarray], layout: ChannelLayout,
+         batch_size: Optional[int] = None) -> np.ndarray:
+  """dict of named numpy arrays -> [batch, lat, lon, C].
+
+  Expected shapes per variable kind:
+    static:   [lat, lon]                     (broadcast over batch)
+    surface:  [batch, T, lat, lon]
+    atmos:    [batch, T, L, lat, lon]
+  """
+  parts = []
+  for name in layout.var_names:
+    x = np.asarray(fields[name])
+    if registry.is_static(name):
+      if x.ndim != 2:
+        raise ValueError(f'{name}: expected [lat, lon], got {x.shape}')
+      b = batch_size
+      if b is None:
+        b = next(np.shape(v)[0] for k, v in fields.items()
+                 if not registry.is_static(k))
+      x = np.broadcast_to(x[None, :, :, None], (b,) + x.shape + (1,))
+    elif registry.is_atmospheric(name):
+      if x.ndim != 5:
+        raise ValueError(f'{name}: expected [B,T,L,lat,lon], got {x.shape}')
+      t, l = x.shape[1], x.shape[2]
+      x = np.moveaxis(x, (1, 2), (3, 4)).reshape(x.shape[0], x.shape[3],
+                                                 x.shape[4], t * l)
+    else:
+      if x.ndim != 4:
+        raise ValueError(f'{name}: expected [B,T,lat,lon], got {x.shape}')
+      x = np.moveaxis(x, 1, 3)
+    expected = len(layout.var_channels(name))
+    if x.shape[-1] != expected:
+      raise ValueError(
+          f'{name}: packs to {x.shape[-1]} channels, layout expects '
+          f'{expected} (num_times={layout.num_times}, '
+          f'levels={len(layout.pressure_levels)})')
+    parts.append(x)
+  return np.concatenate(parts, axis=-1)
 
 
 def merge_permutation(a: ChannelLayout, b: ChannelLayout
@@ -187,6 +231,33 @@ def residual_channel_map(target_layout: ChannelLayout,
     if match.size:
       out[c] = match[0]
   return out
+
+
+def loss_channel_weights(
+    layout: ChannelLayout,
+    per_variable_weights: Mapping[str, float],
+) -> Tuple[np.ndarray, np.ndarray]:
+  """(total_weights, per_var_mean_weights), each [C] float32.
+
+  total_weights: w_var * level_weight / channels_of_var; summing
+    channel-meaned errors with these weights gives the reference's
+    per-variable mean over (time, level) with pressure-proportional level
+    weights, then the weighted sum over variables.
+  per_var_mean_weights: level_weight / channels_of_var, for the
+    per-variable diagnostic losses.
+  """
+  levels = np.asarray(layout.pressure_levels, dtype=np.float64)
+  level_w = levels / levels.mean() if levels.size else levels
+  total = np.zeros(layout.num_channels, dtype=np.float32)
+  diag = np.zeros(layout.num_channels, dtype=np.float32)
+  counts = layout.channels_per_var()
+  for c in range(layout.num_channels):
+    name = layout.var_names[layout.channel_var[c]]
+    lvl = layout.channel_level[c]
+    lw = float(level_w[lvl]) if lvl >= 0 else 1.0
+    diag[c] = lw / counts[name]
+    total[c] = per_variable_weights.get(name, 1.0) * diag[c]
+  return total, diag
 
 
 def latitude_weights(lat_deg: np.ndarray) -> np.ndarray:

@@ -31,11 +31,13 @@ def _load() -> Optional[ctypes.CDLL]:
   if not os.path.exists(SOURCE):
     return None
   path = None
-  for cmd in (['g++', '-O3', '-march=native', '-shared', '-fPIC', '-fopenmp'],
-              # Retry without OpenMP (not all toolchains ship libgomp).
-              ['g++', '-O3', '-shared', '-fPIC']):
+  for flags in (['-O3', '-march=native', '-fPIC', '-fopenmp'],
+                # Retry without OpenMP (not all toolchains ship libgomp).
+                ['-O3', '-fPIC']):
     try:
-      path, _ = _build.compile_shared(cmd, [SOURCE], 'containing_triangle')
+      path, _ = _build.compile_shared(
+          ['g++', *flags], ['g++', '-shared', *flags], [SOURCE],
+          'containing_triangle')
       break
     except (subprocess.CalledProcessError, FileNotFoundError):
       continue

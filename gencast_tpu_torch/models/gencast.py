@@ -1,27 +1,28 @@
 """GenCast: EDM-preconditioned diffusion forecasting and its sampler.
 
-Counterpart of `gencast_tpu.models.gencast` for serving: the preconditioned
-denoiser and the DPM-Solver++ 2S sampler with stochastic churn. A forecast
-step makes 2N - 1 denoiser calls: a 2S step (two calls) for each of the
-first N - 1 noise levels, then a single Euler step at the last level. The
-training loss is not ported yet.
+Counterpart of `gencast_tpu.models.gencast`: the preconditioned denoiser,
+its EDM training loss, and the DPM-Solver++ 2S sampler with stochastic
+churn. A forecast step makes 2N - 1 denoiser calls: a 2S step (two calls)
+for each of the first N - 1 noise levels, then a single Euler step at the
+last level. The loss makes one denoiser call, as the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from gencast_tpu_torch.data import layout as layout_lib
 from gencast_tpu_torch.data.registry import TaskSpec
 from gencast_tpu_torch.graph.compiler import GraphStatics
 from gencast_tpu_torch.models import diffusion_utils
 from gencast_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
 from gencast_tpu_torch.nn.transformer import TransformerConfig
-from gencast_tpu_torch.ops import sph_harm
+from gencast_tpu_torch.ops import losses, sph_harm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +36,26 @@ class SamplerConfig:
   churn_min_noise_level: float = 0.75
   churn_max_noise_level: float = float('inf')
   noise_level_inflation_factor: float = 1.05
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseConfig:
+  """Training-time noise-level distribution (the reference's defaults)."""
+  training_noise_level_rho: float = 7.0
+  training_max_noise_level: float = 88.0
+  training_min_noise_level: float = 0.02
+
+
+# Loss weight per surface variable; atmospheric variables weigh 1.0 (the
+# reference's LOSS_WEIGHTS_SURFACE).
+LOSS_WEIGHTS_SURFACE = {
+    '2m_temperature': 1.0,
+    '10m_u_component_of_wind': 0.1,
+    '10m_v_component_of_wind': 0.1,
+    'mean_sea_level_pressure': 0.1,
+    'sea_surface_temperature': 0.1,
+    'total_precipitation_12hr': 0.1,
+}
 
 
 def rounded(value, dtype) -> float:
@@ -60,11 +81,13 @@ class GenCast(nn.Module):
   def __init__(self, task: TaskSpec, statics: GraphStatics,
                transformer: TransformerConfig,
                denoiser_config: DenoiserConfig = DenoiserConfig(),
-               sampler_config: SamplerConfig = SamplerConfig(), *,
+               sampler_config: SamplerConfig = SamplerConfig(),
+               noise_config: NoiseConfig = NoiseConfig(), *,
                rng: torch.Generator, use_kernels: bool = True):
     super().__init__()
     self.task = task
     self.sampler_config = sampler_config
+    self.noise_config = noise_config
     self.denoiser = Denoiser(task, statics, transformer, denoiser_config,
                              rng=rng, use_kernels=use_kernels)
     self.target_layout = self.denoiser.target_layout
@@ -73,6 +96,12 @@ class GenCast(nn.Module):
                          persistent=False)
     self.register_buffer('sh_fourier', torch.as_tensor(basis.fourier),
                          persistent=False)
+    chan_w, diag_w = layout_lib.loss_channel_weights(self.target_layout,
+                                                     LOSS_WEIGHTS_SURFACE)
+    for name, array in (
+        ('lat_weights', layout_lib.latitude_weights(statics.grid_lat)),
+        ('loss_weights', chan_w), ('diag_weights', diag_w)):
+      self.register_buffer(name, torch.as_tensor(array), persistent=False)
 
   # --- EDM preconditioning (sigma_data = 1) ---
 
@@ -93,6 +122,57 @@ class GenCast(nn.Module):
         generator, (batch, self.target_layout.num_channels),
         self.sh_legendre, self.sh_fourier, dtype=dtype)
     return torch.movedim(n, 1, -1)
+
+  # --- Training loss ---
+
+  def loss(self, inputs: torch.Tensor, targets: torch.Tensor,
+           forcings: torch.Tensor,
+           generator: Optional[torch.Generator] = None, *,
+           sigma: Optional[torch.Tensor] = None,
+           noise: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Per-batch-element EDM loss [B], and per-variable diagnostics."""
+    (loss, diagnostics), _ = self.loss_and_predictions(
+        inputs, targets, forcings, generator, sigma=sigma, noise=noise)
+    return loss, diagnostics
+
+  def loss_and_predictions(self, inputs: torch.Tensor,
+                           targets: torch.Tensor, forcings: torch.Tensor,
+                           generator: Optional[torch.Generator] = None, *,
+                           sigma: Optional[torch.Tensor] = None,
+                           noise: Optional[torch.Tensor] = None):
+    """EDM loss and the denoised predictions from the same (single)
+    denoiser call: ((loss [B], diagnostics), predictions).
+
+    The noise level sigma [B] (float32) is drawn from the training
+    distribution and the noise [B, lat, lon, C] is unit sphere noise in the
+    targets' dtype, both from `generator` (sigma first), unless given.
+    """
+    nc = self.noise_config
+    batch = targets.shape[0]
+    if generator is None and (sigma is None or noise is None):
+      raise ValueError('loss needs a generator, or both sigma and noise')
+    if sigma is None:
+      u = torch.rand((batch,), generator=generator, device=generator.device,
+                     dtype=torch.float32).to(targets.device)
+      sigma = diffusion_utils.rho_inverse_cdf(
+          nc.training_min_noise_level, nc.training_max_noise_level,
+          nc.training_noise_level_rho, u)
+    sigma = sigma.to(targets.device, torch.float32)
+    if noise is None:
+      noise = self.sphere_noise(generator, batch, targets.dtype)
+    noise = noise.to(targets.device, targets.dtype)
+    noisy = targets + noise * sigma.to(targets.dtype)[:, None, None, None]
+    denoised = self._precond_denoise(inputs, forcings, noisy, sigma)
+
+    # lambda(sigma) = c_out^-2.
+    lam = (sigma ** 2 + 1.0) / sigma ** 2
+    loss = losses.weighted_mse(denoised, targets, self.lat_weights,
+                               self.loss_weights, per_sample_scale=lam)
+    diagnostics = losses.per_variable_diagnostics(
+        denoised, targets, self.lat_weights, self.target_layout,
+        self.diag_weights)
+    return (loss, diagnostics), denoised
 
   def forward(self, inputs, noisy_targets, noise_levels, forcings):
     """Single preconditioned denoiser application."""

@@ -1,9 +1,10 @@
 """Predictor wrappers: normalization/residuals and NaN cleaning.
 
-Counterpart of `gencast_tpu.models.wrappers` for serving (`__call__` and
-`sample`). A ChannelLayout fixes channel <-> (variable, level, frame), so
-each wrapper is a handful of precomputed per-channel vectors applied
-elementwise.
+Counterpart of `gencast_tpu.models.wrappers`: `__call__`, `sample`, `loss`
+and `loss_and_predictions`. A ChannelLayout fixes channel <-> (variable,
+level, frame), so each wrapper is a handful of precomputed per-channel
+vectors applied elementwise. Loss calls pass `generator` and any keyword
+arguments (the injected `sigma` / `noise`) through to GenCast.
 """
 
 from __future__ import annotations
@@ -66,10 +67,27 @@ class InputsAndResiduals(nn.Module):
     base = raw_inputs.index_select(-1, self.res_map)
     return torch.where(self.has_res, base, torch.zeros_like(base))
 
+  def _norm_targets(self, raw_inputs, targets):
+    base = self._residual_base(raw_inputs)
+    return ((targets - base - self.tgt_loc.to(targets.dtype))
+            / self.tgt_scale.to(targets.dtype))
+
   def _unnorm_predictions(self, raw_inputs, preds):
     base = self._residual_base(raw_inputs).to(preds.dtype)
     return (preds * self.tgt_scale.to(preds.dtype)
             + self.tgt_loc.to(preds.dtype) + base)
+
+  def loss(self, inputs, targets, forcings, generator=None, **kwargs):
+    return self.predictor.loss(
+        self._norm_inputs(inputs), self._norm_targets(inputs, targets),
+        self._norm_forcings(forcings), generator, **kwargs)
+
+  def loss_and_predictions(self, inputs, targets, forcings, generator=None,
+                           **kwargs):
+    (loss, diags), norm_preds = self.predictor.loss_and_predictions(
+        self._norm_inputs(inputs), self._norm_targets(inputs, targets),
+        self._norm_forcings(forcings), generator, **kwargs)
+    return (loss, diags), self._unnorm_predictions(inputs, norm_preds)
 
   def forward(self, inputs, noisy_targets, noise_levels, forcings):
     preds = self.predictor(self._norm_inputs(inputs), noisy_targets,
@@ -129,6 +147,18 @@ class NaNCleaner(nn.Module):
     chan_is_var[self.tgt_chans] = True
     return torch.where(chan_is_var & nan_any,
                        torch.full_like(preds, float('nan')), preds)
+
+  def loss(self, inputs, targets, forcings, generator=None, **kwargs):
+    return self.predictor.loss(
+        self._clean(inputs, 'inputs'), self._clean(targets, 'targets'),
+        self._clean(forcings, 'forcings'), generator, **kwargs)
+
+  def loss_and_predictions(self, inputs, targets, forcings, generator=None,
+                           **kwargs):
+    (loss, diags), preds = self.predictor.loss_and_predictions(
+        self._clean(inputs, 'inputs'), self._clean(targets, 'targets'),
+        self._clean(forcings, 'forcings'), generator, **kwargs)
+    return (loss, diags), self._reintroduce(inputs, preds)
 
   def forward(self, inputs, noisy_targets, noise_levels, forcings):
     preds = self.predictor(self._clean(inputs, 'inputs'), noisy_targets,

@@ -4,8 +4,9 @@ Counterpart of `gencast_tpu.nn.gnn`: node/edge sets are dicts of [N, B, C]
 / [E, B, C] tensors, topology (sender/receiver indices) is fixed numpy at
 construction, and receiver aggregation is a sorted segment sum. Edge sides
 with a skewed degree distribution carry an `AggPlan` and aggregate through
-the planned sum (kernel B on the card). The streamed-edge path and remat of
-the reference are training/memory machinery and are not ported.
+the planned sum (kernel B on the card); gathers over a planned side take
+the planned sum as their backward. The streamed-edge path and GNN remat of
+the reference are memory machinery for 0.25 degrees and are not ported.
 """
 
 from __future__ import annotations
@@ -96,11 +97,12 @@ class InteractionNetwork(nn.Module):
           plans.uniform_degree(topo.receivers, num_nodes[topo.receiver_set]))
       self._buffer(f'{topo.name}_senders', topo.senders, torch.long)
       self._buffer(f'{topo.name}_receivers', topo.receivers, torch.long)
-      if topo.recv_plan is not None:
-        self._buffer(f'{topo.name}_recv_row_ptr', topo.recv_plan.row_ptr,
-                     torch.int32)
-        self._buffer(f'{topo.name}_recv_perm', topo.recv_plan.perm,
-                     torch.int32)
+      for side, plan in (('recv', topo.recv_plan),
+                         ('send', topo.sender_plan)):
+        if plan is not None:
+          self._buffer(f'{topo.name}_{side}_row_ptr', plan.row_ptr,
+                       torch.int32)
+          self._buffer(f'{topo.name}_{side}_perm', plan.perm, torch.int32)
 
     self.edge_mlps = nn.ModuleDict()
     for topo in topologies:
@@ -127,7 +129,10 @@ class InteractionNetwork(nn.Module):
               plan: Optional[plans.AggPlan]) -> torch.Tensor:
     indices = getattr(self, f'{topo.name}_{side}')
     if plan is not None and uniform_k is None:
-      return segment.gather_planned(x, indices)
+      key = f'{topo.name}_{"send" if side == "senders" else "recv"}'
+      return segment.gather_planned(x, indices,
+                                    getattr(self, f'{key}_row_ptr'),
+                                    getattr(self, f'{key}_perm'))
     return segment.gather(x, indices, uniform_k)
 
   def forward(self, nodes: NodeFeats, edges: EdgeFeats,

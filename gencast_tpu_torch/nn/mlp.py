@@ -16,10 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gencast_tpu_torch.nn.precision import with_f32
+from gencast_tpu_torch.ops import ln_film as ln_film_op
 
 CONDITIONING_DIM = 16  # norm-conditioning width used throughout GenCast.
-LN_EPS = 1e-6          # flax LayerNorm default, as in the reference.
 
 # An initializer fills a [out, in] weight in place from a generator.
 Init = Callable[[torch.Tensor, torch.Generator], None]
@@ -101,7 +100,8 @@ class MLP(nn.Module):
 
 
 class FiLM(nn.Module):
-  """Linear norm conditioning: x * (1 + scale(cond)) + offset(cond)."""
+  """Linear norm conditioning, x * (1 + scale(cond)) + offset(cond): holds
+  the projection of the conditioning; `ln_film` applies it."""
 
   def __init__(self, feature_size: int, *, rng: torch.Generator,
                conditioning_dim: int = CONDITIONING_DIM):
@@ -109,38 +109,21 @@ class FiLM(nn.Module):
     self.linear = Linear(conditioning_dim, 2 * feature_size, rng=rng,
                          init=truncated_normal(1e-8))
 
-  def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-    scale_minus_one, offset = self.linear(cond).chunk(2, dim=-1)
-    return x * (scale_minus_one + 1.0) + offset
-
-
-def _layer_norm_f32(x: torch.Tensor) -> torch.Tensor:
-  # Fast variance E[x^2] - E[x]^2 from one pass, clipped at 0 (flax).
-  mu = x.mean(dim=-1, keepdim=True)
-  var = ((x * x).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
-  return (x - mu) * torch.rsqrt(var + LN_EPS)
-
 
 def ln_film(x: torch.Tensor, film: FiLM, cond: torch.Tensor) -> torch.Tensor:
-  """LayerNorm without scale/bias, then FiLM: the forward of the reference's
-  ln_film_reference. Statistics in float32, the normalized value cast back
-  to x's dtype, the FiLM multiply in that dtype. `cond` is already aligned
-  (broadcastable) against x."""
-  return film(with_f32(_layer_norm_f32, x), cond)
-
-
-def align_cond(x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-  """Broadcast [B, D] conditioning against nodes-leading [N, B, C] or
-  batch-leading [B, N, C] / [B, C] activations (nodes-leading first)."""
-  if x.dim() == 2:
-    return cond
-  if x.dim() == 3:
-    if x.shape[1] == cond.shape[0]:
-      return cond[None, :, :]
-    if x.shape[0] == cond.shape[0]:
-      return cond[:, None, :]
-  raise ValueError(f'cannot align conditioning {tuple(cond.shape)} with '
-                   f'{tuple(x.shape)}')
+  """LayerNorm without scale/bias, then FiLM from the [B, D] conditioning,
+  through ops.ln_film (its backward is kernel E on the card): the
+  reference's ln_film_reference op order, statistics in float32, the
+  normalized value cast back to x's dtype, the FiLM multiply in that dtype.
+  x is nodes-leading [N, B, C] or batch-leading [B, N, C]; nodes-leading is
+  tried first, as the reference's apply_ln_film."""
+  b = cond.shape[0]
+  if x.dim() != 3 or b not in x.shape[:2]:
+    raise ValueError(f'cannot align conditioning {tuple(cond.shape)} with '
+                     f'{tuple(x.shape)}')
+  batch_axis = 1 if x.shape[1] == b else 0
+  scale_minus_one, offset = film.linear(cond).chunk(2, dim=-1)
+  return ln_film_op.ln_film(x, scale_minus_one + 1.0, offset, batch_axis)
 
 
 class CondMLP(nn.Module):
@@ -156,8 +139,7 @@ class CondMLP(nn.Module):
     self.film = FiLM(out_size, rng=rng)
 
   def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-    x = self.network(x)
-    return ln_film(x, self.film, align_cond(x, cond))
+    return ln_film(self.network(x), self.film, cond)
 
 
 def fourier_features(values: torch.Tensor, base_period: float,

@@ -3,9 +3,11 @@
 Counterpart of `gencast_tpu.nn.transformer.MeshTransformer` with its
 'pallas' backend: pre-LN blocks with FiLM noise conditioning on both
 sublayers, attention restricted to the k-hop mask through a `TilePlan`
-(kernel A on the card). The reference's vmapped layer stack and lax.scan
-become an nn.ModuleList walked by a Python loop; its other attention
-backends (tri-block, dense) and remat policies are not ported.
+(kernels A and F on the card). The reference's vmapped layer stack and
+lax.scan become an nn.ModuleList walked by a Python loop, and its remat
+policies `torch.utils.checkpoint` (nn/remat.py) around each block ('full')
+or around its feed-forward half only ('save_attention'). Its other
+attention backends (tri-block, dense) are not ported.
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ import torch
 from torch import nn
 
 from gencast_tpu_torch.graph.plans import TilePlan
+from gencast_tpu_torch.nn import remat
 from gencast_tpu_torch.nn.mlp import FiLM, Linear, gelu, ln_film, \
     variance_scaling
 from gencast_tpu_torch.ops import sparse_attention
+
+REMAT_POLICIES = ('full', 'save_attention')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +39,16 @@ class TransformerConfig:
   ffw_winit_final_mult: float = 0.0
   attn_winit_mult: float = 2.0
   attn_winit_final_mult: float = 0.0
+  # What the backward pass recomputes (whenever gradients are recorded):
+  # 'full' checkpoints each whole block; 'save_attention' keeps the
+  # attention half (its forward's saved tensors) and recomputes only
+  # LN/FiLM/FFW.
+  remat_policy: str = 'full'
+
+  def __post_init__(self):
+    if self.remat_policy not in REMAT_POLICIES:
+      raise ValueError(f'remat_policy must be one of {REMAT_POLICIES}, got '
+                       f'{self.remat_policy!r}')
 
   @property
   def head_dim(self) -> int:
@@ -69,8 +84,8 @@ class _QKVProjections(nn.Module):
 
 
 class PallasSparseAttention(nn.Module):
-  """Block-sparse attention over the tile plan (kernel A on the card; named
-  after the reference's backend so parameter paths match)."""
+  """Block-sparse attention over the tile plan (kernels A and F on the card;
+  named after the reference's backend so parameter paths match)."""
 
   def __init__(self, cfg: TransformerConfig, tile: int, *,
                rng: torch.Generator, use_kernels: bool = True):
@@ -78,14 +93,18 @@ class PallasSparseAttention(nn.Module):
     self.cfg = cfg
     self.proj = _QKVProjections(cfg, rng=rng)
     self.tile = tile
-    self.attend = (sparse_attention.sparse_banded_attention if use_kernels
-                   else sparse_attention.sparse_banded_attention_plain)
+    self.use_kernels = use_kernels
 
   def forward(self, x: torch.Tensor, plan: Tuple[torch.Tensor, ...]
               ) -> torch.Tensor:
-    mask_tiles, fwd_ids, fwd_pids = plan
+    # plan: mask_tiles, fwd_kv_ids, fwd_pair_ids, bwd_q_ids, bwd_pair_ids.
     q, k, v = self.proj.split_heads(x)  # [B, N, H, hd]
-    o = self.attend(q, k, v, mask_tiles, fwd_ids, fwd_pids, self.tile)
+    if self.use_kernels:
+      o = sparse_attention.sparse_banded_attention(
+          q, k, v, *plan[:3], self.tile, *plan[3:])
+    else:
+      o = sparse_attention.sparse_banded_attention_plain(
+          q, k, v, *plan[:3], self.tile)
     return self.proj.out(o.reshape(o.shape[:2] + (-1,)))
 
 
@@ -115,11 +134,17 @@ class TransformerBlock(nn.Module):
     self.film1 = FiLM(cfg.d_model, rng=rng)
     self.film2 = FiLM(cfg.d_model, rng=rng)
 
+  def attn_half(self, x: torch.Tensor, cond: torch.Tensor,
+                plan: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    # x: [B, N, C]; cond: [B, D].
+    return x + self.attn(ln_film(x, self.film1, cond), plan)
+
+  def ffw_half(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    return x + self.ffw(ln_film(x, self.film2, cond))
+
   def forward(self, x: torch.Tensor, cond: torch.Tensor,
               plan: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-    # x: [B, N, C]; cond: [B, 1, D].
-    x = x + self.attn(ln_film(x, self.film1, cond), plan)
-    return x + self.ffw(ln_film(x, self.film2, cond))
+    return self.ffw_half(self.attn_half(x, cond, plan), cond)
 
 
 class MeshTransformer(nn.Module):
@@ -136,13 +161,10 @@ class MeshTransformer(nn.Module):
     super().__init__()
     self.cfg = cfg
     self.padded_n = tile_plan.padded_n
-    self.register_buffer('mask_tiles', torch.as_tensor(tile_plan.mask_tiles),
-                         persistent=False)
-    self.register_buffer('fwd_kv_ids', torch.as_tensor(tile_plan.fwd_kv_ids),
-                         persistent=False)
-    self.register_buffer('fwd_pair_ids',
-                         torch.as_tensor(tile_plan.fwd_pair_ids),
-                         persistent=False)
+    for name in ('mask_tiles', 'fwd_kv_ids', 'fwd_pair_ids', 'bwd_q_ids',
+                 'bwd_pair_ids'):
+      self.register_buffer(name, torch.as_tensor(getattr(tile_plan, name)),
+                           persistent=False)
     self.blocks = nn.ModuleList(
         TransformerBlock(
             cfg, PallasSparseAttention(cfg, tile_plan.tile, rng=rng,
@@ -156,9 +178,18 @@ class MeshTransformer(nn.Module):
     x = node_feats.transpose(0, 1)  # [B, N, C]
     if self.padded_n > n:
       x = torch.nn.functional.pad(x, (0, 0, 0, self.padded_n - n))
-    plan = (self.mask_tiles, self.fwd_kv_ids, self.fwd_pair_ids)
-    cond_b = cond[:, None, :]
+    plan = (self.mask_tiles, self.fwd_kv_ids, self.fwd_pair_ids,
+            self.bwd_q_ids, self.bwd_pair_ids)
+    recompute = torch.is_grad_enabled()
     for block in self.blocks:
-      x = block(x, cond_b, plan).to(x.dtype)
-    h = ln_film(x, self.final_film, cond_b)
+      if not recompute:
+        y = block(x, cond, plan)
+      elif self.cfg.remat_policy == 'save_attention':
+        y = remat.checkpoint(block, block.ffw_half,
+                             block.attn_half(x, cond, plan), cond)
+      else:
+        y = remat.checkpoint(block, block, x, cond, plan)
+      # Keep the carry dtype (float32 parameters promote bf16 activations).
+      x = y.to(x.dtype)
+    h = ln_film(x, self.final_film, cond)
     return h[:, :n].transpose(0, 1)

@@ -1,9 +1,10 @@
 """Builds and loads the port's CUDA kernels (csrc/*.cu) through ctypes.
 
-All kernels are compiled at first use with one nvcc call into a shared
-library with a plain C interface (no PyTorch headers, no ninja), keyed by
-source hash in the build directory, and loaded with ctypes. Every C entry
-point returns a cudaError_t, which `check` turns into an exception.
+All kernels are compiled at first use into a shared library with a plain C
+interface (no PyTorch headers, no ninja): one nvcc process per source, all
+started together, then one link. The library is keyed by source hash in the
+build directory and loaded with ctypes. Every C entry point returns a
+cudaError_t, which `check` turns into an exception.
 
 Nothing here runs at import: the CPU tests import every module, and the CPU
 machine has neither nvcc nor a card.
@@ -25,18 +26,35 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'csrc')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # dtype, head_dim, q, k, v, mask_tiles, kv_ids, pair_ids, o, lse,
     # batch, n, h, num_q_tiles, num_active, pad_tile, scale, stream
     'gt_sparse_attention_fwd': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+                                _I, _I, _I, _I, _I, _I, _F, _P],
     'gt_sparse_attention_tile': [],
+    # dtype, head_dim, q, k, v, dout, lse, delta, mask_tiles, kv_ids,
+    # pair_ids, dq, batch, n, h, num_q_tiles, num_active, pad_tile, scale,
+    # stream
+    'gt_sparse_attention_bwd_dq': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # ... q_ids, pair_ids, dk, dv, batch, n, h, num_kv_tiles, num_active,
+    # pad_tile, scale, stream
+    'gt_sparse_attention_bwd_dkv': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                    _P],
     # data, row_ptr, perm, out, num_segments, f, stream
     'gt_segment_sum': [_P, _P, _P, _P, _I, _I, _P],
+    # dtype, x, dy, scale, dx, dscale_part, doffset_part, dscale, doffset,
+    # batch, rows, c, row_stride, batch_stride, rows_per_warp, num_blocks,
+    # eps, stream
+    'gt_ln_film_bwd': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
+                       _L, _I, _I, _F, _P],
 }
 
 
@@ -78,7 +96,8 @@ class _Library:
     headers = sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
     t0 = time.perf_counter()
     path, log = _build.compile_shared(
-        [nvcc, *NVCC_FLAGS, f'-I{CSRC_DIR}'], sources,
+        [nvcc, *NVCC_FLAGS, f'-I{CSRC_DIR}'],
+        [nvcc, '-shared', '-Xcompiler', '-fPIC'], sources,
         'gencast_tpu_torch_kernels', headers=headers)
     self.build_seconds = time.perf_counter() - t0
     self.compiler_log = log

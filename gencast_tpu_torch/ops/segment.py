@@ -11,8 +11,10 @@ Counterpart of `gencast_tpu.ops.segment`. Three strategies, as there:
    `planned_segment_sum_plain` (an index_add_ in float32).
 3. Plain `index_add_` for everything else.
 
-`gather_planned`'s forward is a plain gather; its backward (the planned sum)
-belongs to training and is not ported yet.
+Neither direction scatters, as in the reference: the backward of
+`segment_sum_planned` is a gather at the segment ids, and `gather_planned`
+(a gather over an edge side that carries a plan) has the planned sum as its
+backward, accumulated in float32 when the cotangent is bf16.
 """
 
 from __future__ import annotations
@@ -60,12 +62,6 @@ def gather(nodes: torch.Tensor, indices: torch.Tensor,
     n = nodes.shape[0]
     return nodes.unsqueeze(1).expand((n, uniform_k) + nodes.shape[1:]) \
         .reshape((n * uniform_k,) + nodes.shape[1:])
-  return nodes.index_select(0, indices)
-
-
-def gather_planned(nodes: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-  """nodes[indices] for an edge side that carries an AggPlan. The reference
-  makes its backward the planned sum; serving needs only the forward."""
   return nodes.index_select(0, indices)
 
 
@@ -120,6 +116,36 @@ def planned_segment_sum(data: torch.Tensor, row_ptr: torch.Tensor,
   return planned_segment_sum_cuda(data, row_ptr, perm)
 
 
+def plan_segment_ids(row_ptr: torch.Tensor, perm: Optional[torch.Tensor],
+                     num_edges: int) -> torch.Tensor:
+  """The segment id of every edge, in the edges' own order, from its plan."""
+  n = row_ptr.shape[0] - 1
+  counts = (row_ptr[1:] - row_ptr[:-1]).long()
+  ids = torch.repeat_interleave(torch.arange(n, device=row_ptr.device),
+                                counts, output_size=num_edges)
+  if perm is None:
+    return ids
+  return torch.empty_like(ids).index_copy_(0, perm.long(), ids)
+
+
+class _PlannedSegmentSum(torch.autograd.Function):
+  """[E, F] -> [N, F] planned sum; its backward gathers the cotangent at
+  each edge's segment id (the reference's _pss_bwd)."""
+
+  @staticmethod
+  def forward(ctx, x, row_ptr, perm, use_kernel):
+    ctx.save_for_backward(row_ptr, perm)
+    ctx.num_edges = x.shape[0]
+    fn = planned_segment_sum if use_kernel else planned_segment_sum_plain
+    return fn(x, row_ptr, perm)
+
+  @staticmethod
+  def backward(ctx, g):
+    row_ptr, perm = ctx.saved_tensors
+    ids = plan_segment_ids(row_ptr, perm, ctx.num_edges)
+    return g.index_select(0, ids), None, None, None
+
+
 def segment_sum_planned(data: torch.Tensor, row_ptr: torch.Tensor,
                         perm: Optional[torch.Tensor],
                         f32_accumulate: bool = False,
@@ -138,8 +164,34 @@ def segment_sum_planned(data: torch.Tensor, row_ptr: torch.Tensor,
   if f32_accumulate:
     x = x.float()
   x = x.contiguous()
-  fn = planned_segment_sum if use_kernel else planned_segment_sum_plain
-  out = fn(x, row_ptr, perm)
+  out = _PlannedSegmentSum.apply(x, row_ptr, perm, use_kernel)
   if normalization is not None:
     out = out / normalization
   return out.to(dtype).reshape((row_ptr.shape[0] - 1,) + rest)
+
+
+class _GatherPlanned(torch.autograd.Function):
+  """nodes[indices]; its backward is the planned sum of the cotangent over
+  the plan built on `indices` (kernel B on the card), in float32 when the
+  cotangent is bf16 (the reference's _gp_bwd)."""
+
+  @staticmethod
+  def forward(ctx, nodes, indices, row_ptr, perm):
+    ctx.save_for_backward(row_ptr, perm)
+    return nodes.index_select(0, indices)
+
+  @staticmethod
+  def backward(ctx, g):
+    row_ptr, perm = ctx.saved_tensors
+    grad = segment_sum_planned(g, row_ptr, perm,
+                               f32_accumulate=g.dtype != torch.float32)
+    return grad, None, None, None
+
+
+def gather_planned(nodes: torch.Tensor, indices: torch.Tensor,
+                   row_ptr: torch.Tensor,
+                   perm: Optional[torch.Tensor]) -> torch.Tensor:
+  """nodes[indices] along the leading axis, [N, ...] -> [E, ...], for an edge
+  side whose AggPlan (row_ptr, perm) is built over `indices` with
+  N segments. Its backward is the planned segment sum, never a scatter."""
+  return _GatherPlanned.apply(nodes, indices, row_ptr, perm)
