@@ -1,5 +1,5 @@
-"""Card-side check of the PyTorch/CUDA port: 1-degree GenCast serving and
-training.
+"""Card-side check of the PyTorch/CUDA port: 1-degree GenCast and nano
+GenCast, served and trained.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -31,13 +31,33 @@ Phases (any failure raises and exits non-zero):
      both remat policies: 'full' (TINY's) and 'save_attention' (ONE_DEG's);
  10. training: `gencast_tpu_torch.training.train.main` for 3 full-width
      1-degree steps on synthetic data, with finite losses, changed
-     parameters and the per-step launches of A, B, E and F checked against
+     parameters and the per-step launches of every kernel checked against
      counts derived from the model's structure;
-then one JSON line of kernel results (launches from the training run), the
-card's name and power limit, and a last JSON line
+ 11. kernel C (tri-block attention forward) against its plain version at
+     nano's shape [1, 2624, 4, 64] on the nano mask and at TINY's tri-block
+     shape [1, 176, 2, 32], float32 and bfloat16, with timings;
+ 12. kernel D (tri-block attention backward: dq, then dk/dv) against its
+     plain version at the same shapes, from kernel C's lse, with timings;
+ 13. the NANO denoiser (random seeded weights, perturbed, bf16 stack)
+     through the kernels against the plain path; then two forecast requests
+     of a 10-step (5-day) `rollout.sample_rollout`, with 6,240 launches of C
+     each, finite float32 output of the right shape, seconds per request;
+ 14. phase 9 on the tri-block backend: a TINY_TRIBLOCK float32 training
+     step (batch 2) on the card against the CPU, 3 AdamW steps, and the
+     bf16 gradients against the float32 ones ('full' remat, nano's);
+ 15. training: `train.main` for 3 full-width nano steps, as phase 10;
+then one JSON line of kernel results (launches from the training run of
+each kernel's path), the card's name and power limit, and a last JSON line
 {"ok": true, "device": {...}}.
 
-TF32 is off for matmuls and cuDNN: float32 products run in full float32.
+Each kernel's row also gives its bound (the least time the card could take
+for the same work: the larger of the bytes it must move over 3.35 TB/s and
+the operations on the allowed entries over 989 TFLOP/s bf16 or 67 TFLOP/s
+float32) and the time of one PyTorch call computing the same function, timed
+in turns with the kernel (scaled_dot_product_attention with the dense mask
+and its backward, segment_reduce, native_layer_norm_backward); the port
+never calls those. TF32 is off for matmuls and cuDNN: float32 products run
+in full float32. About two minutes on an H100, build included.
 """
 
 from __future__ import annotations
@@ -56,8 +76,10 @@ import torch
 # Tolerances, each with its reason.
 # Kernel A, float32: the same f32 arithmetic in another summation order.
 ATTN_F32_ATOL = 1e-4
-# Kernel A, bf16: the kernel rounds the probabilities to bf16 before P.V (as
-# the reference kernel); the plain version stays f32 until the output.
+# Kernels A and C, bf16: the kernels round the probabilities to bf16 before
+# P.V (as the reference kernels); the plain versions stay f32 until the
+# output. Kernel C's online softmax also rounds exp(l - m_running), where the
+# reference rounds exp(l - m_final) of its joint three-block max.
 ATTN_BF16_ATOL = 2e-2
 # Kernel B, float32 sums in another order (the plain index_add_ uses atomics).
 SEGMENT_RTOL = 1e-5
@@ -89,6 +111,12 @@ TRAIN_STEP_RTOL = 2e-2
 # the softmax), 0.017 in the median; a gradient that misses the masters or
 # binds the wrong parameters reads near 1.
 TRAIN_BF16_GRAD_RTOL = 0.25
+# Peaks of one H100 SXM (data sheet, dense, at 700 W) for the bounds.
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# Forecast steps of phase 13's requests: 10 x 12 hours, 5 days.
+ROLLOUT_STEPS = 10
 
 
 def log(*args):
@@ -123,9 +151,12 @@ def time_in_turns(fns, reps):
   return {n: float(np.mean(v)) for n, v in samples.items()}
 
 
-def check_attention(shape, dtype, atol, mt, ids, pids, tile, g):
+def check_attention(shape, dtype, atol, mt, ids, pids, tile, g, dense,
+                    allowed):
   """Kernel A against its plain version on seeded q/k/v [1, *shape]:
-  returns (max abs err, {'kernel': ms, 'plain': ms})."""
+  returns (max abs err, {'kernel': ms, 'plain': ms, 'library': ms}, bound
+  inputs (flops, bytes)). `dense` is the [n, n] boolean mask and `allowed`
+  its entry count, for the library call and the bound."""
   from gencast_tpu_torch.ops import sparse_attention
   q, k, v = (torch.randn((1,) + shape, generator=g, device=mt.device)
              .to(dtype) for _ in range(3))
@@ -138,15 +169,31 @@ def check_attention(shape, dtype, atol, mt, ids, pids, tile, g):
   if not (err <= atol and torch.isfinite(lse).all()):
     raise AssertionError(f'kernel A {dtype} {shape}: max abs err {err} > '
                          f'{atol}')
+  sdpa = sdpa_inputs(q, k, v, dense)
+  with torch.no_grad():
+    lib_err = library_error(sdpa_forward(*sdpa).transpose(1, 2), plain, dense)
   ms = time_in_turns({
       'plain': lambda: sparse_attention.sparse_banded_attention_plain(
           q, k, v, mt, ids, pids, tile),
       'kernel': lambda: sparse_attention.sparse_attention_fwd_cuda(
-          q, k, v, mt, ids, pids, tile)}, reps=10)
+          q, k, v, mt, ids, pids, tile),
+      'library': lambda: sdpa_forward(*sdpa)}, reps=10)
+  h, d = shape[1], shape[2]
+  cost = (4 * d * allowed * h,
+          nbytes(q, k, v, mt, ids, pids, got, lse))
   log(f'[kernel A] {dtype} [1, {", ".join(map(str, shape))}]: max abs err '
       f'{err:.3e} (tol {atol}); kernel {ms["kernel"]:.3f} ms, plain '
-      f'{ms["plain"]:.3f} ms per layer call')
-  return err, ms
+      f'{ms["plain"]:.3f} ms, library (scaled_dot_product_attention, dense '
+      f'mask; max abs err {lib_err:.3e} on rows that see a key) '
+      f'{ms["library"]:.3f} ms per layer call')
+  return err, ms, cost
+
+
+def library_error(got, want, dense) -> float:
+  """max |got - want| over the rows that see a key (the library's rows that
+  see none are not defined)."""
+  seen = dense.any(dim=1)
+  return float((got[:, seen].float() - want[:, seen].float()).abs().max())
 
 
 def rel_err(got, want) -> Tuple[float, float]:
@@ -155,11 +202,56 @@ def rel_err(got, want) -> Tuple[float, float]:
   return diff / max(float(want.float().abs().max()), 1e-30), diff
 
 
-def check_attention_bwd(shape, dtype, rtol, mt, plan_t, tile, g):
+def nbytes(*tensors) -> int:
+  return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, moved: int, dtype) -> Tuple[float, str]:
+  """(ms, what binds it): the larger of the operations over the card's peak
+  for `dtype` and the bytes over its memory rate."""
+  peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+  t_ops, t_bytes = flops / peak, moved / PEAK_HBM_BYTES
+  return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
+                                     else 'bytes')
+
+
+def row(counter, err, ms, plain_ms, library_ms, flops, moved, dtype) -> dict:
+  """One kernel's entry of the JSON line, launches filled in later."""
+  bound_ms, bound_by = bound(flops, moved, dtype)
+  return {'name': counter.name, 'route': 'cuda', 'source': counter.source,
+          'replaces': counter.replaces, 'launches': None, 'max_abs_err': err,
+          'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+          'bound_by': bound_by, 'library_ms': library_ms}
+
+
+def sdpa_inputs(q, k, v, dense):
+  """q/k/v [B, N, H, d] -> the [B, H, N, d] operands and the [N, N] boolean
+  mask of scaled_dot_product_attention (the library yardstick)."""
+  return [x.transpose(1, 2).detach().clone().requires_grad_()
+          for x in (q, k, v)] + [dense]
+
+
+def sdpa_forward(qt, kt, vt, dense):
+  return torch.nn.functional.scaled_dot_product_attention(
+      qt, kt, vt, attn_mask=dense)
+
+
+def library_backward_ms(q, k, v, dout, dense, reps):
+  """ms of scaled_dot_product_attention's backward (dq, dk, dv together) with
+  the dense mask, for the same q/k/v/dO."""
+  qt, kt, vt, mask = sdpa_inputs(q, k, v, dense)
+  out = sdpa_forward(qt, kt, vt, mask)
+  dt = dout.transpose(1, 2)
+  return time_in_turns({'library': lambda: torch.autograd.grad(
+      out, (qt, kt, vt), dt, retain_graph=True)}, reps)['library']
+
+
+def check_attention_bwd(shape, dtype, rtol, mt, plan_t, tile, g, dense,
+                        allowed):
   """Kernel F (dq, then dk/dv) against the plain backward on seeded q/k/v
   and dO [1, *shape], from kernel A's lse: returns ({'dq': (rel, abs),
   'dkv': (rel, abs)}, {'dq': ms, 'dq_plain': ms, 'dkv': ms,
-  'dkv_plain': ms})."""
+  'dkv_plain': ms, 'library': ms}, {'dq': (flops, bytes), 'dkv': ...})."""
   from gencast_tpu_torch.ops import sparse_attention as sa
   fwd_ids, fwd_pids, bwd_ids, bwd_pids = plan_t
   q, k, v, dout = (torch.randn((1,) + shape, generator=g, device=mt.device)
@@ -189,11 +281,20 @@ def check_attention_bwd(shape, dtype, rtol, mt, plan_t, tile, g):
   ms.update(time_in_turns({
       'dkv_plain': lambda: sa.sparse_attention_dkv_plain(*dkv_args),
       'dkv': lambda: sa.sparse_attention_dkv_cuda(*dkv_args)}, reps=5))
+  ms['library'] = library_backward_ms(q, k, v, dout, dense, reps=5)
+  h, d = shape[1], shape[2]
+  rows = nbytes(lse, delta)
+  costs = {'dq': (6 * d * allowed * h,
+                  nbytes(q, k, v, dout, mt, fwd_ids, fwd_pids, q) + rows),
+           'dkv': (8 * d * allowed * h,
+                   nbytes(q, k, v, dout, mt, bwd_ids, bwd_pids, k, v)
+                   + rows)}
   log(f'[kernel F] {dtype} [1, {", ".join(map(str, shape))}]: dq max rel err '
       f'{errs["dq"][0]:.3e}, dk/dv {dk_err[0]:.3e}/{dv_err[0]:.3e} (tol '
       f'{rtol}); dq kernel {ms["dq"]:.3f} ms, plain {ms["dq_plain"]:.3f} ms;'
-      f' dk/dv kernel {ms["dkv"]:.3f} ms, plain {ms["dkv_plain"]:.3f} ms')
-  return errs, ms
+      f' dk/dv kernel {ms["dkv"]:.3f} ms, plain {ms["dkv_plain"]:.3f} ms; '
+      f'library backward (dq, dk, dv) {ms["library"]:.3f} ms')
+  return errs, ms, costs
 
 
 def check_ln_film_bwd(shape, batch_axis, dtype, rtol, g):
@@ -214,33 +315,49 @@ def check_ln_film_bwd(shape, batch_axis, dtype, rtol, g):
   if not worst[0] <= rtol:
     raise AssertionError(f'kernel E {dtype} {shape}: max rel errs (dx, '
                          f'dscale, doffset) {errs} > {rtol}')
+  moved = nbytes(x, dy, scale, got[0], got[1], got[2])
   del got, want
+  # The library yardstick at batch 1: LayerNorm's backward with the FiLM
+  # scale as its weight gives dx, dscale and doffset.
+  x2, dy2, w = x.reshape(-1, c), dy.reshape(-1, c), scale[0]
+  bias = torch.zeros_like(w)
+  _, mean, rstd = torch.native_layer_norm(x2, [c], w, bias, ln_film.EPS)
   ms = time_in_turns({
       'plain': lambda: ln_film.ln_film_bwd_plain(x, dy, scale, batch_axis),
-      'kernel': lambda: ln_film.ln_film_bwd_cuda(x, dy, scale, batch_axis)},
+      'kernel': lambda: ln_film.ln_film_bwd_cuda(x, dy, scale, batch_axis),
+      'library': lambda: torch.ops.aten.native_layer_norm_backward(
+          dy2, x2, [c], mean, rstd, w, bias, [True, True, True])},
       reps=10)
   log(f'[kernel E] {dtype} {list(shape)} (batch axis {batch_axis}): max rel '
       f'err dx {errs[0][0]:.3e}, dscale {errs[1][0]:.3e}, doffset '
       f'{errs[2][0]:.3e} (tol {rtol}); kernel {ms["kernel"]:.3f} ms, plain '
-      f'{ms["plain"]:.3f} ms')
-  return worst, ms
+      f'{ms["plain"]:.3f} ms, library (native_layer_norm_backward) '
+      f'{ms["library"]:.3f} ms')
+  # About 16 operations per element (statistics, x_hat, dx, the two sums).
+  return worst, ms, (16 * x.numel(), moved)
 
 
 def counters():
-  """The five kernels' launch counters, A, F-dq, F-dkv, B, E."""
-  from gencast_tpu_torch.ops import ln_film, segment, sparse_attention
+  """Every kernel's launch counter: A, F-dq, F-dkv, B, E, C, D-dq, D-dkv."""
+  from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
+      sparse_attention
   return (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
-          sparse_attention.KERNEL_DKV, segment.KERNEL, ln_film.KERNEL)
+          sparse_attention.KERNEL_DKV, segment.KERNEL, ln_film.KERNEL,
+          banded_attention.KERNEL, banded_attention.KERNEL_DQ,
+          banded_attention.KERNEL_DKV)
 
 
 def expected_step_launches(gencast) -> dict:
-  """Launches of each kernel in one training step, derived from the model:
-  A once per layer under 'save_attention' (the attention half is not
-  recomputed) and twice under 'full'; F-dq and F-dkv once per layer; B once
-  per planned receiver aggregation (forward) and once per planned gather
-  (its backward); E once per LN+FiLM whose output reaches the loss."""
+  """Launches of each kernel in one training step, derived from the model.
+  The attention backend's forward (A or C) runs once per layer under
+  'save_attention' (the attention half is not recomputed) and twice under
+  'full'; its backward (F or D: dq and dk/dv) once per layer; the other
+  backend's kernels never. B once per planned receiver aggregation (forward)
+  and once per planned gather (its backward); E once per LN+FiLM whose
+  output reaches the loss."""
   from gencast_tpu_torch.nn import gnn, mlp
-  from gencast_tpu_torch.ops import ln_film, segment, sparse_attention
+  from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
+      sparse_attention
   arch = gencast.denoiser.architecture
   cfg = arch.processor.cfg
   layers = cfg.num_layers
@@ -259,27 +376,37 @@ def expected_step_launches(gencast) -> dict:
   decoded = set(arch.mesh2grid.node_decoders)
   unused = sum(len(set(p.node_mlps) - decoded)
                for p in arch.mesh2grid.processors)
-  return {
-      sparse_attention.KERNEL.name: layers * (2 if recompute else 1),
-      sparse_attention.KERNEL_DQ.name: layers,
-      sparse_attention.KERNEL_DKV.name: layers,
+  if cfg.attention_type == 'pallas':
+    attn = (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
+            sparse_attention.KERNEL_DKV)
+  else:
+    attn = (banded_attention.KERNEL, banded_attention.KERNEL_DQ,
+            banded_attention.KERNEL_DKV)
+  launches = {c.name: 0 for c in counters()}
+  launches.update({
+      attn[0].name: layers * (2 if recompute else 1),
+      attn[1].name: layers,
+      attn[2].name: layers,
       segment.KERNEL.name: planned,
       ln_film.KERNEL.name: 2 * layers + 1 + cond_mlps - unused,
-  }
+  })
+  return launches
 
 
-def train_tiny_against_cpu(dev, remat_policy) -> None:
-  """Phase 9: one TINY float32 loss and gradient at batch 2, then 3 AdamW
-  steps, on the card through the kernels and on the CPU through the plain
-  versions, from the same perturbed weights, data, sigma and noise; and the
-  bf16 stack's gradients on the card against the float32 ones."""
+def train_tiny_against_cpu(dev, remat_policy, spec) -> None:
+  """Phases 9 and 14: one TINY float32 loss and gradient at batch 2, then 3
+  AdamW steps, on the card through the kernels and on the CPU through the
+  plain versions, from the same perturbed weights, data, sigma and noise;
+  and the bf16 stack's gradients on the card against the float32 ones.
+  `spec` is TINY on one attention backend."""
   from gencast_tpu_torch import bridge, configs
   from gencast_tpu_torch.data import layout
   from gencast_tpu_torch.models import wrappers
   from gencast_tpu_torch.training import steps
-  spec = dataclasses.replace(configs.TINY, attention_tile_size=64,
+  spec = dataclasses.replace(spec, attention_tile_size=64,
                              use_agg_plans=True, agg_plan_min_degree=2,
                              remat_policy=remat_policy)
+
   statics = configs.build_statics(spec)
   flat = None
   stacks, models = {}, {}
@@ -296,6 +423,10 @@ def train_tiny_against_cpu(dev, remat_policy) -> None:
     models[str(where)] = model
     stacks[str(where)] = wrappers.build_stack(model, stats,
                                               bf16=False).to(where)
+  # The kernels this backend launches: its attention forward and backward,
+  # B and E.
+  step_kernels = [c for c in counters()
+                  if expected_step_launches(models['cpu'])[c.name]]
   den = models['cpu'].denoiser
   gen = torch.Generator().manual_seed(6)
   # Batch 2: every kernel indexes past the first batch element.
@@ -325,14 +456,14 @@ def train_tiny_against_cpu(dev, remat_policy) -> None:
     loss.mean().backward()
     grads[str(where)] = (loss.detach().cpu().numpy(),
                          bridge.export_reference_grads(models[str(where)]))
-    launched[str(where)] = [c.launches for c in counters()]
+    launched[str(where)] = {c.name: c.launches for c in counters()}
     models[str(where)].zero_grad()
   (loss_cpu, g_cpu), (loss_gpu, g_gpu) = grads['cpu'], grads[str(dev)]
-  # The CPU runs the plain versions; the card every kernel.
-  if max(launched['cpu']) != 0 or min(launched[str(dev)]) == 0:
-    raise AssertionError(f'TINY training step launches (A, F-dq, F-dkv, B, '
-                         f'E): CPU {launched["cpu"]}, card '
-                         f'{launched[str(dev)]}')
+  # The CPU runs the plain versions; the card every kernel of the backend.
+  if (max(launched['cpu'].values()) != 0
+      or min(launched[str(dev)][c.name] for c in step_kernels) == 0):
+    raise AssertionError(f'{spec.name} training step launches: CPU '
+                         f'{launched["cpu"]}, card {launched[str(dev)]}')
   bf16_stack = wrappers.build_stack(models[str(dev)], stats,
                                     bf16=True).to(dev)
   loss, _ = bf16_stack.loss(*[t.to(dev) for t in batch],
@@ -369,19 +500,21 @@ def train_tiny_against_cpu(dev, remat_policy) -> None:
   if not step_rel <= TRAIN_STEP_RTOL:
     raise AssertionError(f'TINY 3 AdamW steps card vs CPU: worst parameter '
                          f'change rel {step_rel} > {TRAIN_STEP_RTOL}')
-  log(f'[train tiny] {remat_policy} remat, f32 card kernels vs CPU plain: '
+  log(f'[train {spec.name}] {remat_policy} remat, f32 card kernels vs CPU '
+      'plain: '
       f'loss rel {loss_rel:.3e} (tol {TRAIN_LOSS_RTOL}), worst gradient rel '
       f'{grad_rel:.3e} (tol {TRAIN_GRAD_RTOL}), worst 3-step parameter '
       f'change rel {step_rel:.3e} (tol {TRAIN_STEP_RTOL}); losses card '
       f'{losses[str(dev)]}, CPU {losses["cpu"]}; launches of one loss and '
-      f'gradient (A, F-dq, F-dkv, B, E) {launched[str(dev)]}; bf16 card '
+      f'gradient {launched[str(dev)]}; bf16 card '
       f'gradients vs f32: worst rel {bf16_rel:.3e} (tol '
       f'{TRAIN_BF16_GRAD_RTOL})')
 
 
-def train_one_deg(spec, statics, dev, card) -> dict:
-  """Phase 10: three full-width 1-degree training steps through the CLI;
-  returns each kernel's launches in that run."""
+def train_preset(spec, statics, dev, card, argv) -> dict:
+  """Phases 10 and 15: three full-width training steps of `spec` through the
+  CLI (`argv` names the preset); returns each kernel's launches in that
+  run."""
   from gencast_tpu_torch import configs
   from gencast_tpu_torch.training import train
   steps_run = 3
@@ -389,33 +522,232 @@ def train_one_deg(spec, statics, dev, card) -> dict:
   for c in counters():
     c.reset()
   t0 = time.perf_counter()
-  run = train.main(['--preset', '1deg', '--steps', str(steps_run), '--data',
-                    'synthetic', '--clean_sst_nans', '--log_every', '1'])
+  run = train.main(argv + ['--steps', str(steps_run), '--data', 'synthetic',
+                           '--log_every', '1'])
   wall = time.perf_counter() - t0
   launches = {c.name: c.launches for c in counters()}
   peak = torch.cuda.max_memory_allocated()
   if not (len(run.losses) == steps_run and np.isfinite(run.losses).all()):
-    raise AssertionError(f'1-degree training losses {run.losses}')
+    raise AssertionError(f'{spec.name} training losses {run.losses}')
   initial, _ = configs.build_gencast(spec, seed=0, statics=statics,
                                      device=dev)
   changed = max(float((p.detach() - p0.detach()).abs().max())
                 for p, p0 in zip(run.model.parameters(),
                                  initial.parameters()))
   if not changed > 0:
-    raise AssertionError('1-degree training left the parameters unchanged')
+    raise AssertionError(f'{spec.name} training left the parameters '
+                         'unchanged')
   from gencast_tpu_torch.models.gencast import GenCast
   gencast = next(m for m in run.model.modules() if isinstance(m, GenCast))
   per_step = expected_step_launches(gencast)
   expected = {k: v * steps_run for k, v in per_step.items()}
   if launches != expected:
-    raise AssertionError(f'1-degree training launches {launches}, expected '
-                         f'{expected} ({per_step} per step)')
-  log(f'[train 1deg] {steps_run} steps, losses {run.losses}; seconds per '
-      f'step {[round(x, 4) for x in run.step_seconds]} (wall {wall:.1f} s '
-      f'with set-up and data); max |parameter change| {changed:.3e}; '
-      f'launches per step {per_step}, as derived; peak memory '
+    raise AssertionError(f'{spec.name} training launches {launches}, '
+                         f'expected {expected} ({per_step} per step)')
+  log(f'[train {spec.name}] {steps_run} steps, losses {run.losses}; seconds '
+      f'per step {[round(x, 4) for x in run.step_seconds]} (wall '
+      f'{wall:.1f} s with set-up and data); max |parameter change| '
+      f'{changed:.3e}; launches per step {per_step}, as derived; peak memory '
       f'{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); {card}')
   return launches
+
+
+def dense_from_blocks(blocks: np.ndarray, dev) -> torch.Tensor:
+  """The [N, N] boolean mask that the tri-block mask [3, nb, bs, bs]
+  describes (for the library yardstick)."""
+  _, nb, bs, _ = blocks.shape
+  dense = np.zeros((nb * bs, nb * bs), dtype=bool)
+  for j in range(nb):
+    rows = slice(j * bs, (j + 1) * bs)
+    dense[rows, rows] = blocks[0, j]
+    if j + 1 < nb:
+      dense[rows, (j + 1) * bs:(j + 2) * bs] = blocks[1, j]
+    if j > 0:
+      dense[rows, (j - 1) * bs:j * bs] = blocks[2, j]
+  return torch.as_tensor(dense, device=dev)
+
+
+def dense_from_plan(plan, dev) -> torch.Tensor:
+  """The [padded_n, padded_n] boolean mask that a tile plan describes."""
+  t, nq = plan.tile, plan.num_q_tiles
+  dense = np.zeros((nq, nq, t, t), dtype=bool)
+  rows = np.repeat(np.arange(nq), plan.fwd_kv_ids.shape[1])
+  cols = plan.fwd_kv_ids.reshape(-1)
+  pids = plan.fwd_pair_ids.reshape(-1)
+  real = pids != plan.mask_tiles.shape[0] - 1  # pad slots repeat a pair
+  dense[rows[real], cols[real]] = plan.mask_tiles[pids[real]] != 0
+  return torch.as_tensor(
+      dense.transpose(0, 2, 1, 3).reshape(nq * t, nq * t), device=dev)
+
+
+def check_banded(shape, dtype, atol, mask, bs, g, dense, allowed):
+  """Kernel C against its plain version on seeded q/k/v [1, *shape] under
+  the tri-block `mask` (uint8 [3, nb, bs, bs]): returns (max abs err,
+  {'kernel': ms, 'plain': ms, 'library': ms}, (flops, bytes))."""
+  from gencast_tpu_torch.ops import banded_attention as ba
+  q, k, v = (torch.randn((1,) + shape, generator=g, device=mask.device)
+             .to(dtype) for _ in range(3))
+  plain, lse_p = ba.banded_attention_plain(q, k, v, mask, bs,
+                                           return_lse=True)
+  got, lse = ba.banded_attention_fwd_cuda(q, k, v, mask, bs)
+  torch.cuda.synchronize()
+  seen = dense.any(dim=1)
+  err = float((got.float() - plain.float()).abs().max())
+  lse_err = float((lse[:, :, seen] - lse_p[:, :, seen]).abs().max())
+  # Rows that see no key: o exactly 0 and lse +1e30, as the reference.
+  empty = bool((got[:, ~seen] == 0).all() and (lse[:, :, ~seen] == 1e30).all())
+  if not (err <= atol and lse_err <= ATTN_F32_ATOL and empty):
+    raise AssertionError(f'kernel C {dtype} {shape}: max abs err {err} > '
+                         f'{atol}, lse err {lse_err}, empty rows {empty}')
+  sdpa = sdpa_inputs(q, k, v, dense)
+  with torch.no_grad():
+    lib_err = library_error(sdpa_forward(*sdpa).transpose(1, 2), plain, dense)
+  ms = time_in_turns({
+      'plain': lambda: ba.banded_attention_plain(q, k, v, mask, bs),
+      'kernel': lambda: ba.banded_attention_fwd_cuda(q, k, v, mask, bs),
+      'library': lambda: sdpa_forward(*sdpa)}, reps=20)
+  h, d = shape[1], shape[2]
+  log(f'[kernel C] {dtype} [1, {", ".join(map(str, shape))}], block {bs}: '
+      f'max abs err {err:.3e} (tol {atol}), lse {lse_err:.3e}; {int((~seen).sum())} '
+      f'rows without a key give 0 and +1e30; kernel {ms["kernel"]:.3f} ms, '
+      f'plain {ms["plain"]:.3f} ms, library (scaled_dot_product_attention, '
+      f'dense mask; max abs err {lib_err:.3e} on rows that see a key) '
+      f'{ms["library"]:.3f} ms per layer call')
+  return err, ms, (4 * d * allowed * h, nbytes(q, k, v, mask, got, lse))
+
+
+def check_banded_bwd(shape, dtype, rtol, mask, bs, g, dense, allowed):
+  """Kernel D (dq, then dk/dv) against the plain backward on seeded q/k/v
+  and dO [1, *shape], from kernel C's lse: returns ({'dq': (rel, abs),
+  'dkv': (rel, abs)}, ms by name, {'dq': (flops, bytes), 'dkv': ...})."""
+  from gencast_tpu_torch.ops import banded_attention as ba
+  q, k, v, dout = (torch.randn((1,) + shape, generator=g, device=mask.device)
+                   .to(dtype) for _ in range(4))
+  o, lse = ba.banded_attention_fwd_cuda(q, k, v, mask, bs)
+  delta = ba.attention_delta(o, dout)
+  args = (q, k, v, dout, lse, delta, mask, bs)
+  errs = {'dq': rel_err(ba.banded_attention_dq_cuda(*args),
+                        ba.banded_attention_dq_plain(*args))}
+  got, want = (ba.banded_attention_dkv_cuda(*args),
+               ba.banded_attention_dkv_plain(*args))
+  torch.cuda.synchronize()
+  dk_err, dv_err = rel_err(got[0], want[0]), rel_err(got[1], want[1])
+  errs['dkv'] = max(dk_err, dv_err)
+  seen = dense.any(dim=1)
+  dq = ba.banded_attention_dq_cuda(*args)
+  if not bool((dq[:, ~seen] == 0).all()):
+    raise AssertionError(f'kernel D {dtype} {shape}: dq nonzero on rows '
+                         'without a key')
+  for name, (rel, _) in errs.items():
+    if not rel <= rtol:
+      raise AssertionError(f'kernel D {name} {dtype} {shape}: max rel err '
+                           f'{rel} > {rtol}')
+  del got, want
+  ms = time_in_turns({
+      'dq_plain': lambda: ba.banded_attention_dq_plain(*args),
+      'dq': lambda: ba.banded_attention_dq_cuda(*args)}, reps=10)
+  ms.update(time_in_turns({
+      'dkv_plain': lambda: ba.banded_attention_dkv_plain(*args),
+      'dkv': lambda: ba.banded_attention_dkv_cuda(*args)}, reps=10))
+  ms['library'] = library_backward_ms(q, k, v, dout, dense, reps=10)
+  h, d = shape[1], shape[2]
+  rows = nbytes(lse, delta)
+  costs = {'dq': (6 * d * allowed * h, nbytes(q, k, v, dout, mask, q) + rows),
+           'dkv': (8 * d * allowed * h,
+                   nbytes(q, k, v, dout, mask, k, v) + rows)}
+  log(f'[kernel D] {dtype} [1, {", ".join(map(str, shape))}], block {bs}: '
+      f'dq max rel err {errs["dq"][0]:.3e}, dk/dv {dk_err[0]:.3e}/'
+      f'{dv_err[0]:.3e} (tol {rtol}), dq 0 on rows without a key; dq kernel '
+      f'{ms["dq"]:.3f} ms, plain {ms["dq_plain"]:.3f} ms; dk/dv kernel '
+      f'{ms["dkv"]:.3f} ms, plain {ms["dkv_plain"]:.3f} ms; library backward '
+      f'(dq, dk, dv) {ms["library"]:.3f} ms')
+  return errs, ms, costs
+
+
+def serve_nano(dev, g) -> float:
+  """Phase 13: the nano denoiser through the kernels against the plain
+  path, then two 10-step forecast requests through `sample_rollout`.
+  Returns the kernel path's ms per denoiser call (timed alone)."""
+  from gencast_tpu_torch import bridge, configs, rollout
+  from gencast_tpu_torch.data import layout
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.ops import banded_attention
+  spec = configs.NANO
+  t0 = time.perf_counter()
+  statics = configs.build_statics(spec)
+  model, _ = configs.build_gencast(spec, seed=0, statics=statics, device=dev)
+  flat = bridge.perturbed(bridge.export_reference_params(model), seed=1)
+  bridge.load_reference_params(model, flat)
+  plain_model, _ = configs.build_gencast(spec, seed=0, statics=statics,
+                                         device=dev, use_kernels=False)
+  bridge.load_reference_params(plain_model, flat)
+  task = spec.task
+  stats = layout.Stats.unit(
+      sorted(set(task.input_variables + task.target_variables
+                 + task.forcing_variables)), task.pressure_levels)
+  stack = wrappers.build_stack(model, stats, bf16=spec.cast_bf16).to(dev)
+  plain_stack = wrappers.build_stack(plain_model, stats,
+                                     bf16=spec.cast_bf16).to(dev)
+  log(f'[nano] built two {spec.name} models '
+      f'({sum(p.numel() for p in model.parameters())} parameters each, '
+      f'seeded and perturbed) in {time.perf_counter() - t0:.1f} s')
+  den = model.denoiser
+  grid = (1, statics.grid_lat.shape[0], statics.grid_lon.shape[0])
+  inputs = torch.randn(grid + (den.input_layout.num_channels,), generator=g,
+                       device=dev)
+  forcings = torch.randn((ROLLOUT_STEPS,) + grid
+                         + (den.forcing_layout.num_channels,), generator=g,
+                         device=dev)
+  noisy = torch.randn(grid + (den.target_layout.num_channels,), generator=g,
+                      device=dev) * 3.0
+  sigma = torch.full((1,), 3.0, device=dev)
+  with torch.no_grad():
+    banded_attention.KERNEL.reset()
+    out_k = stack(inputs, noisy, sigma, forcings[0])
+    torch.cuda.synchronize()
+    if banded_attention.KERNEL.launches != spec.num_layers:
+      raise AssertionError(f'nano denoiser call launched C '
+                           f'{banded_attention.KERNEL.launches} times')
+    out_p = plain_stack(inputs, noisy, sigma, forcings[0])
+    rel = float((out_k - out_p).abs().max() / out_p.abs().max())
+    if not (torch.isfinite(out_k).all() and rel <= DENOISER_BF16_RTOL):
+      raise AssertionError(f'nano denoiser kernels vs plain: {rel} > '
+                           f'{DENOISER_BF16_RTOL} or not finite')
+    ms = time_in_turns({
+        'plain': lambda: plain_stack(inputs, noisy, sigma, forcings[0]),
+        'kernel': lambda: stack(inputs, noisy, sigma, forcings[0])}, reps=5)
+  log(f'[nano] denoiser bf16 {tuple(out_k.shape)}: max rel err {rel:.3e} '
+      f'(tol {DENOISER_BF16_RTOL}); kernel path {ms["kernel"]:.2f} ms, plain '
+      f'path {ms["plain"]:.2f} ms per call')
+  del out_k, out_p, plain_stack, plain_model
+
+  calls = ROLLOUT_STEPS * (2 * spec.num_noise_levels - 1)
+  for seed in (1, 2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    banded_attention.KERNEL.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forecast = rollout.sample_rollout(stack, inputs, forcings, gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = banded_attention.KERNEL.launches
+    expected_shape = (ROLLOUT_STEPS,) + grid + (
+        den.target_layout.num_channels,)
+    if (tuple(forecast.shape) != expected_shape
+        or forecast.dtype != torch.float32
+        or not torch.isfinite(forecast).all()):
+      raise AssertionError(f'nano forecast {seed}: {tuple(forecast.shape)} '
+                           f'{forecast.dtype}, finite '
+                           f'{bool(torch.isfinite(forecast).all())}')
+    if launched != calls * spec.num_layers:
+      raise AssertionError(f'nano forecast {seed}: {launched} launches of C, '
+                           f'expected {calls * spec.num_layers}')
+    log(f'[nano serve] request {seed}: {ROLLOUT_STEPS}-step rollout '
+        f'{tuple(forecast.shape)} float32, finite; {seconds:.3f} s '
+        f'({seconds / ROLLOUT_STEPS:.3f} s per 12-hour step, '
+        f'{1e3 * seconds / calls:.2f} ms per denoiser call); launches of C '
+        f'{launched}')
+  return ms['kernel']
 
 
 def main() -> int:
@@ -427,8 +759,8 @@ def main() -> int:
   from gencast_tpu_torch.data import layout
   from gencast_tpu_torch.graph import plans
   from gencast_tpu_torch.models import wrappers
-  from gencast_tpu_torch.ops import cuda_lib, ln_film, segment, \
-      sparse_attention
+  from gencast_tpu_torch.ops import banded_attention, cuda_lib, ln_film, \
+      segment, sparse_attention
 
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -443,8 +775,9 @@ def main() -> int:
   log(f'[setup] kernels built in {cuda_lib.LIBRARY.build_seconds:.2f} s')
   entry = ''
   for line in cuda_lib.LIBRARY.compiler_log.splitlines():
-    m = re.search(r'(sparse_attention_(?:fwd|dq|dkv)_kernel|segment_sum_kernel'
-                  r'|ln_film_(?:bwd|reduce)_kernel)(?:I(.*?)EEv)?', line)
+    m = re.search(r'((?:sparse|banded)_attention_(?:fwd|dq|dkv)_kernel'
+                  r'|segment_sum_kernel|ln_film_(?:bwd|reduce)_kernel)'
+                  r'(?:I(.*?)EEv)?', line)
     if 'Compiling entry function' in line and m:
       entry = m.group(1) + (f'<{m.group(2)}>' if m.group(2) else '')
     elif 'registers' in line or ('spill' in line
@@ -479,11 +812,14 @@ def main() -> int:
   ids = torch.as_tensor(plan.fwd_kv_ids, device=dev)
   pids = torch.as_tensor(plan.fwd_pair_ids, device=dev)
   g = torch.Generator(device=dev).manual_seed(0)
+  dense = dense_from_plan(plan, dev)
+  allowed = int(plan.mask_tiles.sum(dtype=np.int64))  # per batch x head
   for rows in (n, plan.padded_n):
     for dtype, atol in ((torch.float32, ATTN_F32_ATOL),
                         (torch.bfloat16, ATTN_BF16_ATOL)):
       results[('A', dtype, rows)] = check_attention(
-          (rows, h, d), dtype, atol, mt, ids, pids, plan.tile, g)
+          (rows, h, d), dtype, atol, mt, ids, pids, plan.tile, g,
+          dense[:rows, :rows], allowed)
 
   # --- 4. kernel B vs plain ---
   e, f = statics.grid2mesh.num_edges, spec.d_model
@@ -497,15 +833,25 @@ def main() -> int:
   rel = float((got - plain).abs().max() / plain.abs().max())
   if not rel <= SEGMENT_RTOL:
     raise AssertionError(f'kernel B: relative err {rel} > {SEGMENT_RTOL}')
+  # The library yardstick sums the plan's permuted edges by segment length.
+  permuted = data if perm is None else data[perm.long()]
+  lengths = (row_ptr[1:] - row_ptr[:-1]).long()
+  lib_rel = float((torch.segment_reduce(permuted, 'sum', lengths=lengths)
+                   - plain).abs().max() / plain.abs().max())
   ms = time_in_turns({
       'plain': lambda: segment.planned_segment_sum_plain(data, row_ptr, perm),
-      'kernel': lambda: segment.planned_segment_sum_cuda(data, row_ptr, perm)},
+      'kernel': lambda: segment.planned_segment_sum_cuda(data, row_ptr, perm),
+      'library': lambda: torch.segment_reduce(permuted, 'sum',
+                                              lengths=lengths)},
       reps=20)
   log(f'[kernel B] float32 [{e}, {f}] -> [{g2m_plan.num_segments}, {f}]: '
       f'relative err {rel:.3e} (tol {SEGMENT_RTOL}); kernel '
-      f'{ms["kernel"]:.3f} ms, plain {ms["plain"]:.3f} ms')
-  results['B'] = (float((got - plain).abs().max()), ms)
-  del got, plain, data
+      f'{ms["kernel"]:.3f} ms, plain {ms["plain"]:.3f} ms, library '
+      f'(segment_reduce; relative err {lib_rel:.3e}) {ms["library"]:.3f} ms')
+  results['B'] = (float((got - plain).abs().max()), ms,
+                  (e * f, nbytes(data, row_ptr, got)
+                   + (0 if perm is None else nbytes(perm))))
+  del got, plain, data, permuted
 
   # --- 5. denoiser: kernel path vs plain path; small forecast vs CPU ---
   t0 = time.perf_counter()
@@ -563,7 +909,7 @@ def main() -> int:
   tiny = dataclasses.replace(configs.TINY, attention_tile_size=64,
                              use_agg_plans=True, agg_plan_min_degree=2,
                              stochastic_churn_rate=2.5, num_noise_levels=2)
-  tiny_cpu, _ = configs.build_gencast(tiny, seed=3)
+  tiny_cpu, _ = configs.build_gencast(tiny, seed=3, device='cpu')
   bridge.load_reference_params(tiny_cpu, bridge.perturbed(
       bridge.export_reference_params(tiny_cpu), seed=4))
   tiny_gpu, _ = configs.build_gencast(tiny, seed=3, device=dev)
@@ -630,7 +976,9 @@ def main() -> int:
   for dtype, rtol in ((torch.float32, BWD_F32_RTOL),
                       (torch.bfloat16, BWD_BF16_RTOL)):
     results[('F', dtype)] = check_attention_bwd(
-        (plan.padded_n, h, d), dtype, rtol, mt, plan_t, plan.tile, g)
+        (plan.padded_n, h, d), dtype, rtol, mt, plan_t, plan.tile, g, dense,
+        allowed)
+  del dense
 
   # --- 8. kernel E vs plain ---
   m2g_edges = statics.mesh2grid.num_edges
@@ -643,35 +991,101 @@ def main() -> int:
 
   # --- 9. TINY training step: card kernels vs CPU plain path ---
   for remat_policy in ('full', 'save_attention'):
-    train_tiny_against_cpu(dev, remat_policy)
+    train_tiny_against_cpu(dev, remat_policy, configs.TINY)
 
   # --- 10. training: three full-width 1-degree steps through the CLI ---
-  train_launches = train_one_deg(spec, statics, dev, card)
+  del model, stack
+  one_deg_launches = train_preset(spec, statics, dev, card,
+                                  ['--preset', '1deg', '--clean_sst_nans'])
 
-  # Rows: A and F at the transformer's padded shape in bf16 (the dtype
-  # training and serving run), B in float32 on the grid2mesh plan, E in
-  # bf16 at the largest shape it gets (the mesh2grid edges).
-  err_a, ms_a = results[('A', torch.bfloat16, plan.padded_n)]
-  err_b, ms_b = results['B']
-  err_e, ms_e = results[('E', torch.bfloat16,
-                         (m2g_edges, 1, spec.d_model))]
-  errs_f, ms_f = results[('F', torch.bfloat16)]
-  rows = [
-      (sparse_attention.KERNEL, err_a, ms_a['kernel'], ms_a['plain']),
-      (segment.KERNEL, err_b, ms_b['kernel'], ms_b['plain']),
-      (ln_film.KERNEL, err_e[1], ms_e['kernel'], ms_e['plain']),
-      (sparse_attention.KERNEL_DQ, errs_f['dq'][1], ms_f['dq'],
-       ms_f['dq_plain']),
-      (sparse_attention.KERNEL_DKV, errs_f['dkv'][1], ms_f['dkv'],
-       ms_f['dkv_plain']),
+  # --- 11. kernel C vs plain: nano's shape and TINY's tri-block shape ---
+  nano = configs.NANO
+  t0 = time.perf_counter()
+  nano_statics = configs.build_statics(nano)
+  banded = {}
+  for spec_b, st in ((nano, nano_statics),
+                     (configs.TINY_TRIBLOCK,
+                      configs.build_statics(configs.TINY_TRIBLOCK))):
+    mask = st.attention_mask
+    banded[spec_b.name] = (
+        (mask.num_blocks * mask.block_size, spec_b.num_heads,
+         spec_b.d_model // spec_b.num_heads),
+        torch.as_tensor(mask.blocks.astype(np.uint8), device=dev),
+        mask.block_size, dense_from_blocks(mask.blocks, dev),
+        int(mask.blocks.sum(dtype=np.int64)))
+  mask = nano_statics.attention_mask
+  log(f'[statics] nano: {time.perf_counter() - t0:.1f} s with TINY\'s; mesh '
+      f'{nano_statics.num_mesh_nodes} nodes, tri-block mask '
+      f'{list(mask.blocks.shape)} ({mask.num_padding_nodes} padding nodes, '
+      f'{banded["nano"][4]} allowed entries), grid2mesh '
+      f'{nano_statics.grid2mesh.num_edges} edges, mesh2grid '
+      f'{nano_statics.mesh2grid.num_edges} edges')
+  for name, (shape, mask_t, bs, dense_b, allowed_b) in banded.items():
+    for dtype, atol in ((torch.float32, ATTN_F32_ATOL),
+                        (torch.bfloat16, ATTN_BF16_ATOL)):
+      results[('C', name, dtype)] = check_banded(
+          shape, dtype, atol, mask_t, bs, g, dense_b, allowed_b)
+
+  # --- 12. kernel D vs plain, from kernel C's lse ---
+  for name, (shape, mask_t, bs, dense_b, allowed_b) in banded.items():
+    for dtype, rtol in ((torch.float32, BWD_F32_RTOL),
+                        (torch.bfloat16, BWD_BF16_RTOL)):
+      results[('D', name, dtype)] = check_banded_bwd(
+          shape, dtype, rtol, mask_t, bs, g, dense_b, allowed_b)
+  del banded
+
+  # --- 13. nano serving: the denoiser, then two 10-step forecasts ---
+  nano_call_ms = serve_nano(dev, g)
+
+  # --- 14. TINY tri-block training step: card kernels vs CPU plain path ---
+  train_tiny_against_cpu(dev, 'full', configs.TINY_TRIBLOCK)
+
+  # --- 15. training: three full-width nano steps through the CLI ---
+  nano_launches = train_preset(nano, nano_statics, dev, card,
+                               ['--preset', 'nano'])
+
+  # Rows at the shapes of the main paths, in the dtype they run: A and F at
+  # the transformer's padded 1-degree shape in bf16, B in float32 on the
+  # grid2mesh plan, E in bf16 at the largest shape it gets (the 1-degree
+  # mesh2grid edges), C and D at nano's [1, 2624, 4, 64] in bf16. Launches
+  # come from the training run of each kernel's path; E runs on both.
+  bf16 = torch.bfloat16
+  err_a, ms_a, cost_a = results[('A', bf16, plan.padded_n)]
+  err_b, ms_b, cost_b = results['B']
+  err_e, ms_e, cost_e = results[('E', bf16, (m2g_edges, 1, spec.d_model))]
+  errs_f, ms_f, costs_f = results[('F', bf16)]
+  err_c, ms_c, cost_c = results[('C', 'nano', bf16)]
+  errs_d, ms_d, costs_d = results[('D', 'nano', bf16)]
+  kernels = [
+      row(sparse_attention.KERNEL, err_a, ms_a['kernel'], ms_a['plain'],
+          ms_a['library'], *cost_a, bf16),
+      row(segment.KERNEL, err_b, ms_b['kernel'], ms_b['plain'],
+          ms_b['library'], *cost_b, torch.float32),
+      row(banded_attention.KERNEL, err_c, ms_c['kernel'], ms_c['plain'],
+          ms_c['library'], *cost_c, bf16),
+      row(banded_attention.KERNEL_DQ, errs_d['dq'][1], ms_d['dq'],
+          ms_d['dq_plain'], ms_d['library'], *costs_d['dq'], bf16),
+      row(banded_attention.KERNEL_DKV, errs_d['dkv'][1], ms_d['dkv'],
+          ms_d['dkv_plain'], ms_d['library'], *costs_d['dkv'], bf16),
+      row(ln_film.KERNEL, err_e[1], ms_e['kernel'], ms_e['plain'],
+          ms_e['library'], *cost_e, bf16),
+      row(sparse_attention.KERNEL_DQ, errs_f['dq'][1], ms_f['dq'],
+          ms_f['dq_plain'], ms_f['library'], *costs_f['dq'], bf16),
+      row(sparse_attention.KERNEL_DKV, errs_f['dkv'][1], ms_f['dkv'],
+          ms_f['dkv_plain'], ms_f['library'], *costs_f['dkv'], bf16),
   ]
-  kernels = [{'name': k.name, 'route': 'cuda', 'source': k.source,
-              'replaces': k.replaces, 'launches': train_launches[k.name],
-              'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
-             for k, err, ms, plain_ms in rows]
-  log(f'[summary] seconds per request {seconds}; denoiser call kernel path '
-      f'{denoiser_ms["kernel"]:.2f} ms, plain path {denoiser_ms["plain"]:.2f}'
-      ' ms')
+  for k in kernels:
+    by_path = {'1deg': one_deg_launches[k['name']],
+               'nano': nano_launches[k['name']]}
+    k['launches'] = sum(by_path.values())
+    if k['name'] == ln_film.KERNEL.name:
+      k['launches_by_path'] = by_path
+    if k['launches'] == 0:
+      raise AssertionError(f'{k["name"]} was not launched by training')
+  log(f'[summary] 1-degree: seconds per request {seconds}; denoiser call '
+      f'kernel path {denoiser_ms["kernel"]:.2f} ms, plain path '
+      f'{denoiser_ms["plain"]:.2f} ms; nano denoiser call kernel path '
+      f'{nano_call_ms:.2f} ms')
   print(json.dumps({'kernels': kernels}))
   print(card_line())
   print(json.dumps({'ok': True, 'device': {

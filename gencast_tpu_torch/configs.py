@@ -1,8 +1,9 @@
 """Model configurations and factories for the port.
 
 Counterpart of `gencast_tpu.configs` for the configurations the port runs:
-the CPU-sized TINY and the 1-degree GenCast (ONE_DEG), both on the
-block-sparse attention backend.
+the CPU-sized TINY (block-sparse attention) and its tri-block variant
+TINY_TRIBLOCK, the reference's demo model NANO (tri-block attention) and
+the 1-degree GenCast ONE_DEG (block-sparse attention).
 """
 
 from __future__ import annotations
@@ -31,6 +32,11 @@ class ModelSpec:
   num_layers: int
   num_heads: int
   attention_k_hop: int
+  # The mesh transformer's attention backend, by the reference's names:
+  # 'pallas' (block-sparse over a tile plan, kernels A and F on the card) or
+  # 'triblock_pallas' (tri-block over the banded mask, kernels C and D). The
+  # reference's default, the einsum 'triblock', is not ported.
+  attention_type: str = 'pallas'
   # Tile of the block-sparse attention plan. The attention kernel is built
   # for tile 64; the plain version takes any tile.
   attention_tile_size: int = 64
@@ -56,6 +62,21 @@ TINY = ModelSpec(
     mesh_splits=2, d_model=64, num_layers=2, num_heads=2,
     attention_k_hop=4, ffw_hidden=128, attention_tile_size=32)
 
+# TINY on the tri-block backend: a [3, 2, 88, 88] mask (block 88, 14
+# padding nodes), so kernels C and D see a ragged 24-row sub-tile.
+TINY_TRIBLOCK = dataclasses.replace(TINY, name='tiny_triblock',
+                                    attention_type='triblock_pallas')
+
+# The reference's demo model, exactly as its NANO (training/train.py's
+# default preset): 2.5-degree grid (73 x 144), mesh splits 4 (2,562 nodes),
+# d_model 256, 16 layers, 4 heads, k-hop 8, tri-block attention over a
+# [3, 4, 656, 656] mask, bf16 compute with float32 masters, 'full' remat,
+# no aggregation plans, churn 0, 20 noise levels.
+NANO = ModelSpec(
+    name='nano', task=registry.GENCAST_TASK, resolution_deg=2.5,
+    mesh_splits=4, d_model=256, num_layers=16, num_heads=4,
+    attention_k_hop=8, attention_type='triblock_pallas', cast_bf16=True)
+
 # GenCast 1 degree: splits 5, full variable set, bf16, churn 2.5, planned
 # aggregation, save_attention remat, as the reference's ONE_DEG. The tile
 # is the port's own: the reference's 768 was a TPU on-chip-memory choice.
@@ -77,23 +98,31 @@ def grid_for_resolution(deg: float) -> Tuple[np.ndarray, np.ndarray]:
   return lat, lon
 
 
+SPECS = {s.name: s for s in (TINY, TINY_TRIBLOCK, NANO, ONE_DEG)}
+
+
 def build_statics(spec: ModelSpec) -> compiler.GraphStatics:
+  """The spec's graph statics, with what its attention backend reads: the
+  tile plan for 'pallas', the tri-block mask for 'triblock_pallas'."""
   lat, lon = grid_for_resolution(spec.resolution_deg)
   return compiler.build_graph_statics(
       spec.mesh_splits, lat, lon,
       radius_query_fraction_edge_length=(
           spec.radius_query_fraction_edge_length),
       attention_k_hop=spec.attention_k_hop,
-      attention_tile_size=spec.attention_tile_size)
+      attention_tile_size=(spec.attention_tile_size
+                           if spec.attention_type == 'pallas' else 0),
+      build_triblock_mask=spec.attention_type == 'triblock_pallas')
 
 
 def build_gencast(spec: ModelSpec, *, seed: int = 0,
                   statics: Optional[compiler.GraphStatics] = None,
-                  device: torch.device | str = 'cpu',
+                  device: torch.device | str = 'cuda',
                   use_kernels: bool = True
                   ) -> Tuple[GenCast, compiler.GraphStatics]:
   """Builds a GenCast model (unwrapped; see models.wrappers for the
-  normalization / bf16 stack) on `device`, plus its graph statics.
+  normalization / bf16 stack) on `device` (the CUDA card unless the caller
+  names another), plus its graph statics.
 
   Parameters are initialized from torch.Generator seeded with `seed`.
   use_kernels=False routes the attention and planned-sum forwards through
@@ -105,7 +134,7 @@ def build_gencast(spec: ModelSpec, *, seed: int = 0,
   transformer = TransformerConfig(
       d_model=spec.d_model, num_layers=spec.num_layers,
       num_heads=spec.num_heads, ffw_hidden=spec.ffw_hidden,
-      remat_policy=spec.remat_policy)
+      attention_type=spec.attention_type, remat_policy=spec.remat_policy)
   model = GenCast(
       spec.task, statics, transformer,
       denoiser_config=DenoiserConfig(

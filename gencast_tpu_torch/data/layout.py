@@ -3,18 +3,19 @@
 A packed tensor has shape [batch, lat, lon, channels]. Channels are ordered
 by sorted variable name, time-major / level-minor within each variable, the
 same order as `gencast_tpu.data.layout`, so channel indices are
-interchangeable between the two packages. This module carries the numpy
-half of that file: layouts, merge permutations, `pack`, statistics and the
-per-channel vectors derived from them, and the loss weights. `unpack` is
-not ported yet.
+interchangeable between the two packages. This module carries that file
+over: layouts, merge permutations, `pack` (numpy) and `unpack` (numpy or
+torch), statistics and the per-channel vectors derived from them, the
+rollout's frame-advance maps, and the loss weights.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from gencast_tpu_torch.data import registry
 
@@ -132,6 +133,38 @@ def pack(fields: Mapping[str, np.ndarray], layout: ChannelLayout,
   return np.concatenate(parts, axis=-1)
 
 
+def unpack(packed: Union[np.ndarray, torch.Tensor], layout: ChannelLayout
+           ) -> Dict[str, Union[np.ndarray, torch.Tensor]]:
+  """[batch, lat, lon, C] -> dict of named arrays (the inverse of `pack`).
+
+  A numpy array stays a numpy array on the host, a torch tensor stays a
+  tensor on its device. Shapes per variable kind: static [batch, lat, lon],
+  surface [batch, T, lat, lon], atmospheric [batch, T, L, lat, lon].
+  """
+  moveaxis = np.moveaxis if isinstance(packed, np.ndarray) else torch.movedim
+  out = {}
+  idx = 0
+  nl = len(layout.pressure_levels)
+  for name in layout.var_names:
+    if registry.is_static(name):
+      out[name] = packed[..., idx]
+      idx += 1
+      continue
+    t = layout.num_times
+    if registry.is_atmospheric(name):
+      c = t * nl
+      x = packed[..., idx:idx + c]
+      b, la, lo = x.shape[:3]
+      out[name] = moveaxis(x.reshape(b, la, lo, t, nl), (3, 4), (1, 2))
+      idx += c
+    else:
+      out[name] = moveaxis(packed[..., idx:idx + t], 3, 1)
+      idx += t
+  if idx != layout.num_channels:
+    raise ValueError(f'unpacked {idx} of {layout.num_channels} channels')
+  return out
+
+
 def merge_permutation(a: ChannelLayout, b: ChannelLayout
                       ) -> Tuple[ChannelLayout, np.ndarray]:
   """Layout for the union of two disjoint variable sets plus the static
@@ -231,6 +264,67 @@ def residual_channel_map(target_layout: ChannelLayout,
     if match.size:
       out[c] = match[0]
   return out
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutMaps:
+  """Static channel maps for autoregressive frame composition.
+
+  For each input channel, `source` says where its value comes from when
+  advancing one step (dropping the oldest frame, appending the new one):
+    0 = shift: from input channel `index` (same var, next frame)
+    1 = prediction: from target channel `index`
+    2 = forcing: from forcing channel `index` (new-frame forcings)
+    3 = keep: static variable, value unchanged
+  """
+  source: np.ndarray  # [C_in] int32 in {0,1,2,3}
+  index: np.ndarray   # [C_in] int32
+
+
+def rollout_maps(inputs: ChannelLayout, targets: ChannelLayout,
+                 forcings: ChannelLayout) -> RolloutMaps:
+  """Builds the frame-advance maps (the packed-array form of the
+  reference's host-side frame composition)."""
+  last_t = inputs.num_times - 1
+  source = np.full(inputs.num_channels, -1, dtype=np.int32)
+  index = np.zeros(inputs.num_channels, dtype=np.int32)
+
+  def find(lay: ChannelLayout, name: str, t: int, lvl: int) -> int:
+    if name not in lay.var_names:
+      return -1
+    vi = lay.var_names.index(name)
+    m = np.nonzero((lay.channel_var == vi) & (lay.channel_time == t)
+                   & (lay.channel_level == lvl))[0]
+    return int(m[0]) if m.size else -1
+
+  for c in range(inputs.num_channels):
+    name = inputs.var_names[inputs.channel_var[c]]
+    t = inputs.channel_time[c]
+    lvl = inputs.channel_level[c]
+    if registry.is_static(name):
+      source[c] = 3
+      continue
+    if t < last_t:
+      source[c] = 0
+      index[c] = find(inputs, name, t + 1, lvl)
+      if index[c] < 0:
+        raise ValueError(f'input variable {name} has no frame {t + 1}')
+      continue
+    # Newest frame: predicted target or new-frame forcing.
+    p = find(targets, name, 0, lvl)
+    if p >= 0:
+      source[c] = 1
+      index[c] = p
+      continue
+    f = find(forcings, name, 0, lvl)
+    if f >= 0:
+      source[c] = 2
+      index[c] = f
+      continue
+    raise ValueError(
+        f'input variable {name} is neither predicted nor a forcing; '
+        'cannot advance the rollout window')
+  return RolloutMaps(source=source, index=index)
 
 
 def loss_channel_weights(

@@ -1,11 +1,11 @@
 """The graph compiler: one-time host-side construction of all static arrays.
 
-Counterpart of `gencast_tpu.graph.compiler` for the port's serving path:
-the RCM-permuted icosahedral mesh, the grid2mesh / mesh / mesh2grid edge
-sets (sorted by receiver) with their spatial features, and the k-hop
-attention mask as a block-sparse `TilePlan`. The tri-block mask and the
-GraphCast multimesh are not built here (the block-sparse attention backend
-needs neither), and there is no on-disk cache.
+Counterpart of `gencast_tpu.graph.compiler`: the RCM-permuted icosahedral
+mesh, the grid2mesh / mesh / mesh2grid edge sets (sorted by receiver) with
+their spatial features, and the k-hop attention mask, as a tri-block
+`BandedMask` (the tri-block backend) and/or a block-sparse `TilePlan` (the
+block-sparse backend). The GraphCast multimesh is not built here, and there
+is no on-disk cache.
 """
 
 from __future__ import annotations
@@ -34,6 +34,23 @@ class EdgeSet:
 
 
 @dataclasses.dataclass(frozen=True)
+class BandedMask:
+  """Tri-block-diagonal attention mask for the RCM-banded mesh.
+
+  blocks: [3, num_blocks, block, block] bool: the diagonal, super-diagonal
+    and sub-diagonal blocks of the k-hop adjacency (nodes padded to a
+    multiple of `block_size`).
+  """
+  blocks: np.ndarray
+  block_size: int
+  num_padding_nodes: int
+
+  @property
+  def num_blocks(self) -> int:
+    return self.blocks.shape[1]
+
+
+@dataclasses.dataclass(frozen=True)
 class GraphStatics:
   """Everything static about the model's graphs. All numpy, host-resident."""
   # Mesh (RCM-permuted).
@@ -51,6 +68,8 @@ class GraphStatics:
   mesh_edges: EdgeSet            # senders/receivers: mesh (finest level)
   mesh2grid: EdgeSet             # senders: mesh, receivers: grid
   attention_k_hop: int
+  # Tri-block attention mask; None unless built with build_triblock_mask.
+  attention_mask: Optional[BandedMask] = None
   # Block-sparse attention tile plan; None unless attention_tile_size > 0.
   attention_tile_plan: Optional[TilePlan] = None
 
@@ -110,6 +129,43 @@ def khop_mask_csr(senders: np.ndarray, receivers: np.ndarray,
   return result.tocsr()
 
 
+# The tri-block mask's block size is rounded up to a multiple of this: the
+# reference's TPU tiling choice, kept so the arrays equal the reference's.
+BLOCK_SIZE_MULTIPLE = 8
+
+
+def banded_mask_from_csr(mask: sparse.csr_matrix) -> BandedMask:
+  """Packs a banded boolean mask into tri-block-diagonal blocks.
+
+  The block size is the bandwidth plus one, rounded up to a multiple of
+  BLOCK_SIZE_MULTIPLE; every nonzero then lands in the diagonal, super- or
+  sub-diagonal block. Blocks past the mesh (block 0's lower and the last
+  block's upper neighbour, padding rows) stay all False.
+  """
+  num_nodes = mask.shape[0]
+  coo = mask.tocoo()
+  block_size = int(np.abs(coo.row - coo.col).max()) + 1
+  block_size = -(-block_size // BLOCK_SIZE_MULTIPLE) * BLOCK_SIZE_MULTIPLE
+  num_pad = (-num_nodes) % block_size
+  num_blocks = (num_nodes + num_pad) // block_size
+
+  csr = mask.tocsr()
+  blocks = np.zeros((3, num_blocks, block_size, block_size), dtype=bool)
+  # Column offset of each part relative to the query block: diagonal,
+  # upper (next block), lower (previous block).
+  for part, shift in ((0, 0), (1, block_size), (2, -block_size)):
+    for b in range(num_blocks):
+      r0, r1 = b * block_size, min((b + 1) * block_size, num_nodes)
+      c0 = b * block_size + shift
+      c0c, c1c = max(c0, 0), min(c0 + block_size, num_nodes)
+      if r0 >= num_nodes or c0c >= c1c:
+        continue
+      window = csr[r0:r1, c0c:c1c].toarray()
+      blocks[part, b, :r1 - r0, c0c - c0:c1c - c0] = window
+  return BandedMask(blocks=blocks, block_size=block_size,
+                    num_padding_nodes=num_pad)
+
+
 def build_graph_statics(
     mesh_splits: int,
     grid_lat: np.ndarray,
@@ -117,6 +173,7 @@ def build_graph_statics(
     radius_query_fraction_edge_length: float = 0.6,
     attention_k_hop: int = 16,
     attention_tile_size: int = 0,
+    build_triblock_mask: bool = False,
 ) -> GraphStatics:
   """Compiles all static graph structure for a (mesh, grid) pair.
 
@@ -128,7 +185,9 @@ def build_graph_statics(
       fraction of the longest mesh edge.
     attention_k_hop: neighborhood hops for the mesh attention mask.
     attention_tile_size: tile of the block-sparse attention plan; 0 skips
-      the mask and plan.
+      the plan.
+    build_triblock_mask: build the tri-block mask (`BandedMask`) that the
+      'triblock_pallas' attention backend reads.
   """
   grid_lat = np.asarray(grid_lat, dtype=np.float32)
   grid_lon = np.asarray(grid_lon, dtype=np.float32)
@@ -166,11 +225,14 @@ def build_graph_statics(
       mesh_lat, mesh_lon, m2g_mesh,
       grid_nodes_lat, grid_nodes_lon, m2g_grid).features
 
-  tile_plan = None
-  if attention_tile_size:
+  mask = tile_plan = None
+  if attention_tile_size or build_triblock_mask:
     csr = khop_mask_csr(senders_m, receivers_m, mesh.num_vertices,
                         attention_k_hop)
-    tile_plan = build_tile_plan(csr, tile=attention_tile_size)
+    if build_triblock_mask:
+      mask = banded_mask_from_csr(csr)
+    if attention_tile_size:
+      tile_plan = build_tile_plan(csr, tile=attention_tile_size)
 
   return GraphStatics(
       mesh_vertices=mesh.vertices.astype(np.float32),
@@ -186,5 +248,6 @@ def build_graph_statics(
       mesh_edges=_sorted_edge_set(senders_m, receivers_m, mesh_feats),
       mesh2grid=_sorted_edge_set(m2g_mesh, m2g_grid, m2g_feats),
       attention_k_hop=attention_k_hop,
+      attention_mask=mask,
       attention_tile_plan=tile_plan,
   )

@@ -1,10 +1,10 @@
 """ctypes loader for the native containing-triangle query (host code).
 
-Compiles the reference package's C++ source
-(`gencast_tpu/graph/_native/containing_triangle.cpp`, read by file path,
-never imported) with g++ on first use into the port's build directory.
-Every caller has a numpy fallback, so the native path is a speed-up of the
-host-side graph build, not a requirement.
+Compiles the port's own copy of the reference package's C++ source
+(`_native/containing_triangle.cpp` beside this module) with g++ on first
+use into the port's build directory. Every caller has a numpy fallback, so
+the native path is a speed-up of the host-side graph build, not a
+requirement.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 
 from gencast_tpu_torch import _build
 
-SOURCE = os.path.join(_build.REPO_ROOT, 'gencast_tpu', 'graph', '_native',
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), '_native',
                       'containing_triangle.cpp')
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""GenCast denoiser: grid2mesh GNN -> block-sparse mesh transformer ->
+"""GenCast denoiser: grid2mesh GNN -> sparse mesh transformer ->
 mesh2grid GNN.
 
 Counterpart of `gencast_tpu.models.denoiser`, with its deliberate deviation
@@ -60,10 +60,6 @@ class DenoiserArchitecture(nn.Module):
       raise ValueError(
           f'transformer d_model ({transformer.d_model}) must equal the GNN '
           f'latent size ({latent})')
-    if statics.attention_tile_plan is None:
-      raise ValueError('statics were built without an attention tile plan '
-                       '(attention_tile_size=0)')
-
     for name, array in (('grid_struct', statics.grid_node_features),
                         ('mesh_struct', statics.mesh_node_features),
                         ('g2m_edge_feats', statics.grid2mesh.features),
@@ -100,9 +96,11 @@ class DenoiserArchitecture(nn.Module):
         aggregate_normalization=cfg.grid2mesh_aggregate_normalization,
         rng=rng, use_kernels=use_kernels)
 
+    # The backend takes the tile plan ('pallas') or the tri-block mask
+    # ('triblock_pallas') from the statics.
     self.processor = MeshTransformer(
-        transformer, statics.attention_tile_plan, rng=rng,
-        use_kernels=use_kernels)
+        transformer, tile_plan=statics.attention_tile_plan,
+        mask=statics.attention_mask, rng=rng, use_kernels=use_kernels)
 
     self.mesh2grid = TypedGraphNet(
         topologies=[m2g_topo],

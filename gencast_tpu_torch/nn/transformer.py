@@ -1,40 +1,48 @@
-"""Block-sparse mesh transformer over RCM-permuted mesh nodes.
+"""Sparse mesh transformer over RCM-permuted mesh nodes.
 
-Counterpart of `gencast_tpu.nn.transformer.MeshTransformer` with its
-'pallas' backend: pre-LN blocks with FiLM noise conditioning on both
-sublayers, attention restricted to the k-hop mask through a `TilePlan`
-(kernels A and F on the card). The reference's vmapped layer stack and
-lax.scan become an nn.ModuleList walked by a Python loop, and its remat
-policies `torch.utils.checkpoint` (nn/remat.py) around each block ('full')
-or around its feed-forward half only ('save_attention'). Its other
-attention backends (tri-block, dense) are not ported.
+Counterpart of `gencast_tpu.nn.transformer.MeshTransformer` with two of its
+attention backends, by the reference's names: 'pallas' (block-sparse
+attention over a `TilePlan`, kernels A and F on the card) and
+'triblock_pallas' (tri-block attention over the banded mask, kernels C and
+D). Pre-LN blocks with FiLM noise conditioning on both sublayers. The
+reference's vmapped layer stack and lax.scan become an nn.ModuleList walked
+by a Python loop, and its remat policies `torch.utils.checkpoint`
+(nn/remat.py) around each block ('full') or around its feed-forward half
+only ('save_attention'). The reference's einsum 'triblock' and 'dense'
+backends are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from gencast_tpu_torch.graph.compiler import BandedMask
 from gencast_tpu_torch.graph.plans import TilePlan
 from gencast_tpu_torch.nn import remat
 from gencast_tpu_torch.nn.mlp import FiLM, Linear, gelu, ln_film, \
     variance_scaling
-from gencast_tpu_torch.ops import sparse_attention
+from gencast_tpu_torch.ops import banded_attention, sparse_attention
 
 REMAT_POLICIES = ('full', 'save_attention')
+ATTENTION_TYPES = ('pallas', 'triblock_pallas')
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
   """The reference's transformer hyperparameters (its SparseTransformerConfig
-  defaults), for the block-sparse backend."""
+  defaults), for the ported attention backends."""
   d_model: int
   num_layers: int = 16
   num_heads: int = 4
   ffw_hidden: int = 2048
+  # 'pallas' (block-sparse over a tile plan) or 'triblock_pallas' (tri-block
+  # over the banded mask).
+  attention_type: str = 'pallas'
   ffw_winit_mult: float = 2.0
   ffw_winit_final_mult: float = 0.0
   attn_winit_mult: float = 2.0
@@ -49,6 +57,9 @@ class TransformerConfig:
     if self.remat_policy not in REMAT_POLICIES:
       raise ValueError(f'remat_policy must be one of {REMAT_POLICIES}, got '
                        f'{self.remat_policy!r}')
+    if self.attention_type not in ATTENTION_TYPES:
+      raise ValueError(f'attention_type must be one of {ATTENTION_TYPES}, got '
+                       f'{self.attention_type!r}')
 
   @property
   def head_dim(self) -> int:
@@ -108,6 +119,32 @@ class PallasSparseAttention(nn.Module):
     return self.proj.out(o.reshape(o.shape[:2] + (-1,)))
 
 
+class TriblockPallasAttention(nn.Module):
+  """Tri-block attention over the banded mask (kernels C and D on the card;
+  named after the reference's backend so parameter paths match). Its input
+  is already padded to num_blocks * block_size nodes."""
+
+  def __init__(self, cfg: TransformerConfig, block_size: int, *,
+               rng: torch.Generator, use_kernels: bool = True):
+    super().__init__()
+    self.cfg = cfg
+    self.proj = _QKVProjections(cfg, rng=rng)
+    self.block_size = block_size
+    self.use_kernels = use_kernels
+
+  def forward(self, x: torch.Tensor, operands: Tuple[torch.Tensor, ...]
+              ) -> torch.Tensor:
+    (mask_blocks,) = operands  # [3, nb, bs, bs] uint8
+    q, k, v = self.proj.split_heads(x)  # [B, N, H, hd]
+    if self.use_kernels:
+      o = banded_attention.banded_attention(q, k, v, mask_blocks,
+                                            self.block_size)
+    else:
+      o = banded_attention.banded_attention_plain(q, k, v, mask_blocks,
+                                                  self.block_size)
+    return self.proj.out(o.reshape(o.shape[:2] + (-1,)))
+
+
 class FeedForward(nn.Module):
 
   def __init__(self, cfg: TransformerConfig, *, rng: torch.Generator):
@@ -135,40 +172,62 @@ class TransformerBlock(nn.Module):
     self.film2 = FiLM(cfg.d_model, rng=rng)
 
   def attn_half(self, x: torch.Tensor, cond: torch.Tensor,
-                plan: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-    # x: [B, N, C]; cond: [B, D].
-    return x + self.attn(ln_film(x, self.film1, cond), plan)
+                operands: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    # x: [B, N, C]; cond: [B, D]; operands: the attention's plan or mask.
+    return x + self.attn(ln_film(x, self.film1, cond), operands)
 
   def ffw_half(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
     return x + self.ffw(ln_film(x, self.film2, cond))
 
   def forward(self, x: torch.Tensor, cond: torch.Tensor,
-              plan: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-    return self.ffw_half(self.attn_half(x, cond, plan), cond)
+              operands: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    return self.ffw_half(self.attn_half(x, cond, operands), cond)
 
 
 class MeshTransformer(nn.Module):
-  """Stack of block-sparse attention blocks over mesh nodes.
+  """Stack of sparse attention blocks over mesh nodes.
 
   Input/output layout [N, B, C] (nodes leading, as the GNNs); batch-first
-  inside. The node axis is padded once to the plan's padded_n before the
-  stack and sliced once after it; padded rows are masked as keys, give 0 as
-  queries, and stay finite through LN/FiLM/FFW.
+  inside. The node axis is padded once before the stack (to the plan's
+  padded_n, or to num_blocks * block_size of the tri-block mask) and sliced
+  once after it; padded rows are masked as keys, give 0 as queries, and
+  stay finite through LN/FiLM/FFW.
   """
 
-  def __init__(self, cfg: TransformerConfig, tile_plan: TilePlan, *,
+  def __init__(self, cfg: TransformerConfig, *,
+               tile_plan: Optional[TilePlan] = None,
+               mask: Optional[BandedMask] = None,
                rng: torch.Generator, use_kernels: bool = True):
     super().__init__()
     self.cfg = cfg
-    self.padded_n = tile_plan.padded_n
-    for name in ('mask_tiles', 'fwd_kv_ids', 'fwd_pair_ids', 'bwd_q_ids',
-                 'bwd_pair_ids'):
-      self.register_buffer(name, torch.as_tensor(getattr(tile_plan, name)),
-                           persistent=False)
+    if cfg.attention_type == 'pallas':
+      if tile_plan is None:
+        raise ValueError('pallas attention needs statics built with an '
+                         'attention tile plan (attention_tile_size > 0)')
+      self.operand_names = ('mask_tiles', 'fwd_kv_ids', 'fwd_pair_ids',
+                            'bwd_q_ids', 'bwd_pair_ids')
+      operands = {name: getattr(tile_plan, name)
+                  for name in self.operand_names}
+      self.padded_n = tile_plan.padded_n
+
+      def make_attn():
+        return PallasSparseAttention(cfg, tile_plan.tile, rng=rng,
+                                     use_kernels=use_kernels)
+    else:
+      if mask is None:
+        raise ValueError('triblock_pallas attention needs statics built with '
+                         'the tri-block mask (build_triblock_mask)')
+      self.operand_names = ('mask_blocks',)
+      operands = {'mask_blocks': mask.blocks.astype(np.uint8)}
+      self.padded_n = mask.num_blocks * mask.block_size
+
+      def make_attn():
+        return TriblockPallasAttention(cfg, mask.block_size, rng=rng,
+                                       use_kernels=use_kernels)
+    for name, array in operands.items():
+      self.register_buffer(name, torch.as_tensor(array), persistent=False)
     self.blocks = nn.ModuleList(
-        TransformerBlock(
-            cfg, PallasSparseAttention(cfg, tile_plan.tile, rng=rng,
-                                       use_kernels=use_kernels), rng=rng)
+        TransformerBlock(cfg, make_attn(), rng=rng)
         for _ in range(cfg.num_layers))
     self.final_film = FiLM(cfg.d_model, rng=rng)
 
@@ -178,17 +237,16 @@ class MeshTransformer(nn.Module):
     x = node_feats.transpose(0, 1)  # [B, N, C]
     if self.padded_n > n:
       x = torch.nn.functional.pad(x, (0, 0, 0, self.padded_n - n))
-    plan = (self.mask_tiles, self.fwd_kv_ids, self.fwd_pair_ids,
-            self.bwd_q_ids, self.bwd_pair_ids)
+    operands = tuple(getattr(self, name) for name in self.operand_names)
     recompute = torch.is_grad_enabled()
     for block in self.blocks:
       if not recompute:
-        y = block(x, cond, plan)
+        y = block(x, cond, operands)
       elif self.cfg.remat_policy == 'save_attention':
         y = remat.checkpoint(block, block.ffw_half,
-                             block.attn_half(x, cond, plan), cond)
+                             block.attn_half(x, cond, operands), cond)
       else:
-        y = remat.checkpoint(block, block, x, cond, plan)
+        y = remat.checkpoint(block, block, x, cond, operands)
       # Keep the carry dtype (float32 parameters promote bf16 activations).
       x = y.to(x.dtype)
     h = ln_film(x, self.final_film, cond)

@@ -48,6 +48,17 @@ _SIGNATURES = {
     'gt_sparse_attention_bwd_dkv': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                     _P],
+    # dtype, head_dim, q, k, v, mask, o, lse, batch, n, h, num_blocks,
+    # block_size, scale, stream
+    'gt_banded_attention_fwd': [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _F, _P],
+    # dtype, head_dim, q, k, v, dout, lse, delta, mask, dq, batch, n, h,
+    # num_blocks, block_size, scale, stream
+    'gt_banded_attention_bwd_dq': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _F, _P],
+    # ... mask, dk, dv, batch, n, h, num_blocks, block_size, scale, stream
+    'gt_banded_attention_bwd_dkv': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _I, _I, _I, _I, _I, _F, _P],
     # data, row_ptr, perm, out, num_segments, f, stream
     'gt_segment_sum': [_P, _P, _P, _P, _I, _I, _P],
     # dtype, x, dy, scale, dx, dscale_part, doffset_part, dscale, doffset,

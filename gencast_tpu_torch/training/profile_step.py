@@ -1,16 +1,19 @@
-"""Where the device time of the 1-degree training step goes, on one card.
+"""Where the device time of a training step or a denoiser call goes, on
+one card.
 
-    python -m gencast_tpu_torch.training.profile_step [--steps 3] \
-        [--trace PATH]
+    python -m gencast_tpu_torch.training.profile_step [--preset 1deg] \
+        [--mode train|denoise] [--steps 3] [--trace PATH]
 
-Sets up the 1-degree run as the training CLI does (`--preset 1deg --data
-synthetic --clean_sst_nans`, seed 0), takes one warm-up step, packs the
-batches, then runs `--steps` training steps under torch.profiler. Prints
-seconds per step (host clock), device time per step, the device's busy
-share of the profiled window (device activity over wall time; the step
-runs on one stream), the device time of each of the port's kernels and of
-the other kernel families, and the ten costliest kernels. `--trace` writes
-the profiler's Chrome trace.
+Sets up the preset's run as the training CLI does (`--data synthetic
+--clean_sst_nans`, seed 0) and packs the batches. `--mode train` takes one
+warm-up training step, then runs `--steps` training steps under
+torch.profiler; `--mode denoise` does the same with undifferentiated calls
+of the wrapped denoiser (the serving stack, bf16 where the preset is) at
+noise level 1. Prints seconds per step or call (host clock), device time
+per step, the device's busy share of the profiled window (device activity
+over wall time; the work runs on one stream), the device time of each of
+the port's kernels and of the other kernel families, and the ten costliest
+kernels. `--trace` writes the profiler's Chrome trace.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ import torch
 
 # Kernel families by a part of the kernel's name, first match wins.
 _FAMILIES = (
+    ('D-dk/dv', 'banded_attention_dkv_kernel'),
+    ('D-dq', 'banded_attention_dq_kernel'),
+    ('C', 'banded_attention_fwd_kernel'),
     ('F-dk/dv', 'sparse_attention_dkv_kernel'),
     ('F-dq', 'sparse_attention_dq_kernel'),
     ('A', 'sparse_attention_fwd_kernel'),
@@ -42,6 +48,8 @@ def _family(name: str) -> str:
 
 def main(argv=None) -> None:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  p.add_argument('--preset', default='1deg', help='tiny, nano or 1deg')
+  p.add_argument('--mode', default='train', choices=('train', 'denoise'))
   p.add_argument('--steps', type=int, default=3)
   p.add_argument('--trace', default=None,
                  help='write the Chrome trace of the profiled steps here')
@@ -51,7 +59,7 @@ def main(argv=None) -> None:
   from gencast_tpu_torch.training import steps as steps_lib
   from gencast_tpu_torch.training import train
 
-  targs = train.parse_args(['--preset', '1deg', '--data', 'synthetic',
+  targs = train.parse_args(['--preset', args.preset, '--data', 'synthetic',
                             '--clean_sst_nans',
                             '--steps', str(args.steps + 1)])
   wrapped, optimizer, it, generator, device = train.setup(targs)
@@ -59,8 +67,13 @@ def main(argv=None) -> None:
              for _ in range(args.steps + 1)]
 
   def step(batch):
-    steps_lib.train_step(wrapped, optimizer, batch['inputs'],
-                         batch['targets'], batch['forcings'], generator)
+    if args.mode == 'train':
+      steps_lib.train_step(wrapped, optimizer, batch['inputs'],
+                           batch['targets'], batch['forcings'], generator)
+      return
+    sigma = torch.ones(batch['inputs'].shape[0], device=device)
+    with torch.no_grad():
+      wrapped(batch['inputs'], batch['targets'], sigma, batch['forcings'])
 
   step(batches[0])  # warm-up: builds the kernels, settles the allocator
   torch.cuda.synchronize()
@@ -72,8 +85,12 @@ def main(argv=None) -> None:
       step(batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+  # Kernels and copies only: a user annotation (such as the optimizer's
+  # step) also appears on the device timeline, as a span over kernels that
+  # are counted themselves.
   device_events = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
   if not device_events:
     raise SystemExit('profile_step: the profiler recorded no device activity')
   by_name = collections.defaultdict(lambda: [0.0, 0])
@@ -89,15 +106,17 @@ def main(argv=None) -> None:
   card = subprocess.run(
       ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
       capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-  print(f'[profile] {card}; 1-degree training step, {n} steps profiled: '
-        f'{wall / n:.4f} s per step (host clock), {device_ms / n:.2f} ms of '
-        f'device time per step, device busy {100 * device_ms / (1e3 * wall):.1f}'
+  what = 'training step' if args.mode == 'train' else 'denoiser call'
+  print(f'[profile] {card}; {args.preset} {what}, {n} profiled: '
+        f'{wall / n:.4f} s each (host clock), {device_ms / n:.2f} ms of '
+        f'device time each, device busy {100 * device_ms / (1e3 * wall):.1f}'
         f'% of the window')
-  print('[profile] per step: family, device ms, share, launches')
+  print(f'[profile] per {what}: family, device ms, share, launches')
   for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
     print(f'[profile]   {fam}: {ms / n:.3f} ms, {100 * ms / device_ms:.1f}%, '
           f'{count / n:g}')
-  print('[profile] ten costliest kernels per step: device ms, launches, name')
+  print(f'[profile] ten costliest kernels per {what}: device ms, launches, '
+        'name')
   for name, (ms, count) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][0])[:10]:
     print(f'[profile]   {ms / n:.3f} ms, {count / n:g}, {name[:120]}')

@@ -1,15 +1,18 @@
 """Training CLI (GenCast on synthetic data).
 
 Counterpart of `gencast_tpu.training.train` for the paths the port runs:
-the TINY and 1-degree presets on the synthetic source, one training step
-per batch, on the CUDA card when there is one (the kernels) and on the CPU
-otherwise (their plain versions). Flags keep the reference's names,
+the TINY, nano and 1-degree presets on the synthetic source, one training
+step per batch, on the CUDA card (the kernels) unless `--device cpu` asks
+for the CPU (their plain versions). Flags keep the reference's names,
 defaults and meanings.
 
 Examples:
-  # Smoke-train a tiny model on synthetic data (CPU-friendly):
+  # Smoke-train a tiny model on synthetic data on the CPU:
   python -m gencast_tpu_torch.training.train --preset tiny --steps 3 \
-      --data synthetic
+      --data synthetic --device cpu
+
+  # Three full-width nano steps on one H100 (the default preset):
+  python -m gencast_tpu_torch.training.train --steps 3 --data synthetic
 
   # Three full-width 1-degree steps on one H100:
   python -m gencast_tpu_torch.training.train --preset 1deg --steps 3 \
@@ -26,9 +29,10 @@ from typing import List
 import numpy as np
 import torch
 
+_PRESETS = ('tiny', 'nano', '1deg')
 # Presets and data the reference's CLI takes and the port does not yet, with
 # the ROADMAP.md item ("Still to port") that brings them.
-_LATER_PRESETS = {'nano': 'Nano', '0.25deg': '0.25 degree'}
+_LATER_PRESETS = {'0.25deg': '0.25 degree'}
 _LATER_DATA = 'CLIs and checkpoints (the ERA5 sources)'
 
 
@@ -46,7 +50,7 @@ def parse_args(argv=None):
   p = argparse.ArgumentParser(
       description='Train GenCast (PyTorch port, CUDA kernels on the card).')
   p.add_argument('--preset', default='nano',
-                 help='tiny or 1deg (nano and 0.25deg are not ported yet)')
+                 help='tiny, nano or 1deg (0.25deg is not ported yet)')
   p.add_argument('--data', default='synthetic',
                  help="'synthetic' (ERA5 directories are not ported yet)")
   p.add_argument('--steps', type=int, default=30000)
@@ -63,29 +67,42 @@ def parse_args(argv=None):
                  help='fill the NaNs of sea_surface_temperature (land) '
                       'before the model sees them (NaNCleaner)')
   p.add_argument('--log_every', type=int, default=10)
+  p.add_argument('--device', default='cuda',
+                 help="'cuda' (the default: the card, through the kernels) "
+                      "or 'cpu' (the kernels' plain versions)")
   args = p.parse_args(argv)
   if args.preset in _LATER_PRESETS:
     p.error(f'--preset {args.preset} is not ported yet: ROADMAP.md, '
             f'"Still to port": {_LATER_PRESETS[args.preset]}')
-  if args.preset not in ('tiny', '1deg'):
-    p.error(f'unknown --preset {args.preset!r}: tiny or 1deg')
+  if args.preset not in _PRESETS:
+    p.error(f'unknown --preset {args.preset!r}: {", ".join(_PRESETS)}')
   if args.data != 'synthetic':
     p.error(f'--data {args.data!r}: only synthetic data is ported; ERA5 '
             f'sources come with ROADMAP.md, "Still to port": {_LATER_DATA}')
   return args
 
 
+def _device(name: str) -> torch.device:
+  """The device `--device` names; the card must be there when it is asked
+  for (no quiet fall-back to the CPU)."""
+  device = torch.device(name)
+  if device.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError('--device cuda: no CUDA card is available; pass '
+                       '--device cpu to train on the CPU')
+  return device
+
+
 def setup(args):
   """Everything a run of `args` needs: (the wrapped model stack, its
   optimizer, the batch iterator, the noise generator, the device), on the
-  CUDA card when there is one."""
+  device `args.device` names."""
   from gencast_tpu_torch import configs
   from gencast_tpu_torch.data import sources
   from gencast_tpu_torch.models import wrappers
   from gencast_tpu_torch.training import steps as steps_lib
 
-  spec = {'tiny': configs.TINY, '1deg': configs.ONE_DEG}[args.preset]
-  device = torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+  spec = configs.SPECS[args.preset]
+  device = _device(args.device)
   print(f'[train] spec={spec.name} mesh_splits={spec.mesh_splits} '
         f'd_model={spec.d_model} layers={spec.num_layers} device={device}',
         flush=True)

@@ -27,7 +27,7 @@ from gencast_tpu.nn.transformer import TransformerConfig as JaxTransformer
 from gencast_tpu_torch import bridge, configs
 from gencast_tpu_torch.data import layout
 from gencast_tpu_torch.models import wrappers
-from gencast_tpu_torch.ops import segment, sparse_attention
+from gencast_tpu_torch.ops import banded_attention, segment, sparse_attention
 
 SPEC = dataclasses.replace(configs.TINY, attention_tile_size=32,
                            use_agg_plans=True, agg_plan_min_degree=2,
@@ -88,7 +88,7 @@ def pair():
       [(p, v.replace(jnp.asarray(flat['/'.join(map(str, p))])))
        for p, v in flat_state]))
 
-  tmodel, _ = configs.build_gencast(SPEC, seed=1)
+  tmodel, _ = configs.build_gencast(SPEC, seed=1, device='cpu')
   bridge.load_reference_params(tmodel, flat)
 
   d = jmodel.denoiser
@@ -152,6 +152,59 @@ def test_denoiser_matches_jax(pair, monkeypatch):
   assert calls == {'attention': SPEC.num_layers, 'segment': 1}
   assert sparse_attention.KERNEL.launches == 0
   assert segment.KERNEL.launches == 0
+
+
+def test_triblock_denoiser_matches_jax(monkeypatch):
+  """TINY on the tri-block backend (nano's): a JAX 'triblock_pallas' state,
+  perturbed, loads strictly into the port, and the denoisers agree through
+  the plain version of kernel C (the JAX side's undifferentiated call runs
+  its `_xla_forward`)."""
+  spec = configs.TINY_TRIBLOCK
+  lat, lon = jax_configs.grid_for_resolution(spec.resolution_deg)
+  from gencast_tpu.graph import compiler as jax_compiler
+  jstatics = jax_compiler.build_graph_statics(
+      spec.mesh_splits, lat, lon, attention_k_hop=spec.attention_k_hop,
+      cache_dir=None)
+  jmodel = jax_gencast.GenCast(
+      spec.task, jstatics,
+      JaxTransformer(d_model=spec.d_model, num_layers=spec.num_layers,
+                     num_heads=spec.num_heads, ffw_hidden=spec.ffw_hidden,
+                     attention_type='triblock_pallas'),
+      denoiser_config=JaxDenoiserConfig(latent_size=spec.d_model),
+      rngs=nnx.Rngs(0))
+  flat_state = nnx.to_flat_state(nnx.state(jmodel, nnx.Param))
+  flat = bridge.perturbed({'/'.join(map(str, p)): np.asarray(v.get_value())
+                           for p, v in flat_state}, seed=9)
+  nnx.update(jmodel, nnx.from_flat_state(
+      [(p, v.replace(jnp.asarray(flat['/'.join(map(str, p))])))
+       for p, v in flat_state]))
+  tmodel, statics = configs.build_gencast(spec, seed=1, device='cpu')
+  assert statics.attention_tile_plan is None
+  assert statics.attention_mask.blocks.shape == (3, 2, 88, 88)
+  bridge.load_reference_params(tmodel, flat)
+
+  d = jmodel.denoiser
+  rng = np.random.default_rng(4)
+  shape = (1, lat.shape[0], lon.shape[0])
+  inputs, targets, forcings = (
+      rng.standard_normal(shape + (lay.num_channels,)).astype(np.float32)
+      for lay in (d.input_layout, d.target_layout, d.forcing_layout))
+  sigma = np.asarray([2.3], np.float32)
+  want = np.asarray(jmodel(*map(jnp.asarray, (inputs, targets, sigma,
+                                              forcings))))
+  calls = []
+  plain = banded_attention.banded_attention_plain
+  monkeypatch.setattr(banded_attention, 'banded_attention_plain',
+                      lambda *a, **k: calls.append(1) or plain(*a, **k))
+  banded_attention.KERNEL.reset()
+  with torch.no_grad():
+    got = tmodel(*map(torch.as_tensor, (inputs, targets, sigma,
+                                        forcings))).numpy()
+  assert got.shape == want.shape
+  assert _rel(got, want) <= DENOISER_RTOL
+  # One attention call per layer through the CPU route; no kernel launch.
+  assert len(calls) == spec.num_layers
+  assert banded_attention.KERNEL.launches == 0
 
 
 def test_wrapped_sample_matches_jax(pair):

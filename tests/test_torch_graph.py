@@ -3,6 +3,7 @@ tile and aggregation plans, channel layouts, noise schedules and the
 spherical-harmonic basis must be equal, array for array."""
 
 import dataclasses
+import os
 import subprocess
 import sys
 
@@ -33,16 +34,20 @@ def _assert_same(a, b, what):
 
 @pytest.fixture(scope='module')
 def statics_pair():
+  """TINY's statics with both the tri-block mask ([3, 2, 88, 88]) and the
+  tile plan."""
   lat, lon = configs.grid_for_resolution(10.0)
   kwargs = dict(attention_k_hop=4, attention_tile_size=32)
   ref = jax_compiler.build_graph_statics(2, lat, lon, cache_dir=None,
-                                         build_triblock_mask=False, **kwargs)
-  port = compiler.build_graph_statics(2, lat, lon, **kwargs)
+                                         **kwargs)
+  port = compiler.build_graph_statics(2, lat, lon, build_triblock_mask=True,
+                                     **kwargs)
   return ref, port
 
 
 def test_graph_statics_equal(statics_pair):
   ref, port = statics_pair
+  assert port.attention_mask.blocks.shape == (3, 2, 88, 88)
   for field in dataclasses.fields(port):
     mine = getattr(port, field.name)
     theirs = getattr(ref, field.name)
@@ -86,6 +91,54 @@ def test_agg_plans_equal(statics_pair, edge_set, min_degree):
   if min_degree == 2:
     # The grid2mesh receiver side is the one the slice plans.
     assert edge_set != 'grid2mesh' or tt.recv_plan is not None
+
+
+def test_nano_triblock_mask_equal():
+  """Nano's statics: the tri-block mask ([3, 4, 656, 656], 62 padding
+  nodes, 542,922 allowed entries) and the edge sets."""
+  lat, lon = configs.grid_for_resolution(2.5)
+  ref = jax_compiler.build_graph_statics(4, lat, lon, attention_k_hop=8,
+                                         cache_dir=None)
+  port = configs.build_statics(configs.NANO)
+  assert port.attention_tile_plan is None
+  mask = port.attention_mask
+  assert (mask.blocks.shape, mask.block_size, mask.num_padding_nodes) == (
+      (3, 4, 656, 656), 656, 62)
+  assert int(mask.blocks.sum()) == 542922
+  for field in ('blocks', 'block_size', 'num_padding_nodes'):
+    _assert_same(getattr(ref.attention_mask, field), getattr(mask, field),
+                 field)
+  for es in ('grid2mesh', 'mesh_edges', 'mesh2grid'):
+    for f in ('senders', 'receivers', 'features'):
+      _assert_same(getattr(getattr(ref, es), f), getattr(getattr(port, es), f),
+                   f'{es}.{f}')
+
+
+@pytest.mark.parametrize('n,bandwidth', [(70, 9), (64, 20)])
+def test_banded_mask_from_csr_equal(n, bandwidth):
+  mask = _random_mask(n, bandwidth, seed=n, explicit_zeros=True)
+  ref = jax_compiler._banded_mask_from_csr(mask)
+  port = compiler.banded_mask_from_csr(mask)
+  for field in ('blocks', 'block_size', 'num_padding_nodes'):
+    _assert_same(getattr(ref, field), getattr(port, field), field)
+
+
+def test_native_helper_is_the_ports_copy():
+  """The mesh2grid containing-triangle query builds from the port's own
+  source and gives the JAX package's faces, point for point."""
+  from gencast_tpu.graph import connectivity as jax_connectivity
+  from gencast_tpu.graph import icosahedron as jax_icosahedron
+  from gencast_tpu_torch.graph import connectivity, icosahedron, native
+  assert native.SOURCE.startswith(os.path.dirname(compiler.__file__))
+  assert os.path.exists(native.SOURCE)
+  assert native.get_lib() is not None
+  lat, lon = configs.grid_for_resolution(10.0)
+  points = connectivity.grid_lat_lon_to_xyz(lat, lon).reshape(-1, 3)
+  _assert_same(
+      jax_connectivity.containing_triangle(
+          points, jax_icosahedron.finest_mesh(2)),
+      connectivity.containing_triangle(points, icosahedron.finest_mesh(2)),
+      'containing triangle')
 
 
 def _random_mask(n, bandwidth, seed, explicit_zeros=False):
@@ -170,12 +223,18 @@ def test_noise_basis_equal():
 
 
 def test_port_imports_without_jax():
-  """The port never imports jax, flax or the JAX package."""
+  """The port and its card-side check never import jax, flax or the JAX
+  package."""
   code = ('import sys\n'
           'for m in ("jax", "flax", "gencast_tpu"): sys.modules[m] = None\n'
           'import gencast_tpu_torch.configs, gencast_tpu_torch.bridge\n'
           'import gencast_tpu_torch.models.wrappers\n'
-          'import gencast_tpu_torch.models.casting\n')
-  done = subprocess.run([sys.executable, '-c', code], capture_output=True,
-                        text=True, timeout=120)
+          'import gencast_tpu_torch.models.casting\n'
+          'import gencast_tpu_torch.rollout\n'
+          'import gencast_tpu_torch.training.train\n'
+          'import gencast_tpu_torch.training.profile_step\n'
+          'import chip_smoke\n')
+  root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  done = subprocess.run([sys.executable, '-c', code], cwd=root,
+                        capture_output=True, text=True, timeout=120)
   assert done.returncode == 0, done.stderr

@@ -30,14 +30,21 @@ from gencast_tpu.nn.transformer import TransformerConfig as JaxTransformer
 from gencast_tpu.training import steps as jax_steps
 from gencast_tpu_torch import bridge, configs
 from gencast_tpu_torch.data import layout
+from gencast_tpu_torch.graph import compiler
 from gencast_tpu_torch.models import casting, wrappers
-from gencast_tpu_torch.ops import ln_film, segment, sparse_attention
+from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
+    sparse_attention
 from gencast_tpu_torch.training import steps, train
 
 SPEC = dataclasses.replace(configs.TINY, d_model=128, attention_tile_size=32,
                            use_agg_plans=True, agg_plan_min_degree=2)
 # 'full' is TINY's remat policy; 'save_attention' is ONE_DEG's.
 REMAT_POLICIES = ('full', 'save_attention')
+# Every kernel's launch counter; on the CPU none may move.
+COUNTERS = (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
+            sparse_attention.KERNEL_DKV, segment.KERNEL, ln_film.KERNEL,
+            banded_attention.KERNEL, banded_attention.KERNEL_DQ,
+            banded_attention.KERNEL_DKV)
 
 # Loss, max relative difference: float32 on both sides, one denoiser call.
 LOSS_RTOL = 1e-5
@@ -69,12 +76,12 @@ def _stats(task, seed):
   return jax_layout.Stats(mean, std, diffs), layout.Stats(mean, std, diffs)
 
 
-def _jax_model(statics, remat_policy='full'):
+def _jax_model(statics, remat_policy='full', attention_type='pallas'):
   return jax_gencast.GenCast(
       SPEC.task, statics,
       JaxTransformer(d_model=SPEC.d_model, num_layers=SPEC.num_layers,
                      num_heads=SPEC.num_heads, ffw_hidden=SPEC.ffw_hidden,
-                     attention_type='pallas',
+                     attention_type=attention_type,
                      use_gradient_checkpointing=True,
                      remat_policy=remat_policy),
       denoiser_config=JaxDenoiserConfig(
@@ -91,15 +98,19 @@ def _flat(state):
 @pytest.fixture(scope='module')
 def setup():
   lat, lon = jax_configs.grid_for_resolution(SPEC.resolution_deg)
+  # Both the tile plan ('pallas') and the tri-block mask
+  # ('triblock_pallas'), on both sides.
   jstatics = jax_compiler.build_graph_statics(
       SPEC.mesh_splits, lat, lon, attention_k_hop=SPEC.attention_k_hop,
-      attention_tile_size=SPEC.attention_tile_size,
-      build_triblock_mask=False)
+      attention_tile_size=SPEC.attention_tile_size, cache_dir=None)
   flat = bridge.perturbed(_flat(nnx.state(_jax_model(jstatics), nnx.Param)),
                           seed=7)
-  statics = configs.build_statics(SPEC)
+  statics = compiler.build_graph_statics(
+      SPEC.mesh_splits, lat, lon, attention_k_hop=SPEC.attention_k_hop,
+      attention_tile_size=SPEC.attention_tile_size, build_triblock_mask=True)
   jstats, tstats = _stats(SPEC.task, seed=3)
-  tmodel, _ = configs.build_gencast(SPEC, seed=1, statics=statics)
+  tmodel, _ = configs.build_gencast(SPEC, seed=1, statics=statics,
+                                    device='cpu')
   d = tmodel.denoiser
   rng = np.random.default_rng(0)
   shape = (1, lat.shape[0], lon.shape[0])
@@ -114,17 +125,19 @@ def setup():
               tstats=tstats, data=data)
 
 
-def _pair(setup, remat_policy='full'):
+def _pair(setup, remat_policy='full', attention_type='pallas'):
   """Fresh JAX and port stacks (InputsAndResiduals, float32) holding the
-  same perturbed weights, both with `remat_policy`."""
-  jmodel = _jax_model(setup['jstatics'], remat_policy)
+  same perturbed weights, both with `remat_policy` and `attention_type`
+  (the two backends have the same parameter paths)."""
+  jmodel = _jax_model(setup['jstatics'], remat_policy, attention_type)
   flat_state = nnx.to_flat_state(nnx.state(jmodel, nnx.Param))
   nnx.update(jmodel, nnx.from_flat_state(
       [(p, v.replace(jnp.asarray(setup['flat']['/'.join(map(str, p))])))
        for p, v in flat_state]))
   tmodel, _ = configs.build_gencast(
-      dataclasses.replace(SPEC, remat_policy=remat_policy), seed=1,
-      statics=setup['statics'])
+      dataclasses.replace(SPEC, remat_policy=remat_policy,
+                          attention_type=attention_type), seed=1,
+      statics=setup['statics'], device='cpu')
   bridge.load_reference_params(tmodel, setup['flat'])
   return (jmodel, jax_wrappers.build_stack(jmodel, setup['jstats'],
                                            bf16=False),
@@ -150,10 +163,8 @@ def _batch(data, framework):
   return [torch.as_tensor(data[k]) for k in ('inputs', 'targets', 'forcings')]
 
 
-@pytest.mark.parametrize('remat_policy', REMAT_POLICIES)
-def test_loss_and_gradients_match_jax(setup, monkeypatch, remat_policy):
-  monkeypatch.setenv('GENCAST_FUSED_LN_FILM', '1')
-  jmodel, jstack, tmodel, tstack = _pair(setup, remat_policy)
+def _check_loss_and_gradients(setup, remat_policy, attention_type):
+  jmodel, jstack, tmodel, tstack = _pair(setup, remat_policy, attention_type)
   key = jax.random.PRNGKey(5)
 
   @nnx.jit
@@ -167,9 +178,7 @@ def test_loss_and_gradients_match_jax(setup, monkeypatch, remat_policy):
       jstack, *_batch(setup['data'], 'jax'), key)
   jgrads = {k[len('predictor/'):]: v for k, v in _flat(jgrads).items()}
 
-  for counter in (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
-                  sparse_attention.KERNEL_DKV, segment.KERNEL,
-                  ln_film.KERNEL):
+  for counter in COUNTERS:
     counter.reset()
   loss, diags = tstack.loss(*_batch(setup['data'], 'torch'),
                             **_draws(jmodel, key))
@@ -192,14 +201,25 @@ def test_loss_and_gradients_match_jax(setup, monkeypatch, remat_policy):
     assert np.abs(got - want).max() <= GRAD_RTOL * scale, k
   assert len(dead) == 6, dead
   # On the CPU no kernel is launched: the plain versions ran instead.
-  assert all(c.launches == 0 for c in (
-      sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
-      sparse_attention.KERNEL_DKV, segment.KERNEL, ln_film.KERNEL))
+  assert all(c.launches == 0 for c in COUNTERS)
 
 
-def test_three_adamw_steps_match_optax(setup, monkeypatch):
+@pytest.mark.parametrize('remat_policy', REMAT_POLICIES)
+def test_loss_and_gradients_match_jax(setup, monkeypatch, remat_policy):
   monkeypatch.setenv('GENCAST_FUSED_LN_FILM', '1')
-  jmodel, jstack, tmodel, tstack = _pair(setup)
+  _check_loss_and_gradients(setup, remat_policy, 'pallas')
+
+
+def test_triblock_loss_and_gradients_match_jax(setup, monkeypatch):
+  """Nano's backend and remat policy: JAX's loss and gradients run the
+  interpreted Pallas kernels C and D (twice C: 'full' recomputes), the
+  port their plain versions."""
+  monkeypatch.setenv('GENCAST_FUSED_LN_FILM', '1')
+  _check_loss_and_gradients(setup, 'full', 'triblock_pallas')
+
+
+def _check_three_adamw_steps(setup, attention_type):
+  jmodel, jstack, tmodel, tstack = _pair(setup, attention_type=attention_type)
   before = bridge.export_reference_params(tmodel)
   config = dict(learning_rate=1e-3, warmup_steps=1, total_steps=3)
   jopt = jax_steps.create_optimizer(
@@ -223,6 +243,16 @@ def test_three_adamw_steps_match_optax(setup, monkeypatch):
     assert np.abs(moved).max() > 0, k  # weight decay moves every parameter
     assert (np.abs((got[k] - before[k]) - moved).max()
             <= STEP_RTOL * np.abs(moved).max()), k
+
+
+def test_three_adamw_steps_match_optax(setup, monkeypatch):
+  monkeypatch.setenv('GENCAST_FUSED_LN_FILM', '1')
+  _check_three_adamw_steps(setup, 'pallas')
+
+
+def test_triblock_three_adamw_steps_match_optax(setup, monkeypatch):
+  monkeypatch.setenv('GENCAST_FUSED_LN_FILM', '1')
+  _check_three_adamw_steps(setup, 'triblock_pallas')
 
 
 @pytest.mark.parametrize('remat_policy', REMAT_POLICIES)
@@ -257,13 +287,22 @@ def test_bf16_stack_gradients_reach_f32_masters(setup, remat_policy):
 
 def test_train_cli_tiny_on_cpu():
   run = train.main(['--preset', 'tiny', '--steps', '3', '--data',
-                    'synthetic'])
+                    'synthetic', '--device', 'cpu'])
   assert len(run.losses) == 3 and np.isfinite(run.losses).all()
   assert len(run.step_seconds) == 3
 
 
+@pytest.mark.parametrize('preset', ['nano', 'tiny'])
+def test_train_cli_needs_the_card_unless_told(preset, monkeypatch):
+  """The CLI runs on the card by default: without one it raises before
+  building anything, and never carries on on the CPU."""
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='no CUDA card'):
+    train.main(['--preset', preset, '--steps', '1', '--data', 'synthetic'])
+
+
 @pytest.mark.parametrize('argv,match', [
-    (['--preset', 'nano'], 'Nano'),
+    (['--preset', 'graphcast'], 'unknown --preset'),
     (['--preset', '0.25deg'], '0.25 degree'),
     (['--data', '/some/era5'], 'ERA5'),
 ])
