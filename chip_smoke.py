@@ -1,5 +1,6 @@
 """Card-side check of the PyTorch/CUDA port: 1-degree GenCast and nano
-GenCast, served and trained.
+GenCast, served and trained, and the 1-degree train, resume and evaluate
+path with the fused attention backward.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -46,8 +47,20 @@ Phases (any failure raises and exits non-zero):
      step (batch 2) on the card against the CPU, 3 AdamW steps, and the
      bf16 gradients against the float32 ones ('full' remat, nano's);
  15. training: `train.main` for 3 full-width nano steps, as phase 10;
-then one JSON line of kernel results (launches from the training run of
-each kernel's path), the card's name and power limit, and a last JSON line
+ 16. kernel G (the fused block-sparse attention backward) with its dq
+     reduce against its plain version and against kernel F at
+     [1, 10304, 4, 128], float32 and bfloat16, from kernel A's lse, with
+     timings of G alone, G with the reduce, F and the library's backward;
+ 17. the 1-degree path under GENCAST_SPARSE_FUSED_BWD=1: `train.main` for 3
+     steps with checkpoints every 2 steps and a metrics file, then a run to
+     step 5 that resumes at step 3 from the newest checkpoint (G 16 times
+     per step, F never, launches checked per step), seconds per step and
+     peak memory beside phase 10's; then `evaluate.main` on the checkpoint:
+     a 2-member, 2-step 1-degree ensemble (A 2,496 and B 156 launches) from
+     the parameters saved, with finite scores and predictions
+     [2, 2, 181, 360, C];
+then one JSON line of kernel results (launches from the training runs of
+each kernel's paths), the card's name and power limit, and a last JSON line
 {"ok": true, "device": {...}}.
 
 Each kernel's row also gives its bound (the least time the card could take
@@ -57,13 +70,15 @@ float32) and the time of one PyTorch call computing the same function, timed
 in turns with the kernel (scaled_dot_product_attention with the dense mask
 and its backward, segment_reduce, native_layer_norm_backward); the port
 never calls those. TF32 is off for matmuls and cuDNN: float32 products run
-in full float32. About two minutes on an H100, build included.
+in full float32. Phase 17 writes under build/chip_smoke/ (git-ignored) and
+removes it. A few minutes on an H100, build included.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -95,6 +110,10 @@ TINY_SAMPLE_RTOL = 1e-3
 # (2^-8 of the element) shows.
 BWD_F32_RTOL = 1e-5
 BWD_BF16_RTOL = 1e-2
+# Kernel G's bf16 dq against kernel F's, max|G - F| / max|F|: G rounds each
+# pair's partial ds . K to bf16 before the float32 sum over the pairs of a
+# query tile (the reference's fused numerics), F rounds the sum once.
+FUSED_DQ_BF16_RTOL = 2e-2
 # TINY float32 training step, card kernels vs CPU plain path: the loss
 # (max relative), each gradient (max|card - cpu| / max|cpu| per parameter,
 # float32 sums in other orders through 2 GNNs and 2 attention layers), and
@@ -297,6 +316,70 @@ def check_attention_bwd(shape, dtype, rtol, mt, plan_t, tile, g, dense,
   return errs, ms, costs
 
 
+def check_fused_bwd(shape, dtype, rtol, mt, plan_t, gather_t, tile, g, dense,
+                    allowed):
+  """Kernel G (the fused sweep) with its dq reduce against the plain version
+  and against kernel F, on seeded q/k/v and dO [1, *shape], from kernel A's
+  lse: returns ((rel, abs) worst over dq, dk, dv against the plain version,
+  {'kernel': ms of G alone, 'fused': ms of G and the reduce, 'plain': ms,
+  'F': ms of F's dq and dk/dv, 'library': ms}, (flops, bytes))."""
+  from gencast_tpu_torch.ops import sparse_attention as sa
+  fwd_ids, fwd_pids, bwd_ids, bwd_pids = plan_t
+  slot_ids, valid = gather_t
+  n = shape[0]
+  q, k, v, dout = (torch.randn((1,) + shape, generator=g, device=mt.device)
+                   .to(dtype) for _ in range(4))
+  o, lse = sa.sparse_attention_fwd_cuda(q, k, v, mt, fwd_ids, fwd_pids, tile)
+  delta = sa.attention_delta(o, dout)
+  args = (q, k, v, dout, lse, delta, mt, bwd_ids, bwd_pids, tile)
+
+  def fused(dkvq):
+    dk, dv, partial = dkvq(*args)
+    return sa.sparse_attention_dq_reduce(partial, slot_ids, valid, n), dk, dv
+
+  def split():
+    return (sa.sparse_attention_dq_cuda(q, k, v, dout, lse, delta, mt,
+                                        fwd_ids, fwd_pids, tile),
+            *sa.sparse_attention_dkv_cuda(*args))
+
+  got = fused(sa.sparse_attention_dkvq_cuda)
+  want = fused(sa.sparse_attention_dkvq_plain)
+  f_got = split()
+  torch.cuda.synchronize()
+  errs = [rel_err(a, b) for a, b in zip(got, want)]
+  f_errs = [rel_err(a, b) for a, b in zip(got, f_got)]
+  # dq against F's: G rounds each pair's partial to the input dtype, F its
+  # float32 sum once.
+  dq_tol = rtol if dtype == torch.float32 else FUSED_DQ_BF16_RTOL
+  if not (max(errs)[0] <= rtol and f_errs[0][0] <= dq_tol
+          and max(f_errs[1:])[0] <= rtol):
+    raise AssertionError(f'kernel G {dtype} {shape}: max rel errs (dq, dk, '
+                         f'dv) against plain {errs}, against kernel F '
+                         f'{f_errs}')
+  del got, want, f_got
+  ms = time_in_turns({
+      'plain': lambda: sa.sparse_attention_dkvq_plain(*args),
+      'kernel': lambda: sa.sparse_attention_dkvq_cuda(*args),
+      'fused': lambda: fused(sa.sparse_attention_dkvq_cuda),
+      'F': split}, reps=5)
+  ms['library'] = library_backward_ms(q, k, v, dout, dense, reps=5)
+  h, d = shape[1], shape[2]
+  pairs = int((bwd_pids != mt.shape[0] - 1).sum())
+  partial_bytes = pairs * h * tile * d * q.element_size()
+  cost = (10 * d * allowed * h,
+          nbytes(q, k, v, dout, mt, bwd_ids, bwd_pids, lse, delta, k, v)
+          + partial_bytes)
+  log(f'[kernel G] {dtype} [1, {", ".join(map(str, shape))}]: max rel err '
+      f'(dq, dk, dv) {errs[0][0]:.3e}/{errs[1][0]:.3e}/{errs[2][0]:.3e} (tol '
+      f'{rtol}); against kernel F {f_errs[0][0]:.3e}/{f_errs[1][0]:.3e}/'
+      f'{f_errs[2][0]:.3e} (dq tol {dq_tol}); kernel {ms["kernel"]:.3f} ms, '
+      f'kernel and dq reduce {ms["fused"]:.3f} ms, plain '
+      f'{ms["plain"]:.3f} ms, kernel F (dq, dk/dv) {ms["F"]:.3f} ms, library '
+      f'backward (dq, dk, dv) {ms["library"]:.3f} ms; {pairs} pairs, '
+      f'partials {partial_bytes / 2**30:.3f} GiB')
+  return max(errs), ms, cost
+
+
 def check_ln_film_bwd(shape, batch_axis, dtype, rtol, g):
   """Kernel E against its plain version on seeded x, dy [shape] and scale
   [B, C]: returns ((max rel err, max abs err) over dx, dscale, doffset,
@@ -338,20 +421,22 @@ def check_ln_film_bwd(shape, batch_axis, dtype, rtol, g):
 
 
 def counters():
-  """Every kernel's launch counter: A, F-dq, F-dkv, B, E, C, D-dq, D-dkv."""
+  """Every kernel's launch counter: A, F-dq, F-dkv, B, E, C, D-dq, D-dkv,
+  G."""
   from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
       sparse_attention
   return (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
           sparse_attention.KERNEL_DKV, segment.KERNEL, ln_film.KERNEL,
           banded_attention.KERNEL, banded_attention.KERNEL_DQ,
-          banded_attention.KERNEL_DKV)
+          banded_attention.KERNEL_DKV, sparse_attention.KERNEL_DKVQ)
 
 
 def expected_step_launches(gencast) -> dict:
   """Launches of each kernel in one training step, derived from the model.
   The attention backend's forward (A or C) runs once per layer under
   'save_attention' (the attention half is not recomputed) and twice under
-  'full'; its backward (F or D: dq and dk/dv) once per layer; the other
+  'full'; its backward (F or D: dq and dk/dv; G alone when the transformer
+  holds the fused backward's gather map) once per layer; the other
   backend's kernels never. B once per planned receiver aggregation (forward)
   and once per planned gather (its backward); E once per LN+FiLM whose
   output reaches the loss."""
@@ -376,17 +461,18 @@ def expected_step_launches(gencast) -> dict:
   decoded = set(arch.mesh2grid.node_decoders)
   unused = sum(len(set(p.node_mlps) - decoded)
                for p in arch.mesh2grid.processors)
-  if cfg.attention_type == 'pallas':
+  if 'slot_ids' in arch.processor.operand_names:
+    attn = (sparse_attention.KERNEL, sparse_attention.KERNEL_DKVQ)
+  elif cfg.attention_type == 'pallas':
     attn = (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
             sparse_attention.KERNEL_DKV)
   else:
     attn = (banded_attention.KERNEL, banded_attention.KERNEL_DQ,
             banded_attention.KERNEL_DKV)
   launches = {c.name: 0 for c in counters()}
+  launches.update({c.name: layers for c in attn[1:]})
   launches.update({
       attn[0].name: layers * (2 if recompute else 1),
-      attn[1].name: layers,
-      attn[2].name: layers,
       segment.KERNEL.name: planned,
       ln_film.KERNEL.name: 2 * layers + 1 + cond_mlps - unused,
   })
@@ -511,13 +597,17 @@ def train_tiny_against_cpu(dev, remat_policy, spec) -> None:
       f'{TRAIN_BF16_GRAD_RTOL})')
 
 
-def train_preset(spec, statics, dev, card, argv) -> dict:
-  """Phases 10 and 15: three full-width training steps of `spec` through the
-  CLI (`argv` names the preset); returns each kernel's launches in that
-  run."""
+def train_preset(spec, statics, dev, card, argv, steps_run=3, start=0,
+                 tag=None):
+  """Phases 10, 15 and 17: full-width training steps of `spec` through the
+  CLI (`argv` names the preset and any checkpoint directory), up to step
+  `steps_run`, starting at `start` (a resumed run starts past its
+  checkpoint). Checks the losses, the parameters' change and each kernel's
+  launches against the counts derived from the model; returns (those
+  launches, the seconds of each step, the peak device memory in bytes)."""
   from gencast_tpu_torch import configs
   from gencast_tpu_torch.training import train
-  steps_run = 3
+  tag = tag or spec.name
   torch.cuda.reset_peak_memory_stats()
   for c in counters():
     c.reset()
@@ -527,29 +617,31 @@ def train_preset(spec, statics, dev, card, argv) -> dict:
   wall = time.perf_counter() - t0
   launches = {c.name: c.launches for c in counters()}
   peak = torch.cuda.max_memory_allocated()
-  if not (len(run.losses) == steps_run and np.isfinite(run.losses).all()):
-    raise AssertionError(f'{spec.name} training losses {run.losses}')
+  taken = steps_run - start
+  if not (run.start_step == start and len(run.losses) == taken
+          and np.isfinite(run.losses).all()):
+    raise AssertionError(f'{tag} training from step {run.start_step} '
+                         f'(expected {start}): losses {run.losses}')
   initial, _ = configs.build_gencast(spec, seed=0, statics=statics,
                                      device=dev)
   changed = max(float((p.detach() - p0.detach()).abs().max())
                 for p, p0 in zip(run.model.parameters(),
                                  initial.parameters()))
   if not changed > 0:
-    raise AssertionError(f'{spec.name} training left the parameters '
-                         'unchanged')
+    raise AssertionError(f'{tag} training left the parameters unchanged')
   from gencast_tpu_torch.models.gencast import GenCast
   gencast = next(m for m in run.model.modules() if isinstance(m, GenCast))
   per_step = expected_step_launches(gencast)
-  expected = {k: v * steps_run for k, v in per_step.items()}
+  expected = {k: v * taken for k, v in per_step.items()}
   if launches != expected:
-    raise AssertionError(f'{spec.name} training launches {launches}, '
-                         f'expected {expected} ({per_step} per step)')
-  log(f'[train {spec.name}] {steps_run} steps, losses {run.losses}; seconds '
-      f'per step {[round(x, 4) for x in run.step_seconds]} (wall '
+    raise AssertionError(f'{tag} training launches {launches}, expected '
+                         f'{expected} ({per_step} per step)')
+  log(f'[train {tag}] steps {start + 1}-{steps_run}, losses {run.losses}; '
+      f'seconds per step {[round(x, 4) for x in run.step_seconds]} (wall '
       f'{wall:.1f} s with set-up and data); max |parameter change| '
       f'{changed:.3e}; launches per step {per_step}, as derived; peak memory '
       f'{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); {card}')
-  return launches
+  return launches, run.step_seconds, peak
 
 
 def dense_from_blocks(blocks: np.ndarray, dev) -> torch.Tensor:
@@ -750,6 +842,110 @@ def serve_nano(dev, g) -> float:
   return ms['kernel']
 
 
+def fused_path(spec, statics, dev, card, f_seconds, f_peak):
+  """Phase 17: the 1-degree training path with the fused attention backward
+  (GENCAST_SPARSE_FUSED_BWD=1, set around the calls and restored after): 3
+  steps through `train.main` with checkpoints every 2 steps, then a run to
+  step 5 that resumes from the newest checkpoint, then `evaluate.main` on
+  it (2 members, 2 steps). Returns each kernel's launches in the two
+  training runs together."""
+  import shutil
+  from gencast_tpu_torch.nn import transformer
+  from gencast_tpu_torch.ops import segment, sparse_attention
+  from gencast_tpu_torch.training import checkpoint, evaluate
+  work = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                      'chip_smoke')
+  shutil.rmtree(work, ignore_errors=True)
+  ckpt, out = os.path.join(work, 'ckpt'), os.path.join(work, 'eval')
+  jsonl = os.path.join(work, 'metrics.jsonl')
+  argv = ['--preset', '1deg', '--clean_sst_nans', '--save_every', '2',
+          '--ckpt_dir', ckpt, '--metrics_jsonl', jsonl]
+  before = os.environ.get(transformer.FUSED_BWD_ENV)
+  os.environ[transformer.FUSED_BWD_ENV] = '1'
+  try:
+    first, first_s, first_peak = train_preset(spec, statics, dev, card, argv,
+                                              tag='1deg fused')
+    second, second_s, second_peak = train_preset(
+        spec, statics, dev, card, argv, steps_run=5, start=3,
+        tag='1deg fused, resumed')
+  finally:
+    if before is None:
+      del os.environ[transformer.FUSED_BWD_ENV]
+    else:
+      os.environ[transformer.FUSED_BWD_ENV] = before
+  launches = {k: first[k] + second[k] for k in first}
+  saved = checkpoint.all_steps(checkpoint.create_manager(ckpt))
+  with open(jsonl) as f:
+    events = [json.loads(line) for line in f]
+  logged = [(e['event'], e['step']) for e in events]
+  if saved != [2, 3, 4] or logged != [('train', i) for i in range(1, 6)] or \
+      any(set(e) != {'event', 'step', 'time', 'loss', 'steps_per_sec'}
+          for e in events):
+    raise AssertionError(f'checkpoints at steps {saved}, metrics {events}')
+  log(f'[train 1deg fused] seconds per step {[round(x, 4) for x in first_s]}'
+      f' then {[round(x, 4) for x in second_s]} against kernel F\'s '
+      f'{[round(x, 4) for x in f_seconds]} (phase 10); peak memory '
+      f'{max(first_peak, second_peak) / 2**30:.2f} GiB against '
+      f'{f_peak / 2**30:.2f} GiB; checkpoints kept at steps {saved}; {card}')
+
+  members, rollout_steps = 2, 2
+  for c in counters():
+    c.reset()
+  t0 = time.perf_counter()
+  run = evaluate.main(['--preset', '1deg', '--ckpt_dir', ckpt,
+                       '--num_members', str(members), '--max_rollout_steps',
+                       str(rollout_steps), '--clean_sst_nans', '--out_dir',
+                       out, '--plot_vars'])
+  wall = time.perf_counter() - t0
+  served = {c.name: c.launches for c in counters()}
+  calls = members * rollout_steps * (2 * spec.num_noise_levels - 1)
+  expected = {c.name: 0 for c in counters()}
+  expected.update({sparse_attention.KERNEL.name: calls * spec.num_layers,
+                   segment.KERNEL.name: calls})
+  if served != expected:
+    raise AssertionError(f'evaluate launches {served}, expected {expected}')
+  state = torch.load(os.path.join(ckpt, 'step_4.pt'), weights_only=True)
+  restored = {n: p.detach().cpu() for n, p in run.model.named_parameters()}
+  if restored.keys() != state['params'].keys() or not all(
+      torch.equal(restored[n], state['params'][n]) for n in restored):
+    raise AssertionError('evaluate did not restore the saved parameters')
+  with open(os.path.join(out, 'metrics.json')) as f:
+    scores = json.load(f)
+  rollout = np.load(os.path.join(out, 'rollout.npz'))
+  layout = next(m for m in run.model.modules()
+                if hasattr(m, 'target_layout')).target_layout
+  # The synthetic fields of sea_surface_temperature are NaN over land, in
+  # the truth and in the inputs (which InputsAndResiduals adds back to the
+  # predicted residual), so there, as in the reference, the predictions are
+  # NaN and the CRPS and spread (plain means) are NaN; the RMSE skips NaNs.
+  preds, truth = rollout['predictions'], rollout['truth']
+  nan_vars = {v for v in layout.var_names
+              if np.isnan(truth[..., layout.var_channels(v)]).any()}
+  finite_preds = bool((np.isfinite(preds) | np.isnan(truth)[None]).all())
+  finite_scores = all(
+      np.isfinite(scores['rmse'][v]) and (v in nan_vars or (
+          np.isfinite(scores['crps'][v]) and np.isfinite(scores['spread'][v])))
+      for v in layout.var_names)
+  shape = (members, rollout_steps) + tuple(truth.shape[1:])
+  if not (finite_preds and finite_scores and preds.shape == shape
+          and shape[2:4] == (181, 360)):
+    raise AssertionError(f'evaluate: scores {scores}, predictions '
+                         f'{preds.shape}, finite where the truth is: '
+                         f'{finite_preds}')
+  log(f'[evaluate 1deg] step 4 restored exactly; {members} members x '
+      f'{rollout_steps} steps {preds.shape}, finite where the truth is; '
+      f'{wall:.1f} s with set-up; launches A '
+      f'{served[sparse_attention.KERNEL.name]}, B '
+      f'{served[segment.KERNEL.name]}, as derived; per-variable RMSE, '
+      f'spread and CRPS finite but CRPS and spread of {sorted(nan_vars)} '
+      f'(NaN over land); 2m_temperature RMSE '
+      f'{scores["rmse"]["2m_temperature"]:.4f}, CRPS '
+      f'{scores["crps"]["2m_temperature"]:.4f}, spread '
+      f'{scores["spread"]["2m_temperature"]:.4f}')
+  shutil.rmtree(work, ignore_errors=True)
+  return launches
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this check runs on the card only',
@@ -775,7 +971,7 @@ def main() -> int:
   log(f'[setup] kernels built in {cuda_lib.LIBRARY.build_seconds:.2f} s')
   entry = ''
   for line in cuda_lib.LIBRARY.compiler_log.splitlines():
-    m = re.search(r'((?:sparse|banded)_attention_(?:fwd|dq|dkv)_kernel'
+    m = re.search(r'((?:sparse|banded)_attention_(?:fwd|dq|dkvq|dkv)_kernel'
                   r'|segment_sum_kernel|ln_film_(?:bwd|reduce)_kernel)'
                   r'(?:I(.*?)EEv)?', line)
     if 'Compiling entry function' in line and m:
@@ -995,8 +1191,8 @@ def main() -> int:
 
   # --- 10. training: three full-width 1-degree steps through the CLI ---
   del model, stack
-  one_deg_launches = train_preset(spec, statics, dev, card,
-                                  ['--preset', '1deg', '--clean_sst_nans'])
+  one_deg_launches, one_deg_seconds, one_deg_peak = train_preset(
+      spec, statics, dev, card, ['--preset', '1deg', '--clean_sst_nans'])
 
   # --- 11. kernel C vs plain: nano's shape and TINY's tri-block shape ---
   nano = configs.NANO
@@ -1041,14 +1237,32 @@ def main() -> int:
   train_tiny_against_cpu(dev, 'full', configs.TINY_TRIBLOCK)
 
   # --- 15. training: three full-width nano steps through the CLI ---
-  nano_launches = train_preset(nano, nano_statics, dev, card,
-                               ['--preset', 'nano'])
+  nano_launches, _, _ = train_preset(nano, nano_statics, dev, card,
+                                     ['--preset', 'nano'])
+
+  # --- 16. kernel G vs plain and vs kernel F, from kernel A's lse ---
+  gather_t = tuple(torch.as_tensor(a, device=dev)
+                   for a in plans.build_bwd_gather(plan))
+  dense = dense_from_plan(plan, dev)
+  for dtype, rtol in ((torch.float32, BWD_F32_RTOL),
+                      (torch.bfloat16, BWD_BF16_RTOL)):
+    results[('G', dtype)] = check_fused_bwd(
+        (plan.padded_n, h, d), dtype, rtol, mt, plan_t, gather_t, plan.tile,
+        g, dense, allowed)
+  del dense, gather_t
+
+  # --- 17. the 1-degree path with the fused backward: train, resume,
+  # evaluate ---
+  fused_launches = fused_path(spec, statics, dev, card, one_deg_seconds,
+                              one_deg_peak)
 
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B in float32 on the
   # grid2mesh plan, E in bf16 at the largest shape it gets (the 1-degree
-  # mesh2grid edges), C and D at nano's [1, 2624, 4, 64] in bf16. Launches
-  # come from the training run of each kernel's path; E runs on both.
+  # mesh2grid edges), C and D at nano's [1, 2624, 4, 64] in bf16, G as A.
+  # Launches come from the training runs of each kernel's paths (1 degree,
+  # nano, and the 1-degree path with the fused backward), by path where a
+  # kernel runs on more than one.
   bf16 = torch.bfloat16
   err_a, ms_a, cost_a = results[('A', bf16, plan.padded_n)]
   err_b, ms_b, cost_b = results['B']
@@ -1056,6 +1270,7 @@ def main() -> int:
   errs_f, ms_f, costs_f = results[('F', bf16)]
   err_c, ms_c, cost_c = results[('C', 'nano', bf16)]
   errs_d, ms_d, costs_d = results[('D', 'nano', bf16)]
+  err_g, ms_g, cost_g = results[('G', bf16)]
   kernels = [
       row(sparse_attention.KERNEL, err_a, ms_a['kernel'], ms_a['plain'],
           ms_a['library'], *cost_a, bf16),
@@ -1073,12 +1288,15 @@ def main() -> int:
           ms_f['dq_plain'], ms_f['library'], *costs_f['dq'], bf16),
       row(sparse_attention.KERNEL_DKV, errs_f['dkv'][1], ms_f['dkv'],
           ms_f['dkv_plain'], ms_f['library'], *costs_f['dkv'], bf16),
+      row(sparse_attention.KERNEL_DKVQ, err_g[1], ms_g['kernel'],
+          ms_g['plain'], ms_g['library'], *cost_g, bf16),
   ]
   for k in kernels:
     by_path = {'1deg': one_deg_launches[k['name']],
-               'nano': nano_launches[k['name']]}
+               'nano': nano_launches[k['name']],
+               '1deg_fused': fused_launches[k['name']]}
     k['launches'] = sum(by_path.values())
-    if k['name'] == ln_film.KERNEL.name:
+    if sum(1 for n in by_path.values() if n) > 1:
       k['launches_by_path'] = by_path
     if k['launches'] == 0:
       raise AssertionError(f'{k["name"]} was not launched by training')

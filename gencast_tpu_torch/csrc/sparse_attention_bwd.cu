@@ -1,11 +1,15 @@
-// Block-sparse flash-attention backward over the static tile plan: two
-// kernels, dq over the forward plan and dk/dv over the reverse plan.
+// Block-sparse flash-attention backward over the static tile plan: three
+// kernels, dq over the forward plan, dk/dv over the reverse plan (kernel F),
+// and the fused sweep that gives dk/dv and every pair's dq partial in one
+// pass over the reverse plan (kernel G).
 //
 // Replaces the TPU kernels gencast_tpu/ops/sparse_attention.py:_dq_kernel
-// and :_dkv_kernel (pallas_calls in _sba_bwd). Same contract: from the
-// forward's saved row log-sum-exp (lse) and delta = rowsum(dO * O) (float32,
-// computed outside, as in the reference), recompute each allowed pair's
-// probability w = exp(s * scale - lse) under the exact uint8 mask tile, then
+// and :_dkv_kernel (pallas_calls in _sba_bwd), and :_dkvq_kernel (the
+// pallas_call in _sba_bwd_fused, the reference's opt-in fused backward).
+// Same contract: from the forward's saved row log-sum-exp (lse) and
+// delta = rowsum(dO * O) (float32, computed outside, as in the reference),
+// recompute each allowed pair's probability w = exp(s * scale - lse) under
+// the exact uint8 mask tile, then
 //   dp = dO . V^T,   ds = w * (dp - delta),
 //   dq = scale * ds . K,   dk = scale * ds^T . Q,   dv = w^T . dO.
 // Masked entries, the padded rows of the ragged last tile and rows that
@@ -14,10 +18,19 @@
 // to the input dtype before their products, as the reference's
 // ds.astype(k.dtype) and w.astype(do.dtype).
 //
+// Kernel G writes, for each (kv tile kt, slot a) pair of the reverse plan,
+// the unscaled product ds . K of that pair alone, rounded to the input
+// dtype (the reference's per-pair dqp tile), into slot kt * num_active + a
+// of a [batch, num_kv_tiles * num_active, h, 64, head_dim] buffer; the
+// caller sums each q tile's partials in float32 and scales them
+// (ops/sparse_attention.py, sparse_attention_dq_reduce). Pad slots are not
+// written: the caller's gather never reads them.
+//
 // What bounds it on an H100: arithmetic, as the forward (kernel A). Per
-// active (q tile, kv tile) pair and head, dq does 3 tile products and dk/dv
-// 4, against the forward's 2. This first version runs them as float32 FMAs
-// from shared memory with the forward's thread layout (a 16 x 16 grid of
+// active (q tile, kv tile) pair and head, dq does 3 tile products, dk/dv 4
+// and G 5 (against F's 7 in all), and G stores one 64 x d partial tile per
+// pair and head. This first version runs the products as float32 FMAs from
+// shared memory with the forward's thread layout (a 16 x 16 grid of
 // threads, 4 x 4 logits and 4 x (d/16) output columns each).
 //
 // What the design does about the differences from the TPU kernels:
@@ -25,12 +38,15 @@
 //   block, in place of the TPU's sequential grid axis; dq, or dk and dv,
 //   stay in registers across the list. Pad slots are skipped.
 // * Shared memory: tiles are stored in the input dtype (bf16 values are
-//   exact there and widened on read), so the bf16 dk/dv block holds K, V,
-//   Q, dO, the w and ds tiles and the transposed mask in 88 KB, and the dq
-//   block Q, dO, K, V, ds and the mask in 80 KB: two blocks per SM. The
-//   float32 variants (tests, TINY) take twice that and one block per SM.
-// * The dk/dv kernel reads the mask tile, indexed [q row, kv col],
+//   exact there and widened on read), so the bf16 dk/dv block (and G's,
+//   which reuses the ds and K tiles it already holds) takes K, V, Q, dO,
+//   the w and ds tiles and the transposed mask in 88 KB, and the dq block
+//   Q, dO, K, V, ds and the mask in 80 KB: two blocks per SM. The float32
+//   variants (tests, TINY) take twice that and one block per SM.
+// * The dk/dv sweep reads the mask tile, indexed [q row, kv col],
 //   transposed: it is copied into shared memory as [kv row, q col].
+// * G's partial tile is summed four output columns at a time, so its
+//   accumulators do not add to the dk/dv ones held across the list.
 #include "common.cuh"
 
 namespace {
@@ -216,14 +232,17 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dq_kernel(
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2) sparse_attention_dkv_kernel(
+// The reverse-plan sweep of one block (batch * head, kv tile): dk and dv
+// over the tile's q list (kernel F's dk/dv); with kPartial (kernel G) also
+// each pair's dq partial into `partial`.
+template <typename T, int D, bool kPartial>
+__device__ __forceinline__ void reverse_sweep(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const uint8_t* __restrict__ mask_tiles,
     const int* __restrict__ q_ids, const int* __restrict__ pair_ids,
-    T* __restrict__ dk, T* __restrict__ dv, int n, int h, int num_active,
-    int pad_tile, float scale) {
+    T* __restrict__ dk, T* __restrict__ dv, T* __restrict__ partial, int n,
+    int h, int num_active, int pad_tile, float scale) {
   using L = Bwd<T, D>;
   constexpr int kStride = L::kStride;
   constexpr int kPStride = L::kPStride;
@@ -359,6 +378,47 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dkv_kernel(
         }
       }
     }
+
+    if constexpr (kPartial) {
+      // The pair's dq partial ds . K for q rows ty*kRows + i and columns
+      // tx + 16*j: dss holds ds^T, [kv row, q col].
+      constexpr int kGroup = kOutCols < 4 ? kOutCols : 4;
+      const size_t slot = static_cast<size_t>(kt) * num_active + a;
+      T* dst = partial + ((static_cast<size_t>(bh / h) * gridDim.x *
+                           num_active + slot) * h + bh % h) * kTile * D;
+#pragma unroll
+      for (int j0 = 0; j0 < kOutCols; j0 += kGroup) {
+        float p[kRows][kGroup];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) p[i][j] = 0.f;
+#pragma unroll 4
+        for (int kk = 0; kk < kTile; ++kk) {
+          float dsv[kRows];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            dsv[i] = gt::to_float(dss[kk * kPStride + ty * kRows + i]);
+          }
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            const float kvv =
+                gt::to_float(ks[kk * kStride + tx + 16 * (j0 + j)]);
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) {
+              p[i][j] = fmaf(dsv[i], kvv, p[i][j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            dst[(ty * kRows + i) * D + tx + 16 * (j0 + j)] =
+                gt::from_float<T>(p[i][j]);
+          }
+      }
+    }
   }
 
 #pragma unroll
@@ -375,67 +435,108 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dkv_kernel(
 }
 
 template <typename T, int D>
-cudaError_t launch(bool dkv, const void* q, const void* k, const void* v,
+__global__ void __launch_bounds__(kThreads, 2) sparse_attention_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const uint8_t* __restrict__ mask_tiles,
+    const int* __restrict__ q_ids, const int* __restrict__ pair_ids,
+    T* __restrict__ dk, T* __restrict__ dv, int n, int h, int num_active,
+    int pad_tile, float scale) {
+  reverse_sweep<T, D, false>(q, k, v, dout, lse, delta, mask_tiles, q_ids,
+                             pair_ids, dk, dv, nullptr, n, h, num_active,
+                             pad_tile, scale);
+}
+
+// Kernel G.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2) sparse_attention_dkvq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const uint8_t* __restrict__ mask_tiles,
+    const int* __restrict__ q_ids, const int* __restrict__ pair_ids,
+    T* __restrict__ dk, T* __restrict__ dv, T* __restrict__ partial, int n,
+    int h, int num_active, int pad_tile, float scale) {
+  reverse_sweep<T, D, true>(q, k, v, dout, lse, delta, mask_tiles, q_ids,
+                            pair_ids, dk, dv, partial, n, h, num_active,
+                            pad_tile, scale);
+}
+
+enum Kind : int { kDq = 0, kDkv = 1, kDkvq = 2 };
+
+template <typename Kernel>
+cudaError_t with_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename T, int D>
+cudaError_t launch(Kind kind, const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    const uint8_t* mask_tiles, const int* ids, const int* pids,
-                   void* out0, void* out1, int batch, int n, int h,
-                   int num_tiles, int num_active, int pad_tile, float scale,
-                   cudaStream_t stream) {
+                   void* out0, void* out1, void* out2, int batch, int n,
+                   int h, int num_tiles, int num_active, int pad_tile,
+                   float scale, cudaStream_t stream) {
   const dim3 grid(num_tiles, batch * h);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  if (dkv) {
-    const size_t smem = Bwd<T, D>::kDkvBytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        sparse_attention_dkv_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    sparse_attention_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids,
-        static_cast<T*>(out0), static_cast<T*>(out1), n, h, num_active,
-        pad_tile, scale);
-  } else {
+  T* o0 = static_cast<T*>(out0);
+  T* o1 = static_cast<T*>(out1);
+  cudaError_t err;
+  if (kind == kDq) {
     const size_t smem = Bwd<T, D>::kDqBytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        sparse_attention_dq_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+    if ((err = with_smem(sparse_attention_dq_kernel<T, D>, smem))) return err;
     sparse_attention_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids,
-        static_cast<T*>(out0), n, h, num_active, pad_tile, scale);
+        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, n, h,
+        num_active, pad_tile, scale);
+  } else if (kind == kDkv) {
+    const size_t smem = Bwd<T, D>::kDkvBytes;
+    if ((err = with_smem(sparse_attention_dkv_kernel<T, D>, smem))) return err;
+    sparse_attention_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1, n, h,
+        num_active, pad_tile, scale);
+  } else {
+    const size_t smem = Bwd<T, D>::kDkvBytes;
+    if ((err = with_smem(sparse_attention_dkvq_kernel<T, D>, smem))) {
+      return err;
+    }
+    sparse_attention_dkvq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1,
+        static_cast<T*>(out2), n, h, num_active, pad_tile, scale);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int head_dim, bool dkv, const void* q, const void* k,
+cudaError_t dispatch_d(int head_dim, Kind kind, const void* q, const void* k,
                        const void* v, const void* dout, const float* lse,
                        const float* delta, const uint8_t* mask_tiles,
                        const int* ids, const int* pids, void* out0,
-                       void* out1, int batch, int n, int h, int num_tiles,
-                       int num_active, int pad_tile, float scale,
-                       cudaStream_t stream) {
+                       void* out1, void* out2, int batch, int n, int h,
+                       int num_tiles, int num_active, int pad_tile,
+                       float scale, cudaStream_t stream) {
   switch (head_dim) {
     case 32:  // TINY
-      return launch<T, 32>(dkv, q, k, v, dout, lse, delta, mask_tiles, ids,
-                           pids, out0, out1, batch, n, h, num_tiles,
+      return launch<T, 32>(kind, q, k, v, dout, lse, delta, mask_tiles, ids,
+                           pids, out0, out1, out2, batch, n, h, num_tiles,
                            num_active, pad_tile, scale, stream);
     case 128:  // ONE_DEG
-      return launch<T, 128>(dkv, q, k, v, dout, lse, delta, mask_tiles, ids,
-                            pids, out0, out1, batch, n, h, num_tiles,
+      return launch<T, 128>(kind, q, k, v, dout, lse, delta, mask_tiles, ids,
+                            pids, out0, out1, out2, batch, n, h, num_tiles,
                             num_active, pad_tile, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-int run(bool dkv, int dtype, int head_dim, const void* q, const void* k,
+int run(Kind kind, int dtype, int head_dim, const void* q, const void* k,
         const void* v, const void* dout, const void* lse, const void* delta,
         const void* mask_tiles, const void* ids, const void* pids,
-        void* out0, void* out1, int batch, int n, int h, int num_tiles,
-        int num_active, int pad_tile, float scale, void* stream) {
+        void* out0, void* out1, void* out2, int batch, int n, int h,
+        int num_tiles, int num_active, int pad_tile, float scale,
+        void* stream) {
   const auto* l = static_cast<const float*>(lse);
   const auto* dl = static_cast<const float*>(delta);
   const auto* m = static_cast<const uint8_t*>(mask_tiles);
@@ -444,12 +545,12 @@ int run(bool dkv, int dtype, int head_dim, const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case gt::kFloat32:
-      return dispatch_d<float>(head_dim, dkv, q, k, v, dout, l, dl, m, i, p,
-                               out0, out1, batch, n, h, num_tiles, num_active,
-                               pad_tile, scale, s);
+      return dispatch_d<float>(head_dim, kind, q, k, v, dout, l, dl, m, i, p,
+                               out0, out1, out2, batch, n, h, num_tiles,
+                               num_active, pad_tile, scale, s);
     case gt::kBFloat16:
-      return dispatch_d<__nv_bfloat16>(head_dim, dkv, q, k, v, dout, l, dl, m,
-                                       i, p, out0, out1, batch, n, h,
+      return dispatch_d<__nv_bfloat16>(head_dim, kind, q, k, v, dout, l, dl,
+                                       m, i, p, out0, out1, out2, batch, n, h,
                                        num_tiles, num_active, pad_tile, scale,
                                        s);
     default:
@@ -469,9 +570,9 @@ extern "C" int gt_sparse_attention_bwd_dq(
     const void* mask_tiles, const void* kv_ids, const void* pair_ids,
     void* dq, int batch, int n, int h, int num_q_tiles, int num_active,
     int pad_tile, float scale, void* stream) {
-  return run(false, dtype, head_dim, q, k, v, dout, lse, delta, mask_tiles,
-             kv_ids, pair_ids, dq, nullptr, batch, n, h, num_q_tiles,
-             num_active, pad_tile, scale, stream);
+  return run(kDq, dtype, head_dim, q, k, v, dout, lse, delta, mask_tiles,
+             kv_ids, pair_ids, dq, nullptr, nullptr, batch, n, h,
+             num_q_tiles, num_active, pad_tile, scale, stream);
 }
 
 // As gt_sparse_attention_bwd_dq, with the reverse plan: q_ids, pair_ids
@@ -483,7 +584,23 @@ extern "C" int gt_sparse_attention_bwd_dkv(
     const void* mask_tiles, const void* q_ids, const void* pair_ids,
     void* dk, void* dv, int batch, int n, int h, int num_kv_tiles,
     int num_active, int pad_tile, float scale, void* stream) {
-  return run(true, dtype, head_dim, q, k, v, dout, lse, delta, mask_tiles,
-             q_ids, pair_ids, dk, dv, batch, n, h, num_kv_tiles, num_active,
-             pad_tile, scale, stream);
+  return run(kDkv, dtype, head_dim, q, k, v, dout, lse, delta, mask_tiles,
+             q_ids, pair_ids, dk, dv, nullptr, batch, n, h, num_kv_tiles,
+             num_active, pad_tile, scale, stream);
+}
+
+// Kernel G: as gt_sparse_attention_bwd_dkv, and also partial: [batch,
+// num_kv_tiles * num_active, h, 64, head_dim] of the input dtype, slot
+// kt * num_active + a holding the dq partial ds . K (unscaled) of reverse
+// pair (kt, a); pad slots are left as they were.
+extern "C" int gt_sparse_attention_bwd_dkvq(
+    int dtype, int head_dim, const void* q, const void* k, const void* v,
+    const void* dout, const void* lse, const void* delta,
+    const void* mask_tiles, const void* q_ids, const void* pair_ids,
+    void* dk, void* dv, void* partial, int batch, int n, int h,
+    int num_kv_tiles, int num_active, int pad_tile, float scale,
+    void* stream) {
+  return run(kDkvq, dtype, head_dim, q, k, v, dout, lse, delta, mask_tiles,
+             q_ids, pair_ids, dk, dv, partial, batch, n, h, num_kv_tiles,
+             num_active, pad_tile, scale, stream);
 }

@@ -6,12 +6,16 @@ of `num_input_frames` input frames, one (or more) target frames and the
 target-time forcings; `SyntheticSource` generates physically-flavored
 fields deterministically per (seed, index); `selection_stream`,
 `batch_iterator` and `compute_stats` batch them and compute normalization
-statistics. The ERA5 sources and the stats files are not carried over yet.
+statistics; `save_stats` / `load_stats` / `load_stats_auto` keep them in the
+reference's npz format, so a file written by either package loads in the
+other. The ERA5 sources and DeepMind's NetCDF stats are not carried over
+yet (ROADMAP.md, "Still to port": CLIs and data).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Iterator, Sequence
 
 import numpy as np
@@ -300,3 +304,38 @@ def compute_stats(source: WindowedSource,
     diffs[name] = np.maximum(np.nanstd(d, axis=tuple(a for a in axes)),
                              1e-6)
   return layout_lib.Stats(mean=mean, std=std, diffs_std=diffs)
+
+
+def save_stats(stats: layout_lib.Stats, path: str) -> None:
+  """Writes the three tables to one npz (keys 'mean:<var>', 'std:<var>',
+  'diffs:<var>'), published atomically with os.replace."""
+  blob = {}
+  for kind, table in (('mean', stats.mean), ('std', stats.std),
+                      ('diffs', stats.diffs_std)):
+    for name, v in table.items():
+      blob[f'{kind}:{name}'] = np.asarray(v)
+  tmp = f'{path}.{os.getpid()}.tmp.npz'  # .npz: savez appends it otherwise
+  np.savez(tmp, **blob)
+  os.replace(tmp, path)
+
+
+def load_stats(path: str) -> layout_lib.Stats:
+  with np.load(path) as z:
+    tables = {'mean': {}, 'std': {}, 'diffs': {}}
+    for key in z.files:
+      kind, name = key.split(':', 1)
+      tables[kind][name] = z[key]
+  return layout_lib.Stats(mean=tables['mean'], std=tables['std'],
+                          diffs_std=tables['diffs'])
+
+
+def load_stats_auto(path: str, pressure_levels=None) -> layout_lib.Stats:
+  """Loads --stats_path: a file is the npz of `save_stats`. A directory
+  means DeepMind's published NetCDF stats, which the port does not read
+  yet."""
+  del pressure_levels  # selects the levels of the NetCDF tables
+  if os.path.isdir(path):
+    raise NotImplementedError(
+        f'{path} is a directory of NetCDF stats; they come with the ERA5 '
+        'sources (ROADMAP.md, "Still to port": CLIs and data)')
+  return load_stats(path)

@@ -4,7 +4,9 @@
   attention mask, consumed by the block-sparse attention kernel
   (ops/sparse_attention.py). Same arrays as
   `gencast_tpu.ops.sparse_attention.build_tile_plan` at the same tile,
-  built with vectorized numpy instead of a per-pair loop.
+  built with vectorized numpy instead of a per-pair loop; and
+  `build_bwd_gather`, the map that sums the fused backward's dq partials
+  (kernel G) by q tile.
 * `AggPlan` / `plan_if_profitable`: the receiver-sorted CSR schedule for the
   planned segment sum (ops/segment.py). The reference's one-hot (tile,
   width) pair schedule was a TPU matrix-unit design and is not carried
@@ -15,7 +17,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -100,6 +102,27 @@ def build_tile_plan(mask_csr, tile: int) -> TilePlan:
   return TilePlan(tile=tile, padded_n=nt * tile, mask_tiles=mask_tiles,
                   fwd_kv_ids=fwd_kv, fwd_pair_ids=fwd_pid,
                   bwd_q_ids=bwd_q, bwd_pair_ids=bwd_pid)
+
+
+def build_bwd_gather(plan: TilePlan) -> Tuple[np.ndarray, np.ndarray]:
+  """Gather map of the fused attention backward (kernel G).
+
+  The fused sweep writes each reverse pair's dq partial at flat slot
+  `kj * B + b` (B = plan.num_active_bwd); to sum them by q tile, each
+  forward slot (qi, a) needs the flat reverse slot of the same pair.
+  Returns (slot_ids [nq, A] int32, valid [nq, A] float32): pad entries of
+  the forward plan get slot 0 and valid 0. Same arrays as
+  `gencast_tpu.ops.sparse_attention.build_bwd_gather`, built vectorized.
+  """
+  pad = plan.num_pairs
+  # The flat reverse slot of every pair, by pair id (a pair has exactly one
+  # reverse slot and one forward slot).
+  slot_of_pair = np.zeros(pad + 1, np.int64)
+  real = plan.bwd_pair_ids != pad
+  slot_of_pair[plan.bwd_pair_ids[real]] = np.flatnonzero(real)
+  valid = plan.fwd_pair_ids != pad
+  slot = np.where(valid, slot_of_pair[plan.fwd_pair_ids], 0)
+  return slot.astype(np.int32), valid.astype(np.float32)
 
 
 def uniform_degree(segment_ids, num_segments: int) -> Optional[int]:

@@ -91,3 +91,12 @@ class Bfloat16Cast(nn.Module):
     i, f = self._in(inputs, forcings)
     kwargs.setdefault('dtype', torch.bfloat16)
     return self._bf16.sample(i, f, generator, **kwargs).float()
+
+
+def refresh_all(model: nn.Module) -> None:
+  """Remakes the serving copy of every Bfloat16Cast in `model` from its
+  master weights: after training, or after loading a checkpoint (the copy
+  lives outside `state_dict`, so a load does not reach it)."""
+  for m in model.modules():
+    if isinstance(m, Bfloat16Cast):
+      m.refresh()

@@ -1,4 +1,4 @@
-"""EDM noise-level schedules (Karras et al. 2022).
+"""EDM noise-level schedules (Karras et al. 2022), and keyed generators.
 
 Reference: gencast/samplers_utils.py:350-452.
 """
@@ -6,6 +6,18 @@ Reference: gencast/samplers_utils.py:350-452.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def keyed_generator(seed: int, *keys: int,
+                    device: torch.device | str = 'cpu') -> torch.Generator:
+  """A torch.Generator on `device` whose stream depends on (seed, *keys)
+  alone: the port's counterpart of the reference's
+  `jax.random.fold_in(PRNGKey(seed), key)` (the training step's draws by
+  step, an ensemble member's by member). The streams differ from JAX's."""
+  words = np.random.SeedSequence([seed, *keys]).generate_state(2, np.uint32)
+  value = (int(words[0]) << 32 | int(words[1])) & ((1 << 63) - 1)
+  return torch.Generator(device=device).manual_seed(value)
 
 
 def rho_inverse_cdf(min_value: float, max_value: float, rho: float, cdf):

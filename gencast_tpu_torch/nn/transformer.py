@@ -2,19 +2,20 @@
 
 Counterpart of `gencast_tpu.nn.transformer.MeshTransformer` with two of its
 attention backends, by the reference's names: 'pallas' (block-sparse
-attention over a `TilePlan`, kernels A and F on the card) and
-'triblock_pallas' (tri-block attention over the banded mask, kernels C and
-D). Pre-LN blocks with FiLM noise conditioning on both sublayers. The
-reference's vmapped layer stack and lax.scan become an nn.ModuleList walked
-by a Python loop, and its remat policies `torch.utils.checkpoint`
-(nn/remat.py) around each block ('full') or around its feed-forward half
-only ('save_attention'). The reference's einsum 'triblock' and 'dense'
-backends are not ported.
+attention over a `TilePlan`, kernels A and F on the card, or A and G under
+GENCAST_SPARSE_FUSED_BWD=1) and 'triblock_pallas' (tri-block attention over
+the banded mask, kernels C and D). Pre-LN blocks with FiLM noise
+conditioning on both sublayers. The reference's vmapped layer stack and
+lax.scan become an nn.ModuleList walked by a Python loop, and its remat
+policies `torch.utils.checkpoint` (nn/remat.py) around each block ('full')
+or around its feed-forward half only ('save_attention'). The reference's
+einsum 'triblock' and 'dense' backends are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -22,7 +23,7 @@ import torch
 from torch import nn
 
 from gencast_tpu_torch.graph.compiler import BandedMask
-from gencast_tpu_torch.graph.plans import TilePlan
+from gencast_tpu_torch.graph import plans
 from gencast_tpu_torch.nn import remat
 from gencast_tpu_torch.nn.mlp import FiLM, Linear, gelu, ln_film, \
     variance_scaling
@@ -30,6 +31,10 @@ from gencast_tpu_torch.ops import banded_attention, sparse_attention
 
 REMAT_POLICIES = ('full', 'save_attention')
 ATTENTION_TYPES = ('pallas', 'triblock_pallas')
+# The reference's switch to its fused block-sparse attention backward
+# (`gencast_tpu.ops.sparse_attention._FUSED_BWD`): same name, values and
+# default (off).
+FUSED_BWD_ENV = 'GENCAST_SPARSE_FUSED_BWD'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +100,9 @@ class _QKVProjections(nn.Module):
 
 
 class PallasSparseAttention(nn.Module):
-  """Block-sparse attention over the tile plan (kernels A and F on the card;
-  named after the reference's backend so parameter paths match)."""
+  """Block-sparse attention over the tile plan (kernels A and F, or A and G,
+  on the card; named after the reference's backend so parameter paths
+  match)."""
 
   def __init__(self, cfg: TransformerConfig, tile: int, *,
                rng: torch.Generator, use_kernels: bool = True):
@@ -108,7 +114,8 @@ class PallasSparseAttention(nn.Module):
 
   def forward(self, x: torch.Tensor, plan: Tuple[torch.Tensor, ...]
               ) -> torch.Tensor:
-    # plan: mask_tiles, fwd_kv_ids, fwd_pair_ids, bwd_q_ids, bwd_pair_ids.
+    # plan: mask_tiles, fwd_kv_ids, fwd_pair_ids, bwd_q_ids, bwd_pair_ids,
+    # and under the fused backward slot_ids, valid.
     q, k, v = self.proj.split_heads(x)  # [B, N, H, hd]
     if self.use_kernels:
       o = sparse_attention.sparse_banded_attention(
@@ -192,10 +199,17 @@ class MeshTransformer(nn.Module):
   padded_n, or to num_blocks * block_size of the tri-block mask) and sliced
   once after it; padded rows are masked as keys, give 0 as queries, and
   stay finite through LN/FiLM/FFW.
+
+  With the 'pallas' backend, GENCAST_SPARSE_FUSED_BWD=1 selects the fused
+  attention backward (kernel G) as in the reference: the plan's gather map
+  (`graph.plans.build_bwd_gather`) is kept as the buffers `slot_ids` and
+  `valid` and handed to the attention, whose backward then runs G instead of
+  F. The variable is read when the transformer is built (the reference reads
+  it once, at import), so one process can build both variants.
   """
 
   def __init__(self, cfg: TransformerConfig, *,
-               tile_plan: Optional[TilePlan] = None,
+               tile_plan: Optional[plans.TilePlan] = None,
                mask: Optional[BandedMask] = None,
                rng: torch.Generator, use_kernels: bool = True):
     super().__init__()
@@ -208,6 +222,10 @@ class MeshTransformer(nn.Module):
                             'bwd_q_ids', 'bwd_pair_ids')
       operands = {name: getattr(tile_plan, name)
                   for name in self.operand_names}
+      if os.environ.get(FUSED_BWD_ENV, '0') == '1':
+        operands['slot_ids'], operands['valid'] = plans.build_bwd_gather(
+            tile_plan)
+        self.operand_names += ('slot_ids', 'valid')
       self.padded_n = tile_plan.padded_n
 
       def make_attn():

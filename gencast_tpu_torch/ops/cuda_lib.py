@@ -48,6 +48,11 @@ _SIGNATURES = {
     'gt_sparse_attention_bwd_dkv': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                     _P],
+    # ... q_ids, pair_ids, dk, dv, partial, batch, n, h, num_kv_tiles,
+    # num_active, pad_tile, scale, stream
+    'gt_sparse_attention_bwd_dkvq': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _F, _P],
     # dtype, head_dim, q, k, v, mask, o, lse, batch, n, h, num_blocks,
     # block_size, scale, stream
     'gt_banded_attention_fwd': [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,

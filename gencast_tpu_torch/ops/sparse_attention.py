@@ -1,4 +1,4 @@
-"""Block-sparse attention over the k-hop mesh mask (kernels A and F).
+"""Block-sparse attention over the k-hop mesh mask (kernels A, F and G).
 
 `sparse_banded_attention` computes, for q/k/v [B, N, H, d], the softmax
 attention of every query node over the key nodes its k-hop mask allows,
@@ -11,20 +11,23 @@ It is a `torch.autograd.Function` whose backward follows the reference's
 `_sba_bwd`: from the forward's saved row log-sum-exp and
 delta = rowsum(dO * O) (float32, computed outside the kernels), dq over the
 forward plan and dk/dv over the reverse plan (`bwd_q_ids`/`bwd_pair_ids`).
+Given the fused backward's gather map as well (`slot_ids`, `valid` from
+`graph.plans.build_bwd_gather`), it runs the reference's opt-in
+`_sba_bwd_fused` instead, as the reference does when its VJP gets four
+backward arrays: one sweep of the reverse plan gives dk, dv and each pair's
+dq partial ds . K rounded to the input dtype, and `sparse_attention_dq_reduce`
+sums each q tile's partials in float32 and scales them.
 
 * On a CUDA tensor it launches the hand-written kernels: the forward
   `csrc/sparse_attention.cu` (kernel A, which also writes the lse) and the
-  backward `csrc/sparse_attention_bwd.cu` (kernel F: dq, then dk/dv), or
-  raises.
+  backward `csrc/sparse_attention_bwd.cu` (kernel F: dq, then dk/dv; or
+  kernel G, the fused sweep), or raises.
 * On a CPU tensor it runs the plain PyTorch versions of the same functions
   (`sparse_banded_attention_plain`, `sparse_attention_dq_plain`,
-  `sparse_attention_dkv_plain`): gather each tile's active tiles and do the
-  masked arithmetic explicitly, a chunk of tiles at a time, in float32 (or
-  float64 for float64 inputs). The backward never materializes more than a
-  chunk's probabilities.
-
-The reference's opt-in fused backward (`_sba_bwd_fused`, its
-`_dkvq_kernel`) is not ported yet.
+  `sparse_attention_dkv_plain`, `sparse_attention_dkvq_plain`): gather each
+  tile's active tiles and do the masked arithmetic explicitly, a chunk of
+  tiles at a time, in float32 (or float64 for float64 inputs). The backward
+  never materializes more than a chunk's probabilities.
 """
 
 from __future__ import annotations
@@ -48,6 +51,10 @@ KERNEL_DKV = cuda_lib.KernelCounter(
     'sparse_attention_bwd_dkv',
     'gencast_tpu_torch/csrc/sparse_attention_bwd.cu',
     'gencast_tpu/ops/sparse_attention.py:314')
+KERNEL_DKVQ = cuda_lib.KernelCounter(
+    'sparse_attention_bwd_dkvq',
+    'gencast_tpu_torch/csrc/sparse_attention_bwd.cu',
+    'gencast_tpu/ops/sparse_attention.py:354')
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Head dims the kernels are compiled for: TINY (32) and ONE_DEG (128).
@@ -162,20 +169,19 @@ def sparse_attention_dq_plain(q, k, v, dout, lse, delta, mask_tiles,
   return dq.view(b, nq * tile, h, d)[:, :n].to(q.dtype)
 
 
-def sparse_attention_dkv_plain(q, k, v, dout, lse, delta, mask_tiles,
-                               bwd_ids, bwd_pids, tile: int
-                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Plain PyTorch version of kernel F's dk/dv: over the reverse plan (per
-  kv tile, the q tiles that touch it), dv = w^T . dO and
-  dk = scale * ds^T . Q, with w and ds rounded to the input dtype before
-  their products. Returns (dk, dv) [B, N, H, d] in the input dtype."""
+def _reverse_sweep_plain(q, k, v, dout, lse, delta, mask_tiles, bwd_ids,
+                         bwd_pids, tile: int, partials: bool):
+  """The reverse-plan sweep of kernels F (dk/dv) and G: (dk, dv, and with
+  `partials` the [B, nk * A, H, tile, d] dq partials, else None)."""
   b, n, h, d = q.shape
-  nk = bwd_ids.shape[0]
+  nk, num_active = bwd_ids.shape
   acc = _acc_dtype(q.dtype)
   qt, kt, vt, dot = (_tiles(x, nk, tile, acc) for x in (q, k, v, dout))
   lse_t, delta_t = (_row_tiles(x, nk, tile, acc) for x in (lse, delta))
   dk = torch.empty(b, nk, tile, h, d, dtype=acc, device=q.device)
   dv = torch.empty_like(dk)
+  partial = (torch.empty(b, nk, num_active, h, tile, d, dtype=q.dtype,
+                         device=q.device) if partials else None)
   scale = d ** -0.5
   for sl in _chunks(nk):
     ids = bwd_ids[sl].long()                              # q tiles [c, A]
@@ -191,9 +197,67 @@ def sparse_attention_dkv_plain(q, k, v, dout, lse, delta, mask_tiles,
     dv[:, sl] = torch.einsum('bchjai,bcaihd->bcjhd', _round(w, q.dtype),
                              dot[:, ids])
     dk[:, sl] = torch.einsum('bchjai,bcaihd->bcjhd', ds, qt[:, ids]) * scale
+    if partials:
+      # Each pair's own ds . K, rounded to the input dtype (pad pairs give
+      # exact zeros: their mask tile is empty).
+      partial[:, sl] = torch.einsum('bchjai,bcjhd->bcahid', ds,
+                                    kt[:, sl]).to(q.dtype)
   def out(x):
     return x.view(b, nk * tile, h, d)[:, :n].to(q.dtype)
-  return out(dk), out(dv)
+  if partials:
+    partial = partial.view(b, nk * num_active, h, tile, d)
+  return out(dk), out(dv), partial
+
+
+def sparse_attention_dkv_plain(q, k, v, dout, lse, delta, mask_tiles,
+                               bwd_ids, bwd_pids, tile: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Plain PyTorch version of kernel F's dk/dv: over the reverse plan (per
+  kv tile, the q tiles that touch it), dv = w^T . dO and
+  dk = scale * ds^T . Q, with w and ds rounded to the input dtype before
+  their products. Returns (dk, dv) [B, N, H, d] in the input dtype."""
+  dk, dv, _ = _reverse_sweep_plain(q, k, v, dout, lse, delta, mask_tiles,
+                                   bwd_ids, bwd_pids, tile, partials=False)
+  return dk, dv
+
+
+def sparse_attention_dkvq_plain(q, k, v, dout, lse, delta, mask_tiles,
+                                bwd_ids, bwd_pids, tile: int
+                                ) -> Tuple[torch.Tensor, ...]:
+  """Plain PyTorch version of kernel G, the fused backward sweep: kernel F's
+  dk and dv over the reverse plan, and for every reverse pair (kv tile kj,
+  slot a) its dq partial ds . K (unscaled, rounded to the input dtype) at
+  slot kj * A + a of partial [B, nk * A, H, tile, d]. Returns (dk, dv,
+  partial); `sparse_attention_dq_reduce` turns the partials into dq."""
+  return _reverse_sweep_plain(q, k, v, dout, lse, delta, mask_tiles, bwd_ids,
+                              bwd_pids, tile, partials=True)
+
+
+def sparse_attention_dq_reduce(partial: torch.Tensor, slot_ids: torch.Tensor,
+                               valid: torch.Tensor, n: int) -> torch.Tensor:
+  """dq of the fused backward: for q tile qi,
+  scale * sum_a valid[qi, a] * partial[:, slot_ids[qi, a]], summed in
+  float32 (float64 for float64 partials) and cast to the partials' dtype,
+  as the reference's gather-reduce. partial [B, S, H, tile, d]; slot_ids,
+  valid [nq, A] (`graph.plans.build_bwd_gather`) -> dq [B, n, H, d].
+
+  Entries with valid 0 are selected away, not multiplied by 0, so slots
+  that kernel G leaves unwritten (pad pairs) never reach the sum. The
+  gather runs a chunk of q tiles at a time.
+  """
+  b, _, h, tile, d = partial.shape
+  nq, num_active = slot_ids.shape
+  acc = _acc_dtype(partial.dtype)
+  keep = (valid != 0)[None, :, :, None, None, None]
+  dq = torch.empty(b, nq, tile, h, d, dtype=partial.dtype,
+                   device=partial.device)
+  for sl in _chunks(nq):
+    c = sl.stop - sl.start
+    g = partial.index_select(1, slot_ids[sl].reshape(-1).long())
+    g = torch.where(keep[:, sl], g.view(b, c, num_active, h, tile, d), 0)
+    dq[:, sl] = (g.sum(dim=2, dtype=acc) * d ** -0.5).to(
+        partial.dtype).transpose(2, 3)
+  return dq.view(b, nq * tile, h, d)[:, :n]
 
 
 def sparse_attention_bwd_plain(q, k, v, o, lse, dout, mask_tiles, fwd_ids,
@@ -322,11 +386,37 @@ def sparse_attention_dkv_cuda(q, k, v, dout, lse, delta, mask_tiles, bwd_ids,
   return dk, dv
 
 
+def sparse_attention_dkvq_cuda(q, k, v, dout, lse, delta, mask_tiles,
+                               bwd_ids, bwd_pids, tile: int
+                               ) -> Tuple[torch.Tensor, ...]:
+  """Launches kernel G over the reverse plan: returns (dk, dv) [B, N, H, d]
+  and the dq partials [B, nk * A, H, tile, d] (pad slots left unwritten)."""
+  lib = _check_cuda_operands({'q': q, 'k': k, 'v': v, 'dout': dout},
+                             mask_tiles, bwd_ids, bwd_pids, tile)
+  _check_rows(lse, delta, q)
+  b, n, h, d = q.shape
+  nk, num_active = bwd_ids.shape
+  dk = torch.empty_like(q)
+  dv = torch.empty_like(q)
+  partial = torch.empty(b, nk * num_active, h, tile, d, dtype=q.dtype,
+                        device=q.device)
+  stream = torch.cuda.current_stream(q.device).cuda_stream
+  code = lib.gt_sparse_attention_bwd_dkvq(
+      _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+      dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+      mask_tiles.data_ptr(), bwd_ids.data_ptr(), bwd_pids.data_ptr(),
+      dk.data_ptr(), dv.data_ptr(), partial.data_ptr(), b, n, h, nk,
+      num_active, mask_tiles.shape[0] - 1, d ** -0.5, stream)
+  cuda_lib.check(code, 'gt_sparse_attention_bwd_dkvq')
+  KERNEL_DKVQ.launches += 1
+  return dk, dv, partial
+
+
 class _SparseAttention(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, q, k, v, mask_tiles, fwd_ids, fwd_pids, bwd_ids,
-              bwd_pids, tile):
+              bwd_pids, tile, slot_ids, valid):
     if q.is_cuda:
       o, lse = sparse_attention_fwd_cuda(q, k, v, mask_tiles, fwd_ids,
                                          fwd_pids, tile)
@@ -334,19 +424,27 @@ class _SparseAttention(torch.autograd.Function):
       o, lse = sparse_banded_attention_plain(q, k, v, mask_tiles, fwd_ids,
                                              fwd_pids, tile, return_lse=True)
     ctx.save_for_backward(q, k, v, o, lse, mask_tiles, fwd_ids, fwd_pids,
-                          bwd_ids, bwd_pids)
+                          bwd_ids, bwd_pids, slot_ids, valid)
     ctx.tile = tile
     return o
 
   @staticmethod
   def backward(ctx, dout):
-    q, k, v, o, lse, mask_tiles, fwd_ids, fwd_pids, bwd_ids, bwd_pids = (
-        ctx.saved_tensors)
+    (q, k, v, o, lse, mask_tiles, fwd_ids, fwd_pids, bwd_ids, bwd_pids,
+     slot_ids, valid) = ctx.saved_tensors
     if bwd_ids is None:
       raise RuntimeError('sparse attention backward needs the reverse plan '
                          '(bwd_ids, bwd_pids)')
     dout = dout.to(q.dtype).contiguous()
-    if not q.is_cuda:
+    if slot_ids is not None:
+      # The reference's fused backward (_sba_bwd_fused): kernel G.
+      delta = attention_delta(o, dout)
+      dkvq = (sparse_attention_dkvq_cuda if q.is_cuda
+              else sparse_attention_dkvq_plain)
+      dk, dv, partial = dkvq(q, k, v, dout, lse, delta, mask_tiles, bwd_ids,
+                             bwd_pids, ctx.tile)
+      dq = sparse_attention_dq_reduce(partial, slot_ids, valid, q.shape[1])
+    elif not q.is_cuda:
       dq, dk, dv = sparse_attention_bwd_plain(
           q, k, v, o, lse, dout, mask_tiles, fwd_ids, fwd_pids, bwd_ids,
           bwd_pids, ctx.tile)
@@ -357,20 +455,23 @@ class _SparseAttention(torch.autograd.Function):
       dk, dv = sparse_attention_dkv_cuda(q, k, v, dout, lse, delta,
                                          mask_tiles, bwd_ids, bwd_pids,
                                          ctx.tile)
-    return dq, dk, dv, None, None, None, None, None, None
+    return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def sparse_banded_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, mask_tiles: torch.Tensor,
                             fwd_ids: torch.Tensor, fwd_pids: torch.Tensor,
                             tile: int, bwd_ids: Optional[torch.Tensor] = None,
-                            bwd_pids: Optional[torch.Tensor] = None
+                            bwd_pids: Optional[torch.Tensor] = None,
+                            slot_ids: Optional[torch.Tensor] = None,
+                            valid: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
   """Block-sparse attention; q/k/v [B, N, H, d] -> [B, N, H, d].
 
   Kernels A (forward) and F (backward) on a CUDA tensor, the plain versions
   on a CPU tensor. Differentiable when the reverse plan (bwd_ids,
-  bwd_pids) is given.
+  bwd_pids) is given; with the gather map of `graph.plans.build_bwd_gather`
+  (slot_ids, valid) as well, the backward is the fused one, kernel G.
   """
   return _SparseAttention.apply(q, k, v, mask_tiles, fwd_ids, fwd_pids,
-                                bwd_ids, bwd_pids, tile)
+                                bwd_ids, bwd_pids, tile, slot_ids, valid)

@@ -84,7 +84,8 @@ def sample_rollout(model: nn.Module,
                    inputs: torch.Tensor,
                    forcings: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
-                   noise: Optional[Sequence[Sequence[torch.Tensor]]] = None
+                   noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+                   teacher_targets: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
   """Diffusion-sampled autoregressive rollout of a (wrapped) GenCast model.
 
@@ -92,7 +93,9 @@ def sample_rollout(model: nn.Module,
   (unnormalized) space, e.g. InputsAndResiduals(NaNCleaner(GenCast)).
   Randomness comes from `generator`, drawn from step after step, or from
   `noise`: for each of the K steps the N + 1 unit noise fields that
-  `GenCast.sample` takes. Returns [K, B, lat, lon, C_tgt].
+  `GenCast.sample` takes. With teacher_targets [K, B, lat, lon, C_tgt] the
+  window advances with them (teacher forcing, see `rollout`). Returns
+  [K, B, lat, lon, C_tgt].
   """
   if (generator is None) == (noise is None):
     raise ValueError('sample_rollout needs a generator or per-step noise')
@@ -108,4 +111,4 @@ def sample_rollout(model: nn.Module,
       return model.sample(x, frc, generator)
     return model.sample(x, frc, noise=noise[step])
 
-  return rollout(predict, inputs, forcings, maps)
+  return rollout(predict, inputs, forcings, maps, teacher_targets)

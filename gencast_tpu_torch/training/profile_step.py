@@ -13,7 +13,9 @@ noise level 1. Prints seconds per step or call (host clock), device time
 per step, the device's busy share of the profiled window (device activity
 over wall time; the work runs on one stream), the device time of each of
 the port's kernels and of the other kernel families, and the ten costliest
-kernels. `--trace` writes the profiler's Chrome trace.
+kernels. `--trace` writes the profiler's Chrome trace. With
+GENCAST_SPARSE_FUSED_BWD=1 in the environment the 1-degree step runs the
+fused attention backward (kernel G) instead of kernel F.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ _FAMILIES = (
     ('D-dk/dv', 'banded_attention_dkv_kernel'),
     ('D-dq', 'banded_attention_dq_kernel'),
     ('C', 'banded_attention_fwd_kernel'),
+    ('G', 'sparse_attention_dkvq_kernel'),
     ('F-dk/dv', 'sparse_attention_dkv_kernel'),
     ('F-dq', 'sparse_attention_dq_kernel'),
     ('A', 'sparse_attention_fwd_kernel'),
@@ -62,8 +65,11 @@ def main(argv=None) -> None:
   targs = train.parse_args(['--preset', args.preset, '--data', 'synthetic',
                             '--clean_sst_nans',
                             '--steps', str(args.steps + 1)])
-  wrapped, optimizer, it, generator, device = train.setup(targs)
-  batches = [{k: torch.as_tensor(v).to(device) for k, v in next(it).items()}
+  run = train.setup(targs)
+  wrapped, optimizer, device = run.wrapped, run.optimizer, run.device
+  generator = train.step_generator(targs.seed, 0, device)
+  batches = [{k: torch.as_tensor(v).to(device)
+              for k, v in next(run.batches).items()}
              for _ in range(args.steps + 1)]
 
   def step(batch):

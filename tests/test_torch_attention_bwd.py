@@ -20,6 +20,7 @@ from scipy import sparse as sp
 from gencast_tpu.ops import sparse_attention as jax_sa
 from gencast_tpu_torch.graph import plans
 from gencast_tpu_torch.ops import sparse_attention
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # max|port - jax| / max|jax| per gradient: both float32; online vs
 # two-pass softmax and matmul order differ.

@@ -15,6 +15,7 @@ import torch
 
 from gencast_tpu.ops import banded_attention as jax_ba
 from gencast_tpu_torch.ops import banded_attention as ba
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Forward, float32: the same f32 arithmetic in another summation order
 # (joint three-block max and sum vs einsums).

@@ -17,6 +17,7 @@ from gencast_tpu.ops import losses as jax_losses
 from gencast_tpu_torch.data import forcings, layout, registry, sources
 from gencast_tpu_torch.models import gencast
 from gencast_tpu_torch.ops import losses
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TASKS = {'gencast': registry.GENCAST_TASK,
          'gencast_full': registry.GENCAST_TASK_FULL}

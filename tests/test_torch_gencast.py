@@ -28,6 +28,7 @@ from gencast_tpu_torch import bridge, configs
 from gencast_tpu_torch.data import layout
 from gencast_tpu_torch.models import wrappers
 from gencast_tpu_torch.ops import banded_attention, segment, sparse_attention
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SPEC = dataclasses.replace(configs.TINY, attention_tile_size=32,
                            use_agg_plans=True, agg_plan_min_degree=2,

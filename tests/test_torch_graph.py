@@ -24,6 +24,7 @@ from gencast_tpu_torch.graph import compiler, plans
 from gencast_tpu_torch.models import diffusion_utils
 from gencast_tpu_torch.nn import gnn
 from gencast_tpu_torch.ops import sph_harm
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _assert_same(a, b, what):

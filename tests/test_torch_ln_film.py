@@ -15,6 +15,7 @@ import torch
 from gencast_tpu.ops import ln_film as jax_lf
 from gencast_tpu_torch.nn import mlp
 from gencast_tpu_torch.ops import ln_film
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # float32: the same f32 formulas in another summation order; relative to
 # the largest magnitude of each gradient.

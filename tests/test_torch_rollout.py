@@ -28,6 +28,7 @@ from gencast_tpu_torch import bridge, configs, rollout
 from gencast_tpu_torch.data import layout, registry
 from gencast_tpu_torch.models import wrappers
 from gencast_tpu_torch.ops import banded_attention
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SPEC = dataclasses.replace(configs.TINY_TRIBLOCK, stochastic_churn_rate=2.5,
                            num_noise_levels=2)

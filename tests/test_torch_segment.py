@@ -10,6 +10,7 @@ import torch
 from gencast_tpu.ops import segment as jax_segment
 from gencast_tpu_torch.graph import plans
 from gencast_tpu_torch.ops import segment
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # max|port - jax| / max|jax|: float32 sums in another order.
 RTOL = 1e-5

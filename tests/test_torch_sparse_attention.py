@@ -16,6 +16,7 @@ from scipy import sparse as sp
 from gencast_tpu.ops import sparse_attention as jax_sa
 from gencast_tpu_torch.graph import plans
 from gencast_tpu_torch.ops import sparse_attention
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Max abs error on unit-normal f32 inputs: both sides are f32; online vs
 # two-pass softmax and matmul order differ.

@@ -35,6 +35,7 @@ from gencast_tpu_torch.models import casting, wrappers
 from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
     sparse_attention
 from gencast_tpu_torch.training import steps, train
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SPEC = dataclasses.replace(configs.TINY, d_model=128, attention_tile_size=32,
                            use_agg_plans=True, agg_plan_min_degree=2)
