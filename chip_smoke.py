@@ -7,7 +7,10 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
-  1. setup: card name and power limit, build of the CUDA kernels;
+  1. setup: card name and power limit, build of the CUDA kernels, ptxas's
+     registers and spills per kernel, and the count of tensor-core
+     products and asynchronous copies in the attention backward kernels'
+     machine code (the bf16 kernels D and F must hold both);
   2. statics: the 1-degree graph, attention tile plan and aggregation plans;
   3. kernel A (block-sparse attention) against its plain PyTorch version at
      the 1-degree shapes (the mesh's n and the transformer's padded n),
@@ -20,8 +23,11 @@ Phases (any failure raises and exits non-zero):
   6. serving: two forecast requests of one 12-hour step (39 denoiser calls
      each), with kernel launch counts checked;
   7. kernel F (block-sparse attention backward: dq, then dk/dv) against its
-     plain version at the transformer's padded shape [1, 10304, 4, 128],
-     float32 and bfloat16, from kernel A's lse, with timings;
+     plain version at the transformer's padded shape [1, 10304, 4, 128], at
+     the mesh's ragged [1, 10242, 4, 128] (2 rows in the last tile) and at
+     head dim 32 on TINY's plan, float32 (FMA kernels) and bfloat16
+     (tensor-core kernels), from kernel A's lse, with NaN behind the last
+     row that must not reach the results, with timings;
   8. kernel E (LN+FiLM backward) against its plain version at the 1-degree
      transformer shape [1, 10304, 512] and mesh2grid edge shape
      [195480, 1, 512], float32 and bfloat16, with timings;
@@ -80,6 +86,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -110,6 +117,10 @@ TINY_SAMPLE_RTOL = 1e-3
 # (2^-8 of the element) shows.
 BWD_F32_RTOL = 1e-5
 BWD_BF16_RTOL = 1e-2
+# Kernel G's dk and dv against kernel F's are held to the two tolerances
+# above: in float32 both run one sweep; in bf16 F sums its products on the
+# tensor cores, in another order and with the fast exp, so the two differ
+# by flipped bf16 roundings as each does from the plain version.
 # Kernel G's bf16 dq against kernel F's, max|G - F| / max|F|: G rounds each
 # pair's partial ds . K to bf16 before the float32 sum over the pairs of a
 # query tile (the reference's fused numerics), F rounds the sum once.
@@ -147,6 +158,55 @@ def card_line() -> str:
       ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
       capture_output=True, text=True, check=True, timeout=60)
   return done.stdout.strip().splitlines()[0]
+
+
+KERNEL_NAME = re.compile(
+    r'((?:sparse|banded)_attention_(?:fwd|dq|dkvq|dkv)(?:_mma)?_kernel'
+    r'|segment_sum_kernel|ln_film_(?:bwd|reduce)_kernel)(?:I(.*?)EEv)?')
+
+
+def kernel_name(mangled: str) -> str:
+  """'name<template arguments>' of a kernel of the port in a mangled symbol;
+  '' if there is none."""
+  m = KERNEL_NAME.search(mangled)
+  if not m:
+    return ''
+  return m.group(1) + (f'<{m.group(2)}>' if m.group(2) else '')
+
+
+def log_sass_counts(lib_path: str) -> None:
+  """Logs, for each attention backward kernel in the built library, how many
+  tensor-core products (HMMA), ldmatrix loads (LDSM), asynchronous copies
+  (LDGSTS) and float32 FMAs (FFMA) its machine code holds; the tensor-core
+  kernels must hold HMMA, LDSM and LDGSTS. Raises where cuobjdump, which
+  comes with the toolkit that built the library, is not found."""
+  from torch.utils.cpp_extension import CUDA_HOME
+  tool = shutil.which('cuobjdump') or os.path.join(CUDA_HOME or '', 'bin',
+                                                   'cuobjdump')
+  if not os.path.exists(tool):
+    raise FileNotFoundError(
+        f'cuobjdump not found on PATH or at {tool}: the machine code of the '
+        f'tensor-core kernels cannot be inspected')
+  done = subprocess.run([tool, '-sass', lib_path], capture_output=True,
+                        text=True, check=True, timeout=600)
+  counts, name = {}, ''
+  for line in done.stdout.splitlines():
+    if 'Function :' in line:
+      name = kernel_name(line)
+      if '_attention_d' not in name:
+        name = ''
+    elif name:
+      c = counts.setdefault(name, dict.fromkeys(
+          ('HMMA', 'LDSM', 'LDGSTS', 'FFMA'), 0))
+      for op in c:
+        c[op] += bool(re.search(rf'\b{op}\b', line))
+  for name, c in sorted(counts.items()):
+    log(f'[setup] sass {name}: ' + ', '.join(f'{k} {v}' for k, v in c.items()))
+    if '_mma_' in name and not (c['HMMA'] and c['LDSM'] and c['LDGSTS']):
+      raise AssertionError(f'{name} holds no tensor-core product or no '
+                           f'asynchronous copy: {c}')
+  if not any('_mma_' in name for name in counts):
+    raise AssertionError(f'no tensor-core kernel found in {lib_path}')
 
 
 def time_in_turns(fns, reps):
@@ -270,11 +330,17 @@ def check_attention_bwd(shape, dtype, rtol, mt, plan_t, tile, g, dense,
   """Kernel F (dq, then dk/dv) against the plain backward on seeded q/k/v
   and dO [1, *shape], from kernel A's lse: returns ({'dq': (rel, abs),
   'dkv': (rel, abs)}, {'dq': ms, 'dq_plain': ms, 'dkv': ms,
-  'dkv_plain': ms, 'library': ms}, {'dq': (flops, bytes), 'dkv': ...})."""
+  'dkv_plain': ms, 'library': ms}, {'dq': (flops, bytes), 'dkv': ...}).
+  Each operand is the head of a buffer one tile longer whose tail is NaN: a
+  kernel that read a row past n would carry it into its sums (0 * NaN)."""
   from gencast_tpu_torch.ops import sparse_attention as sa
   fwd_ids, fwd_pids, bwd_ids, bwd_pids = plan_t
-  q, k, v, dout = (torch.randn((1,) + shape, generator=g, device=mt.device)
-                   .to(dtype) for _ in range(4))
+  n = shape[0]
+  q, k, v, dout = (torch.randn((1, n + tile) + shape[1:], generator=g,
+                               device=mt.device).to(dtype) for _ in range(4))
+  for x in (q, k, v, dout):
+    x[:, n:] = float('nan')
+  q, k, v, dout = (x[:, :n] for x in (q, k, v, dout))
   o, lse = sa.sparse_attention_fwd_cuda(q, k, v, mt, fwd_ids, fwd_pids, tile)
   delta = sa.attention_delta(o, dout)
   dq_args = (q, k, v, dout, lse, delta, mt, fwd_ids, fwd_pids, tile)
@@ -310,7 +376,7 @@ def check_attention_bwd(shape, dtype, rtol, mt, plan_t, tile, g, dense,
                    + rows)}
   log(f'[kernel F] {dtype} [1, {", ".join(map(str, shape))}]: dq max rel err '
       f'{errs["dq"][0]:.3e}, dk/dv {dk_err[0]:.3e}/{dv_err[0]:.3e} (tol '
-      f'{rtol}); dq kernel {ms["dq"]:.3f} ms, plain {ms["dq_plain"]:.3f} ms;'
+      f'{rtol}), NaN behind row {n} not read; dq kernel {ms["dq"]:.3f} ms, plain {ms["dq_plain"]:.3f} ms;'
       f' dk/dv kernel {ms["dkv"]:.3f} ms, plain {ms["dkv_plain"]:.3f} ms; '
       f'library backward (dq, dk, dv) {ms["library"]:.3f} ms')
   return errs, ms, costs
@@ -849,7 +915,6 @@ def fused_path(spec, statics, dev, card, f_seconds, f_peak):
   step 5 that resumes from the newest checkpoint, then `evaluate.main` on
   it (2 members, 2 steps). Returns each kernel's launches in the two
   training runs together."""
-  import shutil
   from gencast_tpu_torch.nn import transformer
   from gencast_tpu_torch.ops import segment, sparse_attention
   from gencast_tpu_torch.training import checkpoint, evaluate
@@ -971,14 +1036,12 @@ def main() -> int:
   log(f'[setup] kernels built in {cuda_lib.LIBRARY.build_seconds:.2f} s')
   entry = ''
   for line in cuda_lib.LIBRARY.compiler_log.splitlines():
-    m = re.search(r'((?:sparse|banded)_attention_(?:fwd|dq|dkvq|dkv)_kernel'
-                  r'|segment_sum_kernel|ln_film_(?:bwd|reduce)_kernel)'
-                  r'(?:I(.*?)EEv)?', line)
-    if 'Compiling entry function' in line and m:
-      entry = m.group(1) + (f'<{m.group(2)}>' if m.group(2) else '')
+    if 'Compiling entry function' in line and kernel_name(line):
+      entry = kernel_name(line)
     elif 'registers' in line or ('spill' in line
                                  and ' 0 bytes spill stores' not in line):
       log(f'[setup] ptxas {entry}: {line.split(":", 1)[-1].strip()}')
+  log_sass_counts(cuda_lib.library()._name)
 
   # --- 2. statics ---
   spec = configs.ONE_DEG
@@ -1169,12 +1232,28 @@ def main() -> int:
   # --- 7. kernel F vs plain ---
   plan_t = tuple(torch.as_tensor(a, device=dev) for a in (
       plan.fwd_kv_ids, plan.fwd_pair_ids, plan.bwd_q_ids, plan.bwd_pair_ids))
+  # At the transformer's padded n (the shape of the JSON rows), at the
+  # mesh's ragged n, and at head dim 32 on TINY's plan: every (dtype, head
+  # dim) the kernels are compiled for.
+  tiny_statics = configs.build_statics(tiny)
+  tiny_plan = tiny_statics.attention_tile_plan
+  tiny_t = tuple(torch.as_tensor(a, device=dev) for a in (
+      tiny_plan.mask_tiles, tiny_plan.fwd_kv_ids, tiny_plan.fwd_pair_ids,
+      tiny_plan.bwd_q_ids, tiny_plan.bwd_pair_ids))
+  tiny_n = tiny_statics.num_mesh_nodes
+  tiny_shape = (tiny_n, tiny.num_heads, tiny.d_model // tiny.num_heads)
+  tiny_dense = dense_from_plan(tiny_plan, dev)[:tiny_n, :tiny_n]
+  tiny_allowed = int(tiny_plan.mask_tiles.sum(dtype=np.int64))
   for dtype, rtol in ((torch.float32, BWD_F32_RTOL),
                       (torch.bfloat16, BWD_BF16_RTOL)):
     results[('F', dtype)] = check_attention_bwd(
         (plan.padded_n, h, d), dtype, rtol, mt, plan_t, plan.tile, g, dense,
         allowed)
-  del dense
+    check_attention_bwd((n, h, d), dtype, rtol, mt, plan_t, plan.tile, g,
+                        dense[:n, :n], allowed)
+    check_attention_bwd(tiny_shape, dtype, rtol, tiny_t[0], tiny_t[1:],
+                        tiny_plan.tile, g, tiny_dense, tiny_allowed)
+  del dense, tiny_t, tiny_dense
 
   # --- 8. kernel E vs plain ---
   m2g_edges = statics.mesh2grid.num_edges

@@ -20,16 +20,38 @@
 // j (mask[0][j]), j + 1 (which sees key block j as its lower neighbour:
 // mask[2][j + 1]) and j - 1 (its upper neighbour: mask[1][j - 1]), as the
 // reference's _dkv_kernel docstring and index maps say. Read that way the
-// mask is [query row, key column]; the dk/dv kernel stages each mask
-// sub-tile transposed, as [key row, query column], in shared memory.
+// mask is [query row, key column].
 //
-// What bounds it on an H100: arithmetic, as the forward (kernel C). Per
-// computed 64 x 64 sub-tile pair and head, dq does 3 tile products and dk/dv
-// 4, against the forward's 2, as float32 FMAs from shared memory with
-// kernel F's thread layout (a 16 x 16 grid of threads, 4 x 4 entries and
-// 4 x (d / 16) output columns each).
+// What bounds it on an H100: not the products (3 of 64 x 64 x d per
+// computed sub-tile pair and head in dq, 4 in dk/dv) and not the bytes, but
+// the walk of one block: the grid has one block per (batch * head, 64-row
+// sub-tile), 176 at nano for 264 block slots, and each walks up to 33
+// sub-tile pairs one after another, so a call takes as long as one pair
+// times the longest walk.
 //
-// What the design does about the differences from the TPU kernels:
+// bf16 D (nano's training path) therefore makes the pair short: every
+// product is an mma.sync m16n8k16 on the tensor cores with float32 sums, in
+// kernel F's design (mma_tile.cuh, shared with it, says why not wgmma). A
+// block of four warps owns one sub-tile, a warp 16 of its rows:
+// * Before the walk the block's warps read, 8 bytes at a time, the mask
+//   sub-tiles of all its candidate pairs and note which have an allowed
+//   entry; only those are loaded and computed, missing neighbours never.
+// * Sub-tiles arrive by 16-byte cp.async (the mask by 8 bytes: a block size
+//   is a multiple of 8, not of 16), rows and columns past the block edge
+//   zero-filled, two stages deep: the next pair's K, V (dq) or Q, dO, lse,
+//   delta (dk/dv) and mask are in flight during this pair's products, with
+//   one barrier per pair.
+// * w and ds stay in registers between the products, and dk/dv selects on
+//   mask[query, key] by (column, row) of its transposed logits, with no
+//   transposed copy.
+//
+// float32 D (tests, TINY) keeps the first design: float32 FMAs from shared
+// memory with a 16 x 16 grid of threads, 4 x 4 entries and 4 x (d / 16)
+// output columns each (TF32 would not hold float32's tolerance), the mask
+// sub-tile read first and the pair skipped if it is empty, the dk/dv mask
+// staged transposed.
+//
+// What both designs do about the differences from the TPU kernels:
 // * One CUDA block per (batch * head, 64-row sub-tile of a block) in place
 //   of the TPU's (batch * head, block) grid, which has 16 programs at nano;
 //   the block walks the up to three neighbouring blocks in 64-row sub-tiles,
@@ -39,9 +61,11 @@
 //   [batch, N, heads, d] by strides: no zero-padded or transposed copies, as
 //   the reference's _pad_blocks and [batch * heads, N, d] reshapes made.
 // * Sub-tile pairs whose mask sub-tile has no allowed entry are skipped.
-// * Tiles are stored in shared memory in the input dtype (bf16 values are
-//   exact there and widened on read), as in kernel F.
+// * Tiles are stored in shared memory in the input dtype.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -426,6 +450,180 @@ __global__ void __launch_bounds__(kThreads, 2) banded_attention_dkv_kernel(
   }
 }
 
+// ---- bf16 kernel D on the tensor cores ----
+
+namespace mma = gt::mma;
+using mma::bf16;
+
+// The first candidate pair from `c` on whose mask sub-tile has an allowed
+// entry; `count` if none.
+__device__ __forceinline__ int next_allowed(const uint8_t* flags, int c,
+                                            int count) {
+  while (c < count && !flags[c]) ++c;
+  return c;
+}
+
+template <int D>
+__global__ void __launch_bounds__(mma::kThreads, 2)
+banded_attention_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ mask, bf16* __restrict__ dq, int n, int h,
+    int nb, int bs, float scale) {
+  constexpr int kElems = mma::Tile<D>::kElems;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + kElems;
+  bf16* ks = dos + kElems;      // two stages
+  bf16* vs = ks + 2 * kElems;   // two stages
+  uint8_t* ms = reinterpret_cast<uint8_t*>(vs + 2 * kElems);  // two stages
+  uint8_t* flags = ms + 2 * mma::kMaskBytes;  // [3 * subs]
+
+  const int subs = (bs + kSub - 1) / kSub;
+  const int qb = blockIdx.x / subs;
+  const int qsub = blockIdx.x % subs;
+  const int q0 = qb * bs + qsub * kSub;
+  const int q_count = min(kSub, bs - qsub * kSub);
+  const int bh = blockIdx.y;  // batch * h + head
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row_stride = static_cast<size_t>(h) * D;
+  const size_t base = (static_cast<size_t>(bh / h) * n * h + bh % h) * D;
+
+  const size_t q_at = base + static_cast<size_t>(q0) * row_stride;
+  mma::load_tile_async<D>(q + q_at, row_stride, q_count, qs);
+  mma::load_tile_async<D>(dout + q_at, row_stride, q_count, dos);
+
+  // Candidate pair c is key sub-tile c % subs of key block qb + c / subs - 1:
+  // lower (mask part 2), diagonal (0), upper (1). The mask sub-tile of a
+  // pair, rows of query block qb by columns of that key block:
+  auto mask_sub = [&](int c) {
+    const int shift = c / subs - 1;
+    const int part = shift < 0 ? 2 : shift;
+    return mask + ((static_cast<size_t>(part) * nb + qb) * bs + qsub * kSub) *
+                      bs + (c % subs) * kSub;
+  };
+  auto k_count_of = [&](int c) { return min(kSub, bs - (c % subs) * kSub); };
+  const int pairs = 3 * subs;
+  for (int c = warp; c < pairs; c += mma::kWarps) {
+    const int kb = qb + c / subs - 1;
+    const bool any = kb >= 0 && kb < nb &&
+                     mma::mask_sub_any(mask_sub(c), bs, q_count, k_count_of(c),
+                                       lane);
+    if (lane == 0) flags[c] = any;
+  }
+  // lse and delta of this lane's two rows; 0 past the block edge.
+  const int row = 16 * warp + lane / 4;
+  const float* lse_t = lse + static_cast<size_t>(bh) * n + q0;
+  const float* delta_t = delta + static_cast<size_t>(bh) * n + q0;
+  const float lse0 = row < q_count ? lse_t[row] : 0.f;
+  const float lse1 = row + 8 < q_count ? lse_t[row + 8] : 0.f;
+  const float delta0 = row < q_count ? delta_t[row] : 0.f;
+  const float delta1 = row + 8 < q_count ? delta_t[row + 8] : 0.f;
+  __syncthreads();  // the flags are in shared memory
+
+  auto start_pair = [&](int c, int stage) {
+    const int k0 = (qb + c / subs - 1) * bs + (c % subs) * kSub;
+    const int k_count = k_count_of(c);
+    const size_t at = base + static_cast<size_t>(k0) * row_stride;
+    mma::load_tile_async<D>(k + at, row_stride, k_count, ks + stage * kElems);
+    mma::load_tile_async<D>(v + at, row_stride, k_count, vs + stage * kElems);
+    mma::load_mask_sub_async(mask_sub(c), bs, q_count, k_count,
+                             ms + stage * mma::kMaskBytes);
+  };
+
+  float acc[D / 8][4] = {};
+  mma::walk_pairs(
+      pairs, [&](int c) { return next_allowed(flags, c, pairs); }, start_pair,
+      [&](int stage) {
+        mma::dq_pair<D>(acc, qs, dos, ks + stage * kElems, vs + stage * kElems,
+                        ms + stage * mma::kMaskBytes, lse0, lse1, delta0,
+                        delta1, scale, warp, lane);
+      });
+  mma::store_strip<D>(acc, dq + q_at, row_stride, q_count, scale, warp, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(mma::kThreads, 2)
+banded_attention_dkv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ mask, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int n, int h, int nb, int bs, float scale) {
+  constexpr int kElems = mma::Tile<D>::kElems;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + kElems;
+  bf16* qs = vs + kElems;       // two stages
+  bf16* dos = qs + 2 * kElems;  // two stages
+  uint8_t* ms = reinterpret_cast<uint8_t*>(dos + 2 * kElems);  // two stages
+  float* vecs = reinterpret_cast<float*>(ms + 2 * mma::kMaskBytes);  // two
+  uint8_t* flags = reinterpret_cast<uint8_t*>(vecs + 4 * kSub);  // [3 * subs]
+
+  const int subs = (bs + kSub - 1) / kSub;
+  const int kb = blockIdx.x / subs;  // key block
+  const int ksub = blockIdx.x % subs;
+  const int k0 = kb * bs + ksub * kSub;
+  const int k_count = min(kSub, bs - ksub * kSub);
+  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row_stride = static_cast<size_t>(h) * D;
+  const size_t base = (static_cast<size_t>(bh / h) * n * h + bh % h) * D;
+
+  const size_t k_at = base + static_cast<size_t>(k0) * row_stride;
+  mma::load_tile_async<D>(k + k_at, row_stride, k_count, ks);
+  mma::load_tile_async<D>(v + k_at, row_stride, k_count, vs);
+
+  // Candidate pair c is query sub-tile c % subs of query block
+  // kb + c / subs - 1: j - 1 (which sees key block j above it: mask[1][j - 1]),
+  // j (mask[0][j]), j + 1 (mask[2][j + 1]). The mask sub-tile of a pair,
+  // rows of that query block by columns of key block kb:
+  auto mask_sub = [&](int c) {
+    const int shift = c / subs - 1;
+    const int part = shift < 0 ? 1 : (shift > 0 ? 2 : 0);
+    return mask + ((static_cast<size_t>(part) * nb + kb + shift) * bs +
+                   (c % subs) * kSub) * bs + ksub * kSub;
+  };
+  auto q_count_of = [&](int c) { return min(kSub, bs - (c % subs) * kSub); };
+  const int pairs = 3 * subs;
+  for (int c = warp; c < pairs; c += mma::kWarps) {
+    const int qb = kb + c / subs - 1;
+    const bool any = qb >= 0 && qb < nb &&
+                     mma::mask_sub_any(mask_sub(c), bs, q_count_of(c), k_count,
+                                       lane);
+    if (lane == 0) flags[c] = any;
+  }
+  __syncthreads();  // the flags are in shared memory
+
+  auto start_pair = [&](int c, int stage) {
+    const int q0 = (kb + c / subs - 1) * bs + (c % subs) * kSub;
+    const int q_count = q_count_of(c);
+    const size_t at = base + static_cast<size_t>(q0) * row_stride;
+    mma::load_tile_async<D>(q + at, row_stride, q_count, qs + stage * kElems);
+    mma::load_tile_async<D>(dout + at, row_stride, q_count,
+                            dos + stage * kElems);
+    mma::load_vecs_async(lse + static_cast<size_t>(bh) * n + q0,
+                         delta + static_cast<size_t>(bh) * n + q0, q_count,
+                         vecs + stage * 2 * kSub);
+    mma::load_mask_sub_async(mask_sub(c), bs, q_count, k_count,
+                             ms + stage * mma::kMaskBytes);
+  };
+
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  mma::walk_pairs(
+      pairs, [&](int c) { return next_allowed(flags, c, pairs); }, start_pair,
+      [&](int stage) {
+        mma::dkv_pair<D, kSub>(dk_acc, dv_acc, ks, vs, qs + stage * kElems,
+                               dos + stage * kElems,
+                               ms + stage * mma::kMaskBytes,
+                               vecs + stage * 2 * kSub, scale, warp, lane);
+      });
+  mma::store_strip<D>(dk_acc, dk + k_at, row_stride, k_count, scale, warp,
+                      lane);
+  mma::store_strip<D>(dv_acc, dv + k_at, row_stride, k_count, 1.f, warp, lane);
+}
+
 template <typename T, int D>
 cudaError_t launch(bool dkv, const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
@@ -437,7 +635,30 @@ cudaError_t launch(bool dkv, const void* q, const void* k, const void* v,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  if (dkv) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // bf16 D: blocks of four warps, the pairs' flags behind the stages.
+    const size_t flags = (3 * ((bs + kSub - 1) / kSub) + 15) / 16 * 16;
+    if (dkv) {
+      const size_t smem = mma::Staged<D>::kDkvBytes + flags;
+      cudaError_t err = cudaFuncSetAttribute(
+          banded_attention_dkv_mma_kernel<D>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      banded_attention_dkv_mma_kernel<D>
+          <<<grid, mma::kThreads, smem, stream>>>(
+              qt, kt, vt, dot, lse, delta, mask, static_cast<T*>(out0),
+              static_cast<T*>(out1), n, h, nb, bs, scale);
+    } else {
+      const size_t smem = mma::Staged<D>::kDqBytes + flags;
+      cudaError_t err = cudaFuncSetAttribute(
+          banded_attention_dq_mma_kernel<D>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      banded_attention_dq_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
+          qt, kt, vt, dot, lse, delta, mask, static_cast<T*>(out0), n, h, nb,
+          bs, scale);
+    }
+  } else if (dkv) {
     const size_t smem = Bwd<T, D>::kDkvBytes;
     cudaError_t err = cudaFuncSetAttribute(
         banded_attention_dkv_kernel<T, D>,

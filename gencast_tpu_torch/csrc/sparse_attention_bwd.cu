@@ -26,28 +26,54 @@
 // (ops/sparse_attention.py, sparse_attention_dq_reduce). Pad slots are not
 // written: the caller's gather never reads them.
 //
-// What bounds it on an H100: arithmetic, as the forward (kernel A). Per
-// active (q tile, kv tile) pair and head, dq does 3 tile products, dk/dv 4
-// and G 5 (against F's 7 in all), and G stores one 64 x d partial tile per
-// pair and head. This first version runs the products as float32 FMAs from
-// shared memory with the forward's thread layout (a 16 x 16 grid of
-// threads, 4 x 4 logits and 4 x (d/16) output columns each).
+// What bounds it on an H100: the tile products. Per active (q tile, kv
+// tile) pair and head, dq does 3 products of 64 x 64 x d, dk/dv 4 and G 5
+// (against F's 7 in all), on every entry of a tile that has an allowed one;
+// the other side's tiles are read again for every pair, but from L2 and
+// behind the products. G also stores one 64 x d partial tile per pair and
+// head.
 //
-// What the design does about the differences from the TPU kernels:
+// bf16 F (the training path): every product is an mma.sync m16n8k16 on the
+// tensor cores with float32 sums (mma_tile.cuh says why not wgmma). A block
+// of four warps owns one tile (q rows in dq, kv rows in dk/dv), a warp 16 of
+// its rows, and walks the tile's list with dq, or dk and dv, in registers:
+// * Tiles arrive by 16-byte cp.async into rows that ldmatrix reads without
+//   bank conflicts, two stages deep: while pair a is computed, the K, V (dq)
+//   or Q, dO, lse, delta (dk/dv) and the mask tile of pair a + 1 are in
+//   flight, with one barrier per pair.
+// * w and ds never touch shared memory: the accumulator fragments of s and
+//   dp are turned into w and ds in place, rounded to bf16 and fed as the A
+//   operand of dq += ds . K, dv += w^T . dO and dk += ds^T . Q; K, dO and Q
+//   are read along their rows by ldmatrix.trans.
+// * dk/dv computes the transposed logits K . Q^T, so each lane selects on
+//   mask[q, kv] by (column, row) of its fragment: no transposed mask copy.
+// * At d = 128 dk/dv holds 128 float32 sums per thread; it takes the q
+//   columns of a pair 32 at a time to stay clear of spills.
+// * The tile's list (ids and pair ids) is copied to shared memory once; pad
+//   slots are skipped.
+//
+// float32 F (tests, TINY) and G in both dtypes keep the first design: the
+// products as float32 FMAs from shared memory, a 16 x 16 grid of threads
+// with 4 x 4 logits and 4 x (d/16) output columns each (TF32 would not hold
+// float32's tolerance).
+//
+// What that first design does about the differences from the TPU kernels:
 // * One block per (batch * head, tile) walks that tile's list inside the
 //   block, in place of the TPU's sequential grid axis; dq, or dk and dv,
 //   stay in registers across the list. Pad slots are skipped.
 // * Shared memory: tiles are stored in the input dtype (bf16 values are
-//   exact there and widened on read), so the bf16 dk/dv block (and G's,
-//   which reuses the ds and K tiles it already holds) takes K, V, Q, dO,
-//   the w and ds tiles and the transposed mask in 88 KB, and the dq block
-//   Q, dO, K, V, ds and the mask in 80 KB: two blocks per SM. The float32
-//   variants (tests, TINY) take twice that and one block per SM.
+//   exact there and widened on read), so G's bf16 block (which reuses the
+//   ds and K tiles it already holds) takes K, V, Q, dO, the w and ds tiles
+//   and the transposed mask in 88 KB: two blocks per SM. The float32
+//   variants take twice that and one block per SM.
 // * The dk/dv sweep reads the mask tile, indexed [q row, kv col],
 //   transposed: it is copied into shared memory as [kv row, q col].
 // * G's partial tile is summed four output columns at a time, so its
 //   accumulators do not add to the dk/dv ones held across the list.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -461,6 +487,161 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dkvq_kernel(
                             pad_tile, scale);
 }
 
+// ---- bf16 kernel F on the tensor cores ----
+
+namespace mma = gt::mma;
+using mma::bf16;
+
+// The first slot from `a` on that is not a pad slot; num_active if none.
+__device__ __forceinline__ int next_real(const int* pids, int a,
+                                         int num_active, int pad_tile) {
+  while (a < num_active && pids[a] == pad_tile) ++a;
+  return a;
+}
+
+// Rows of tile `tile` that lie below n (64, fewer in the ragged last tile).
+__device__ __forceinline__ int tile_rows(int tile, int n) {
+  return max(0, min(kTile, n - tile * kTile));
+}
+
+template <int D>
+__global__ void __launch_bounds__(mma::kThreads, 2)
+sparse_attention_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ mask_tiles, const int* __restrict__ kv_ids,
+    const int* __restrict__ pair_ids, bf16* __restrict__ dq, int n, int h,
+    int num_active, int pad_tile, float scale) {
+  constexpr int kElems = mma::Tile<D>::kElems;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + kElems;
+  bf16* ks = dos + kElems;      // two stages
+  bf16* vs = ks + 2 * kElems;   // two stages
+  uint8_t* ms = reinterpret_cast<uint8_t*>(vs + 2 * kElems);  // two stages
+  int* ids = reinterpret_cast<int*>(ms + 2 * mma::kMaskBytes);
+  int* pids = ids + num_active;
+
+  const int qt = blockIdx.x;
+  const int bh = blockIdx.y;  // batch * h + head
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row_stride = static_cast<size_t>(h) * D;
+  const size_t base = (static_cast<size_t>(bh / h) * n * h + bh % h) * D;
+  const int q_rows = tile_rows(qt, n);
+  if (q_rows == 0) return;  // the whole block: a plan tile past n
+
+  for (int i = threadIdx.x; i < num_active; i += mma::kThreads) {
+    ids[i] = kv_ids[static_cast<size_t>(qt) * num_active + i];
+    pids[i] = pair_ids[static_cast<size_t>(qt) * num_active + i];
+  }
+  const size_t q_at = base + static_cast<size_t>(qt) * kTile * row_stride;
+  mma::load_tile_async<D>(q + q_at, row_stride, q_rows, qs);
+  mma::load_tile_async<D>(dout + q_at, row_stride, q_rows, dos);
+  // lse and delta of this lane's two rows; 0 past n.
+  const int row = 16 * warp + lane / 4;
+  const float* lse_t = lse + static_cast<size_t>(bh) * n + qt * kTile;
+  const float* delta_t = delta + static_cast<size_t>(bh) * n + qt * kTile;
+  const float lse0 = row < q_rows ? lse_t[row] : 0.f;
+  const float lse1 = row + 8 < q_rows ? lse_t[row + 8] : 0.f;
+  const float delta0 = row < q_rows ? delta_t[row] : 0.f;
+  const float delta1 = row + 8 < q_rows ? delta_t[row + 8] : 0.f;
+  __syncthreads();  // the list is in shared memory
+
+  auto start_pair = [&](int a, int stage) {
+    const int kt = ids[a];
+    const int k_rows = tile_rows(kt, n);
+    const int k0 = k_rows > 0 ? kt * kTile : 0;  // a valid address anyway
+    const size_t at = base + static_cast<size_t>(k0) * row_stride;
+    mma::load_tile_async<D>(k + at, row_stride, k_rows, ks + stage * kElems);
+    mma::load_tile_async<D>(v + at, row_stride, k_rows, vs + stage * kElems);
+    mma::load_mask_tile_async(
+        mask_tiles + static_cast<size_t>(pids[a]) * mma::kMaskBytes,
+        ms + stage * mma::kMaskBytes);
+  };
+
+  float acc[D / 8][4] = {};
+  mma::walk_pairs(
+      num_active,
+      [&](int a) { return next_real(pids, a, num_active, pad_tile); },
+      start_pair, [&](int stage) {
+        mma::dq_pair<D>(acc, qs, dos, ks + stage * kElems, vs + stage * kElems,
+                        ms + stage * mma::kMaskBytes, lse0, lse1, delta0,
+                        delta1, scale, warp, lane);
+      });
+  mma::store_strip<D>(acc, dq + q_at, row_stride, q_rows, scale, warp, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(mma::kThreads, 2)
+sparse_attention_dkv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ mask_tiles, const int* __restrict__ q_ids,
+    const int* __restrict__ pair_ids, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int n, int h, int num_active, int pad_tile,
+    float scale) {
+  constexpr int kElems = mma::Tile<D>::kElems;
+  constexpr int kCols = D > 64 ? 32 : kTile;  // q columns in registers at once
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + kElems;
+  bf16* qs = vs + kElems;       // two stages
+  bf16* dos = qs + 2 * kElems;  // two stages
+  uint8_t* ms = reinterpret_cast<uint8_t*>(dos + 2 * kElems);  // two stages
+  float* vecs = reinterpret_cast<float*>(ms + 2 * mma::kMaskBytes);  // two
+  int* ids = reinterpret_cast<int*>(vecs + 4 * kTile);
+  int* pids = ids + num_active;
+
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;  // batch * h + head
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row_stride = static_cast<size_t>(h) * D;
+  const size_t base = (static_cast<size_t>(bh / h) * n * h + bh % h) * D;
+  const int k_rows = tile_rows(kt, n);
+  if (k_rows == 0) return;  // the whole block: a plan tile past n
+
+  for (int i = threadIdx.x; i < num_active; i += mma::kThreads) {
+    ids[i] = q_ids[static_cast<size_t>(kt) * num_active + i];
+    pids[i] = pair_ids[static_cast<size_t>(kt) * num_active + i];
+  }
+  const size_t k_at = base + static_cast<size_t>(kt) * kTile * row_stride;
+  mma::load_tile_async<D>(k + k_at, row_stride, k_rows, ks);
+  mma::load_tile_async<D>(v + k_at, row_stride, k_rows, vs);
+  __syncthreads();  // the list is in shared memory
+
+  auto start_pair = [&](int a, int stage) {
+    const int qt = ids[a];
+    const int q_rows = tile_rows(qt, n);
+    const int q0 = q_rows > 0 ? qt * kTile : 0;  // a valid address anyway
+    const size_t at = base + static_cast<size_t>(q0) * row_stride;
+    mma::load_tile_async<D>(q + at, row_stride, q_rows, qs + stage * kElems);
+    mma::load_tile_async<D>(dout + at, row_stride, q_rows,
+                            dos + stage * kElems);
+    mma::load_vecs_async(lse + static_cast<size_t>(bh) * n + q0,
+                         delta + static_cast<size_t>(bh) * n + q0, q_rows,
+                         vecs + stage * 2 * kTile);
+    mma::load_mask_tile_async(
+        mask_tiles + static_cast<size_t>(pids[a]) * mma::kMaskBytes,
+        ms + stage * mma::kMaskBytes);
+  };
+
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  mma::walk_pairs(
+      num_active,
+      [&](int a) { return next_real(pids, a, num_active, pad_tile); },
+      start_pair, [&](int stage) {
+        mma::dkv_pair<D, kCols>(dk_acc, dv_acc, ks, vs, qs + stage * kElems,
+                                dos + stage * kElems,
+                                ms + stage * mma::kMaskBytes,
+                                vecs + stage * 2 * kTile, scale, warp, lane);
+      });
+  mma::store_strip<D>(dk_acc, dk + k_at, row_stride, k_rows, scale, warp,
+                      lane);
+  mma::store_strip<D>(dv_acc, dv + k_at, row_stride, k_rows, 1.f, warp, lane);
+}
+
 enum Kind : int { kDq = 0, kDkv = 1, kDkvq = 2 };
 
 template <typename Kernel>
@@ -484,20 +665,9 @@ cudaError_t launch(Kind kind, const void* q, const void* k, const void* v,
   const T* dot = static_cast<const T*>(dout);
   T* o0 = static_cast<T*>(out0);
   T* o1 = static_cast<T*>(out1);
+  constexpr bool kTensorCores = std::is_same_v<T, __nv_bfloat16>;
   cudaError_t err;
-  if (kind == kDq) {
-    const size_t smem = Bwd<T, D>::kDqBytes;
-    if ((err = with_smem(sparse_attention_dq_kernel<T, D>, smem))) return err;
-    sparse_attention_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, n, h,
-        num_active, pad_tile, scale);
-  } else if (kind == kDkv) {
-    const size_t smem = Bwd<T, D>::kDkvBytes;
-    if ((err = with_smem(sparse_attention_dkv_kernel<T, D>, smem))) return err;
-    sparse_attention_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1, n, h,
-        num_active, pad_tile, scale);
-  } else {
+  if (kind == kDkvq) {
     const size_t smem = Bwd<T, D>::kDkvBytes;
     if ((err = with_smem(sparse_attention_dkvq_kernel<T, D>, smem))) {
       return err;
@@ -505,6 +675,39 @@ cudaError_t launch(Kind kind, const void* q, const void* k, const void* v,
     sparse_attention_dkvq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
         qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1,
         static_cast<T*>(out2), n, h, num_active, pad_tile, scale);
+  } else if constexpr (kTensorCores) {
+    // bf16 F: blocks of four warps, the tile's list behind the stages.
+    const size_t lists = 2 * static_cast<size_t>(num_active) * sizeof(int);
+    if (kind == kDq) {
+      const size_t smem = mma::Staged<D>::kDqBytes + lists;
+      if ((err = with_smem(sparse_attention_dq_mma_kernel<D>, smem))) {
+        return err;
+      }
+      sparse_attention_dq_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
+          qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, n, h,
+          num_active, pad_tile, scale);
+    } else {
+      const size_t smem = mma::Staged<D>::kDkvBytes + lists;
+      if ((err = with_smem(sparse_attention_dkv_mma_kernel<D>, smem))) {
+        return err;
+      }
+      sparse_attention_dkv_mma_kernel<D>
+          <<<grid, mma::kThreads, smem, stream>>>(
+              qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1, n,
+              h, num_active, pad_tile, scale);
+    }
+  } else if (kind == kDq) {
+    const size_t smem = Bwd<T, D>::kDqBytes;
+    if ((err = with_smem(sparse_attention_dq_kernel<T, D>, smem))) return err;
+    sparse_attention_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, n, h,
+        num_active, pad_tile, scale);
+  } else {
+    const size_t smem = Bwd<T, D>::kDkvBytes;
+    if ((err = with_smem(sparse_attention_dkv_kernel<T, D>, smem))) return err;
+    sparse_attention_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1, n, h,
+        num_active, pad_tile, scale);
   }
   return cudaGetLastError();
 }

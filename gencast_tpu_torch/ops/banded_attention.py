@@ -233,6 +233,11 @@ def _check_cuda_operands(tensors, mask_blocks, block_size: int):
                      f'{tuple(mask_blocks.shape)}')
   if mask_blocks.device != q.device or not mask_blocks.is_contiguous():
     raise ValueError(f'mask_blocks must be contiguous on {q.device}')
+  if bs % 8:
+    raise ValueError(f'block_size {bs} is not a multiple of 8 (the kernels '
+                     'read the mask 8 bytes at a time)')
+  cuda_lib.check_aligned({name: x.data_ptr() for name, x in
+                          {**tensors, 'mask_blocks': mask_blocks}.items()})
   return cuda_lib.library()
 
 

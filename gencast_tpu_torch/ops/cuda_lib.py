@@ -18,7 +18,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Optional
+from typing import Mapping, Optional
 
 from gencast_tpu_torch import _build
 
@@ -130,6 +130,17 @@ LIBRARY = _Library()
 
 def library() -> ctypes.CDLL:
   return LIBRARY.get()
+
+
+def check_aligned(addresses: Mapping[str, int]) -> None:
+  """Raises unless every address (by operand name; `tensor.data_ptr()`) is a
+  multiple of 16 bytes: the kernels copy with 16-byte cp.async and read
+  fragments with ldmatrix, which fault or read wrong on other addresses. A
+  view that starts inside an allocation can break this."""
+  for name, address in addresses.items():
+    if address % 16:
+      raise ValueError(f'{name} starts at address {address:#x}, not a '
+                       'multiple of 16 bytes')
 
 
 def check(code: int, what: str) -> None:

@@ -306,6 +306,8 @@ def _check_cuda_operands(tensors, mask_tiles, ids, pids, tile: int):
   if ids.dtype != torch.int32 or pids.dtype != torch.int32 or \
       pids.shape != ids.shape or ids.dim() != 2:
     raise ValueError('plan ids / pair ids must be int32 [tiles, A]')
+  cuda_lib.check_aligned({name: x.data_ptr() for name, x in
+                          {**tensors, 'mask_tiles': mask_tiles}.items()})
   return lib
 
 

@@ -27,19 +27,21 @@ import time
 
 import torch
 
-# Kernel families by a part of the kernel's name, first match wins.
+# Kernel families by a part of the kernel's name, first match wins (D and F
+# have a float32 kernel, `..._kernel`, and a bf16 one, `..._mma_kernel`).
 _FAMILIES = (
-    ('D-dk/dv', 'banded_attention_dkv_kernel'),
-    ('D-dq', 'banded_attention_dq_kernel'),
+    ('D-dk/dv', 'banded_attention_dkv_'),
+    ('D-dq', 'banded_attention_dq_'),
     ('C', 'banded_attention_fwd_kernel'),
     ('G', 'sparse_attention_dkvq_kernel'),
-    ('F-dk/dv', 'sparse_attention_dkv_kernel'),
-    ('F-dq', 'sparse_attention_dq_kernel'),
+    ('F-dk/dv', 'sparse_attention_dkv_'),
+    ('F-dq', 'sparse_attention_dq_'),
     ('A', 'sparse_attention_fwd_kernel'),
     ('E', 'ln_film_'),
     ('B', 'segment_sum_kernel'),
     ('cuBLAS matmuls', 'gemm'),
     ('cuBLAS matmuls', 'sm90_xmma'),
+    ('cuBLAS matmuls', 'nvjet'),
     ('reductions', 'reduce_kernel'),
     ('elementwise', 'elementwise_kernel'),
 )
