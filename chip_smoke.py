@@ -8,13 +8,17 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure raises and exits non-zero):
   1. setup: card name and power limit, build of the CUDA kernels, ptxas's
-     registers and spills per kernel, and the count of tensor-core
-     products and asynchronous copies in the attention backward kernels'
-     machine code (the bf16 kernels D and F must hold both);
+     registers and spills per kernel (a tensor-core kernel must not spill),
+     and the count of tensor-core products and asynchronous copies in the
+     attention kernels' machine code (the bf16 kernels A, C, D and F must
+     hold both);
   2. statics: the 1-degree graph, attention tile plan and aggregation plans;
   3. kernel A (block-sparse attention) against its plain PyTorch version at
-     the 1-degree shapes (the mesh's n and the transformer's padded n),
-     float32 and bfloat16, with timings;
+     the 1-degree shapes (the mesh's ragged n, 2 rows in the last tile, and
+     the transformer's padded n) and at head dim 32 on TINY's plan, float32
+     (FMA kernel) and bfloat16 (tensor-core kernel): o, and lse on the rows
+     that see a key (~-1e30 on the others), with NaN behind the last row
+     that must not reach the results, with timings;
   4. kernel B (planned segment sum) against its plain version on the
      1-degree grid2mesh receiver plan, with timings;
   5. the ONE_DEG denoiser (random seeded weights, perturbed, bf16 stack)
@@ -42,13 +46,16 @@ Phases (any failure raises and exits non-zero):
      counts derived from the model's structure;
  11. kernel C (tri-block attention forward) against its plain version at
      nano's shape [1, 2624, 4, 64] on the nano mask and at TINY's tri-block
-     shape [1, 176, 2, 32], float32 and bfloat16, with timings;
+     shape [1, 176, 2, 32], float32 (FMA kernel) and bfloat16 (tensor-core
+     kernel), o exactly 0 and lse exactly +1e30 on rows without a key, NaN
+     behind the last row, with timings;
  12. kernel D (tri-block attention backward: dq, then dk/dv) against its
      plain version at the same shapes, from kernel C's lse, with timings;
  13. the NANO denoiser (random seeded weights, perturbed, bf16 stack)
      through the kernels against the plain path; then two forecast requests
      of a 10-step (5-day) `rollout.sample_rollout`, with 6,240 launches of C
-     each, finite float32 output of the right shape, seconds per request;
+     and 390 of B each, finite float32 output of the right shape, seconds
+     per request;
  14. phase 9 on the tri-block backend: a TINY_TRIBLOCK float32 training
      step (batch 2) on the card against the CPU, 3 AdamW steps, and the
      bf16 gradients against the float32 ones ('full' remat, nano's);
@@ -65,6 +72,9 @@ Phases (any failure raises and exits non-zero):
      a 2-member, 2-step 1-degree ensemble (A 2,496 and B 156 launches) from
      the parameters saved, with finite scores and predictions
      [2, 2, 181, 360, C];
+ 18. reproducibility: two full-width nano training steps through
+     `train.main`, run twice from the same seed, leave bitwise equal losses
+     and parameters (no aggregation adds atomically);
 then one JSON line of kernel results (launches from the training runs of
 each kernel's paths), the card's name and power limit, and a last JSON line
 {"ok": true, "device": {...}}.
@@ -175,10 +185,10 @@ def kernel_name(mangled: str) -> str:
 
 
 def log_sass_counts(lib_path: str) -> None:
-  """Logs, for each attention backward kernel in the built library, how many
+  """Logs, for each attention kernel in the built library, how many
   tensor-core products (HMMA), ldmatrix loads (LDSM), asynchronous copies
   (LDGSTS) and float32 FMAs (FFMA) its machine code holds; the tensor-core
-  kernels must hold HMMA, LDSM and LDGSTS. Raises where cuobjdump, which
+  kernels (bf16 A, C, D and F) must hold HMMA, LDSM and LDGSTS. Raises where cuobjdump, which
   comes with the toolkit that built the library, is not found."""
   from torch.utils.cpp_extension import CUDA_HOME
   tool = shutil.which('cuobjdump') or os.path.join(CUDA_HOME or '', 'bin',
@@ -193,7 +203,7 @@ def log_sass_counts(lib_path: str) -> None:
   for line in done.stdout.splitlines():
     if 'Function :' in line:
       name = kernel_name(line)
-      if '_attention_d' not in name:
+      if '_attention_' not in name:
         name = ''
     elif name:
       c = counts.setdefault(name, dict.fromkeys(
@@ -205,8 +215,11 @@ def log_sass_counts(lib_path: str) -> None:
     if '_mma_' in name and not (c['HMMA'] and c['LDSM'] and c['LDGSTS']):
       raise AssertionError(f'{name} holds no tensor-core product or no '
                            f'asynchronous copy: {c}')
-  if not any('_mma_' in name for name in counts):
-    raise AssertionError(f'no tensor-core kernel found in {lib_path}')
+  for family in ('sparse_attention_fwd_mma', 'banded_attention_fwd_mma',
+                 'sparse_attention_dq_mma', 'sparse_attention_dkv_mma',
+                 'banded_attention_dq_mma', 'banded_attention_dkv_mma'):
+    if not any(name.startswith(family) for name in counts):
+      raise AssertionError(f'no {family} kernel found in {lib_path}')
 
 
 def time_in_turns(fns, reps):
@@ -230,24 +243,43 @@ def time_in_turns(fns, reps):
   return {n: float(np.mean(v)) for n, v in samples.items()}
 
 
+def nan_tailed(shape, count, dtype, g, dev, tail):
+  """`count` seeded normal tensors [1, *shape] in `dtype`, each the head of a
+  buffer `tail` rows longer whose tail is NaN: a kernel that read a row past
+  the last would carry it into its sums (0 * NaN)."""
+  n = shape[0]
+  bufs = [torch.randn((1, n + tail) + shape[1:], generator=g, device=dev)
+          .to(dtype) for _ in range(count)]
+  for x in bufs:
+    x[:, n:] = float('nan')
+  return [x[:, :n] for x in bufs]
+
+
 def check_attention(shape, dtype, atol, mt, ids, pids, tile, g, dense,
                     allowed):
-  """Kernel A against its plain version on seeded q/k/v [1, *shape]:
-  returns (max abs err, {'kernel': ms, 'plain': ms, 'library': ms}, bound
-  inputs (flops, bytes)). `dense` is the [n, n] boolean mask and `allowed`
-  its entry count, for the library call and the bound."""
+  """Kernel A against its plain version on seeded q/k/v [1, *shape] with NaN
+  behind the last row: o, lse on the rows that see a key, and o = 0 and
+  lse ~ -1e30 on the others. Returns (max abs err, {'kernel': ms,
+  'plain': ms, 'library': ms}, bound inputs (flops, bytes)). `dense` is the
+  [n, n] boolean mask and `allowed` its entry count, for the library call
+  and the bound."""
   from gencast_tpu_torch.ops import sparse_attention
-  q, k, v = (torch.randn((1,) + shape, generator=g, device=mt.device)
-             .to(dtype) for _ in range(3))
-  plain = sparse_attention.sparse_banded_attention_plain(
-      q, k, v, mt, ids, pids, tile)
+  q, k, v = nan_tailed(shape, 3, dtype, g, mt.device, tile)
+  plain, lse_p = sparse_attention.sparse_banded_attention_plain(
+      q, k, v, mt, ids, pids, tile, return_lse=True)
   got, lse = sparse_attention.sparse_attention_fwd_cuda(
       q, k, v, mt, ids, pids, tile)
   torch.cuda.synchronize()
+  seen = dense.any(dim=1)
   err = float((got.float() - plain.float()).abs().max())
-  if not (err <= atol and torch.isfinite(lse).all()):
+  lse_err = float((lse[:, :, seen] - lse_p[:, :, seen]).abs().max())
+  # Rows that see no key: o exactly 0 and lse ~ -1e30 (the clamped
+  # denominator's logarithm is lost in float32 beside it).
+  empty = bool((got[:, ~seen] == 0).all()
+               and (lse[:, :, ~seen] <= -0.99e30).all())
+  if not (err <= atol and lse_err <= ATTN_F32_ATOL and empty):
     raise AssertionError(f'kernel A {dtype} {shape}: max abs err {err} > '
-                         f'{atol}')
+                         f'{atol}, lse err {lse_err}, empty rows {empty}')
   sdpa = sdpa_inputs(q, k, v, dense)
   with torch.no_grad():
     lib_err = library_error(sdpa_forward(*sdpa).transpose(1, 2), plain, dense)
@@ -261,7 +293,9 @@ def check_attention(shape, dtype, atol, mt, ids, pids, tile, g, dense,
   cost = (4 * d * allowed * h,
           nbytes(q, k, v, mt, ids, pids, got, lse))
   log(f'[kernel A] {dtype} [1, {", ".join(map(str, shape))}]: max abs err '
-      f'{err:.3e} (tol {atol}); kernel {ms["kernel"]:.3f} ms, plain '
+      f'{err:.3e} (tol {atol}), lse {lse_err:.3e} (tol {ATTN_F32_ATOL}); '
+      f'{int((~seen).sum())} rows without a key give 0 and ~-1e30; NaN behind '
+      f'row {shape[0]} not read; kernel {ms["kernel"]:.3f} ms, plain '
       f'{ms["plain"]:.3f} ms, library (scaled_dot_product_attention, dense '
       f'mask; max abs err {lib_err:.3e} on rows that see a key) '
       f'{ms["library"]:.3f} ms per layer call')
@@ -331,16 +365,11 @@ def check_attention_bwd(shape, dtype, rtol, mt, plan_t, tile, g, dense,
   and dO [1, *shape], from kernel A's lse: returns ({'dq': (rel, abs),
   'dkv': (rel, abs)}, {'dq': ms, 'dq_plain': ms, 'dkv': ms,
   'dkv_plain': ms, 'library': ms}, {'dq': (flops, bytes), 'dkv': ...}).
-  Each operand is the head of a buffer one tile longer whose tail is NaN: a
-  kernel that read a row past n would carry it into its sums (0 * NaN)."""
+  Each operand has NaN behind its last row (`nan_tailed`)."""
   from gencast_tpu_torch.ops import sparse_attention as sa
   fwd_ids, fwd_pids, bwd_ids, bwd_pids = plan_t
   n = shape[0]
-  q, k, v, dout = (torch.randn((1, n + tile) + shape[1:], generator=g,
-                               device=mt.device).to(dtype) for _ in range(4))
-  for x in (q, k, v, dout):
-    x[:, n:] = float('nan')
-  q, k, v, dout = (x[:, :n] for x in (q, k, v, dout))
+  q, k, v, dout = nan_tailed(shape, 4, dtype, g, mt.device, tile)
   o, lse = sa.sparse_attention_fwd_cuda(q, k, v, mt, fwd_ids, fwd_pids, tile)
   delta = sa.attention_delta(o, dout)
   dq_args = (q, k, v, dout, lse, delta, mt, fwd_ids, fwd_pids, tile)
@@ -503,9 +532,10 @@ def expected_step_launches(gencast) -> dict:
   'save_attention' (the attention half is not recomputed) and twice under
   'full'; its backward (F or D: dq and dk/dv; G alone when the transformer
   holds the fused backward's gather map) once per layer; the other
-  backend's kernels never. B once per planned receiver aggregation (forward)
-  and once per planned gather (its backward); E once per LN+FiLM whose
-  output reaches the loss."""
+  backend's kernels never. B once per receiver aggregation over a side of
+  non-uniform degree (forward) and once per gather over such a side (its
+  backward): on the card each of them carries a plan, the reference's or
+  one of its own; E once per LN+FiLM whose output reaches the loss."""
   from gencast_tpu_torch.nn import gnn, mlp
   from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
       sparse_attention
@@ -518,9 +548,9 @@ def expected_step_launches(gencast) -> dict:
     if isinstance(net, gnn.InteractionNetwork):
       for topo in net.topologies:
         send_k, recv_k = net._uniform[topo.name]
-        if topo.recv_plan is not None and recv_k is None:
+        if recv_k is None:
           planned += 2  # the forward sum and the receiver gather's backward
-        if topo.sender_plan is not None and send_k is None:
+        if send_k is None:
           planned += 1  # the sender gather's backward
   cond_mlps = sum(isinstance(m, mlp.CondMLP) for m in arch.modules())
   # The decoder updates mesh nodes it never decodes: no gradient there.
@@ -710,6 +740,32 @@ def train_preset(spec, statics, dev, card, argv, steps_run=3, start=0,
   return launches, run.step_seconds, peak
 
 
+def check_reproducible(argv, steps_run) -> None:
+  """Phase 18: `steps_run` training steps through the CLI, twice from the
+  same seed, must leave bitwise equal losses and parameters: every sum of
+  the step is taken in a fixed order (no aggregation adds atomically)."""
+  from gencast_tpu_torch.ops import segment
+  from gencast_tpu_torch.training import train
+  runs = []
+  for _ in range(2):
+    segment.KERNEL.reset()
+    run = train.main(argv + ['--steps', str(steps_run), '--data', 'synthetic',
+                             '--log_every', '1'])
+    runs.append((run.losses, [p.detach().clone()
+                              for p in run.model.parameters()]))
+    if segment.KERNEL.launches == 0:
+      raise AssertionError(f'{argv}: training launched no planned sum')
+  (losses_a, params_a), (losses_b, params_b) = runs
+  differing = sum(not torch.equal(a, b) for a, b in zip(params_a, params_b))
+  if losses_a != losses_b or differing or not np.isfinite(losses_a).all():
+    raise AssertionError(
+        f'{argv}: two runs from one seed differ: losses {losses_a} and '
+        f'{losses_b}, {differing} of {len(params_a)} parameters differ')
+  log(f'[reproducible] {" ".join(argv)}: {steps_run} training steps twice '
+      f'from one seed: losses {losses_a} and all {len(params_a)} parameters '
+      'bitwise equal')
+
+
 def dense_from_blocks(blocks: np.ndarray, dev) -> torch.Tensor:
   """The [N, N] boolean mask that the tri-block mask [3, nb, bs, bs]
   describes (for the library yardstick)."""
@@ -739,12 +795,12 @@ def dense_from_plan(plan, dev) -> torch.Tensor:
 
 
 def check_banded(shape, dtype, atol, mask, bs, g, dense, allowed):
-  """Kernel C against its plain version on seeded q/k/v [1, *shape] under
-  the tri-block `mask` (uint8 [3, nb, bs, bs]): returns (max abs err,
+  """Kernel C against its plain version on seeded q/k/v [1, *shape] (NaN
+  behind the last row) under the tri-block `mask` (uint8 [3, nb, bs, bs]):
+  returns (max abs err,
   {'kernel': ms, 'plain': ms, 'library': ms}, (flops, bytes))."""
   from gencast_tpu_torch.ops import banded_attention as ba
-  q, k, v = (torch.randn((1,) + shape, generator=g, device=mask.device)
-             .to(dtype) for _ in range(3))
+  q, k, v = nan_tailed(shape, 3, dtype, g, mask.device, 64)
   plain, lse_p = ba.banded_attention_plain(q, k, v, mask, bs,
                                            return_lse=True)
   got, lse = ba.banded_attention_fwd_cuda(q, k, v, mask, bs)
@@ -767,7 +823,8 @@ def check_banded(shape, dtype, atol, mask, bs, g, dense, allowed):
   h, d = shape[1], shape[2]
   log(f'[kernel C] {dtype} [1, {", ".join(map(str, shape))}], block {bs}: '
       f'max abs err {err:.3e} (tol {atol}), lse {lse_err:.3e}; {int((~seen).sum())} '
-      f'rows without a key give 0 and +1e30; kernel {ms["kernel"]:.3f} ms, '
+      f'rows without a key give 0 and +1e30; NaN behind row {shape[0]} not '
+      f'read; kernel {ms["kernel"]:.3f} ms, '
       f'plain {ms["plain"]:.3f} ms, library (scaled_dot_product_attention, '
       f'dense mask; max abs err {lib_err:.3e} on rows that see a key) '
       f'{ms["library"]:.3f} ms per layer call')
@@ -829,7 +886,7 @@ def serve_nano(dev, g) -> float:
   from gencast_tpu_torch import bridge, configs, rollout
   from gencast_tpu_torch.data import layout
   from gencast_tpu_torch.models import wrappers
-  from gencast_tpu_torch.ops import banded_attention
+  from gencast_tpu_torch.ops import banded_attention, segment
   spec = configs.NANO
   t0 = time.perf_counter()
   statics = configs.build_statics(spec)
@@ -861,11 +918,15 @@ def serve_nano(dev, g) -> float:
   sigma = torch.full((1,), 3.0, device=dev)
   with torch.no_grad():
     banded_attention.KERNEL.reset()
+    segment.KERNEL.reset()
     out_k = stack(inputs, noisy, sigma, forcings[0])
     torch.cuda.synchronize()
-    if banded_attention.KERNEL.launches != spec.num_layers:
-      raise AssertionError(f'nano denoiser call launched C '
-                           f'{banded_attention.KERNEL.launches} times')
+    # C once per layer; B once, the grid2mesh aggregation (nano plans no
+    # side itself: on the card every side of non-uniform degree has a plan).
+    launched = (banded_attention.KERNEL.launches, segment.KERNEL.launches)
+    if launched != (spec.num_layers, 1):
+      raise AssertionError(f'nano denoiser call launched (C, B) {launched}, '
+                           f'expected ({spec.num_layers}, 1)')
     out_p = plain_stack(inputs, noisy, sigma, forcings[0])
     rel = float((out_k - out_p).abs().max() / out_p.abs().max())
     if not (torch.isfinite(out_k).all() and rel <= DENOISER_BF16_RTOL):
@@ -883,12 +944,13 @@ def serve_nano(dev, g) -> float:
   for seed in (1, 2):
     gen = torch.Generator(device=dev).manual_seed(seed)
     banded_attention.KERNEL.reset()
+    segment.KERNEL.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     forecast = rollout.sample_rollout(stack, inputs, forcings, gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launched = banded_attention.KERNEL.launches
+    launched = (banded_attention.KERNEL.launches, segment.KERNEL.launches)
     expected_shape = (ROLLOUT_STEPS,) + grid + (
         den.target_layout.num_channels,)
     if (tuple(forecast.shape) != expected_shape
@@ -897,14 +959,14 @@ def serve_nano(dev, g) -> float:
       raise AssertionError(f'nano forecast {seed}: {tuple(forecast.shape)} '
                            f'{forecast.dtype}, finite '
                            f'{bool(torch.isfinite(forecast).all())}')
-    if launched != calls * spec.num_layers:
-      raise AssertionError(f'nano forecast {seed}: {launched} launches of C, '
-                           f'expected {calls * spec.num_layers}')
+    if launched != (calls * spec.num_layers, calls):
+      raise AssertionError(f'nano forecast {seed}: launches (C, B) {launched}, '
+                           f'expected {(calls * spec.num_layers, calls)}')
     log(f'[nano serve] request {seed}: {ROLLOUT_STEPS}-step rollout '
         f'{tuple(forecast.shape)} float32, finite; {seconds:.3f} s '
         f'({seconds / ROLLOUT_STEPS:.3f} s per 12-hour step, '
-        f'{1e3 * seconds / calls:.2f} ms per denoiser call); launches of C '
-        f'{launched}')
+        f'{1e3 * seconds / calls:.2f} ms per denoiser call); launches C '
+        f'{launched[0]}, B {launched[1]}')
   return ms['kernel']
 
 
@@ -1041,6 +1103,8 @@ def main() -> int:
     elif 'registers' in line or ('spill' in line
                                  and ' 0 bytes spill stores' not in line):
       log(f'[setup] ptxas {entry}: {line.split(":", 1)[-1].strip()}')
+      if 'spill' in line and '_mma_' in entry:
+        raise AssertionError(f'{entry} spills registers: {line.strip()}')
   log_sass_counts(cuda_lib.library()._name)
 
   # --- 2. statics ---
@@ -1073,12 +1137,28 @@ def main() -> int:
   g = torch.Generator(device=dev).manual_seed(0)
   dense = dense_from_plan(plan, dev)
   allowed = int(plan.mask_tiles.sum(dtype=np.int64))  # per batch x head
-  for rows in (n, plan.padded_n):
-    for dtype, atol in ((torch.float32, ATTN_F32_ATOL),
-                        (torch.bfloat16, ATTN_BF16_ATOL)):
+  # And at head dim 32 on TINY's plan (162 nodes: 34 rows in the last tile):
+  # every (dtype, head dim) the kernel is compiled for.
+  tiny = dataclasses.replace(configs.TINY, attention_tile_size=64,
+                             use_agg_plans=True, agg_plan_min_degree=2,
+                             stochastic_churn_rate=2.5, num_noise_levels=2)
+  tiny_statics = configs.build_statics(tiny)
+  tiny_plan = tiny_statics.attention_tile_plan
+  tiny_t = tuple(torch.as_tensor(a, device=dev) for a in (
+      tiny_plan.mask_tiles, tiny_plan.fwd_kv_ids, tiny_plan.fwd_pair_ids,
+      tiny_plan.bwd_q_ids, tiny_plan.bwd_pair_ids))
+  tiny_n = tiny_statics.num_mesh_nodes
+  tiny_shape = (tiny_n, tiny.num_heads, tiny.d_model // tiny.num_heads)
+  tiny_dense = dense_from_plan(tiny_plan, dev)[:tiny_n, :tiny_n]
+  tiny_allowed = int(tiny_plan.mask_tiles.sum(dtype=np.int64))
+  for dtype, atol in ((torch.float32, ATTN_F32_ATOL),
+                      (torch.bfloat16, ATTN_BF16_ATOL)):
+    for rows in (n, plan.padded_n):
       results[('A', dtype, rows)] = check_attention(
           (rows, h, d), dtype, atol, mt, ids, pids, plan.tile, g,
           dense[:rows, :rows], allowed)
+    check_attention(tiny_shape, dtype, atol, *tiny_t[:3], tiny_plan.tile, g,
+                    tiny_dense, tiny_allowed)
 
   # --- 4. kernel B vs plain ---
   e, f = statics.grid2mesh.num_edges, spec.d_model
@@ -1165,9 +1245,6 @@ def main() -> int:
   denoiser_ms = ms
   del out_k, out_p, plain_stack, plain_model
 
-  tiny = dataclasses.replace(configs.TINY, attention_tile_size=64,
-                             use_agg_plans=True, agg_plan_min_degree=2,
-                             stochastic_churn_rate=2.5, num_noise_levels=2)
   tiny_cpu, _ = configs.build_gencast(tiny, seed=3, device='cpu')
   bridge.load_reference_params(tiny_cpu, bridge.perturbed(
       bridge.export_reference_params(tiny_cpu), seed=4))
@@ -1233,17 +1310,7 @@ def main() -> int:
   plan_t = tuple(torch.as_tensor(a, device=dev) for a in (
       plan.fwd_kv_ids, plan.fwd_pair_ids, plan.bwd_q_ids, plan.bwd_pair_ids))
   # At the transformer's padded n (the shape of the JSON rows), at the
-  # mesh's ragged n, and at head dim 32 on TINY's plan: every (dtype, head
-  # dim) the kernels are compiled for.
-  tiny_statics = configs.build_statics(tiny)
-  tiny_plan = tiny_statics.attention_tile_plan
-  tiny_t = tuple(torch.as_tensor(a, device=dev) for a in (
-      tiny_plan.mask_tiles, tiny_plan.fwd_kv_ids, tiny_plan.fwd_pair_ids,
-      tiny_plan.bwd_q_ids, tiny_plan.bwd_pair_ids))
-  tiny_n = tiny_statics.num_mesh_nodes
-  tiny_shape = (tiny_n, tiny.num_heads, tiny.d_model // tiny.num_heads)
-  tiny_dense = dense_from_plan(tiny_plan, dev)[:tiny_n, :tiny_n]
-  tiny_allowed = int(tiny_plan.mask_tiles.sum(dtype=np.int64))
+  # mesh's ragged n, and at head dim 32 on TINY's plan, as phase 3.
   for dtype, rtol in ((torch.float32, BWD_F32_RTOL),
                       (torch.bfloat16, BWD_BF16_RTOL)):
     results[('F', dtype)] = check_attention_bwd(
@@ -1334,6 +1401,9 @@ def main() -> int:
   # evaluate ---
   fused_launches = fused_path(spec, statics, dev, card, one_deg_seconds,
                               one_deg_peak)
+
+  # --- 18. nano training twice from one seed: equal bits ---
+  check_reproducible(['--preset', 'nano'], steps_run=2)
 
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B in float32 on the

@@ -455,14 +455,6 @@ __global__ void __launch_bounds__(kThreads, 2) banded_attention_dkv_kernel(
 namespace mma = gt::mma;
 using mma::bf16;
 
-// The first candidate pair from `c` on whose mask sub-tile has an allowed
-// entry; `count` if none.
-__device__ __forceinline__ int next_allowed(const uint8_t* flags, int c,
-                                            int count) {
-  while (c < count && !flags[c]) ++c;
-  return c;
-}
-
 template <int D>
 __global__ void __launch_bounds__(mma::kThreads, 2)
 banded_attention_dq_mma_kernel(
@@ -534,7 +526,8 @@ banded_attention_dq_mma_kernel(
 
   float acc[D / 8][4] = {};
   mma::walk_pairs(
-      pairs, [&](int c) { return next_allowed(flags, c, pairs); }, start_pair,
+      pairs, [&](int c) { return mma::next_flagged(flags, c, pairs); },
+      start_pair,
       [&](int stage) {
         mma::dq_pair<D>(acc, qs, dos, ks + stage * kElems, vs + stage * kElems,
                         ms + stage * mma::kMaskBytes, lse0, lse1, delta0,
@@ -612,7 +605,8 @@ banded_attention_dkv_mma_kernel(
 
   float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
   mma::walk_pairs(
-      pairs, [&](int c) { return next_allowed(flags, c, pairs); }, start_pair,
+      pairs, [&](int c) { return mma::next_flagged(flags, c, pairs); },
+      start_pair,
       [&](int stage) {
         mma::dkv_pair<D, kSub>(dk_acc, dv_acc, ks, vs, qs + stage * kElems,
                                dos + stage * kElems,

@@ -1,31 +1,36 @@
-// Tensor-core building blocks of the bf16 attention backward kernels (the
-// tri-block kernel D, banded_attention_bwd.cu, and the block-sparse kernel F,
-// sparse_attention_bwd.cu): asynchronous 16-byte tile copies into shared
-// memory, ldmatrix fragment loads, the m16n8k16 bf16 product with float32
-// sums, the two-stage walk over a block's pair list (walk_pairs), and the
-// two per-pair routines both kernels run on a 64 x 64 tile pair, dq_pair and
-// dkv_pair.
+// Tensor-core building blocks of the bf16 attention kernels: the forwards
+// (the block-sparse kernel A, sparse_attention.cu, and the tri-block kernel
+// C, banded_attention.cu) and the backwards (the tri-block kernel D,
+// banded_attention_bwd.cu, and the block-sparse kernel F,
+// sparse_attention_bwd.cu). Here are the asynchronous 16-byte tile copies
+// into shared memory, the ldmatrix fragment loads, the m16n8k16 bf16 product
+// with float32 sums, the two-stage walk over a block's pair list
+// (walk_pairs), and the per-pair routines the kernels run on a 64 x 64 tile
+// pair: fwd_pair (A and C), dq_pair and dkv_pair (D and F).
 //
-// Numerics: sums are float32; w and ds are rounded to bf16 where the plain
-// version casts them. w = exp(s * scale - lse) uses the fast intrinsic
-// __expf (ex2.approx after a multiply), whose error CUDA bounds by
-// 2 + floor(|1.4427 x|) float32 ulp. Allowed entries have x <= 0 up to
-// rounding, and for x >= -20 (w >= 2e-9) that is at most 30 ulp, 1.8e-6
-// relative: a thousandth of the bf16 rounding of w that follows (2^-9
-// relative). The float32 kernels and the fused kernel G keep expf.
+// Numerics: sums are float32; p, w and ds are rounded to bf16 where the plain
+// version casts them. The exponentials (the backward's
+// w = exp(s * scale - lse), the forward's p = exp(s * scale - row max) and
+// its rescaling factor) use the fast intrinsic __expf (ex2.approx after a
+// multiply), whose error CUDA bounds by 2 + floor(|1.4427 x|) float32 ulp.
+// Allowed entries have x <= 0 up to rounding, and for x >= -20 (a value
+// >= 2e-9) that is at most 30 ulp, 1.8e-6 relative: a thousandth of the bf16
+// rounding that follows (2^-9 relative). The float32 kernels and the fused
+// kernel G keep expf.
 //
 // Route: mma.sync with cp.async, not wgmma with TMA. The tiles are 64 x 64,
 // the pair lists are irregular (a plan's list, or the sub-tiles of three
-// neighbouring blocks with empty ones skipped), three of the seven products
-// read an operand along its other axis (ldmatrix.trans gives that from the
-// row-major tile, where wgmma needs a descriptor per major-ness), and w and
-// ds must stay in registers between products: the float32 accumulator
-// fragment of m16n8 has the layout of the A operand of m16n8k16, so a warp
-// feeds its 16-row strip of w or ds, rounded to bf16, straight into the next
-// product.
+// neighbouring blocks with empty ones skipped), the products of a probability
+// tile with V, K, dO or Q read that operand along its other axis
+// (ldmatrix.trans gives that from the row-major tile, where wgmma needs a
+// descriptor per major-ness), and p, w and ds must stay in registers between
+// products: the float32 accumulator fragment of m16n8 has the layout of the A
+// operand of m16n8k16, so a warp feeds its 16-row strip of p, w or ds,
+// rounded to bf16, straight into the next product.
 //
 // A block has four warps; warp i owns rows 16 i .. 16 i + 15 of the block's
-// resident tile (query rows in dq, key rows in dk/dv). Within a warp, lane
+// resident tile (query rows in the forward and dq, key rows in dk/dv). Within
+// a warp, lane
 // l holds of every 16 x 8 accumulator tile the entries (row l / 4, columns
 // 2 (l % 4) and + 1) and the same of row l / 4 + 8.
 #pragma once
@@ -42,6 +47,9 @@ constexpr int kWarps = 4;     // one 16-row strip each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaskBytes = kTile * kTile;  // a staged uint8 mask tile
 constexpr int kVecBytes = 2 * kTile * sizeof(float);  // staged lse and delta
+// The running row maximum before a row has seen an allowed key: finite, so
+// that differences of two of them are 0 and never NaN.
+constexpr float kNegInf = -1e30f;
 static_assert(kThreads == 2 * kTile, "load_vecs_async copies one entry each");
 
 // A [kTile, D] bf16 tile in shared memory: rows D + 8 elements apart, so
@@ -54,12 +62,14 @@ struct Tile {
   static constexpr size_t kBytes = kElems * sizeof(bf16);
 };
 
-// Shared memory of a block, two stages deep. dq: q and dO resident, then per
-// stage k, v and the mask tile. dk/dv: k and v resident, then per stage q,
-// dO, the mask tile, lse and delta. At D = 128 that is 110.0 and 111.0 KB:
-// two blocks fit into an SM's 227 KB.
+// Shared memory of a block, two stages deep. Forward: q resident, then per
+// stage k, v and the mask tile. dq: q and dO resident, then the same stages.
+// dk/dv: k and v resident, then per stage q, dO, the mask tile, lse and
+// delta. At D = 128 that is 93.0, 110.0 and 111.0 KB: two blocks fit into an
+// SM's 227 KB.
 template <int D>
 struct Staged {
+  static constexpr size_t kFwdBytes = 5 * Tile<D>::kBytes + 2 * kMaskBytes;
   static constexpr size_t kDqBytes = 6 * Tile<D>::kBytes + 2 * kMaskBytes;
   static constexpr size_t kDkvBytes = kDqBytes + 2 * kVecBytes;
 };
@@ -126,6 +136,27 @@ __device__ __forceinline__ void walk_pairs(int count, Next next, Start start,
     i = following;
   }
   cp_async_wait<0>();
+}
+
+// The first slot from `a` on of a plan list that is not a pad slot;
+// num_active if none.
+__device__ __forceinline__ int next_real(const int* pids, int a,
+                                         int num_active, int pad_tile) {
+  while (a < num_active && pids[a] == pad_tile) ++a;
+  return a;
+}
+
+// The first candidate pair from `c` on whose flag is set; `count` if none.
+__device__ __forceinline__ int next_flagged(const uint8_t* flags, int c,
+                                            int count) {
+  while (c < count && !flags[c]) ++c;
+  return c;
+}
+
+// Rows of tile `tile` that lie below n (64, fewer in the ragged last tile,
+// 0 for a plan tile past n).
+__device__ __forceinline__ int tile_rows(int tile, int n) {
+  return max(0, min(kTile, n - tile * kTile));
 }
 
 // Starts the copy of rows 0 .. rows - 1 of a [kTile, D] tile (`src` is its
@@ -305,6 +336,79 @@ __device__ __forceinline__ void pack_fragments(
   }
 }
 
+// One (query tile, key tile) pair of the forward for this warp's 16 query
+// rows, a step of the online softmax:
+//   s = mask ? (q . k^T) * scale : kNegInf,   m' = max(m, rowmax(s)),
+//   p = mask ? exp(s - m') : 0,   sum = sum * exp(m - m') + rowsum(p),
+//   o = o * exp(m - m') + bf16(p) . v.
+// qs, ks, vs: [kTile, D] tiles; ms: the staged mask tile [query row, key
+// column]. row_max, row_sum: the running maximum and denominator of rows
+// 16 warp + lane / 4 ([0]) and the row eight below ([1]), the same in the
+// four lanes of a quad. p is selected on the mask bit, so a row whose
+// maximum is still kNegInf adds 0; the row sum takes the unrounded p.
+template <int D>
+__device__ __forceinline__ void fwd_pair(float (&o)[D / 8][4],
+                                         float (&row_max)[2],
+                                         float (&row_sum)[2], const bf16* qs,
+                                         const bf16* ks, const bf16* vs,
+                                         const uint8_t* ms, float scale,
+                                         int warp, int lane) {
+  const int row = 16 * warp + (lane >> 2);
+  float s[kTile / 8][4] = {};
+  mma_abt<D, kTile>(s, qs, 16 * warp, ks, 0, lane);
+  uint32_t on = 0;  // bit 4 j + e: entry e of accumulator tile j is allowed
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const uchar2 m0 =
+        *reinterpret_cast<const uchar2*>(ms + mask_offset(row, col));
+    const uchar2 m1 =
+        *reinterpret_cast<const uchar2*>(ms + mask_offset(row + 8, col));
+    const bool allowed[4] = {m0.x != 0, m0.y != 0, m1.x != 0, m1.y != 0};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      on |= static_cast<uint32_t>(allowed[e]) << (4 * j + e);
+      s[j][e] = allowed[e] ? s[j][e] * scale : kNegInf;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mx[r] = fmaxf(mx[r], row_max[r]);
+    // 1 while the row has no key (its sum is 0), 0 at its first key.
+    alpha[r] = __expf(row_max[r] - mx[r]);
+    row_max[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = (on >> (4 * j + e)) & 1u ? __expf(s[j][e] - mx[e >> 1]) : 0.f;
+      sum[e >> 1] += s[j][e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    row_sum[r] = row_sum[r] * alpha[r] + sum[r];
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+  uint32_t p[kTile / 16][4];
+  pack_fragments<kTile / 8>(p, s);
+  mma_pb<D, kTile>(o, p, vs, 0, lane);
+}
+
 // One (query tile, key tile) pair of dq for this warp's 16 query rows:
 //   s = q . k^T, dp = dO . v^T, w = mask ? exp(s * scale - lse) : 0,
 //   ds = w * (dp - delta) rounded to bf16, dq += ds . k   (unscaled).
@@ -393,26 +497,51 @@ __device__ __forceinline__ void dkv_pair(float (&dk)[D / 8][4],
   }
 }
 
-// This warp's 16 x D strip of sums, times `scale`, rounded to bf16 into rows
-// 16 warp .. of a tile of [batch, n, h, D] (`dst` its first row); rows from
-// `rows` on are not written.
+// This warp's 16 x D strip of sums, rounded to bf16 into rows 16 warp .. of a
+// tile of [batch, n, h, D] (`dst` its first row), row 16 warp + lane / 4
+// times `scale_lo` and the row eight below times `scale_hi`; rows from `rows`
+// on are not written.
 template <int D>
 __device__ __forceinline__ void store_strip(const float (&acc)[D / 8][4],
                                             bf16* __restrict__ dst,
                                             size_t row_stride, int rows,
-                                            float scale, int warp, int lane) {
+                                            float scale_lo, float scale_hi,
+                                            int warp, int lane) {
   const int row = 16 * warp + (lane >> 2);
   bf16* at = dst + row * row_stride + 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     if (row < rows) {
       *reinterpret_cast<__nv_bfloat162*>(at + 8 * j) =
-          __floats2bfloat162_rn(acc[j][0] * scale, acc[j][1] * scale);
+          __floats2bfloat162_rn(acc[j][0] * scale_lo, acc[j][1] * scale_lo);
     }
     if (row + 8 < rows) {
       *reinterpret_cast<__nv_bfloat162*>(at + 8 * row_stride + 8 * j) =
-          __floats2bfloat162_rn(acc[j][2] * scale, acc[j][3] * scale);
+          __floats2bfloat162_rn(acc[j][2] * scale_hi, acc[j][3] * scale_hi);
     }
+  }
+}
+
+// The same with one scale for the whole strip.
+template <int D>
+__device__ __forceinline__ void store_strip(const float (&acc)[D / 8][4],
+                                            bf16* __restrict__ dst,
+                                            size_t row_stride, int rows,
+                                            float scale, int warp, int lane) {
+  store_strip<D>(acc, dst, row_stride, rows, scale, scale, warp, lane);
+}
+
+// The forward's two row values of this lane (lse, one per query row) into
+// `dst` (the tile's first entry of a [batch * h, n] row): the first lane of
+// each quad writes row 16 warp + lane / 4 and the row eight below, where
+// they lie below `rows`.
+__device__ __forceinline__ void store_rows(float lo, float hi,
+                                           float* __restrict__ dst, int rows,
+                                           int warp, int lane) {
+  const int row = 16 * warp + (lane >> 2);
+  if ((lane & 3) == 0) {
+    if (row < rows) dst[row] = lo;
+    if (row + 8 < rows) dst[row + 8] = hi;
   }
 }
 

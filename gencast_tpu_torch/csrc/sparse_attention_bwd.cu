@@ -492,18 +492,6 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dkvq_kernel(
 namespace mma = gt::mma;
 using mma::bf16;
 
-// The first slot from `a` on that is not a pad slot; num_active if none.
-__device__ __forceinline__ int next_real(const int* pids, int a,
-                                         int num_active, int pad_tile) {
-  while (a < num_active && pids[a] == pad_tile) ++a;
-  return a;
-}
-
-// Rows of tile `tile` that lie below n (64, fewer in the ragged last tile).
-__device__ __forceinline__ int tile_rows(int tile, int n) {
-  return max(0, min(kTile, n - tile * kTile));
-}
-
 template <int D>
 __global__ void __launch_bounds__(mma::kThreads, 2)
 sparse_attention_dq_mma_kernel(
@@ -528,7 +516,7 @@ sparse_attention_dq_mma_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row_stride = static_cast<size_t>(h) * D;
   const size_t base = (static_cast<size_t>(bh / h) * n * h + bh % h) * D;
-  const int q_rows = tile_rows(qt, n);
+  const int q_rows = mma::tile_rows(qt, n);
   if (q_rows == 0) return;  // the whole block: a plan tile past n
 
   for (int i = threadIdx.x; i < num_active; i += mma::kThreads) {
@@ -550,7 +538,7 @@ sparse_attention_dq_mma_kernel(
 
   auto start_pair = [&](int a, int stage) {
     const int kt = ids[a];
-    const int k_rows = tile_rows(kt, n);
+    const int k_rows = mma::tile_rows(kt, n);
     const int k0 = k_rows > 0 ? kt * kTile : 0;  // a valid address anyway
     const size_t at = base + static_cast<size_t>(k0) * row_stride;
     mma::load_tile_async<D>(k + at, row_stride, k_rows, ks + stage * kElems);
@@ -563,7 +551,7 @@ sparse_attention_dq_mma_kernel(
   float acc[D / 8][4] = {};
   mma::walk_pairs(
       num_active,
-      [&](int a) { return next_real(pids, a, num_active, pad_tile); },
+      [&](int a) { return mma::next_real(pids, a, num_active, pad_tile); },
       start_pair, [&](int stage) {
         mma::dq_pair<D>(acc, qs, dos, ks + stage * kElems, vs + stage * kElems,
                         ms + stage * mma::kMaskBytes, lse0, lse1, delta0,
@@ -599,7 +587,7 @@ sparse_attention_dkv_mma_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row_stride = static_cast<size_t>(h) * D;
   const size_t base = (static_cast<size_t>(bh / h) * n * h + bh % h) * D;
-  const int k_rows = tile_rows(kt, n);
+  const int k_rows = mma::tile_rows(kt, n);
   if (k_rows == 0) return;  // the whole block: a plan tile past n
 
   for (int i = threadIdx.x; i < num_active; i += mma::kThreads) {
@@ -613,7 +601,7 @@ sparse_attention_dkv_mma_kernel(
 
   auto start_pair = [&](int a, int stage) {
     const int qt = ids[a];
-    const int q_rows = tile_rows(qt, n);
+    const int q_rows = mma::tile_rows(qt, n);
     const int q0 = q_rows > 0 ? qt * kTile : 0;  // a valid address anyway
     const size_t at = base + static_cast<size_t>(q0) * row_stride;
     mma::load_tile_async<D>(q + at, row_stride, q_rows, qs + stage * kElems);
@@ -630,7 +618,7 @@ sparse_attention_dkv_mma_kernel(
   float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
   mma::walk_pairs(
       num_active,
-      [&](int a) { return next_real(pids, a, num_active, pad_tile); },
+      [&](int a) { return mma::next_real(pids, a, num_active, pad_tile); },
       start_pair, [&](int stage) {
         mma::dkv_pair<D, kCols>(dk_acc, dv_acc, ks, vs, qs + stage * kElems,
                                 dos + stage * kElems,

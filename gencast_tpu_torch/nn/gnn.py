@@ -5,8 +5,12 @@ Counterpart of `gencast_tpu.nn.gnn`: node/edge sets are dicts of [N, B, C]
 construction, and receiver aggregation is a sorted segment sum. Edge sides
 with a skewed degree distribution carry an `AggPlan` and aggregate through
 the planned sum (kernel B on the card); gathers over a planned side take
-the planned sum as their backward. The streamed-edge path and GNN remat of
-the reference are memory machinery for 0.25 degrees and are not ported.
+the planned sum as their backward. On the card every other side of
+non-uniform degree carries a plan too and takes the same two paths: there
+`index_add_`, and with it the backward of `index_select`, adds atomically
+in an order that changes from run to run, where the reference is bitwise
+reproducible. The streamed-edge path and GNN remat of the reference are
+memory machinery for 0.25 degrees and are not ported.
 """
 
 from __future__ import annotations
@@ -90,19 +94,29 @@ class InteractionNetwork(nn.Module):
 
     # Index and plan tensors as non-persistent buffers: they follow the
     # module's device but are not parameters and not in the state dict.
+    # `_card_only` names the sides ('<edge set>_recv', '<edge set>_send')
+    # whose plan the topology does not carry: it is used on the card alone,
+    # where the unplanned paths are atomic (see `_plan`).
     self._uniform = {}
+    self._card_only = set()
     for topo in topologies:
       self._uniform[topo.name] = (
           plans.uniform_degree(topo.senders, num_nodes[topo.sender_set]),
           plans.uniform_degree(topo.receivers, num_nodes[topo.receiver_set]))
       self._buffer(f'{topo.name}_senders', topo.senders, torch.long)
       self._buffer(f'{topo.name}_receivers', topo.receivers, torch.long)
-      for side, plan in (('recv', topo.recv_plan),
-                         ('send', topo.sender_plan)):
-        if plan is not None:
-          self._buffer(f'{topo.name}_{side}_row_ptr', plan.row_ptr,
-                       torch.int32)
-          self._buffer(f'{topo.name}_{side}_perm', plan.perm, torch.int32)
+      for side, plan, ids, node_set, uniform_k in (
+          ('recv', topo.recv_plan, topo.receivers, topo.receiver_set,
+           self._uniform[topo.name][1]),
+          ('send', topo.sender_plan, topo.senders, topo.sender_set,
+           self._uniform[topo.name][0])):
+        if uniform_k is not None:
+          continue  # the dense reshape-sum and the broadcast
+        if plan is None:
+          plan = plans.build_agg_plan(ids, num_nodes[node_set])
+          self._card_only.add(f'{topo.name}_{side}')
+        self._buffer(f'{topo.name}_{side}_row_ptr', plan.row_ptr, torch.int32)
+        self._buffer(f'{topo.name}_{side}_perm', plan.perm, torch.int32)
 
     self.edge_mlps = nn.ModuleDict()
     for topo in topologies:
@@ -124,15 +138,26 @@ class InteractionNetwork(nn.Module):
     tensor = None if array is None else torch.as_tensor(array, dtype=dtype)
     self.register_buffer(name, tensor, persistent=False)
 
+  def _plan(self, topo: EdgeTopology, side: str, x: torch.Tensor
+            ) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """(row_ptr, perm) of the plan that `x`, gathered or summed over side
+    `side` ('recv' or 'send') of `topo`, goes through; None for the dense
+    or plain path. A side of uniform degree has no plan; a side that the
+    topology planned (the reference's choice) always takes its plan; any
+    other side takes one where the plain path would add atomically."""
+    key = f'{topo.name}_{side}'
+    if not hasattr(self, f'{key}_row_ptr'):
+      return None
+    if key in self._card_only and not segment.adds_atomically(x):
+      return None
+    return getattr(self, f'{key}_row_ptr'), getattr(self, f'{key}_perm')
+
   def _gather(self, x: torch.Tensor, topo: EdgeTopology, side: str,
-              uniform_k: Optional[int],
-              plan: Optional[plans.AggPlan]) -> torch.Tensor:
+              uniform_k: Optional[int]) -> torch.Tensor:
     indices = getattr(self, f'{topo.name}_{side}')
-    if plan is not None and uniform_k is None:
-      key = f'{topo.name}_{"send" if side == "senders" else "recv"}'
-      return segment.gather_planned(x, indices,
-                                    getattr(self, f'{key}_row_ptr'),
-                                    getattr(self, f'{key}_perm'))
+    plan = self._plan(topo, 'send' if side == 'senders' else 'recv', x)
+    if plan is not None:
+      return segment.gather_planned(x, indices, *plan)
     return segment.gather(x, indices, uniform_k)
 
   def forward(self, nodes: NodeFeats, edges: EdgeFeats,
@@ -140,10 +165,9 @@ class InteractionNetwork(nn.Module):
     new_edges = {}
     for topo in self.topologies:
       send_k, recv_k = self._uniform[topo.name]
-      sent = self._gather(nodes[topo.sender_set], topo, 'senders', send_k,
-                          topo.sender_plan)
+      sent = self._gather(nodes[topo.sender_set], topo, 'senders', send_k)
       received = self._gather(nodes[topo.receiver_set], topo, 'receivers',
-                              recv_k, topo.recv_plan)
+                              recv_k)
       concat = torch.cat([edges[topo.name], sent, received], dim=-1)
       new_edges[topo.name] = self.edge_mlps[topo.name](concat, cond)
 
@@ -153,17 +177,21 @@ class InteractionNetwork(nn.Module):
       for topo in self.topologies:
         if topo.receiver_set != name:
           continue
-        if topo.recv_plan is not None:
+        messages = new_edges[topo.name]
+        plan = self._plan(topo, 'recv', messages)
+        if plan is not None:
+          # Kernel B sums float32 only: a side planned for the card alone
+          # sums bf16 messages in float32 whatever f32_aggregation says.
+          f32 = self.f32_aggregation or (
+              f'{topo.name}_recv' in self._card_only
+              and messages.dtype != torch.float32)
           parts.append(segment.segment_sum_planned(
-              new_edges[topo.name],
-              getattr(self, f'{topo.name}_recv_row_ptr'),
-              getattr(self, f'{topo.name}_recv_perm'),
-              f32_accumulate=self.f32_aggregation,
+              messages, *plan, f32_accumulate=f32,
               normalization=self.aggregate_normalization,
               use_kernel=self.use_kernels))
         else:
           parts.append(segment.sorted_segment_sum(
-              new_edges[topo.name],
+              messages,
               getattr(self, f'{topo.name}_receivers'),
               num_segments=self.num_nodes[name],
               f32_accumulate=self.f32_aggregation,

@@ -9,7 +9,10 @@ Counterpart of `gencast_tpu.ops.segment`. Three strategies, as there:
    skewed mesh-side degree distributions: on a CUDA tensor the
    hand-written CSR row reduction `csrc/segment_sum.cu`, on a CPU tensor
    `planned_segment_sum_plain` (an index_add_ in float32).
-3. Plain `index_add_` for everything else.
+3. Plain `index_add_` for everything else, on the CPU only: on the card it
+   adds atomically, in an order that changes from run to run
+   (`adds_atomically`), so there `nn.gnn` gives every side of non-uniform
+   degree a plan.
 
 Neither direction scatters, as in the reference: the backward of
 `segment_sum_planned` is a gather at the segment ids, and `gather_planned`
@@ -28,6 +31,13 @@ from gencast_tpu_torch.ops import cuda_lib
 KERNEL = cuda_lib.KernelCounter(
     'segment_sum', 'gencast_tpu_torch/csrc/segment_sum.cu',
     'gencast_tpu/ops/segment.py:189')
+
+
+def adds_atomically(x: torch.Tensor) -> bool:
+  """Whether `index_add_` into a tensor like `x`, and so the backward of
+  `index_select` from it, adds with atomics (on a CUDA device): the sums'
+  order, and with it their last bits, then change from run to run."""
+  return x.is_cuda
 
 
 def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,

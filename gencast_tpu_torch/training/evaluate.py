@@ -5,7 +5,8 @@ rebuilds the model and wrapper stack from the same flags as the training
 CLI, restores the newest checkpoint of `--ckpt_dir` (parameters only; the
 bf16 serving copy is refreshed from them), samples a `--num_members`
 ensemble over `--max_rollout_steps` 12-hour steps (free-running, or
-teacher-forced), and writes `metrics.json` (per-variable RMSE of the
+teacher-forced; each `--member_chunk` members, default 1, move to the host
+as they end), and writes `metrics.json` (per-variable RMSE of the
 ensemble mean; CRPS and spread with more than one member, the reference's
 keys) and `rollout.npz` (predictions [M, K, lat, lon, C], truth, lat,
 lon), plus a triptych PNG and a GIF per `--plot_vars` name (matplotlib).
@@ -33,7 +34,7 @@ from gencast_tpu_torch.training import train
 
 # Options of the reference's CLI that the port does not take yet, with the
 # ROADMAP.md item ("Still to port") that brings them.
-_LATER_OPTIONS = {'chunk_size': '0.25 degree', 'member_chunk': '0.25 degree',
+_LATER_OPTIONS = {'chunk_size': '0.25 degree',
                   'no_overlap_offload': '0.25 degree',
                   'save_netcdf': 'CLIs and data'}
 
@@ -61,7 +62,9 @@ def parse_args(argv=None):
   p.add_argument('--chunk_size', type=int, default=None,
                  help='not ported yet (0.25 degree)')
   p.add_argument('--member_chunk', type=int, default=None,
-                 help='not ported yet (0.25 degree)')
+                 help='run ensemble members in groups of this size, moving '
+                      'each group to the host as it ends (default 1; the '
+                      'grouping does not change a member)')
   p.add_argument('--no_overlap_offload', action='store_true',
                  help='not ported yet (0.25 degree)')
   p.add_argument('--save_netcdf', action='store_true',
@@ -70,8 +73,7 @@ def parse_args(argv=None):
   train.check_model_flags(p, args)
   for option, item in _LATER_OPTIONS.items():
     if getattr(args, option):
-      p.error(f'--{option} is not ported yet: ROADMAP.md, "Still to port": '
-              f'{item}')
+      train.later(p, f'--{option}', item)
   return args
 
 
@@ -128,8 +130,9 @@ def main(argv=None) -> EvalRun:
              if args.teacher_forcing else None)
   preds = ensemble_lib.ensemble_rollout(
       wrapped, inputs, forcings, seed=args.seed,
-      num_members=args.num_members, teacher_targets=teacher)
-  preds = preds[:, :, 0].cpu().numpy()                 # [M, K, lat, lon, C]
+      num_members=args.num_members, teacher_targets=teacher,
+      member_chunk=args.member_chunk)
+  preds = preds[:, :, 0].numpy()                       # [M, K, lat, lon, C]
   ens_mean = preds.mean(axis=0)
 
   d = model.denoiser

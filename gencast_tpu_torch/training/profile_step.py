@@ -27,16 +27,17 @@ import time
 
 import torch
 
-# Kernel families by a part of the kernel's name, first match wins (D and F
-# have a float32 kernel, `..._kernel`, and a bf16 one, `..._mma_kernel`).
+# Kernel families by a part of the kernel's name, first match wins (A, C, D
+# and F have a float32 kernel, `..._kernel`, and a bf16 one,
+# `..._mma_kernel`).
 _FAMILIES = (
     ('D-dk/dv', 'banded_attention_dkv_'),
     ('D-dq', 'banded_attention_dq_'),
-    ('C', 'banded_attention_fwd_kernel'),
+    ('C', 'banded_attention_fwd_'),
     ('G', 'sparse_attention_dkvq_kernel'),
     ('F-dk/dv', 'sparse_attention_dkv_'),
     ('F-dq', 'sparse_attention_dq_'),
-    ('A', 'sparse_attention_fwd_kernel'),
+    ('A', 'sparse_attention_fwd_'),
     ('E', 'ln_film_'),
     ('B', 'segment_sum_kernel'),
     ('cuBLAS matmuls', 'gemm'),

@@ -8,8 +8,10 @@ defaults and meanings: checkpoints with resume (`--ckpt_dir`,
 `--save_every`), metrics (`--metrics_jsonl`, `--wandb`), stats files
 (`--stats_path`), the sampling eval (`--eval_every`,
 `--do_sampling_eval`), `--no_normalization` and the architecture
-overrides. Flags of paths not ported yet are refused with the ROADMAP.md
-item that brings them.
+overrides. Every flag of the reference's CLI parses; those of paths not
+ported yet are refused with the ROADMAP.md item that brings them, and the
+TPU-only ones (`--functional_step`, `--cpu`) as such. `--ar_steps K` on a
+GenCast run is the reference's no-op.
 
 Randomness: step `s` draws its noise level and noise from a generator
 seeded from (`--seed`, s) alone, as the reference folds the step into its
@@ -48,6 +50,9 @@ _PRESETS = ('tiny', 'nano', '1deg')
 # yet, with the ROADMAP.md item ("Still to port") that brings them.
 _LATER_PRESETS = {'0.25deg': '0.25 degree'}
 _LATER_DATA = 'CLIs and data'
+_LATER_GRAPHCAST = 'GraphCast'
+_LATER_LAUNCHES = 'Host launches'
+_LATER_PARALLEL = 'Parallelism'
 _LATER_ATTENTION = {'triblock': "The reference's other attention backends",
                     'dense': "The reference's other attention backends"}
 _ATTENTION_TYPES = ('pallas', 'triblock_pallas')
@@ -113,21 +118,24 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
                       "or 'cpu' (the kernels' plain versions)")
 
 
+def later(p: argparse.ArgumentParser, what: str, item: str) -> None:
+  """Refuses `what`, naming the ROADMAP.md item that brings it."""
+  p.error(f'{what} is not ported yet: ROADMAP.md, "Still to port": {item}')
+
+
 def check_model_flags(p: argparse.ArgumentParser, args) -> None:
   """Refuses what is not ported, naming the ROADMAP.md item."""
-  def later(what, item):
-    p.error(f'{what} is not ported yet: ROADMAP.md, "Still to port": {item}')
   if args.model != 'gencast':
-    later(f'--model {args.model}', 'GraphCast')
+    later(p, f'--model {args.model}', _LATER_GRAPHCAST)
   if args.preset in _LATER_PRESETS:
-    later(f'--preset {args.preset}', _LATER_PRESETS[args.preset])
+    later(p, f'--preset {args.preset}', _LATER_PRESETS[args.preset])
   if args.preset not in _PRESETS:
     p.error(f'unknown --preset {args.preset!r}: {", ".join(_PRESETS)}')
   if args.data != 'synthetic':
     p.error(f'--data {args.data!r}: only synthetic data is ported; ERA5 '
             f'sources come with ROADMAP.md, "Still to port": {_LATER_DATA}')
   if args.attention_type in _LATER_ATTENTION:
-    later(f'--attention_type {args.attention_type}',
+    later(p, f'--attention_type {args.attention_type}',
           _LATER_ATTENTION[args.attention_type])
   if args.attention_type not in (None,) + _ATTENTION_TYPES:
     p.error(f'unknown --attention_type {args.attention_type!r}')
@@ -142,8 +150,21 @@ def parse_args(argv=None):
   p.add_argument('--learning_rate', type=float, default=3e-4)
   p.add_argument('--warmup_steps', type=int, default=1000)
   p.add_argument('--weight_decay', type=float, default=0.1)
+  p.add_argument('--ar_steps', type=int, default=1,
+                 help='autoregressive training steps (graphcast only; '
+                      'ignored on a GenCast run)')
+  p.add_argument('--task', default=None,
+                 help='registry task name overriding the preset task (not '
+                      'ported yet: GraphCast)')
+  p.add_argument('--remat_group', type=int, default=1,
+                 help='graphcast only (not ported yet)')
+  p.add_argument('--functional_step', action='store_true', default=None,
+                 help='not ported: the donated-state step is TPU-only')
   p.add_argument('--steps_per_call', type=int, default=1,
                  help='1 (fused multi-step calls are not ported yet)')
+  p.add_argument('--pool_size', type=int, default=64,
+                 help='samples resident on the device in fused mode (not '
+                      'ported yet, with --steps_per_call)')
   # Checkpointing / eval / logging.
   p.add_argument('--ckpt_dir', default=None,
                  help='save checkpoints here, and resume from the newest')
@@ -159,18 +180,47 @@ def parse_args(argv=None):
                  help='log metrics to wandb (requires the package; '
                       'falls back to a warning without it)')
   p.add_argument('--wandb_project', default='gencast_tpu')
+  p.add_argument('--profile_dir', default=None,
+                 help='capture a profiler trace here (not ported yet)')
   p.add_argument('--prefetch', type=int, default=None,
                  help='0 (background prefetch is not ported yet)')
   p.add_argument('--data_workers', type=int, default=0,
                  help='0 (out-of-process packing is not ported yet)')
+  # Parallelism and multi-host, the reference's names and defaults.
+  p.add_argument('--dp', type=int, default=1)
+  p.add_argument('--mp', type=int, default=1)
+  p.add_argument('--multihost', action='store_true',
+                 help='one process per host (not ported yet)')
+  p.add_argument('--coordinator', default=None)
+  p.add_argument('--process_id', type=int, default=None)
+  p.add_argument('--num_processes', type=int, default=None)
+  p.add_argument('--cpu', type=int, default=0, metavar='N',
+                 help="not ported: the reference's stand-in of N virtual CPU "
+                      'devices is TPU-only (--device cpu runs on the CPU)')
   args = p.parse_args(argv)
   check_model_flags(p, args)
-  for flag, value, off in (('--steps_per_call', args.steps_per_call, 1),
-                           ('--prefetch', args.prefetch, None),
-                           ('--data_workers', args.data_workers, 0)):
-    if value not in (off, 0):
-      p.error(f'{flag} {value} is not ported yet: ROADMAP.md, "Still to '
-              f'port": {_LATER_DATA}')
+  # --ar_steps is not looked at: AR training is a GraphCast mode, and a
+  # stray --ar_steps K on a GenCast run is the reference's no-op.
+  for flag in ('functional_step', 'cpu'):
+    if getattr(args, flag):
+      p.error(f'--{flag} is not ported: TPU-only')
+  # (flag, its value, the values that ask for nothing, the ROADMAP.md item)
+  for flag, value, off, item in (
+      ('task', args.task, (None,), _LATER_GRAPHCAST),
+      ('remat_group', args.remat_group, (1,), _LATER_GRAPHCAST),
+      ('steps_per_call', args.steps_per_call, (1, 0), _LATER_DATA),
+      ('pool_size', args.pool_size, (64,), _LATER_LAUNCHES),
+      ('profile_dir', args.profile_dir, (None,), _LATER_DATA),
+      ('prefetch', args.prefetch, (None, 0), _LATER_DATA),
+      ('data_workers', args.data_workers, (0,), _LATER_DATA),
+      ('dp', args.dp, (1,), _LATER_PARALLEL),
+      ('mp', args.mp, (1,), _LATER_PARALLEL),
+      ('multihost', args.multihost, (False,), _LATER_PARALLEL),
+      ('coordinator', args.coordinator, (None,), _LATER_PARALLEL),
+      ('process_id', args.process_id, (None,), _LATER_PARALLEL),
+      ('num_processes', args.num_processes, (None,), _LATER_PARALLEL)):
+    if value not in off:
+      later(p, f'--{flag} {value}', item)
   return args
 
 

@@ -62,6 +62,32 @@ def test_member_streams_do_not_depend_on_the_ensemble(models):
   assert not torch.equal(three[0], three[1])
 
 
+@pytest.mark.parametrize('member_chunk', [None, 1, 2])
+def test_streamed_members_equal_the_stacked_ensemble(models, member_chunk):
+  """Members go to the host as they end, one at a time or `member_chunk` at
+  a time; the result is bitwise the stack of the members' own rollouts, on
+  the host, however they were grouped (3 members: the last group of 2 is
+  short)."""
+  from gencast_tpu_torch import rollout
+  _, _, tstack, data = models
+  inputs = torch.as_tensor(data['inputs'])
+  forcings = torch.as_tensor(data['forcings'])
+  stacked = torch.stack([
+      rollout.sample_rollout(tstack, inputs, forcings, key)
+      for key in ensemble.member_keys(9, 3)])
+  got = ensemble.ensemble_rollout(tstack, inputs, forcings, seed=9,
+                                  num_members=3, member_chunk=member_chunk)
+  assert got.device.type == 'cpu' and torch.equal(got, stacked)
+
+
+def test_member_chunk_must_be_positive(models):
+  _, _, tstack, data = models
+  with pytest.raises(ValueError, match='member_chunk'):
+    ensemble.ensemble_rollout(tstack, torch.as_tensor(data['inputs']),
+                              torch.as_tensor(data['forcings']), seed=9,
+                              num_members=2, member_chunk=-1)
+
+
 @pytest.mark.parametrize('m', [1, 3])
 def test_ensemble_statistics_match_jax(m):
   members = np.random.default_rng(m).standard_normal(

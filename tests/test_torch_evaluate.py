@@ -66,7 +66,7 @@ def test_evaluate_restores_the_checkpoint(evaluated):
 
 @pytest.mark.parametrize('argv,match', [
     (['--chunk_size', '2'], '0.25 degree'),
-    (['--member_chunk', '2'], '0.25 degree'),
+    (['--attention_type', 'dense'], 'other attention backends'),
     (['--no_overlap_offload'], '0.25 degree'),
     (['--save_netcdf'], 'CLIs and data'),
     (['--model', 'graphcast'], 'GraphCast'),
@@ -75,6 +75,22 @@ def test_evaluate_refuses_what_is_not_ported(argv, match, capsys):
   with pytest.raises(SystemExit):
     evaluate.parse_args(['--preset', 'tiny'] + argv)
   assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize('member_chunk', [1, 2])
+def test_evaluate_member_chunk_gives_the_same_predictions(evaluated,
+                                                          member_chunk,
+                                                          tmp_path):
+  """--member_chunk groups the members on their way to the host and changes
+  nothing in what they forecast."""
+  run, ckpt, _ = evaluated
+  chunked = evaluate.main(['--preset', 'tiny', '--device', 'cpu', '--ckpt_dir',
+                           ckpt, '--num_members', str(MEMBERS),
+                           '--max_rollout_steps', str(STEPS), '--out_dir',
+                           str(tmp_path), '--plot_vars', '--member_chunk',
+                           str(member_chunk)])
+  np.testing.assert_array_equal(chunked.predictions, run.predictions)
+  assert chunked.results == run.results
 
 
 def test_evaluate_needs_the_card_unless_told(monkeypatch):

@@ -1,5 +1,6 @@
 """The ctypes signatures of the port's CUDA entry points against their C
-declarations, and the wrappers' alignment check.
+declarations, the head dims the wrappers accept against those the sources
+are compiled for, and the wrappers' alignment check.
 
 The kernels compile and run only on a machine with nvcc and a card, so a
 wrong arity, or a pointer declared as a 32-bit int (ctypes would cut it),
@@ -15,7 +16,7 @@ import re
 
 import pytest
 
-from gencast_tpu_torch.ops import cuda_lib
+from gencast_tpu_torch.ops import banded_attention, cuda_lib, sparse_attention
 
 _DECLARATION = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 _CTYPES = {'int': ctypes.c_int, 'float': ctypes.c_float,
@@ -67,6 +68,26 @@ def test_signature_matches_declaration(name):
 @pytest.mark.parametrize('name', sorted(cuda_lib._SIGNATURES))
 def test_signature_has_a_c_function(name):
   assert name in DECLARED, f'{name} is bound but no source declares it'
+
+
+_DISPATCH_D = re.compile(
+    r'cudaError_t dispatch_d\(.*?switch \(head_dim\) \{(.*?)default:', re.S)
+# Each attention source and the wrapper module that launches its kernels.
+_SOURCES = {'sparse_attention.cu': sparse_attention,
+            'sparse_attention_bwd.cu': sparse_attention,
+            'banded_attention.cu': banded_attention,
+            'banded_attention_bwd.cu': banded_attention}
+
+
+@pytest.mark.parametrize('source', sorted(_SOURCES))
+def test_wrapper_head_dims_are_the_compiled_ones(source):
+  """A head dim the wrapper lets through and `dispatch_d` has no case for
+  comes back as cudaErrorInvalidValue from the launch; one that is compiled
+  and not let through is never reached."""
+  with open(os.path.join(cuda_lib.CSRC_DIR, source)) as f:
+    (cases,) = _DISPATCH_D.findall(f.read())
+  compiled = tuple(int(d) for d in re.findall(r'case (\d+):', cases))
+  assert compiled and compiled == tuple(_SOURCES[source]._HEAD_DIMS)
 
 
 @pytest.mark.parametrize('address', [0, 16, 0x7F0000000400])
