@@ -10,8 +10,9 @@ Phases (any failure raises and exits non-zero):
   1. setup: card name and power limit, build of the CUDA kernels, ptxas's
      registers and spills per kernel (a tensor-core kernel must not spill),
      and the count of tensor-core products and asynchronous copies in the
-     attention kernels' machine code (the bf16 kernels A, C, D and F must
-     hold both);
+     attention kernels' machine code (the bf16 kernels A, C, D, F and G
+     must hold both), and the dynamic shared memory of F's and G's dk/dv
+     launches;
   2. statics: the 1-degree graph, attention tile plan and aggregation plans;
   3. kernel A (block-sparse attention) against its plain PyTorch version at
      the 1-degree shapes (the mesh's ragged n, 2 rows in the last tile, and
@@ -60,15 +61,22 @@ Phases (any failure raises and exits non-zero):
      step (batch 2) on the card against the CPU, 3 AdamW steps, and the
      bf16 gradients against the float32 ones ('full' remat, nano's);
  15. training: `train.main` for 3 full-width nano steps, as phase 10;
- 16. kernel G (the fused block-sparse attention backward) with its dq
-     reduce against its plain version and against kernel F at
-     [1, 10304, 4, 128], float32 and bfloat16, from kernel A's lse, with
-     timings of G alone, G with the reduce, F and the library's backward;
+ 16. kernel G (the fused block-sparse attention backward) and its dq
+     reduce kernel at the transformer's padded [1, 10304, 4, 128], at the
+     mesh's ragged [1, 10242, 4, 128] and at head dim 32 on TINY's plan,
+     float32 and bfloat16, from kernel A's lse, with NaN behind the last
+     row: G alone against its plain version (dk, dv and the partials on the
+     real slots), the reduce against its plain version on the same
+     partials with NaN in every pad slot, G with the reduce against the
+     plain fused backward and against kernel F (bf16 dk and dv bitwise
+     F's), and twice for equal bits; timings of G alone, the reduce alone,
+     G with the reduce, F and the library's backward;
  17. the 1-degree path under GENCAST_SPARSE_FUSED_BWD=1: `train.main` for 3
      steps with checkpoints every 2 steps and a metrics file, then a run to
-     step 5 that resumes at step 3 from the newest checkpoint (G 16 times
-     per step, F never, launches checked per step), seconds per step and
-     peak memory beside phase 10's; then `evaluate.main` on the checkpoint:
+     step 5 that resumes at step 3 from the newest checkpoint (G and its
+     reduce 16 times per step each, F never, launches checked per step),
+     seconds per step and peak memory beside phase 10's; then
+     `evaluate.main` on the checkpoint:
      a 2-member, 2-step 1-degree ensemble (A 2,496 and B 156 launches) from
      the parameters saved, with finite scores and predictions
      [2, 2, 181, 360, C];
@@ -84,10 +92,11 @@ for the same work: the larger of the bytes it must move over 3.35 TB/s and
 the operations on the allowed entries over 989 TFLOP/s bf16 or 67 TFLOP/s
 float32) and the time of one PyTorch call computing the same function, timed
 in turns with the kernel (scaled_dot_product_attention with the dense mask
-and its backward, segment_reduce, native_layer_norm_backward); the port
-never calls those. TF32 is off for matmuls and cuDNN: float32 products run
-in full float32. Phase 17 writes under build/chip_smoke/ (git-ignored) and
-removes it. A few minutes on an H100, build included.
+and its backward, segment_reduce, native_layer_norm_backward; none for
+G's dq reduce, whose row says so); the port never calls those. TF32 is off
+for matmuls and cuDNN: float32 products run in full float32. Phase 17
+writes under build/chip_smoke/ (git-ignored) and removes it. A few minutes
+on an H100, build included.
 """
 
 from __future__ import annotations
@@ -127,14 +136,18 @@ TINY_SAMPLE_RTOL = 1e-3
 # (2^-8 of the element) shows.
 BWD_F32_RTOL = 1e-5
 BWD_BF16_RTOL = 1e-2
-# Kernel G's dk and dv against kernel F's are held to the two tolerances
-# above: in float32 both run one sweep; in bf16 F sums its products on the
-# tensor cores, in another order and with the fast exp, so the two differ
-# by flipped bf16 roundings as each does from the plain version.
+# Kernel G's dk and dv against kernel F's: in bf16 equal bits (G runs F's
+# per-pair routine, mma::dkv_pair, in the same order); in float32 held to
+# BWD_F32_RTOL (both run the FMA sweep, G's with its partials added).
 # Kernel G's bf16 dq against kernel F's, max|G - F| / max|F|: G rounds each
 # pair's partial ds . K to bf16 before the float32 sum over the pairs of a
 # query tile (the reference's fused numerics), F rounds the sum once.
 FUSED_DQ_BF16_RTOL = 2e-2
+# G's dq reduce kernel against its plain version on the same partials, max
+# rel: the same float32 sums in another order, rounded once to the
+# partials' dtype (in bf16 a flipped rounding is 2^-8 of the element).
+REDUCE_F32_RTOL = 1e-5
+REDUCE_BF16_RTOL = 1e-2
 # TINY float32 training step, card kernels vs CPU plain path: the loss
 # (max relative), each gradient (max|card - cpu| / max|cpu| per parameter,
 # float32 sums in other orders through 2 GNNs and 2 attention layers), and
@@ -171,8 +184,8 @@ def card_line() -> str:
 
 
 KERNEL_NAME = re.compile(
-    r'((?:sparse|banded)_attention_(?:fwd|dq|dkvq|dkv)(?:_mma)?_kernel'
-    r'|segment_sum_kernel|ln_film_(?:bwd|reduce)_kernel)(?:I(.*?)EEv)?')
+    r'((?:sparse|banded)_attention_(?:fwd|dq_reduce|dq|dkvq|dkv)'
+    r'(?:_mma)?_kernel|segment_sum_kernel|ln_film_(?:bwd|reduce)_kernel)(?:I(.*?)EEv)?')
 
 
 def kernel_name(mangled: str) -> str:
@@ -188,8 +201,9 @@ def log_sass_counts(lib_path: str) -> None:
   """Logs, for each attention kernel in the built library, how many
   tensor-core products (HMMA), ldmatrix loads (LDSM), asynchronous copies
   (LDGSTS) and float32 FMAs (FFMA) its machine code holds; the tensor-core
-  kernels (bf16 A, C, D and F) must hold HMMA, LDSM and LDGSTS. Raises where cuobjdump, which
-  comes with the toolkit that built the library, is not found."""
+  kernels (bf16 A, C, D, F and G) must hold HMMA, LDSM and LDGSTS. Raises
+  where cuobjdump, which comes with the toolkit that built the library, is
+  not found."""
   from torch.utils.cpp_extension import CUDA_HOME
   tool = shutil.which('cuobjdump') or os.path.join(CUDA_HOME or '', 'bin',
                                                    'cuobjdump')
@@ -217,7 +231,8 @@ def log_sass_counts(lib_path: str) -> None:
                            f'asynchronous copy: {c}')
   for family in ('sparse_attention_fwd_mma', 'banded_attention_fwd_mma',
                  'sparse_attention_dq_mma', 'sparse_attention_dkv_mma',
-                 'banded_attention_dq_mma', 'banded_attention_dkv_mma'):
+                 'sparse_attention_dkvq_mma', 'banded_attention_dq_mma',
+                 'banded_attention_dkv_mma'):
     if not any(name.startswith(family) for name in counts):
       raise AssertionError(f'no {family} kernel found in {lib_path}')
 
@@ -413,23 +428,33 @@ def check_attention_bwd(shape, dtype, rtol, mt, plan_t, tile, g, dense,
 
 def check_fused_bwd(shape, dtype, rtol, mt, plan_t, gather_t, tile, g, dense,
                     allowed):
-  """Kernel G (the fused sweep) with its dq reduce against the plain version
-  and against kernel F, on seeded q/k/v and dO [1, *shape], from kernel A's
-  lse: returns ((rel, abs) worst over dq, dk, dv against the plain version,
-  {'kernel': ms of G alone, 'fused': ms of G and the reduce, 'plain': ms,
-  'F': ms of F's dq and dk/dv, 'library': ms}, (flops, bytes))."""
+  """Kernel G (the fused sweep) and its dq reduce kernel on seeded q/k/v and
+  dO [1, *shape] with NaN behind the last row (`nan_tailed`), from kernel
+  A's lse:
+  * G alone against its plain version: dk, dv, and the partials on the
+    real slots (G leaves pad slots unwritten);
+  * the reduce kernel against its plain version on the same partials, with
+    NaN written into every pad slot first: finite, and equal bits over two
+    runs;
+  * G with the reduce against the plain fused backward and against kernel
+    F: in bf16 dk and dv are F's bits (both run `mma::dkv_pair`), dq within
+    FUSED_DQ_BF16_RTOL of F's; and twice, for equal bits.
+  Returns ({'G': (rel, abs) worst over dk, dv and the partials, 'reduce':
+  (rel, abs)}, ms by name, {'G': (flops, bytes), 'reduce': (flops,
+  bytes)})."""
   from gencast_tpu_torch.ops import sparse_attention as sa
   fwd_ids, fwd_pids, bwd_ids, bwd_pids = plan_t
   slot_ids, valid = gather_t
   n = shape[0]
-  q, k, v, dout = (torch.randn((1,) + shape, generator=g, device=mt.device)
-                   .to(dtype) for _ in range(4))
+  what = f'{dtype} [1, {", ".join(map(str, shape))}]'
+  q, k, v, dout = nan_tailed(shape, 4, dtype, g, mt.device, tile)
   o, lse = sa.sparse_attention_fwd_cuda(q, k, v, mt, fwd_ids, fwd_pids, tile)
   delta = sa.attention_delta(o, dout)
   args = (q, k, v, dout, lse, delta, mt, bwd_ids, bwd_pids, tile)
+  real = (bwd_pids != mt.shape[0] - 1).reshape(-1)  # the slots G writes
 
-  def fused(dkvq):
-    dk, dv, partial = dkvq(*args)
+  def fused():
+    dk, dv, partial = sa.sparse_attention_dkvq_cuda(*args)
     return sa.sparse_attention_dq_reduce(partial, slot_ids, valid, n), dk, dv
 
   def split():
@@ -437,42 +462,91 @@ def check_fused_bwd(shape, dtype, rtol, mt, plan_t, gather_t, tile, g, dense,
                                         fwd_ids, fwd_pids, tile),
             *sa.sparse_attention_dkv_cuda(*args))
 
-  got = fused(sa.sparse_attention_dkvq_cuda)
-  want = fused(sa.sparse_attention_dkvq_plain)
+  # G alone, slot by slot on the real slots.
+  got = sa.sparse_attention_dkvq_cuda(*args)
+  want = sa.sparse_attention_dkvq_plain(*args)
+  torch.cuda.synchronize()
+  g_errs = [rel_err(got[0], want[0]), rel_err(got[1], want[1]),
+            rel_err(got[2][:, real], want[2][:, real])]
+  # The reduce on G's partials, NaN in every pad slot.
+  partial = got[2]
+  partial[:, ~real] = float('nan')
+  reduce_args = (partial, slot_ids, valid, n)
+  dq_k = sa.sparse_attention_dq_reduce_cuda(*reduce_args)
+  dq_k2 = sa.sparse_attention_dq_reduce_cuda(*reduce_args)
+  dq_p = sa.sparse_attention_dq_reduce_plain(*reduce_args)
+  torch.cuda.synchronize()
+  r_err = rel_err(dq_k, dq_p)
+  r_tol = REDUCE_F32_RTOL if dtype == torch.float32 else REDUCE_BF16_RTOL
+  if not (max(g_errs)[0] <= rtol and r_err[0] <= r_tol
+          and bool(torch.isfinite(dq_k).all()) and torch.equal(dq_k, dq_k2)):
+    raise AssertionError(
+        f'kernel G {what}: max rel errs (dk, dv, partials) against plain '
+        f'{g_errs} (tol {rtol}); reduce against plain {r_err} (tol {r_tol}), '
+        f'finite {bool(torch.isfinite(dq_k).all())}, equal bits twice '
+        f'{torch.equal(dq_k, dq_k2)}')
+  del got, want, dq_k, dq_k2, dq_p
+
+  # G with the reduce, against the plain fused backward, F, and itself.
+  got = fused()
+  again = fused()
+  dk_p, dv_p, partial_p = sa.sparse_attention_dkvq_plain(*args)
+  want = (sa.sparse_attention_dq_reduce_plain(partial_p, slot_ids, valid, n),
+          dk_p, dv_p)
+  del partial_p
   f_got = split()
   torch.cuda.synchronize()
   errs = [rel_err(a, b) for a, b in zip(got, want)]
   f_errs = [rel_err(a, b) for a, b in zip(got, f_got)]
+  same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+  f_bits = all(torch.equal(a, b) for a, b in zip(got[1:], f_got[1:]))
   # dq against F's: G rounds each pair's partial to the input dtype, F its
-  # float32 sum once.
+  # float32 sum once. dk and dv: the same routine as F's in bf16; float32
+  # runs the FMA sweep, F's with the partials added.
   dq_tol = rtol if dtype == torch.float32 else FUSED_DQ_BF16_RTOL
   if not (max(errs)[0] <= rtol and f_errs[0][0] <= dq_tol
-          and max(f_errs[1:])[0] <= rtol):
-    raise AssertionError(f'kernel G {dtype} {shape}: max rel errs (dq, dk, '
-                         f'dv) against plain {errs}, against kernel F '
-                         f'{f_errs}')
-  del got, want, f_got
+          and max(f_errs[1:])[0] <= rtol and same_bits
+          and (f_bits or dtype == torch.float32)):
+    raise AssertionError(
+        f'kernel G and its reduce {what}: max rel errs (dq, dk, dv) against '
+        f'plain {errs}, against kernel F {f_errs} (dk, dv F\'s bits: '
+        f'{f_bits}); equal bits twice {same_bits}')
+  del got, again, want, f_got
+
   ms = time_in_turns({
       'plain': lambda: sa.sparse_attention_dkvq_plain(*args),
       'kernel': lambda: sa.sparse_attention_dkvq_cuda(*args),
-      'fused': lambda: fused(sa.sparse_attention_dkvq_cuda),
+      'reduce_plain': lambda: sa.sparse_attention_dq_reduce_plain(
+          *reduce_args),
+      'reduce': lambda: sa.sparse_attention_dq_reduce_cuda(*reduce_args),
+      'fused': fused,
       'F': split}, reps=5)
   ms['library'] = library_backward_ms(q, k, v, dout, dense, reps=5)
   h, d = shape[1], shape[2]
-  pairs = int((bwd_pids != mt.shape[0] - 1).sum())
-  partial_bytes = pairs * h * tile * d * q.element_size()
-  cost = (10 * d * allowed * h,
-          nbytes(q, k, v, dout, mt, bwd_ids, bwd_pids, lse, delta, k, v)
-          + partial_bytes)
-  log(f'[kernel G] {dtype} [1, {", ".join(map(str, shape))}]: max rel err '
-      f'(dq, dk, dv) {errs[0][0]:.3e}/{errs[1][0]:.3e}/{errs[2][0]:.3e} (tol '
-      f'{rtol}); against kernel F {f_errs[0][0]:.3e}/{f_errs[1][0]:.3e}/'
-      f'{f_errs[2][0]:.3e} (dq tol {dq_tol}); kernel {ms["kernel"]:.3f} ms, '
-      f'kernel and dq reduce {ms["fused"]:.3f} ms, plain '
-      f'{ms["plain"]:.3f} ms, kernel F (dq, dk/dv) {ms["F"]:.3f} ms, library '
-      f'backward (dq, dk, dv) {ms["library"]:.3f} ms; {pairs} pairs, '
-      f'partials {partial_bytes / 2**30:.3f} GiB')
-  return max(errs), ms, cost
+  pairs = int(real.sum())
+  tile_bytes = h * tile * d * q.element_size()
+  costs = {'G': (10 * d * allowed * h,
+                 nbytes(q, k, v, dout, mt, bwd_ids, bwd_pids, lse, delta, k,
+                        v) + pairs * tile_bytes),
+           # One float32 add per element read; the valid partials read once,
+           # dq written once.
+           'reduce': (pairs * tile_bytes // q.element_size(),
+                      nbytes(slot_ids, valid, q) + pairs * tile_bytes)}
+  log(f'[kernel G] {what}: max rel err against plain dk/dv/partials '
+      f'{g_errs[0][0]:.3e}/{g_errs[1][0]:.3e}/{g_errs[2][0]:.3e} on {pairs} '
+      f'real slots, with the reduce dq/dk/dv {errs[0][0]:.3e}/'
+      f'{errs[1][0]:.3e}/{errs[2][0]:.3e} (tol {rtol}); against kernel F '
+      f'{f_errs[0][0]:.3e}/{f_errs[1][0]:.3e}/{f_errs[2][0]:.3e} (dq tol '
+      f'{dq_tol}), dk and dv F\'s bits: {f_bits}; equal bits twice; reduce '
+      f'against plain {r_err[0]:.3e} (tol {r_tol}) with NaN in the '
+      f'{int((~real).sum())} pad slots, finite; NaN behind row {n} not read; '
+      f'G {ms["kernel"]:.3f} ms, reduce '
+      f'{ms["reduce"]:.3f} ms (PyTorch ops {ms["reduce_plain"]:.3f} ms), G '
+      f'and reduce {ms["fused"]:.3f} ms, plain G {ms["plain"]:.3f} ms, kernel '
+      f'F (dq, dk/dv) {ms["F"]:.3f} ms, library backward (dq, dk, dv) '
+      f'{ms["library"]:.3f} ms; partials '
+      f'{pairs * tile_bytes / 2**30:.3f} GiB')
+  return {'G': max(g_errs), 'reduce': r_err}, ms, costs
 
 
 def check_ln_film_bwd(shape, batch_axis, dtype, rtol, g):
@@ -517,21 +591,22 @@ def check_ln_film_bwd(shape, batch_axis, dtype, rtol, g):
 
 def counters():
   """Every kernel's launch counter: A, F-dq, F-dkv, B, E, C, D-dq, D-dkv,
-  G."""
+  G and G's dq reduce."""
   from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
       sparse_attention
   return (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
           sparse_attention.KERNEL_DKV, segment.KERNEL, ln_film.KERNEL,
           banded_attention.KERNEL, banded_attention.KERNEL_DQ,
-          banded_attention.KERNEL_DKV, sparse_attention.KERNEL_DKVQ)
+          banded_attention.KERNEL_DKV, sparse_attention.KERNEL_DKVQ,
+          sparse_attention.KERNEL_DQ_REDUCE)
 
 
 def expected_step_launches(gencast) -> dict:
   """Launches of each kernel in one training step, derived from the model.
   The attention backend's forward (A or C) runs once per layer under
   'save_attention' (the attention half is not recomputed) and twice under
-  'full'; its backward (F or D: dq and dk/dv; G alone when the transformer
-  holds the fused backward's gather map) once per layer; the other
+  'full'; its backward (F or D: dq and dk/dv; G and its dq reduce when the
+  transformer holds the fused backward's gather map) once per layer; the other
   backend's kernels never. B once per receiver aggregation over a side of
   non-uniform degree (forward) and once per gather over such a side (its
   backward): on the card each of them carries a plan, the reference's or
@@ -558,7 +633,8 @@ def expected_step_launches(gencast) -> dict:
   unused = sum(len(set(p.node_mlps) - decoded)
                for p in arch.mesh2grid.processors)
   if 'slot_ids' in arch.processor.operand_names:
-    attn = (sparse_attention.KERNEL, sparse_attention.KERNEL_DKVQ)
+    attn = (sparse_attention.KERNEL, sparse_attention.KERNEL_DKVQ,
+            sparse_attention.KERNEL_DQ_REDUCE)
   elif cfg.attention_type == 'pallas':
     attn = (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
             sparse_attention.KERNEL_DKV)
@@ -1106,6 +1182,13 @@ def main() -> int:
       if 'spill' in line and '_mma_' in entry:
         raise AssertionError(f'{entry} spills registers: {line.strip()}')
   log_sass_counts(cuda_lib.library()._name)
+  # Dynamic shared memory of the bf16 dk/dv sweeps (kind 1 F, 2 G): the
+  # stages, plus 8 bytes per slot of the tile's list.
+  smem = {f'{name}<{hd}>': cuda_lib.library().gt_sparse_attention_bwd_smem(
+      kind, 1, hd, 0) for name, kind in (('F-dk/dv', 1), ('G', 2))
+          for hd in sparse_attention._HEAD_DIMS}
+  log(f'[setup] bf16 dk/dv shared memory, bytes: {smem}, plus 8 per list '
+      'slot')
 
   # --- 2. statics ---
   spec = configs.ONE_DEG
@@ -1320,7 +1403,7 @@ def main() -> int:
                         dense[:n, :n], allowed)
     check_attention_bwd(tiny_shape, dtype, rtol, tiny_t[0], tiny_t[1:],
                         tiny_plan.tile, g, tiny_dense, tiny_allowed)
-  del dense, tiny_t, tiny_dense
+  del dense
 
   # --- 8. kernel E vs plain ---
   m2g_edges = statics.mesh2grid.num_edges
@@ -1386,16 +1469,24 @@ def main() -> int:
   nano_launches, _, _ = train_preset(nano, nano_statics, dev, card,
                                      ['--preset', 'nano'])
 
-  # --- 16. kernel G vs plain and vs kernel F, from kernel A's lse ---
+  # --- 16. kernel G and its dq reduce vs plain and vs kernel F, from
+  # kernel A's lse: the shapes of phase 7 ---
   gather_t = tuple(torch.as_tensor(a, device=dev)
                    for a in plans.build_bwd_gather(plan))
+  tiny_gather_t = tuple(torch.as_tensor(a, device=dev)
+                        for a in plans.build_bwd_gather(tiny_plan))
   dense = dense_from_plan(plan, dev)
   for dtype, rtol in ((torch.float32, BWD_F32_RTOL),
                       (torch.bfloat16, BWD_BF16_RTOL)):
     results[('G', dtype)] = check_fused_bwd(
         (plan.padded_n, h, d), dtype, rtol, mt, plan_t, gather_t, plan.tile,
         g, dense, allowed)
-  del dense, gather_t
+    check_fused_bwd((n, h, d), dtype, rtol, mt, plan_t, gather_t, plan.tile,
+                    g, dense[:n, :n], allowed)
+    check_fused_bwd(tiny_shape, dtype, rtol, tiny_t[0], tiny_t[1:],
+                    tiny_gather_t, tiny_plan.tile, g, tiny_dense,
+                    tiny_allowed)
+  del dense, gather_t, tiny_t, tiny_dense, tiny_gather_t
 
   # --- 17. the 1-degree path with the fused backward: train, resume,
   # evaluate ---
@@ -1408,7 +1499,8 @@ def main() -> int:
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B in float32 on the
   # grid2mesh plan, E in bf16 at the largest shape it gets (the 1-degree
-  # mesh2grid edges), C and D at nano's [1, 2624, 4, 64] in bf16, G as A.
+  # mesh2grid edges), C and D at nano's [1, 2624, 4, 64] in bf16, G and its
+  # dq reduce as A.
   # Launches come from the training runs of each kernel's paths (1 degree,
   # nano, and the 1-degree path with the fused backward), by path where a
   # kernel runs on more than one.
@@ -1419,7 +1511,7 @@ def main() -> int:
   errs_f, ms_f, costs_f = results[('F', bf16)]
   err_c, ms_c, cost_c = results[('C', 'nano', bf16)]
   errs_d, ms_d, costs_d = results[('D', 'nano', bf16)]
-  err_g, ms_g, cost_g = results[('G', bf16)]
+  errs_g, ms_g, costs_g = results[('G', bf16)]
   kernels = [
       row(sparse_attention.KERNEL, err_a, ms_a['kernel'], ms_a['plain'],
           ms_a['library'], *cost_a, bf16),
@@ -1437,8 +1529,16 @@ def main() -> int:
           ms_f['dq_plain'], ms_f['library'], *costs_f['dq'], bf16),
       row(sparse_attention.KERNEL_DKV, errs_f['dkv'][1], ms_f['dkv'],
           ms_f['dkv_plain'], ms_f['library'], *costs_f['dkv'], bf16),
-      row(sparse_attention.KERNEL_DKVQ, err_g[1], ms_g['kernel'],
-          ms_g['plain'], ms_g['library'], *cost_g, bf16),
+      row(sparse_attention.KERNEL_DKVQ, errs_g['G'][1], ms_g['kernel'],
+          ms_g['plain'], ms_g['library'], *costs_g['G'], bf16),
+      # No single PyTorch call computes the reduce: plain_ms is the
+      # PyTorch-ops version (index_select, where, sum, scale, cast); its
+      # adds are float32.
+      dict(row(sparse_attention.KERNEL_DQ_REDUCE, errs_g['reduce'][1],
+               ms_g['reduce'], ms_g['reduce_plain'], None,
+               *costs_g['reduce'], torch.float32),
+           library_note='no single PyTorch call computes it; plain_ms is '
+           'the PyTorch-ops version'),
   ]
   for k in kernels:
     by_path = {'1deg': one_deg_launches[k['name']],

@@ -1,12 +1,13 @@
 // Tensor-core building blocks of the bf16 attention kernels: the forwards
 // (the block-sparse kernel A, sparse_attention.cu, and the tri-block kernel
 // C, banded_attention.cu) and the backwards (the tri-block kernel D,
-// banded_attention_bwd.cu, and the block-sparse kernel F,
+// banded_attention_bwd.cu, and the block-sparse kernels F and G,
 // sparse_attention_bwd.cu). Here are the asynchronous 16-byte tile copies
 // into shared memory, the ldmatrix fragment loads, the m16n8k16 bf16 product
 // with float32 sums, the two-stage walk over a block's pair list
 // (walk_pairs), and the per-pair routines the kernels run on a 64 x 64 tile
-// pair: fwd_pair (A and C), dq_pair and dkv_pair (D and F).
+// pair: fwd_pair (A and C), dq_pair and dkv_pair (D, F and G) and
+// dq_partial (G's fifth product).
 //
 // Numerics: sums are float32; p, w and ds are rounded to bf16 where the plain
 // version casts them. The exponentials (the backward's
@@ -15,8 +16,8 @@
 // multiply), whose error CUDA bounds by 2 + floor(|1.4427 x|) float32 ulp.
 // Allowed entries have x <= 0 up to rounding, and for x >= -20 (a value
 // >= 2e-9) that is at most 30 ulp, 1.8e-6 relative: a thousandth of the bf16
-// rounding that follows (2^-9 relative). The float32 kernels and the fused
-// kernel G keep expf.
+// rounding that follows (2^-9 relative). The float32 kernels (FMA products)
+// keep expf.
 //
 // Route: mma.sync with cp.async, not wgmma with TMA. The tiles are 64 x 64,
 // the pair lists are irregular (a plan's list, or the sub-tiles of three
@@ -24,7 +25,8 @@
 // tile with V, K, dO or Q read that operand along its other axis
 // (ldmatrix.trans gives that from the row-major tile, where wgmma needs a
 // descriptor per major-ness), and p, w and ds must stay in registers between
-// products: the float32 accumulator fragment of m16n8 has the layout of the A
+// products (only G's partial reads ds back, transposed, from shared memory):
+// the float32 accumulator fragment of m16n8 has the layout of the A
 // operand of m16n8k16, so a warp feeds its 16-row strip of p, w or ds,
 // rounded to bf16, straight into the next product.
 //
@@ -65,13 +67,35 @@ struct Tile {
 // Shared memory of a block, two stages deep. Forward: q resident, then per
 // stage k, v and the mask tile. dq: q and dO resident, then the same stages.
 // dk/dv: k and v resident, then per stage q, dO, the mask tile, lse and
-// delta. At D = 128 that is 93.0, 110.0 and 111.0 KB: two blocks fit into an
-// SM's 227 KB.
+// delta; G as dk/dv. At D = 128 that is 93.0, 110.0 and 111.0 KB: two blocks
+// fit into an SM's 227 KB.
+// Kernel G's transposed ds tile of a pair, [kTile key rows, kTile query
+// columns] bf16, which dkv_pair writes for dq_partial: two blocks of
+// kDsCols query columns, rows kDsStride elements (80 bytes) apart, so that
+// the eight rows of an ldmatrix 8 x 8 block fall into eight different
+// 16-byte bank groups. Where a block fits into the 32 query rows of the
+// staged q tile that the pass writing it has finished with (D = 128), block
+// h lies over rows 32 h .. of that tile and costs no shared memory;
+// otherwise (D = 32) both blocks lie in a buffer of their own.
+constexpr int kDsCols = 32;
+constexpr int kDsStride = kDsCols + 8;
+template <int D>
+struct DsT {
+  static constexpr int kOwnBlock = kTile * kDsStride;
+  static constexpr bool kInQ = kDsCols * Tile<D>::kStride >= kOwnBlock;
+  static constexpr int kBlockElems = kInQ ? kDsCols * Tile<D>::kStride
+                                          : kOwnBlock;
+  static constexpr size_t kOwnBytes =
+      kInQ ? 0 : 2 * kOwnBlock * sizeof(bf16);
+};
+
 template <int D>
 struct Staged {
   static constexpr size_t kFwdBytes = 5 * Tile<D>::kBytes + 2 * kMaskBytes;
   static constexpr size_t kDqBytes = 6 * Tile<D>::kBytes + 2 * kMaskBytes;
   static constexpr size_t kDkvBytes = kDqBytes + 2 * kVecBytes;
+  // G: dk/dv's stages and, at D = 32, the ds tile's own buffer.
+  static constexpr size_t kDkvqBytes = kDkvBytes + DsT<D>::kOwnBytes;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -300,20 +324,23 @@ __device__ __forceinline__ void mma_abt(float (&acc)[kCols / 8][4],
   }
 }
 
-// out[16 x D] += P[16 x kCols] . X[x_row0 .. + kCols - 1, :] with P in
-// registers as A fragments (p[i] covers columns 16 i .. 16 i + 15) and X a
-// row-major [kTile, D] tile in shared memory, read along its rows by
-// ldmatrix.trans: the products ds . k, w^T . dO and ds^T . q.
-template <int D, int kCols>
-__device__ __forceinline__ void mma_pb(float (&out)[D / 8][4],
+// out[16 x kOut] += P[16 x kCols] . X[x_row0 .. + kCols - 1, col0 .. +
+// kOut - 1] with P in registers as A fragments (p[i] covers columns 16 i ..
+// 16 i + 15) and X a row-major [kTile, D] tile in shared memory, read along
+// its rows by ldmatrix.trans: the products ds . k, w^T . dO and ds^T . q
+// (all D columns), and G's dq partial (kOut columns at a time).
+template <int D, int kCols, int kOut = D>
+__device__ __forceinline__ void mma_pb(float (&out)[kOut / 8][4],
                                        const uint32_t (&p)[kCols / 16][4],
-                                       const bf16* x, int x_row0, int lane) {
+                                       const bf16* x, int x_row0, int lane,
+                                       int col0 = 0) {
   constexpr int kStride = Tile<D>::kStride;
-  const bf16* x_ptr = x + (x_row0 + (lane & 15)) * kStride + (lane >> 4) * 8;
+  const bf16* x_ptr =
+      x + (x_row0 + (lane & 15)) * kStride + (lane >> 4) * 8 + col0;
 #pragma unroll
   for (int i = 0; i < kCols / 16; ++i) {
 #pragma unroll
-    for (int j = 0; j < D / 8; j += 2) {
+    for (int j = 0; j < kOut / 8; j += 2) {
       uint32_t bfrag[4];
       ldmatrix_x4_trans(bfrag, x_ptr + i * 16 * kStride + j * 8);
       mma_bf16(out[j], p[i], bfrag[0], bfrag[1]);
@@ -455,14 +482,21 @@ __device__ __forceinline__ void dq_pair(float (&dq)[D / 8][4], const bf16* qs,
 // ms is the staged mask tile [query row, key column], read by (column, row);
 // vec holds the query tile's lse in [0, 64) and delta in [64, 128). kCols
 // query columns are in registers at a time (64, or 32 where D = 128 leaves
-// no room for more).
-template <int D, int kCols>
+// no room for more). With kDsOut (kernel G) each pass also writes its bf16
+// ds^T fragments, the very operand of dk's product, into the DsT<D> tile at
+// ds_t; where that tile lies over the q tile, a barrier first waits until
+// every warp is done with the pass's q rows. The caller waits for the whole
+// tile with a barrier of its own.
+template <int D, int kCols, bool kDsOut = false>
 __device__ __forceinline__ void dkv_pair(float (&dk)[D / 8][4],
                                          float (&dv)[D / 8][4], const bf16* ks,
                                          const bf16* vs, const bf16* qs,
                                          const bf16* dos, const uint8_t* ms,
                                          const float* vec, float scale,
-                                         int warp, int lane) {
+                                         int warp, int lane,
+                                         bf16* ds_t = nullptr) {
+  static_assert(!(kDsOut && DsT<D>::kInQ) || kCols == kDsCols,
+                "a pass must free exactly the q rows its ds^T block covers");
   const int row = 16 * warp + (lane >> 2);  // key row; the other is row + 8
   // Not unrolled: the passes would share their registers' lifetimes, and at
   // D = 128 (128 sums held across the list) that spills.
@@ -494,6 +528,66 @@ __device__ __forceinline__ void dkv_pair(float (&dk)[D / 8][4],
     pack_fragments<kCols / 8>(dsf, dp);
     mma_pb<D, kCols>(dv, wf, dos, c0, lane);
     mma_pb<D, kCols>(dk, dsf, qs, c0, lane);
+    if constexpr (kDsOut) {
+      if constexpr (DsT<D>::kInQ) __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kCols / 16; ++i) {
+        const int col = c0 + 16 * i;  // the fragment's first query column
+        uint32_t* at = reinterpret_cast<uint32_t*>(
+            ds_t + (col / kDsCols) * DsT<D>::kBlockElems + row * kDsStride +
+            col % kDsCols + 2 * (lane & 3));
+        constexpr int kRow8 = 8 * kDsStride / 2;  // eight rows, in words
+        at[0] = dsf[i][0];
+        at[kRow8] = dsf[i][1];
+        at[4] = dsf[i][2];
+        at[kRow8 + 4] = dsf[i][3];
+      }
+    }
+  }
+}
+
+// Kernel G's fifth product for one pair, this warp's 16 query rows:
+// partial = ds . K rounded to bf16 once, from the DsT<D> tile ds_t (ds^T,
+// read by ldmatrix.trans as the A operand) and the resident key tile ks,
+// kChunk output columns at a time. The strip is staged, rounded, in rows
+// 16 warp .. of `stage` (a [kTile, D] tile no warp reads any more) and then
+// stored 16 bytes a lane into rows 16 warp .. of the pair's contiguous
+// [kTile, D] partial tile `dst`.
+template <int D>
+__device__ __forceinline__ void dq_partial(const bf16* ds_t, const bf16* ks,
+                                           bf16* stage, bf16* __restrict__ dst,
+                                           int warp, int lane) {
+  constexpr int kStride = Tile<D>::kStride;
+  constexpr int kChunk = D < 32 ? D : 32;
+  // Rows 16 warp .. 16 warp + 15 of ds are columns of ds^T block warp / 2.
+  const bf16* a_ptr = ds_t + (warp >> 1) * DsT<D>::kBlockElems +
+                      ((lane & 7) + ((lane >> 4) & 1) * 8) * kDsStride +
+                      16 * (warp & 1) + ((lane >> 3) & 1) * 8;
+  uint32_t a[kTile / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < kTile / 16; ++kc) {
+    ldmatrix_x4_trans(a[kc], a_ptr + 16 * kc * kDsStride);
+  }
+  const int row = 16 * warp + (lane >> 2);
+#pragma unroll 1
+  for (int c0 = 0; c0 < D; c0 += kChunk) {
+    float acc[kChunk / 8][4] = {};
+    mma_pb<D, kTile, kChunk>(acc, a, ks, 0, lane, c0);
+    uint32_t* at = reinterpret_cast<uint32_t*>(stage + row * kStride + c0 +
+                                               2 * (lane & 3));
+#pragma unroll
+    for (int j = 0; j < kChunk / 8; ++j) {
+      at[4 * j] = pack_bf16(acc[j][0], acc[j][1]);
+      at[4 * j + 8 * kStride / 2] = pack_bf16(acc[j][2], acc[j][3]);
+    }
+  }
+  __syncwarp();
+  constexpr int kRowChunks = D / 8;  // 16-byte pieces of a row
+#pragma unroll
+  for (int idx = lane; idx < 16 * kRowChunks; idx += 32) {
+    const int r = 16 * warp + idx / kRowChunks, c = 8 * (idx % kRowChunks);
+    *reinterpret_cast<uint4*>(dst + r * D + c) =
+        *reinterpret_cast<const uint4*>(stage + r * kStride + c);
   }
 }
 

@@ -22,29 +22,31 @@
 // the unscaled product ds . K of that pair alone, rounded to the input
 // dtype (the reference's per-pair dqp tile), into slot kt * num_active + a
 // of a [batch, num_kv_tiles * num_active, h, 64, head_dim] buffer; the
-// caller sums each q tile's partials in float32 and scales them
-// (ops/sparse_attention.py, sparse_attention_dq_reduce). Pad slots are not
-// written: the caller's gather never reads them.
+// reduce kernel (sparse_attention_dq_reduce.cu) sums each q tile's partials
+// in float32 and scales them. Pad slots are not written: the reduce never
+// reads them.
 //
-// What bounds it on an H100: the tile products. Per active (q tile, kv
-// tile) pair and head, dq does 3 products of 64 x 64 x d, dk/dv 4 and G 5
-// (against F's 7 in all), on every entry of a tile that has an allowed one;
-// the other side's tiles are read again for every pair, but from L2 and
-// behind the products. G also stores one 64 x d partial tile per pair and
-// head.
+// What bounds it on an H100: F by the tile products. Per active (q tile, kv
+// tile) pair and head, dq does 3 products of 64 x 64 x d and dk/dv 4, on
+// every entry of a tile that has an allowed one; the other side's tiles are
+// read again for every pair, but from L2 and behind the products. G does
+// dk/dv's 4 and the partial, and is bound by bytes: it writes one 64 x d
+// partial tile per pair and head (at 1 degree 0.65 GB in bf16, ~0.19 ms at
+// 3.35 TB/s, against ~0.04 ms of products at the bf16 peak).
 //
-// bf16 F (the training path): every product is an mma.sync m16n8k16 on the
-// tensor cores with float32 sums (mma_tile.cuh says why not wgmma). A block
-// of four warps owns one tile (q rows in dq, kv rows in dk/dv), a warp 16 of
-// its rows, and walks the tile's list with dq, or dk and dv, in registers:
+// bf16 F and G (the training paths): every product is an mma.sync m16n8k16
+// on the tensor cores with float32 sums (mma_tile.cuh says why not wgmma).
+// A block of four warps owns one tile (q rows in dq, kv rows in dk/dv and
+// G), a warp 16 of its rows, and walks the tile's list with dq, or dk and
+// dv, in registers:
 // * Tiles arrive by 16-byte cp.async into rows that ldmatrix reads without
 //   bank conflicts, two stages deep: while pair a is computed, the K, V (dq)
 //   or Q, dO, lse, delta (dk/dv) and the mask tile of pair a + 1 are in
 //   flight, with one barrier per pair.
-// * w and ds never touch shared memory: the accumulator fragments of s and
-//   dp are turned into w and ds in place, rounded to bf16 and fed as the A
-//   operand of dq += ds . K, dv += w^T . dO and dk += ds^T . Q; K, dO and Q
-//   are read along their rows by ldmatrix.trans.
+// * w and ds never touch shared memory in F: the accumulator fragments of s
+//   and dp are turned into w and ds in place, rounded to bf16 and fed as the
+//   A operand of dq += ds . K, dv += w^T . dO and dk += ds^T . Q; K, dO and
+//   Q are read along their rows by ldmatrix.trans.
 // * dk/dv computes the transposed logits K . Q^T, so each lane selects on
 //   mask[q, kv] by (column, row) of its fragment: no transposed mask copy.
 // * At d = 128 dk/dv holds 128 float32 sums per thread; it takes the q
@@ -52,20 +54,36 @@
 // * The tile's list (ids and pair ids) is copied to shared memory once; pad
 //   slots are skipped.
 //
-// float32 F (tests, TINY) and G in both dtypes keep the first design: the
-// products as float32 FMAs from shared memory, a 16 x 16 grid of threads
-// with 4 x 4 logits and 4 x (d/16) output columns each (TF32 would not hold
-// float32's tolerance).
+// G runs F's dk/dv step itself (mma::dkv_pair), so its dk and dv are F's
+// bits, and adds the fifth product partial = ds . K per pair:
+// * ds^T lies in registers split by kv rows, and the partial contracts over
+//   all 64 of them, so it crosses warps through shared memory: dkv_pair
+//   writes its bf16 ds^T fragments as two blocks of 32 q columns. At
+//   d = 128 block h lies over q rows 32 h .. of the stage's Q tile, which
+//   the pass that writes it has finished with (a barrier first); so G takes
+//   F's 111.6 KB and keeps two blocks per SM. At d = 32 the blocks have a
+//   buffer of their own (10 KB).
+// * After a barrier each warp reads its 16 q rows of ds by ldmatrix.trans as
+//   the A operand and multiplies by the resident K tile, 32 output columns
+//   at a time, so no accumulator array lives beside dk/dv's sums.
+// * The rounded strip is staged in the warp's rows of the stage's dO tile
+//   (free after both passes) and stored 16 bytes a lane into the pair's
+//   contiguous [64, d] partial tile: full 32-byte sectors, 512 bytes per
+//   warp instruction.
+// * A kv tile past n still walks its list, so its pairs' partials (zeros)
+//   are written for the reduce.
+//
+// float32 F and G (tests, TINY) keep the first design: the products as
+// float32 FMAs from shared memory, a 16 x 16 grid of threads with 4 x 4
+// logits and 4 x (d/16) output columns each (TF32 would not hold float32's
+// tolerance), and expf.
 //
 // What that first design does about the differences from the TPU kernels:
 // * One block per (batch * head, tile) walks that tile's list inside the
 //   block, in place of the TPU's sequential grid axis; dq, or dk and dv,
 //   stay in registers across the list. Pad slots are skipped.
-// * Shared memory: tiles are stored in the input dtype (bf16 values are
-//   exact there and widened on read), so G's bf16 block (which reuses the
-//   ds and K tiles it already holds) takes K, V, Q, dO, the w and ds tiles
-//   and the transposed mask in 88 KB: two blocks per SM. The float32
-//   variants take twice that and one block per SM.
+// * Shared memory: the blocks take K, V, Q, dO, the w and ds tiles and the
+//   transposed mask in 166 KB at d = 128: one block per SM.
 // * The dk/dv sweep reads the mask tile, indexed [q row, kv col],
 //   transposed: it is copied into shared memory as [kv row, q col].
 // * G's partial tile is summed four output columns at a time, so its
@@ -83,17 +101,14 @@ constexpr int kRows = kTile / 16;  // tile rows per thread
 constexpr int kCols = kTile / 16;  // tile columns per thread
 constexpr int kMaskStride = kTile + 1;
 
-// Row padding of a shared tile of T: one float or two bf16 keep the
+// Shared tiles of the float32 kernels: a row padded by one float keeps the
 // column reads of 16 neighbouring rows on 16 different banks.
-template <typename T>
-constexpr int pad() { return sizeof(T) == 4 ? 1 : 2; }
-
-template <typename T, int D>
+template <int D>
 struct Bwd {
-  static constexpr int kStride = D + pad<T>();       // [kTile, D] tiles
-  static constexpr int kPStride = kTile + pad<T>();  // [kTile, kTile] tiles
-  static constexpr size_t kTileBytes = kTile * kStride * sizeof(T);
-  static constexpr size_t kPBytes = kTile * kPStride * sizeof(T);
+  static constexpr int kStride = D + 1;       // [kTile, D] tiles
+  static constexpr int kPStride = kTile + 1;  // [kTile, kTile] tiles
+  static constexpr size_t kTileBytes = kTile * kStride * sizeof(float);
+  static constexpr size_t kPBytes = kTile * kPStride * sizeof(float);
   static constexpr size_t kVecBytes = 2 * kTile * sizeof(float);  // lse, delta
   static constexpr size_t kMaskBytes = kTile * kMaskStride;
   static constexpr size_t kDqBytes =
@@ -102,19 +117,19 @@ struct Bwd {
       4 * kTileBytes + 2 * kPBytes + kVecBytes + kMaskBytes;
 };
 
-// [kTile, D] rows of one tile of q, k, v or dO into shared memory (as T);
+// [kTile, D] rows of one tile of q, k, v or dO into shared memory;
 // rows past n (the ragged last tile) read as zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
                                           size_t base, size_t node_stride,
-                                          int tile, int n, T* dst) {
-  constexpr int kStride = Bwd<T, D>::kStride;
+                                          int tile, int n, float* dst) {
+  constexpr int kStride = Bwd<D>::kStride;
   const int row0 = tile * kTile;
   for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int node = row0 + r;
     dst[r * kStride + c] =
-        node < n ? src[base + node * node_stride + c] : gt::from_float<T>(0.f);
+        node < n ? src[base + node * node_stride + c] : 0.f;
   }
 }
 
@@ -131,24 +146,25 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ lse,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const uint8_t* __restrict__ mask_tiles,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ mask_tiles,
     const int* __restrict__ kv_ids, const int* __restrict__ pair_ids,
-    T* __restrict__ dq, int n, int h, int num_active, int pad_tile,
+    float* __restrict__ dq, int n, int h, int num_active, int pad_tile,
     float scale) {
-  using L = Bwd<T, D>;
+  using L = Bwd<D>;
   constexpr int kStride = L::kStride;
   constexpr int kPStride = L::kPStride;
   constexpr int kOutCols = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = reinterpret_cast<T*>(smem + L::kTileBytes);
-  T* ks = reinterpret_cast<T*>(smem + 2 * L::kTileBytes);
-  T* vs = reinterpret_cast<T*>(smem + 3 * L::kTileBytes);
-  T* dss = reinterpret_cast<T*>(smem + 4 * L::kTileBytes);
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = reinterpret_cast<float*>(smem + L::kTileBytes);
+  float* ks = reinterpret_cast<float*>(smem + 2 * L::kTileBytes);
+  float* vs = reinterpret_cast<float*>(smem + 3 * L::kTileBytes);
+  float* dss = reinterpret_cast<float*>(smem + 4 * L::kTileBytes);
   float* lse_s = reinterpret_cast<float*>(smem + 4 * L::kTileBytes + L::kPBytes);
   float* delta_s = lse_s + kTile;
   uint8_t* ms = reinterpret_cast<uint8_t*>(delta_s + kTile);
@@ -160,8 +176,8 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dq_kernel(
   const size_t node_stride = static_cast<size_t>(h) * D;
   const size_t base = (static_cast<size_t>(bh / h) * n * h + bh % h) * D;
 
-  load_tile<T, D>(q, base, node_stride, qt, n, qs);
-  load_tile<T, D>(dout, base, node_stride, qt, n, dos);
+  load_tile<D>(q, base, node_stride, qt, n, qs);
+  load_tile<D>(dout, base, node_stride, qt, n, dos);
   load_rows(lse, delta, bh, qt, n, lse_s, delta_s);
 
   float acc[kRows][kOutCols];
@@ -178,8 +194,8 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dq_kernel(
     const int kt = ids[a];
 
     __syncthreads();  // the previous pair is done with ks, vs, dss and ms
-    load_tile<T, D>(k, base, node_stride, kt, n, ks);
-    load_tile<T, D>(v, base, node_stride, kt, n, vs);
+    load_tile<D>(k, base, node_stride, kt, n, ks);
+    load_tile<D>(v, base, node_stride, kt, n, vs);
     const uint8_t* msrc = mask_tiles + static_cast<size_t>(pid) * kTile * kTile;
     for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
       ms[(idx / kTile) * kMaskStride + idx % kTile] = msrc[idx];
@@ -200,13 +216,13 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dq_kernel(
       float qv[kRows], dov[kRows], kv[kCols], vv[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        qv[i] = gt::to_float(qs[(ty * kRows + i) * kStride + c]);
-        dov[i] = gt::to_float(dos[(ty * kRows + i) * kStride + c]);
+        qv[i] = qs[(ty * kRows + i) * kStride + c];
+        dov[i] = dos[(ty * kRows + i) * kStride + c];
       }
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        kv[j] = gt::to_float(ks[(tx + 16 * j) * kStride + c]);
-        vv[j] = gt::to_float(vs[(tx + 16 * j) * kStride + c]);
+        kv[j] = ks[(tx + 16 * j) * kStride + c];
+        vv[j] = vs[(tx + 16 * j) * kStride + c];
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -225,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dq_kernel(
         const int col = tx + 16 * j;
         const float w = ms[r * kMaskStride + col] != 0
                             ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dss[r * kPStride + col] = gt::from_float<T>(w * (dp[i][j] - delta_s[r]));
+        dss[r * kPStride + col] = w * (dp[i][j] - delta_s[r]);
       }
     }
     __syncthreads();  // dss is complete
@@ -235,11 +251,11 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dq_kernel(
       float dsv[kRows];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        dsv[i] = gt::to_float(dss[(ty * kRows + i) * kPStride + kk]);
+        dsv[i] = dss[(ty * kRows + i) * kPStride + kk];
       }
 #pragma unroll
       for (int j = 0; j < kOutCols; ++j) {
-        const float kvv = gt::to_float(ks[kk * kStride + tx + 16 * j]);
+        const float kvv = ks[kk * kStride + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(dsv[i], kvv, acc[i][j]);
       }
@@ -252,8 +268,7 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dq_kernel(
     if (node >= n) continue;
 #pragma unroll
     for (int j = 0; j < kOutCols; ++j) {
-      dq[base + node * node_stride + tx + 16 * j] =
-          gt::from_float<T>(acc[i][j] * scale);
+      dq[base + node * node_stride + tx + 16 * j] = acc[i][j] * scale;
     }
   }
 }
@@ -261,25 +276,27 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dq_kernel(
 // The reverse-plan sweep of one block (batch * head, kv tile): dk and dv
 // over the tile's q list (kernel F's dk/dv); with kPartial (kernel G) also
 // each pair's dq partial into `partial`.
-template <typename T, int D, bool kPartial>
+template <int D, bool kPartial>
 __device__ __forceinline__ void reverse_sweep(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const uint8_t* __restrict__ mask_tiles,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ mask_tiles,
     const int* __restrict__ q_ids, const int* __restrict__ pair_ids,
-    T* __restrict__ dk, T* __restrict__ dv, T* __restrict__ partial, int n,
-    int h, int num_active, int pad_tile, float scale) {
-  using L = Bwd<T, D>;
+    float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ partial, int n, int h, int num_active, int pad_tile,
+    float scale) {
+  using L = Bwd<D>;
   constexpr int kStride = L::kStride;
   constexpr int kPStride = L::kPStride;
   constexpr int kOutCols = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = reinterpret_cast<T*>(smem + L::kTileBytes);
-  T* qs = reinterpret_cast<T*>(smem + 2 * L::kTileBytes);
-  T* dos = reinterpret_cast<T*>(smem + 3 * L::kTileBytes);
-  T* ws = reinterpret_cast<T*>(smem + 4 * L::kTileBytes);
-  T* dss = reinterpret_cast<T*>(smem + 4 * L::kTileBytes + L::kPBytes);
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = reinterpret_cast<float*>(smem + L::kTileBytes);
+  float* qs = reinterpret_cast<float*>(smem + 2 * L::kTileBytes);
+  float* dos = reinterpret_cast<float*>(smem + 3 * L::kTileBytes);
+  float* ws = reinterpret_cast<float*>(smem + 4 * L::kTileBytes);
+  float* dss = reinterpret_cast<float*>(smem + 4 * L::kTileBytes + L::kPBytes);
   float* lse_s =
       reinterpret_cast<float*>(smem + 4 * L::kTileBytes + 2 * L::kPBytes);
   float* delta_s = lse_s + kTile;
@@ -292,8 +309,8 @@ __device__ __forceinline__ void reverse_sweep(
   const size_t node_stride = static_cast<size_t>(h) * D;
   const size_t base = (static_cast<size_t>(bh / h) * n * h + bh % h) * D;
 
-  load_tile<T, D>(k, base, node_stride, kt, n, ks);
-  load_tile<T, D>(v, base, node_stride, kt, n, vs);
+  load_tile<D>(k, base, node_stride, kt, n, ks);
+  load_tile<D>(v, base, node_stride, kt, n, vs);
 
   float dk_acc[kRows][kOutCols], dv_acc[kRows][kOutCols];
 #pragma unroll
@@ -312,8 +329,8 @@ __device__ __forceinline__ void reverse_sweep(
     const int qt = ids[a];
 
     __syncthreads();  // the previous pair is done with qs, dos, ws, dss, ms
-    load_tile<T, D>(q, base, node_stride, qt, n, qs);
-    load_tile<T, D>(dout, base, node_stride, qt, n, dos);
+    load_tile<D>(q, base, node_stride, qt, n, qs);
+    load_tile<D>(dout, base, node_stride, qt, n, dos);
     load_rows(lse, delta, bh, qt, n, lse_s, delta_s);
     // The mask tile is [q row, kv col]; keep it as [kv row, q col].
     const uint8_t* msrc = mask_tiles + static_cast<size_t>(pid) * kTile * kTile;
@@ -337,11 +354,11 @@ __device__ __forceinline__ void reverse_sweep(
       float kv[kRows], qv[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        kv[i] = gt::to_float(ks[(ty * kRows + i) * kStride + c]);
+        kv[i] = ks[(ty * kRows + i) * kStride + c];
       }
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        qv[j] = gt::to_float(qs[(tx + 16 * j) * kStride + c]);
+        qv[j] = qs[(tx + 16 * j) * kStride + c];
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -361,11 +378,11 @@ __device__ __forceinline__ void reverse_sweep(
       float vv[kRows], dov[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        vv[i] = gt::to_float(vs[(ty * kRows + i) * kStride + c]);
+        vv[i] = vs[(ty * kRows + i) * kStride + c];
       }
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        dov[j] = gt::to_float(dos[(tx + 16 * j) * kStride + c]);
+        dov[j] = dos[(tx + 16 * j) * kStride + c];
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -378,9 +395,8 @@ __device__ __forceinline__ void reverse_sweep(
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int col = tx + 16 * j;
-        ws[r * kPStride + col] = gt::from_float<T>(w[i][j]);
-        dss[r * kPStride + col] =
-            gt::from_float<T>(w[i][j] * (ds[i][j] - delta_s[col]));
+        ws[r * kPStride + col] = w[i][j];
+        dss[r * kPStride + col] = w[i][j] * (ds[i][j] - delta_s[col]);
       }
     }
     __syncthreads();  // ws and dss are complete
@@ -390,13 +406,13 @@ __device__ __forceinline__ void reverse_sweep(
       float wv[kRows], dsv[kRows];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        wv[i] = gt::to_float(ws[(ty * kRows + i) * kPStride + qq]);
-        dsv[i] = gt::to_float(dss[(ty * kRows + i) * kPStride + qq]);
+        wv[i] = ws[(ty * kRows + i) * kPStride + qq];
+        dsv[i] = dss[(ty * kRows + i) * kPStride + qq];
       }
 #pragma unroll
       for (int j = 0; j < kOutCols; ++j) {
-        const float dov = gt::to_float(dos[qq * kStride + tx + 16 * j]);
-        const float qv = gt::to_float(qs[qq * kStride + tx + 16 * j]);
+        const float dov = dos[qq * kStride + tx + 16 * j];
+        const float qv = qs[qq * kStride + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
           dv_acc[i][j] = fmaf(wv[i], dov, dv_acc[i][j]);
@@ -410,7 +426,7 @@ __device__ __forceinline__ void reverse_sweep(
       // tx + 16*j: dss holds ds^T, [kv row, q col].
       constexpr int kGroup = kOutCols < 4 ? kOutCols : 4;
       const size_t slot = static_cast<size_t>(kt) * num_active + a;
-      T* dst = partial + ((static_cast<size_t>(bh / h) * gridDim.x *
+      float* dst = partial + ((static_cast<size_t>(bh / h) * gridDim.x *
                            num_active + slot) * h + bh % h) * kTile * D;
 #pragma unroll
       for (int j0 = 0; j0 < kOutCols; j0 += kGroup) {
@@ -424,12 +440,12 @@ __device__ __forceinline__ void reverse_sweep(
           float dsv[kRows];
 #pragma unroll
           for (int i = 0; i < kRows; ++i) {
-            dsv[i] = gt::to_float(dss[kk * kPStride + ty * kRows + i]);
+            dsv[i] = dss[kk * kPStride + ty * kRows + i];
           }
 #pragma unroll
           for (int j = 0; j < kGroup; ++j) {
             const float kvv =
-                gt::to_float(ks[kk * kStride + tx + 16 * (j0 + j)]);
+                ks[kk * kStride + tx + 16 * (j0 + j)];
 #pragma unroll
             for (int i = 0; i < kRows; ++i) {
               p[i][j] = fmaf(dsv[i], kvv, p[i][j]);
@@ -440,8 +456,7 @@ __device__ __forceinline__ void reverse_sweep(
         for (int i = 0; i < kRows; ++i)
 #pragma unroll
           for (int j = 0; j < kGroup; ++j) {
-            dst[(ty * kRows + i) * D + tx + 16 * (j0 + j)] =
-                gt::from_float<T>(p[i][j]);
+            dst[(ty * kRows + i) * D + tx + 16 * (j0 + j)] = p[i][j];
           }
       }
     }
@@ -454,40 +469,43 @@ __device__ __forceinline__ void reverse_sweep(
 #pragma unroll
     for (int j = 0; j < kOutCols; ++j) {
       const size_t at = base + node * node_stride + tx + 16 * j;
-      dk[at] = gt::from_float<T>(dk_acc[i][j] * scale);
-      dv[at] = gt::from_float<T>(dv_acc[i][j]);
+      dk[at] = dk_acc[i][j] * scale;
+      dv[at] = dv_acc[i][j];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const uint8_t* __restrict__ mask_tiles,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ mask_tiles,
     const int* __restrict__ q_ids, const int* __restrict__ pair_ids,
-    T* __restrict__ dk, T* __restrict__ dv, int n, int h, int num_active,
-    int pad_tile, float scale) {
-  reverse_sweep<T, D, false>(q, k, v, dout, lse, delta, mask_tiles, q_ids,
-                             pair_ids, dk, dv, nullptr, n, h, num_active,
-                             pad_tile, scale);
+    float* __restrict__ dk, float* __restrict__ dv, int n, int h,
+    int num_active, int pad_tile, float scale) {
+  reverse_sweep<D, false>(q, k, v, dout, lse, delta, mask_tiles, q_ids,
+                          pair_ids, dk, dv, nullptr, n, h, num_active,
+                          pad_tile, scale);
 }
 
 // Kernel G.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2) sparse_attention_dkvq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const uint8_t* __restrict__ mask_tiles,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ mask_tiles,
     const int* __restrict__ q_ids, const int* __restrict__ pair_ids,
-    T* __restrict__ dk, T* __restrict__ dv, T* __restrict__ partial, int n,
-    int h, int num_active, int pad_tile, float scale) {
-  reverse_sweep<T, D, true>(q, k, v, dout, lse, delta, mask_tiles, q_ids,
-                            pair_ids, dk, dv, partial, n, h, num_active,
-                            pad_tile, scale);
+    float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ partial, int n, int h, int num_active, int pad_tile,
+    float scale) {
+  reverse_sweep<D, true>(q, k, v, dout, lse, delta, mask_tiles, q_ids,
+                         pair_ids, dk, dv, partial, n, h, num_active,
+                         pad_tile, scale);
 }
 
-// ---- bf16 kernel F on the tensor cores ----
+// ---- bf16 kernels F and G on the tensor cores ----
 
 namespace mma = gt::mma;
 using mma::bf16;
@@ -630,6 +648,94 @@ sparse_attention_dkv_mma_kernel(
   mma::store_strip<D>(dv_acc, dv + k_at, row_stride, k_rows, 1.f, warp, lane);
 }
 
+// Kernel G: F's dk/dv sweep, and each real pair's dq partial ds . K.
+template <int D>
+__global__ void __launch_bounds__(mma::kThreads, 2)
+sparse_attention_dkvq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ mask_tiles, const int* __restrict__ q_ids,
+    const int* __restrict__ pair_ids, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, bf16* __restrict__ partial, int n, int h,
+    int num_active, int pad_tile, float scale) {
+  constexpr int kElems = mma::Tile<D>::kElems;
+  constexpr int kCols = D > 64 ? 32 : kTile;  // as F
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + kElems;
+  bf16* qs = vs + kElems;       // two stages
+  bf16* dos = qs + 2 * kElems;  // two stages
+  uint8_t* ms = reinterpret_cast<uint8_t*>(dos + 2 * kElems);  // two stages
+  float* vecs = reinterpret_cast<float*>(ms + 2 * mma::kMaskBytes);  // two
+  bf16* ds_own = reinterpret_cast<bf16*>(vecs + 4 * kTile);  // D = 32 only
+  int* ids = reinterpret_cast<int*>(smem + mma::Staged<D>::kDkvqBytes);
+  int* pids = ids + num_active;
+
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;  // batch * h + head
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row_stride = static_cast<size_t>(h) * D;
+  const size_t base = (static_cast<size_t>(bh / h) * n * h + bh % h) * D;
+  // A plan tile past n still writes its pairs' partials (zeros: its key
+  // rows read as zeros), which the reduce may read; its dk and dv rows are
+  // not written.
+  const int k_rows = mma::tile_rows(kt, n);
+  const int k0 = k_rows > 0 ? kt * kTile : 0;  // a valid address anyway
+
+  for (int i = threadIdx.x; i < num_active; i += mma::kThreads) {
+    ids[i] = q_ids[static_cast<size_t>(kt) * num_active + i];
+    pids[i] = pair_ids[static_cast<size_t>(kt) * num_active + i];
+  }
+  const size_t k_at = base + static_cast<size_t>(k0) * row_stride;
+  mma::load_tile_async<D>(k + k_at, row_stride, k_rows, ks);
+  mma::load_tile_async<D>(v + k_at, row_stride, k_rows, vs);
+  __syncthreads();  // the list is in shared memory
+
+  auto start_pair = [&](int a, int stage) {
+    const int qt = ids[a];
+    const int q_rows = mma::tile_rows(qt, n);
+    const int q0 = q_rows > 0 ? qt * kTile : 0;  // a valid address anyway
+    const size_t at = base + static_cast<size_t>(q0) * row_stride;
+    mma::load_tile_async<D>(q + at, row_stride, q_rows, qs + stage * kElems);
+    mma::load_tile_async<D>(dout + at, row_stride, q_rows,
+                            dos + stage * kElems);
+    mma::load_vecs_async(lse + static_cast<size_t>(bh) * n + q0,
+                         delta + static_cast<size_t>(bh) * n + q0, q_rows,
+                         vecs + stage * 2 * kTile);
+    mma::load_mask_tile_async(
+        mask_tiles + static_cast<size_t>(pids[a]) * mma::kMaskBytes,
+        ms + stage * mma::kMaskBytes);
+  };
+
+  // Slot kt * num_active + a of [batch, gridDim.x * num_active, h, 64, D].
+  const size_t slot_elems = static_cast<size_t>(h) * kTile * D;
+  bf16* part = partial + (static_cast<size_t>(bh / h) * gridDim.x *
+                              num_active * h + bh % h) * kTile * D +
+               static_cast<size_t>(kt) * num_active * slot_elems;
+  // The walk computes the real pairs in list order: `a` follows it.
+  int a = mma::next_real(pids, 0, num_active, pad_tile);
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  mma::walk_pairs(
+      num_active,
+      [&](int i) { return mma::next_real(pids, i, num_active, pad_tile); },
+      start_pair, [&](int stage) {
+        bf16* q_s = qs + stage * kElems;
+        bf16* do_s = dos + stage * kElems;
+        bf16* ds_t = mma::DsT<D>::kInQ ? q_s : ds_own;
+        mma::dkv_pair<D, kCols, true>(dk_acc, dv_acc, ks, vs, q_s, do_s,
+                                      ms + stage * mma::kMaskBytes,
+                                      vecs + stage * 2 * kTile, scale, warp,
+                                      lane, ds_t);
+        __syncthreads();  // ds^T is whole; no warp reads q_s or do_s again
+        mma::dq_partial<D>(ds_t, ks, do_s, part + a * slot_elems, warp, lane);
+        a = mma::next_real(pids, a + 1, num_active, pad_tile);
+      });
+  mma::store_strip<D>(dk_acc, dk + k_at, row_stride, k_rows, scale, warp,
+                      lane);
+  mma::store_strip<D>(dv_acc, dv + k_at, row_stride, k_rows, 1.f, warp, lane);
+}
+
 enum Kind : int { kDq = 0, kDkv = 1, kDkvq = 2 };
 
 template <typename Kernel>
@@ -637,6 +743,19 @@ cudaError_t with_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// Dynamic shared memory of a launch: the bf16 kernels' stages and the
+// tile's list; the float32 kernels' tiles.
+template <typename T, int D>
+size_t shared_bytes(Kind kind, int num_active) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const size_t lists = 2 * static_cast<size_t>(num_active) * sizeof(int);
+    return lists + (kind == kDq    ? mma::Staged<D>::kDqBytes
+                    : kind == kDkv ? mma::Staged<D>::kDkvBytes
+                                   : mma::Staged<D>::kDkvqBytes);
+  }
+  return kind == kDq ? Bwd<D>::kDqBytes : Bwd<D>::kDkvBytes;
 }
 
 template <typename T, int D>
@@ -653,29 +772,18 @@ cudaError_t launch(Kind kind, const void* q, const void* k, const void* v,
   const T* dot = static_cast<const T*>(dout);
   T* o0 = static_cast<T*>(out0);
   T* o1 = static_cast<T*>(out1);
-  constexpr bool kTensorCores = std::is_same_v<T, __nv_bfloat16>;
+  const size_t smem = shared_bytes<T, D>(kind, num_active);
   cudaError_t err;
-  if (kind == kDkvq) {
-    const size_t smem = Bwd<T, D>::kDkvBytes;
-    if ((err = with_smem(sparse_attention_dkvq_kernel<T, D>, smem))) {
-      return err;
-    }
-    sparse_attention_dkvq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1,
-        static_cast<T*>(out2), n, h, num_active, pad_tile, scale);
-  } else if constexpr (kTensorCores) {
-    // bf16 F: blocks of four warps, the tile's list behind the stages.
-    const size_t lists = 2 * static_cast<size_t>(num_active) * sizeof(int);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // bf16 F and G: blocks of four warps, the tile's list behind the stages.
     if (kind == kDq) {
-      const size_t smem = mma::Staged<D>::kDqBytes + lists;
       if ((err = with_smem(sparse_attention_dq_mma_kernel<D>, smem))) {
         return err;
       }
       sparse_attention_dq_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
           qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, n, h,
           num_active, pad_tile, scale);
-    } else {
-      const size_t smem = mma::Staged<D>::kDkvBytes + lists;
+    } else if (kind == kDkv) {
       if ((err = with_smem(sparse_attention_dkv_mma_kernel<D>, smem))) {
         return err;
       }
@@ -683,17 +791,30 @@ cudaError_t launch(Kind kind, const void* q, const void* k, const void* v,
           <<<grid, mma::kThreads, smem, stream>>>(
               qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1, n,
               h, num_active, pad_tile, scale);
+    } else {
+      if ((err = with_smem(sparse_attention_dkvq_mma_kernel<D>, smem))) {
+        return err;
+      }
+      sparse_attention_dkvq_mma_kernel<D>
+          <<<grid, mma::kThreads, smem, stream>>>(
+              qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1,
+              static_cast<T*>(out2), n, h, num_active, pad_tile, scale);
     }
+  } else if (kind == kDkvq) {
+    if ((err = with_smem(sparse_attention_dkvq_kernel<D>, smem))) {
+      return err;
+    }
+    sparse_attention_dkvq_kernel<D><<<grid, kThreads, smem, stream>>>(
+        qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1,
+        static_cast<T*>(out2), n, h, num_active, pad_tile, scale);
   } else if (kind == kDq) {
-    const size_t smem = Bwd<T, D>::kDqBytes;
-    if ((err = with_smem(sparse_attention_dq_kernel<T, D>, smem))) return err;
-    sparse_attention_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+    if ((err = with_smem(sparse_attention_dq_kernel<D>, smem))) return err;
+    sparse_attention_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
         qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, n, h,
         num_active, pad_tile, scale);
   } else {
-    const size_t smem = Bwd<T, D>::kDkvBytes;
-    if ((err = with_smem(sparse_attention_dkv_kernel<T, D>, smem))) return err;
-    sparse_attention_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+    if ((err = with_smem(sparse_attention_dkv_kernel<D>, smem))) return err;
+    sparse_attention_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
         qt, kt, vt, dot, lse, delta, mask_tiles, ids, pids, o0, o1, n, h,
         num_active, pad_tile, scale);
   }
@@ -719,6 +840,18 @@ cudaError_t dispatch_d(int head_dim, Kind kind, const void* q, const void* k,
                             num_active, pad_tile, scale, stream);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int shared_bytes_d(Kind kind, int head_dim, int num_active) {
+  switch (head_dim) {
+    case 32:
+      return static_cast<int>(shared_bytes<T, 32>(kind, num_active));
+    case 128:
+      return static_cast<int>(shared_bytes<T, 128>(kind, num_active));
+    default:
+      return -1;
   }
 }
 
@@ -794,4 +927,20 @@ extern "C" int gt_sparse_attention_bwd_dkvq(
   return run(kDkvq, dtype, head_dim, q, k, v, dout, lse, delta, mask_tiles,
              q_ids, pair_ids, dk, dv, partial, batch, n, h, num_kv_tiles,
              num_active, pad_tile, scale, stream);
+}
+
+// The dynamic shared memory in bytes that a launch of kind (0 dq, 1 dk/dv,
+// 2 the fused G) takes for a list of num_active slots; -1 for a dtype or
+// head_dim not compiled.
+extern "C" int gt_sparse_attention_bwd_smem(int kind, int dtype, int head_dim,
+                                            int num_active) {
+  const Kind k = static_cast<Kind>(kind);
+  switch (dtype) {
+    case gt::kFloat32:
+      return shared_bytes_d<float>(k, head_dim, num_active);
+    case gt::kBFloat16:
+      return shared_bytes_d<__nv_bfloat16>(k, head_dim, num_active);
+    default:
+      return -1;
+  }
 }

@@ -53,6 +53,12 @@ _SIGNATURES = {
     'gt_sparse_attention_bwd_dkvq': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _F, _P],
+    # kind, dtype, head_dim, num_active
+    'gt_sparse_attention_bwd_smem': [_I, _I, _I, _I],
+    # dtype, head_dim, partial, slot_ids, valid, dq, batch, n, h,
+    # num_q_tiles, num_slots, num_active, scale, stream
+    'gt_sparse_attention_dq_reduce': [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _F, _P],
     # dtype, head_dim, q, k, v, mask, o, lse, batch, n, h, num_blocks,
     # block_size, scale, stream
     'gt_banded_attention_fwd': [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -14,20 +14,23 @@ forward plan and dk/dv over the reverse plan (`bwd_q_ids`/`bwd_pair_ids`).
 Given the fused backward's gather map as well (`slot_ids`, `valid` from
 `graph.plans.build_bwd_gather`), it runs the reference's opt-in
 `_sba_bwd_fused` instead, as the reference does when its VJP gets four
-backward arrays: one sweep of the reverse plan gives dk, dv and each pair's
-dq partial ds . K rounded to the input dtype, and `sparse_attention_dq_reduce`
-sums each q tile's partials in float32 and scales them.
+backward arrays: one sweep of the reverse plan (kernel G) gives dk, dv and
+each pair's dq partial ds . K rounded to the input dtype, and
+`sparse_attention_dq_reduce` sums each q tile's partials in float32 in slot
+order and scales them.
 
-* On a CUDA tensor it launches the hand-written kernels: the forward
-  `csrc/sparse_attention.cu` (kernel A, which also writes the lse) and the
-  backward `csrc/sparse_attention_bwd.cu` (kernel F: dq, then dk/dv; or
-  kernel G, the fused sweep), or raises.
+* On a CUDA tensor it launches the hand-written kernels, or raises: the
+  forward `csrc/sparse_attention.cu` (kernel A, which also writes the lse),
+  the backward `csrc/sparse_attention_bwd.cu` (kernel F: dq, then dk/dv; or
+  kernel G, the fused sweep) and G's dq reduce
+  `csrc/sparse_attention_dq_reduce.cu`.
 * On a CPU tensor it runs the plain PyTorch versions of the same functions
   (`sparse_banded_attention_plain`, `sparse_attention_dq_plain`,
-  `sparse_attention_dkv_plain`, `sparse_attention_dkvq_plain`): gather each
-  tile's active tiles and do the masked arithmetic explicitly, a chunk of
-  tiles at a time, in float32 (or float64 for float64 inputs). The backward
-  never materializes more than a chunk's probabilities.
+  `sparse_attention_dkv_plain`, `sparse_attention_dkvq_plain`,
+  `sparse_attention_dq_reduce_plain`): gather each tile's active tiles and
+  do the masked arithmetic explicitly, a chunk of tiles at a time, in
+  float32 (or float64 for float64 inputs). The backward never materializes
+  more than a chunk's probabilities.
 """
 
 from __future__ import annotations
@@ -55,6 +58,10 @@ KERNEL_DKVQ = cuda_lib.KernelCounter(
     'sparse_attention_bwd_dkvq',
     'gencast_tpu_torch/csrc/sparse_attention_bwd.cu',
     'gencast_tpu/ops/sparse_attention.py:354')
+KERNEL_DQ_REDUCE = cuda_lib.KernelCounter(
+    'sparse_attention_dq_reduce',
+    'gencast_tpu_torch/csrc/sparse_attention_dq_reduce.cu',
+    'gencast_tpu/ops/sparse_attention.py:634')
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Head dims the kernels are compiled for: TINY (32) and ONE_DEG (128).
@@ -233,9 +240,11 @@ def sparse_attention_dkvq_plain(q, k, v, dout, lse, delta, mask_tiles,
                               bwd_pids, tile, partials=True)
 
 
-def sparse_attention_dq_reduce(partial: torch.Tensor, slot_ids: torch.Tensor,
-                               valid: torch.Tensor, n: int) -> torch.Tensor:
-  """dq of the fused backward: for q tile qi,
+def sparse_attention_dq_reduce_plain(partial: torch.Tensor,
+                                     slot_ids: torch.Tensor,
+                                     valid: torch.Tensor, n: int
+                                     ) -> torch.Tensor:
+  """Plain PyTorch version of G's dq reduce: for q tile qi,
   scale * sum_a valid[qi, a] * partial[:, slot_ids[qi, a]], summed in
   float32 (float64 for float64 partials) and cast to the partials' dtype,
   as the reference's gather-reduce. partial [B, S, H, tile, d]; slot_ids,
@@ -258,6 +267,16 @@ def sparse_attention_dq_reduce(partial: torch.Tensor, slot_ids: torch.Tensor,
     dq[:, sl] = (g.sum(dim=2, dtype=acc) * d ** -0.5).to(
         partial.dtype).transpose(2, 3)
   return dq.view(b, nq * tile, h, d)[:, :n]
+
+
+def sparse_attention_dq_reduce(partial: torch.Tensor, slot_ids: torch.Tensor,
+                               valid: torch.Tensor, n: int) -> torch.Tensor:
+  """dq of the fused backward from kernel G's partials (see
+  `sparse_attention_dq_reduce_plain`): the reduce kernel on a CUDA tensor,
+  the plain version on a CPU tensor."""
+  if partial.is_cuda:
+    return sparse_attention_dq_reduce_cuda(partial, slot_ids, valid, n)
+  return sparse_attention_dq_reduce_plain(partial, slot_ids, valid, n)
 
 
 def sparse_attention_bwd_plain(q, k, v, o, lse, dout, mask_tiles, fwd_ids,
@@ -414,6 +433,55 @@ def sparse_attention_dkvq_cuda(q, k, v, dout, lse, delta, mask_tiles,
   return dk, dv, partial
 
 
+def sparse_attention_dq_reduce_cuda(partial: torch.Tensor,
+                                    slot_ids: torch.Tensor,
+                                    valid: torch.Tensor, n: int
+                                    ) -> torch.Tensor:
+  """Launches G's dq reduce: returns dq [B, n, H, d] in the partials'
+  dtype. Sums each q tile's valid partials in float32 in slot order
+  a = 0, 1, ... (the kernel does not check that a slot id lies below S)."""
+  if partial.dtype not in _DTYPE_CODES:
+    raise TypeError(f'the dq reduce takes float32 or bfloat16 partials, got '
+                    f'{partial.dtype}')
+  if partial.dim() != 5:
+    raise ValueError(f'partial must be [B, S, H, tile, d], got '
+                     f'{tuple(partial.shape)}')
+  b, num_slots, h, tile, d = partial.shape
+  if slot_ids.dim() != 2 or slot_ids.dtype != torch.int32:
+    raise ValueError(f'slot_ids must be int32 [nq, A], got {slot_ids.dtype} '
+                     f'{tuple(slot_ids.shape)}')
+  if valid.shape != slot_ids.shape or valid.dtype != torch.float32:
+    raise ValueError(f'valid must be float32 {tuple(slot_ids.shape)}, got '
+                     f'{valid.dtype} {tuple(valid.shape)}')
+  nq, num_active = slot_ids.shape
+  if nq * tile < n:
+    raise ValueError(f'the gather map covers {nq * tile} nodes, n is {n}')
+  if d not in _HEAD_DIMS:
+    raise ValueError(f'head_dim {d} not in {_HEAD_DIMS}')
+  for name, x in (('partial', partial), ('slot_ids', slot_ids),
+                  ('valid', valid)):
+    if not x.is_cuda or x.device != partial.device:
+      raise ValueError(f'{name} must be on a CUDA device, with partial')
+    if not x.is_contiguous():
+      raise ValueError(f'{name} must be contiguous')
+  lib = cuda_lib.library()
+  kernel_tile = lib.gt_sparse_attention_tile()
+  if tile != kernel_tile:
+    raise ValueError(f'the kernels are built for tile {kernel_tile}, '
+                     f'partial tiles have {tile} rows')
+  dq = torch.empty(b, n, h, d, dtype=partial.dtype, device=partial.device)
+  cuda_lib.check_aligned({'partial': partial.data_ptr(),
+                          'dq': dq.data_ptr()})
+  stream = torch.cuda.current_stream(partial.device).cuda_stream
+  code = lib.gt_sparse_attention_dq_reduce(
+      _DTYPE_CODES[partial.dtype], d, partial.data_ptr(), slot_ids.data_ptr(),
+      valid.data_ptr(), dq.data_ptr(), b, n, h, nq, num_slots, num_active,
+      d ** -0.5, stream)
+  cuda_lib.check(code, 'gt_sparse_attention_dq_reduce')
+  KERNEL_DQ_REDUCE.launches += 1
+  return dq
+
+
 class _SparseAttention(torch.autograd.Function):
 
   @staticmethod
@@ -439,7 +507,8 @@ class _SparseAttention(torch.autograd.Function):
                          '(bwd_ids, bwd_pids)')
     dout = dout.to(q.dtype).contiguous()
     if slot_ids is not None:
-      # The reference's fused backward (_sba_bwd_fused): kernel G.
+      # The reference's fused backward (_sba_bwd_fused): kernel G, then its
+      # dq reduce.
       delta = attention_delta(o, dout)
       dkvq = (sparse_attention_dkvq_cuda if q.is_cuda
               else sparse_attention_dkvq_plain)
@@ -473,7 +542,8 @@ def sparse_banded_attention(q: torch.Tensor, k: torch.Tensor,
   Kernels A (forward) and F (backward) on a CUDA tensor, the plain versions
   on a CPU tensor. Differentiable when the reverse plan (bwd_ids,
   bwd_pids) is given; with the gather map of `graph.plans.build_bwd_gather`
-  (slot_ids, valid) as well, the backward is the fused one, kernel G.
+  (slot_ids, valid) as well, the backward is the fused one, kernel G and
+  its dq reduce.
   """
   return _SparseAttention.apply(q, k, v, mask_tiles, fwd_ids, fwd_pids,
                                 bwd_ids, bwd_pids, tile, slot_ids, valid)

@@ -15,7 +15,7 @@ over wall time; the work runs on one stream), the device time of each of
 the port's kernels and of the other kernel families, and the ten costliest
 kernels. `--trace` writes the profiler's Chrome trace. With
 GENCAST_SPARSE_FUSED_BWD=1 in the environment the 1-degree step runs the
-fused attention backward (kernel G) instead of kernel F.
+fused attention backward (kernel G and its dq reduce) instead of kernel F.
 """
 
 from __future__ import annotations
@@ -27,14 +27,15 @@ import time
 
 import torch
 
-# Kernel families by a part of the kernel's name, first match wins (A, C, D
-# and F have a float32 kernel, `..._kernel`, and a bf16 one,
+# Kernel families by a part of the kernel's name, first match wins (A, C, D,
+# F and G have a float32 kernel, `..._kernel`, and a bf16 one,
 # `..._mma_kernel`).
 _FAMILIES = (
     ('D-dk/dv', 'banded_attention_dkv_'),
     ('D-dq', 'banded_attention_dq_'),
     ('C', 'banded_attention_fwd_'),
-    ('G', 'sparse_attention_dkvq_kernel'),
+    ('G', 'sparse_attention_dkvq_'),
+    ('G dq reduce', 'sparse_attention_dq_reduce_'),
     ('F-dk/dv', 'sparse_attention_dkv_'),
     ('F-dq', 'sparse_attention_dq_'),
     ('A', 'sparse_attention_fwd_'),

@@ -75,6 +75,7 @@ _DISPATCH_D = re.compile(
 # Each attention source and the wrapper module that launches its kernels.
 _SOURCES = {'sparse_attention.cu': sparse_attention,
             'sparse_attention_bwd.cu': sparse_attention,
+            'sparse_attention_dq_reduce.cu': sparse_attention,
             'banded_attention.cu': banded_attention,
             'banded_attention_bwd.cu': banded_attention}
 
