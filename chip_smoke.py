@@ -20,8 +20,13 @@ Phases (any failure raises and exits non-zero):
      (FMA kernel) and bfloat16 (tensor-core kernel): o, and lse on the rows
      that see a key (~-1e30 on the others), with NaN behind the last row
      that must not reach the results, with timings;
-  4. kernel B (planned segment sum) against its plain version on the
-     1-degree grid2mesh receiver plan, with timings;
+  4. kernel B (planned segment sum) against its plain version on the plans
+     of the 1-degree training step (the grid2mesh receivers, the grid2mesh
+     senders with perm, the mesh2grid senders with perm and an 845-edge
+     row), float32 and bf16 in: bf16 in bitwise equal to the kernel on the
+     float32 upcast, equal bits twice; timings beside the old path (a
+     float32 copy, then the kernel), segment_reduce, the kernel without its
+     long-row split and the plan with its rows capped;
   5. the ONE_DEG denoiser (random seeded weights, perturbed, bf16 stack)
      through the kernels against the same call through the plain path, and
      a small (TINY, float32) forecast on the card against the CPU;
@@ -33,9 +38,13 @@ Phases (any failure raises and exits non-zero):
      head dim 32 on TINY's plan, float32 (FMA kernels) and bfloat16
      (tensor-core kernels), from kernel A's lse, with NaN behind the last
      row that must not reach the results, with timings;
-  8. kernel E (LN+FiLM backward) against its plain version at the 1-degree
-     transformer shape [1, 10304, 512] and mesh2grid edge shape
-     [195480, 1, 512], float32 and bfloat16, with timings;
+  8. kernel E (LN+FiLM backward) against its plain version at every shape
+     the 1-degree and nano training steps give it (the transformer's
+     [1, n, C], the GNNs' [rows, 1, C] on nodes and edges; phases 10 and 15
+     check that they gave no other) and at batch 2 in both layouts, float32
+     and bfloat16, equal bits twice, with timings; one kernel per call under
+     torch.profiler; a call captured in a CUDA graph replays to the same
+     bits;
   9. a TINY float32 training step (perturbed weights, batch 2) on the card
      through the kernels against the CPU's plain path: loss, every
      parameter gradient, and the parameters after 3 AdamW steps; then the
@@ -82,7 +91,9 @@ Phases (any failure raises and exits non-zero):
      [2, 2, 181, 360, C];
  18. reproducibility: two full-width nano training steps through
      `train.main`, run twice from the same seed, leave bitwise equal losses
-     and parameters (no aggregation adds atomically);
+     and parameters (no aggregation adds atomically); before them, two
+     steps under torch.profiler cast no planned edge array (kernel B reads
+     the bf16 edges itself);
 then one JSON line of kernel results (launches from the training runs of
 each kernel's paths), the card's name and power limit, and a last JSON line
 {"ok": true, "device": {...}}.
@@ -101,6 +112,7 @@ on an H100, build included.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -185,7 +197,7 @@ def card_line() -> str:
 
 KERNEL_NAME = re.compile(
     r'((?:sparse|banded)_attention_(?:fwd|dq_reduce|dq|dkvq|dkv)'
-    r'(?:_mma)?_kernel|segment_sum_kernel|ln_film_(?:bwd|reduce)_kernel)(?:I(.*?)EEv)?')
+    r'(?:_mma)?_kernel|segment_sum_kernel|ln_film_bwd_kernel)(?:I(.*?)EEv)?')
 
 
 def kernel_name(mangled: str) -> str:
@@ -256,6 +268,28 @@ def time_in_turns(fns, reps):
     torch.cuda.synchronize()
     samples[n].append(start.elapsed_time(end) / reps)
   return {n: float(np.mean(v)) for n, v in samples.items()}
+
+
+def graph_ms(fns, reps):
+  """ms per call of each fn on the card alone: `reps` calls captured in one
+  CUDA graph, its replays timed with CUDA events in the order of
+  time_in_turns. A call short enough that the host's launches, not the
+  card, would set an event-timed loop (kernel E at the mesh's shapes) is
+  timed so; the fns must be capturable (no host sync)."""
+  graphs = {}
+  for name, fn in fns.items():
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+      fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graphs[name] = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graphs[name]):
+      for _ in range(reps):
+        fn()
+  ms = time_in_turns({n: graph.replay for n, graph in graphs.items()}, 2)
+  del graphs
+  return {n: v / reps for n, v in ms.items()}
 
 
 def nan_tailed(shape, count, dtype, g, dev, tail):
@@ -551,8 +585,9 @@ def check_fused_bwd(shape, dtype, rtol, mt, plan_t, gather_t, tile, g, dense,
 
 def check_ln_film_bwd(shape, batch_axis, dtype, rtol, g):
   """Kernel E against its plain version on seeded x, dy [shape] and scale
-  [B, C]: returns ((max rel err, max abs err) over dx, dscale, doffset,
-  {'kernel': ms, 'plain': ms})."""
+  [B, C], and twice for equal bits: returns ((max rel err, max abs err) over
+  dx, dscale, doffset, {'kernel': ms, 'plain': ms, 'library': ms}, bound
+  inputs (flops, bytes), the inputs)."""
   from gencast_tpu_torch.ops import ln_film
   dev = torch.device('cuda', 0)
   b, c = shape[batch_axis], shape[2]
@@ -561,32 +596,233 @@ def check_ln_film_bwd(shape, batch_axis, dtype, rtol, g):
   scale = (1 + 0.1 * torch.randn((b, c), generator=g, device=dev)).to(dtype)
   want = ln_film.ln_film_bwd_plain(x, dy, scale, batch_axis)
   got = ln_film.ln_film_bwd_cuda(x, dy, scale, batch_axis)
+  again = ln_film.ln_film_bwd_cuda(x, dy, scale, batch_axis)
   torch.cuda.synchronize()
   errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
   worst = max(errs)
-  if not worst[0] <= rtol:
+  same = all(torch.equal(a, b) for a, b in zip(got, again))
+  if not (worst[0] <= rtol and same):
     raise AssertionError(f'kernel E {dtype} {shape}: max rel errs (dx, '
-                         f'dscale, doffset) {errs} > {rtol}')
+                         f'dscale, doffset) {errs} > {rtol}, or two calls '
+                         f'differ (equal bits: {same})')
   moved = nbytes(x, dy, scale, got[0], got[1], got[2])
-  del got, want
+  del got, want, again
   # The library yardstick at batch 1: LayerNorm's backward with the FiLM
   # scale as its weight gives dx, dscale and doffset.
   x2, dy2, w = x.reshape(-1, c), dy.reshape(-1, c), scale[0]
   bias = torch.zeros_like(w)
   _, mean, rstd = torch.native_layer_norm(x2, [c], w, bias, ln_film.EPS)
-  ms = time_in_turns({
+  ms = graph_ms({
       'plain': lambda: ln_film.ln_film_bwd_plain(x, dy, scale, batch_axis),
       'kernel': lambda: ln_film.ln_film_bwd_cuda(x, dy, scale, batch_axis),
       'library': lambda: torch.ops.aten.native_layer_norm_backward(
           dy2, x2, [c], mean, rstd, w, bias, [True, True, True])},
       reps=10)
+  # About 16 operations per element (statistics, x_hat, dx, the two sums).
+  cost = (16 * x.numel(), moved)
+  bound_ms, _ = bound(*cost, dtype)
   log(f'[kernel E] {dtype} {list(shape)} (batch axis {batch_axis}): max rel '
       f'err dx {errs[0][0]:.3e}, dscale {errs[1][0]:.3e}, doffset '
-      f'{errs[2][0]:.3e} (tol {rtol}); kernel {ms["kernel"]:.3f} ms, plain '
+      f'{errs[2][0]:.3e} (tol {rtol}), equal bits twice; kernel '
+      f'{ms["kernel"]:.4f} ms (bound {bound_ms:.4f}), plain '
       f'{ms["plain"]:.3f} ms, library (native_layer_norm_backward) '
-      f'{ms["library"]:.3f} ms')
-  # About 16 operations per element (statistics, x_hat, dx, the two sums).
-  return worst, ms, (16 * x.numel(), moved)
+      f'{ms["library"]:.4f} ms')
+  return worst, ms, cost, (x, dy, scale)
+
+
+def ln_film_shapes(presets):
+  """(shape, batch axis) of every call of kernel E in a training step of
+  each (spec, statics): the transformer's [1, n, C] (n the attention's
+  padded mesh) and the GNNs' [rows, 1, C] on the mesh and grid nodes and
+  the grid2mesh and mesh2grid edges; and at batch 2, in both layouts, the
+  first preset's mesh shapes."""
+  shapes = []
+  for spec, st in presets:
+    plan, mask = st.attention_tile_plan, st.attention_mask
+    padded = (plan.padded_n if plan is not None
+              else mask.num_blocks * mask.block_size)
+    shapes.append(((1, padded, spec.d_model), 0))
+    shapes += [((rows, 1, spec.d_model), 1) for rows in (
+        st.num_mesh_nodes, st.num_grid_nodes, st.grid2mesh.num_edges,
+        st.mesh2grid.num_edges)]
+  (spec, st), = presets[:1]
+  shapes += [((2, shapes[0][0][1], spec.d_model), 0),
+             ((st.num_mesh_nodes, 2, spec.d_model), 1)]
+  return shapes
+
+
+def check_ln_film_shapes(shapes, g, card):
+  """Phase 8: kernel E at every shape, float32 and bf16, against its plain
+  version and twice for equal bits (check_ln_film_bwd); one call of each
+  under torch.profiler must run exactly one kernel, E's; a call captured in
+  a CUDA graph and replayed twice gives the eager call's bits. Returns
+  {(shape, dtype): check_ln_film_bwd's result}."""
+  from gencast_tpu_torch.ops import ln_film
+  results, calls = {}, []
+  for shape, axis in shapes:
+    for dtype, rtol in ((torch.float32, BWD_F32_RTOL),
+                        (torch.bfloat16, BWD_BF16_RTOL)):
+      res = check_ln_film_bwd(shape, axis, dtype, rtol, g)
+      results[(shape, dtype)] = res[:3]
+      calls.append((res[3], axis))
+  torch.cuda.synchronize()
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    for (x, dy, scale), axis in calls:
+      ln_film.ln_film_bwd_cuda(x, dy, scale, axis)
+    torch.cuda.synchronize()
+  kernels = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation]
+  if (len(kernels) != len(calls)
+      or not all('ln_film_bwd_kernel' in k for k in kernels)):
+    raise AssertionError(f'kernel E: {len(calls)} calls ran {len(kernels)} '
+                         f'kernels under the profiler: {sorted(set(kernels))}')
+  # A CUDA graph replays the launch: no state to reset between calls.
+  (x, dy, scale), axis = next(c for c in calls if c[0][0].shape == shapes[0][0]
+                              and c[0][0].dtype == torch.bfloat16)
+  eager = ln_film.ln_film_bwd_cuda(x, dy, scale, axis)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    ln_film.ln_film_bwd_cuda(x, dy, scale, axis)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    captured = ln_film.ln_film_bwd_cuda(x, dy, scale, axis)
+  replays = []
+  for _ in range(2):
+    graph.replay()
+    torch.cuda.synchronize()
+    replays.append(all(torch.equal(a, b) for a, b in zip(captured, eager)))
+  if not all(replays):
+    raise AssertionError(f'kernel E in a CUDA graph: replays equal to the '
+                         f'eager call {replays}')
+  del graph, captured, calls
+  log(f'[kernel E] {len(shapes)} shapes x 2 dtypes: one kernel per call '
+      f'under torch.profiler ({len(kernels)} calls, {len(kernels)} '
+      f'ln_film_bwd_kernel launches); a call captured in a CUDA graph and '
+      f'replayed twice gives the eager bits; {card}')
+  return results
+
+
+@contextlib.contextmanager
+def recording_ln_film_shapes(seen):
+  """Adds (shape, batch axis) of every kernel E launch inside to `seen`."""
+  from gencast_tpu_torch.ops import ln_film
+  launch = ln_film.ln_film_bwd_cuda
+
+  def recorded(x, dy, scale, batch_axis, eps=ln_film.EPS):
+    seen.add((tuple(x.shape), batch_axis))
+    return launch(x, dy, scale, batch_axis, eps)
+
+  ln_film.ln_film_bwd_cuda = recorded
+  try:
+    yield
+  finally:
+    ln_film.ln_film_bwd_cuda = launch
+
+
+def capped_plan(row_ptr, perm, cap):
+  """The plan (row_ptr, perm) with every row cut to its first `cap` edges:
+  (row_ptr, perm), perm always given and as long as the edges (the kernel
+  reads it only below row_ptr[-1])."""
+  starts = row_ptr[:-1].long()
+  kept = (row_ptr[1:].long() - starts).clamp(max=cap)
+  new_ptr = torch.zeros_like(row_ptr, dtype=torch.long)
+  new_ptr[1:] = kept.cumsum(0)
+  rows = torch.repeat_interleave(torch.arange(kept.numel(),
+                                              device=row_ptr.device), kept)
+  at = starts[rows] + torch.arange(rows.numel(), device=row_ptr.device) \
+      - new_ptr[:-1][rows]
+  order = torch.zeros(int(row_ptr[-1]), dtype=torch.int32,
+                      device=row_ptr.device)
+  order[:at.numel()] = at if perm is None else perm.long()[at]
+  return new_ptr.int(), order
+
+
+def check_segment_sums(spec, statics, g, card):
+  """Phase 4: kernel B on the plans of the 1-degree training step (the
+  grid2mesh receivers, its senders, the mesh2grid senders), float32 and
+  bf16 in: against the plain version, bf16 in bitwise equal to the kernel
+  on the exact float32 upcast, and twice for equal bits; timings of the
+  kernel, of the old path (the float32 copy, then the kernel), of the
+  plain version and of segment_reduce, and on plans with rows over
+  segment.SPLIT_DEGREE edges of the kernel without the split, with half and
+  twice that threshold, and of the plan with its rows capped at
+  SPLIT_DEGREE (the kernel's paths as CUDA graph replays, graph_ms). Returns {(plan, dtype): (max abs err, ms,
+  bound inputs)}."""
+  from gencast_tpu_torch.graph import plans
+  from gencast_tpu_torch.ops import segment
+  f = spec.d_model
+  unsplit = 2**31 - 1
+  results = {}
+  for name, ids, n in (
+      ('grid2mesh receivers', statics.grid2mesh.receivers,
+       statics.num_mesh_nodes),
+      ('grid2mesh senders', statics.grid2mesh.senders,
+       statics.num_grid_nodes),
+      ('mesh2grid senders', statics.mesh2grid.senders,
+       statics.num_mesh_nodes)):
+    plan = plans.build_agg_plan(ids, n)
+    row_ptr = torch.as_tensor(plan.row_ptr, device=g.device)
+    perm = (None if plan.perm is None
+            else torch.as_tensor(plan.perm, device=g.device))
+    lengths = (row_ptr[1:] - row_ptr[:-1]).long()
+    max_degree = int(lengths.max())
+    e = len(ids)
+    base = torch.randn(e, f, generator=g, device=g.device)
+    for dtype in (torch.float32, torch.bfloat16):
+      data = base.to(dtype)
+      upcast = data.float()
+      want = segment.planned_segment_sum_plain(upcast, row_ptr, perm)
+      got = segment.planned_segment_sum_cuda(data, row_ptr, perm)
+      again = segment.planned_segment_sum_cuda(data, row_ptr, perm)
+      from_upcast = segment.planned_segment_sum_cuda(upcast, row_ptr, perm)
+      torch.cuda.synchronize()
+      rel, err = rel_err(got, want)
+      same = (torch.equal(got, again), torch.equal(got, from_upcast))
+      if not (rel <= SEGMENT_RTOL and all(same)):
+        raise AssertionError(f'kernel B {name} {dtype}: relative err {rel} '
+                             f'> {SEGMENT_RTOL}, or bits differ (twice, '
+                             f'float32 upcast: {same})')
+      permuted = data if perm is None else data[perm.long()]
+      ms = time_in_turns({
+          'plain': lambda: segment.planned_segment_sum_plain(data, row_ptr,
+                                                             perm),
+          'library': lambda: torch.segment_reduce(permuted, 'sum',
+                                                  lengths=lengths)}, reps=20)
+      fns = {'kernel': lambda: segment.planned_segment_sum_cuda(data, row_ptr,
+                                                                perm)}
+      if dtype == torch.bfloat16:
+        fns['cast_then_kernel'] = lambda: segment.planned_segment_sum_cuda(
+            data.float(), row_ptr, perm)
+      if max_degree > segment.SPLIT_DEGREE:
+        capped = capped_plan(row_ptr, perm, segment.SPLIT_DEGREE)
+        fns['unsplit'] = lambda: segment.planned_segment_sum_cuda(
+            data, row_ptr, perm, split_degree=unsplit)
+        for degree in (segment.SPLIT_DEGREE // 2, 2 * segment.SPLIT_DEGREE):
+          fns[f'split_{degree}'] = (
+              lambda degree=degree: segment.planned_segment_sum_cuda(
+                  data, row_ptr, perm, split_degree=degree))
+        fns['capped'] = lambda: segment.planned_segment_sum_cuda(
+            data, *capped, split_degree=unsplit)
+      ms.update(graph_ms(fns, reps=20))
+      cost = (e * f, nbytes(data, row_ptr, got)
+              + (0 if perm is None else nbytes(perm)))
+      results[(name, dtype)] = (err, ms, cost)
+      bound_ms, _ = bound(*cost, dtype)
+      extra = ''.join(f', {k} {v:.4f} ms' for k, v in ms.items()
+                      if k not in ('plain', 'kernel', 'library'))
+      log(f'[kernel B] {name}: {dtype} [{e}, {f}] -> [{n}, {f}] float32, '
+          f'max degree {max_degree}, perm {"yes" if perm is not None else "no"}'
+          f': relative err {rel:.3e} (tol {SEGMENT_RTOL}), equal bits twice '
+          f'and on the float32 upcast; kernel {ms["kernel"]:.4f} ms (bound '
+          f'{bound_ms:.4f}), plain {ms["plain"]:.3f} ms, library '
+          f'(segment_reduce) {ms["library"]:.4f} ms{extra}; {card}')
+      del data, upcast, want, got, again, from_upcast, permuted, fns
+  return results
 
 
 def counters():
@@ -840,6 +1076,27 @@ def check_reproducible(argv, steps_run) -> None:
   log(f'[reproducible] {" ".join(argv)}: {steps_run} training steps twice '
       f'from one seed: losses {losses_a} and all {len(params_a)} parameters '
       'bitwise equal')
+
+
+def count_edge_casts(argv, statics, width) -> Tuple[int, int]:
+  """Phase 18: two training steps through the CLI under torch.profiler
+  (host ops, with shapes): (dtype casts of a whole planned edge array, the
+  [E, width] rows kernel B reads; B's launches). Before kernel B read bf16
+  itself, every bf16 call cast its edges to float32 first."""
+  from gencast_tpu_torch.ops import segment
+  from gencast_tpu_torch.training import train
+  edges = {statics.grid2mesh.num_edges, statics.mesh2grid.num_edges}
+  segment.KERNEL.reset()
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CPU],
+      record_shapes=True) as prof:
+    train.main(argv + ['--steps', '2', '--data', 'synthetic', '--log_every',
+                       '1'])
+  casts = sum(1 for e in prof.events()
+              if e.name == 'aten::_to_copy' and e.input_shapes
+              and len(e.input_shapes[0]) == 2
+              and tuple(e.input_shapes[0]) in {(n, width) for n in edges})
+  return casts, segment.KERNEL.launches
 
 
 def dense_from_blocks(blocks: np.ndarray, dev) -> torch.Tensor:
@@ -1243,37 +1500,8 @@ def main() -> int:
     check_attention(tiny_shape, dtype, atol, *tiny_t[:3], tiny_plan.tile, g,
                     tiny_dense, tiny_allowed)
 
-  # --- 4. kernel B vs plain ---
-  e, f = statics.grid2mesh.num_edges, spec.d_model
-  data = torch.randn(e, f, generator=g, device=dev)
-  row_ptr = torch.as_tensor(g2m_plan.row_ptr, device=dev)
-  perm = (None if g2m_plan.perm is None
-          else torch.as_tensor(g2m_plan.perm, device=dev))
-  plain = segment.planned_segment_sum_plain(data, row_ptr, perm)
-  got = segment.planned_segment_sum_cuda(data, row_ptr, perm)
-  torch.cuda.synchronize()
-  rel = float((got - plain).abs().max() / plain.abs().max())
-  if not rel <= SEGMENT_RTOL:
-    raise AssertionError(f'kernel B: relative err {rel} > {SEGMENT_RTOL}')
-  # The library yardstick sums the plan's permuted edges by segment length.
-  permuted = data if perm is None else data[perm.long()]
-  lengths = (row_ptr[1:] - row_ptr[:-1]).long()
-  lib_rel = float((torch.segment_reduce(permuted, 'sum', lengths=lengths)
-                   - plain).abs().max() / plain.abs().max())
-  ms = time_in_turns({
-      'plain': lambda: segment.planned_segment_sum_plain(data, row_ptr, perm),
-      'kernel': lambda: segment.planned_segment_sum_cuda(data, row_ptr, perm),
-      'library': lambda: torch.segment_reduce(permuted, 'sum',
-                                              lengths=lengths)},
-      reps=20)
-  log(f'[kernel B] float32 [{e}, {f}] -> [{g2m_plan.num_segments}, {f}]: '
-      f'relative err {rel:.3e} (tol {SEGMENT_RTOL}); kernel '
-      f'{ms["kernel"]:.3f} ms, plain {ms["plain"]:.3f} ms, library '
-      f'(segment_reduce; relative err {lib_rel:.3e}) {ms["library"]:.3f} ms')
-  results['B'] = (float((got - plain).abs().max()), ms,
-                  (e * f, nbytes(data, row_ptr, got)
-                   + (0 if perm is None else nbytes(perm))))
-  del got, plain, data, permuted
+  # --- 4. kernel B vs plain: the 1-degree training step's plans ---
+  segment_results = check_segment_sums(spec, statics, g, card)
 
   # --- 5. denoiser: kernel path vs plain path; small forecast vs CPU ---
   t0 = time.perf_counter()
@@ -1405,14 +1633,12 @@ def main() -> int:
                         tiny_plan.tile, g, tiny_dense, tiny_allowed)
   del dense
 
-  # --- 8. kernel E vs plain ---
-  m2g_edges = statics.mesh2grid.num_edges
-  for shape, axis in (((1, plan.padded_n, spec.d_model), 0),
-                      ((m2g_edges, 1, spec.d_model), 1)):
-    for dtype, rtol in ((torch.float32, BWD_F32_RTOL),
-                        (torch.bfloat16, BWD_BF16_RTOL)):
-      results[('E', dtype, shape)] = check_ln_film_bwd(shape, axis, dtype,
-                                                       rtol, g)
+  # --- 8. kernel E vs plain at every shape of the training steps ---
+  nano = configs.NANO
+  nano_statics = configs.build_statics(nano)
+  e_shapes = ln_film_shapes([(spec, statics), (nano, nano_statics)])
+  e_results = check_ln_film_shapes(e_shapes, g, card)
+  e_seen = set()
 
   # --- 9. TINY training step: card kernels vs CPU plain path ---
   for remat_policy in ('full', 'save_attention'):
@@ -1420,13 +1646,12 @@ def main() -> int:
 
   # --- 10. training: three full-width 1-degree steps through the CLI ---
   del model, stack
-  one_deg_launches, one_deg_seconds, one_deg_peak = train_preset(
-      spec, statics, dev, card, ['--preset', '1deg', '--clean_sst_nans'])
+  with recording_ln_film_shapes(e_seen):
+    one_deg_launches, one_deg_seconds, one_deg_peak = train_preset(
+        spec, statics, dev, card, ['--preset', '1deg', '--clean_sst_nans'])
 
   # --- 11. kernel C vs plain: nano's shape and TINY's tri-block shape ---
-  nano = configs.NANO
   t0 = time.perf_counter()
-  nano_statics = configs.build_statics(nano)
   banded = {}
   for spec_b, st in ((nano, nano_statics),
                      (configs.TINY_TRIBLOCK,
@@ -1439,7 +1664,8 @@ def main() -> int:
         mask.block_size, dense_from_blocks(mask.blocks, dev),
         int(mask.blocks.sum(dtype=np.int64)))
   mask = nano_statics.attention_mask
-  log(f'[statics] nano: {time.perf_counter() - t0:.1f} s with TINY\'s; mesh '
+  log(f'[statics] nano (TINY_TRIBLOCK\'s built in '
+      f'{time.perf_counter() - t0:.1f} s): mesh '
       f'{nano_statics.num_mesh_nodes} nodes, tri-block mask '
       f'{list(mask.blocks.shape)} ({mask.num_padding_nodes} padding nodes, '
       f'{banded["nano"][4]} allowed entries), grid2mesh '
@@ -1466,8 +1692,15 @@ def main() -> int:
   train_tiny_against_cpu(dev, 'full', configs.TINY_TRIBLOCK)
 
   # --- 15. training: three full-width nano steps through the CLI ---
-  nano_launches, _, _ = train_preset(nano, nano_statics, dev, card,
-                                     ['--preset', 'nano'])
+  with recording_ln_film_shapes(e_seen):
+    nano_launches, _, _ = train_preset(nano, nano_statics, dev, card,
+                                       ['--preset', 'nano'])
+  # Phase 8 checked kernel E at every shape these training steps gave it.
+  if not e_seen <= set(e_shapes):
+    raise AssertionError(f'training gave kernel E shapes that phase 8 did '
+                         f'not check: {sorted(e_seen - set(e_shapes))}')
+  log(f'[kernel E] the 1-degree and nano training steps gave it '
+      f'{len(e_seen)} shapes, all checked in phase 8: {sorted(e_seen)}')
 
   # --- 16. kernel G and its dq reduce vs plain and vs kernel F, from
   # kernel A's lse: the shapes of phase 7 ---
@@ -1493,21 +1726,36 @@ def main() -> int:
   fused_launches = fused_path(spec, statics, dev, card, one_deg_seconds,
                               one_deg_peak)
 
-  # --- 18. nano training twice from one seed: equal bits ---
+  # --- 18. nano training twice from one seed: equal bits; no float32 copy
+  # of an edge array before kernel B ---
+  casts, b_launches = count_edge_casts(['--preset', 'nano'], nano_statics,
+                                       nano.d_model)
+  if casts or not b_launches:
+    raise AssertionError(f'nano training: {casts} casts of a planned edge '
+                         f'array around {b_launches} launches of kernel B')
+  log(f'[reproducible] nano: two training steps under torch.profiler cast '
+      f'no planned edge array ([E, {nano.d_model}], E in '
+      f'{{{nano_statics.grid2mesh.num_edges}, '
+      f'{nano_statics.mesh2grid.num_edges}}}) around {b_launches} launches '
+      f'of kernel B, which reads the bf16 edges itself')
   check_reproducible(['--preset', 'nano'], steps_run=2)
 
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
-  # the transformer's padded 1-degree shape in bf16, B in float32 on the
-  # grid2mesh plan, E in bf16 at the largest shape it gets (the 1-degree
-  # mesh2grid edges), C and D at nano's [1, 2624, 4, 64] in bf16, G and its
-  # dq reduce as A.
+  # the transformer's padded 1-degree shape in bf16, B on the grid2mesh
+  # receiver plan from bf16 edges (float32 out), E in bf16 at the largest
+  # shape it gets (the 1-degree mesh2grid edges; the mesh-node shape, 33 of
+  # its 42 calls per 1-degree step, in extra fields), C and D at nano's
+  # [1, 2624, 4, 64] in bf16, G and its dq reduce as A.
   # Launches come from the training runs of each kernel's paths (1 degree,
   # nano, and the 1-degree path with the fused backward), by path where a
   # kernel runs on more than one.
   bf16 = torch.bfloat16
   err_a, ms_a, cost_a = results[('A', bf16, plan.padded_n)]
-  err_b, ms_b, cost_b = results['B']
-  err_e, ms_e, cost_e = results[('E', bf16, (m2g_edges, 1, spec.d_model))]
+  err_b, ms_b, cost_b = segment_results[('grid2mesh receivers', bf16)]
+  err_e, ms_e, cost_e = e_results[
+      ((statics.mesh2grid.num_edges, 1, spec.d_model), bf16)]
+  _, ms_e_mesh, cost_e_mesh = e_results[
+      ((1, plan.padded_n, spec.d_model), bf16)]
   errs_f, ms_f, costs_f = results[('F', bf16)]
   err_c, ms_c, cost_c = results[('C', 'nano', bf16)]
   errs_d, ms_d, costs_d = results[('D', 'nano', bf16)]
@@ -1515,16 +1763,25 @@ def main() -> int:
   kernels = [
       row(sparse_attention.KERNEL, err_a, ms_a['kernel'], ms_a['plain'],
           ms_a['library'], *cost_a, bf16),
-      row(segment.KERNEL, err_b, ms_b['kernel'], ms_b['plain'],
-          ms_b['library'], *cost_b, torch.float32),
+      dict(row(segment.KERNEL, err_b, ms_b['kernel'], ms_b['plain'],
+               ms_b['library'], *cost_b, bf16),
+           dtype='bfloat16 in, float32 out',
+           cast_then_kernel_ms=ms_b['cast_then_kernel'],
+           unsplit_ms=ms_b['unsplit'],
+           float32_in_ms=segment_results[('grid2mesh receivers',
+                                          torch.float32)][1]['kernel']),
       row(banded_attention.KERNEL, err_c, ms_c['kernel'], ms_c['plain'],
           ms_c['library'], *cost_c, bf16),
       row(banded_attention.KERNEL_DQ, errs_d['dq'][1], ms_d['dq'],
           ms_d['dq_plain'], ms_d['library'], *costs_d['dq'], bf16),
       row(banded_attention.KERNEL_DKV, errs_d['dkv'][1], ms_d['dkv'],
           ms_d['dkv_plain'], ms_d['library'], *costs_d['dkv'], bf16),
-      row(ln_film.KERNEL, err_e[1], ms_e['kernel'], ms_e['plain'],
-          ms_e['library'], *cost_e, bf16),
+      dict(row(ln_film.KERNEL, err_e[1], ms_e['kernel'], ms_e['plain'],
+               ms_e['library'], *cost_e, bf16),
+           mesh_shape=[1, plan.padded_n, spec.d_model],
+           mesh_ms=ms_e_mesh['kernel'],
+           mesh_bound_ms=bound(*cost_e_mesh, bf16)[0],
+           mesh_library_ms=ms_e_mesh['library']),
       row(sparse_attention.KERNEL_DQ, errs_f['dq'][1], ms_f['dq'],
           ms_f['dq_plain'], ms_f['library'], *costs_f['dq'], bf16),
       row(sparse_attention.KERNEL_DKV, errs_f['dkv'][1], ms_f['dkv'],

@@ -10,6 +10,7 @@ from __future__ import annotations
 import hashlib
 import os
 import subprocess
+import sys
 from typing import Sequence, Tuple
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,7 +29,8 @@ def compile_shared(compile_cmd: Sequence[str], link_cmd: Sequence[str],
 
   Returns (path of the shared library, the compilers' stderr; empty when
   the library was already built). Raises subprocess.CalledProcessError
-  (with the compiler's output attached) when a compiler fails.
+  (with the compiler's output attached, and written to stderr) when a
+  compiler fails.
   """
   h = hashlib.sha256(' '.join([*compile_cmd, '|', *link_cmd]).encode())
   for src in list(sources) + list(headers):
@@ -54,6 +56,7 @@ def compile_shared(compile_cmd: Sequence[str], link_cmd: Sequence[str],
                                              stdout, stderr)
   try:
     if failed is not None:
+      sys.stderr.write(failed.stderr or '')
       raise failed
     done = subprocess.run([*link_cmd, '-o', tmp, *objects], check=True,
                           capture_output=True, text=True)

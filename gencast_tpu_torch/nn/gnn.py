@@ -180,13 +180,11 @@ class InteractionNetwork(nn.Module):
         messages = new_edges[topo.name]
         plan = self._plan(topo, 'recv', messages)
         if plan is not None:
-          # Kernel B sums float32 only: a side planned for the card alone
-          # sums bf16 messages in float32 whatever f32_aggregation says.
-          f32 = self.f32_aggregation or (
-              f'{topo.name}_recv' in self._card_only
-              and messages.dtype != torch.float32)
+          # B reads bf16 and sums in float32; f32_aggregation keeps the sum
+          # in float32 through the normalization (else it is rounded to the
+          # messages' dtype first, as the reference's kernel writes it).
           parts.append(segment.segment_sum_planned(
-              messages, *plan, f32_accumulate=f32,
+              messages, *plan, f32_accumulate=self.f32_aggregation,
               normalization=self.aggregate_normalization,
               use_kernel=self.use_kernels))
         else:

@@ -13,12 +13,15 @@ machine has neither nvcc nor a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import os
 import shutil
 import threading
 import time
 from typing import Mapping, Optional
+
+import torch
 
 from gencast_tpu_torch import _build
 
@@ -70,13 +73,15 @@ _SIGNATURES = {
     # ... mask, dk, dv, batch, n, h, num_blocks, block_size, scale, stream
     'gt_banded_attention_bwd_dkv': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _I, _I, _I, _I, _I, _F, _P],
-    # data, row_ptr, perm, out, num_segments, f, stream
-    'gt_segment_sum': [_P, _P, _P, _P, _I, _I, _P],
-    # dtype, x, dy, scale, dx, dscale_part, doffset_part, dscale, doffset,
-    # batch, rows, c, row_stride, batch_stride, rows_per_warp, num_blocks,
-    # eps, stream
-    'gt_ln_film_bwd': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
-                       _L, _I, _I, _F, _P],
+    # dtype, data, row_ptr, perm, out, num_segments, f, split_degree,
+    # num_sms, stream
+    'gt_segment_sum': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, x, dy, scale, dx, parts, dscale, doffset, batch, rows, c,
+    # row_stride, batch_stride, blocks_per_batch, eps, stream
+    'gt_ln_film_bwd': [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L,
+                       _I, _F, _P],
+    # dtype, c
+    'gt_ln_film_bwd_blocks_per_sm': [_I, _I],
 }
 
 
@@ -138,11 +143,19 @@ def library() -> ctypes.CDLL:
   return LIBRARY.get()
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+  """Streaming multiprocessors of a card: the persistent grids (kernels B
+  and E) take a multiple of it."""
+  return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def check_aligned(addresses: Mapping[str, int]) -> None:
   """Raises unless every address (by operand name; `tensor.data_ptr()`) is a
-  multiple of 16 bytes: the kernels copy with 16-byte cp.async and read
-  fragments with ldmatrix, which fault or read wrong on other addresses. A
-  view that starts inside an allocation can break this."""
+  multiple of 16 bytes: the kernels copy with 16-byte cp.async, read
+  fragments with ldmatrix and load rows in 16-byte vectors, which fault or
+  read wrong on other addresses. A view that starts inside an allocation can
+  break this."""
   for name, address in addresses.items():
     if address % 16:
       raise ValueError(f'{name} starts at address {address:#x}, not a '

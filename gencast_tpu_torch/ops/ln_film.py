@@ -13,8 +13,10 @@ caller adds the +1 of FiLM's scale_minus_one).
   so serving numbers do not move.
 * The backward gives dx and the row sums dscale = sum dy * x_hat and
   doffset = sum dy per batch element in float32. On a CUDA tensor it
-  launches the hand-written kernel `csrc/ln_film_bwd.cu` (or raises); on a
-  CPU tensor it runs `ln_film_bwd_plain`, the plain PyTorch version.
+  launches the hand-written kernel `csrc/ln_film_bwd.cu` (or raises), one
+  cooperative launch per call whose grid the SM count sizes
+  (`launch_blocks`); on a CPU tensor it runs `ln_film_bwd_plain`, the plain
+  PyTorch version.
 
 The reference's `ln_film._ln` does not clamp the variance; both compute the
 same value wherever the one-pass variance is not negative.
@@ -22,7 +24,8 @@ same value wherever the one-pass variance is not negative.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import List, Tuple
 
 import torch
 
@@ -35,10 +38,7 @@ KERNEL = cuda_lib.KernelCounter(
     'gencast_tpu/ops/ln_film.py:74')
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Row-tile blocks the kernel aims for per batch element: about four waves
-# of blocks over the H100's 132 SMs.
-_TARGET_BLOCKS = 4 * 132
-_WARPS = 8
+_WARPS = 8  # per block of the kernel, one row each at a time
 
 
 def _mean_rstd(x: torch.Tensor, eps: float
@@ -91,6 +91,47 @@ def ln_film_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
           dy32.sum(dim=row_axis))
 
 
+# Rows per warp that each further block per SM of kernel E's grid must
+# keep: every block adds a partial row that the fold after the grid barrier
+# reads, which at the mesh's 10,304 rows cost more than the rows' loads
+# saved; and a grid that is not a whole number of blocks per SM leaves some
+# SMs a block more to run.
+_MIN_WARP_ROWS = 8
+
+
+def launch_blocks(rows: int, batch: int, resident: int, sms: int) -> int:
+  """Blocks per batch element of kernel E's cooperative grid: a whole
+  number of blocks per SM, one more only while each warp keeps
+  _MIN_WARP_ROWS rows, at most the `resident` blocks that fit on the card at
+  once (SMs times blocks per SM) shared among the batch elements, and one
+  warp per row at most."""
+  if resident < batch:
+    raise ValueError(f'{batch} batch elements need at least as many '
+                     f'resident blocks, the card holds {resident}')
+  per_sm = max(1, min(resident // sms,
+                      rows * batch // (_WARPS * _MIN_WARP_ROWS * sms)))
+  return max(1, min(sms * per_sm // batch, -(-rows // _WARPS)))
+
+
+def warp_rows(rows: int, blocks: int) -> List[range]:
+  """The rows each warp of one batch element's `blocks` blocks takes, as the
+  kernel strides them: warp w of block k takes k * 8 + w, then every
+  blocks * 8-th row."""
+  stride = blocks * _WARPS
+  return [range(k * _WARPS + w, rows, stride)
+          for k in range(blocks) for w in range(_WARPS)]
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device_index: int, dtype_code: int, c: int) -> int:
+  sms = cuda_lib.sm_count(device_index)
+  per_sm = cuda_lib.library().gt_ln_film_bwd_blocks_per_sm(dtype_code, c)
+  if per_sm < 1:
+    raise RuntimeError(f'gt_ln_film_bwd_blocks_per_sm({dtype_code}, {c}) '
+                       f'returned {per_sm}')
+  return sms * per_sm
+
+
 def ln_film_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                      batch_axis: int, eps: float = EPS
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -107,6 +148,8 @@ def ln_film_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
   if c % 32 or not 32 <= c <= 1024:
     raise ValueError(f'channels must be a multiple of 32 in [32, 1024], '
                      f'got {c}')
+  # The kernel reads and writes rows in 16-byte vectors.
+  cuda_lib.check_aligned({'x': x.data_ptr(), 'dy': dy.data_ptr()})
   for name, t, shape in (('x', x, x.shape), ('dy', dy, x.shape),
                          ('scale', scale, (b, c))):
     if (not t.is_cuda or t.device != x.device or t.dtype != x.dtype
@@ -115,19 +158,21 @@ def ln_film_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                        f'must be contiguous {x.dtype} {tuple(shape)} on '
                        f'{x.device}')
   row_stride, batch_stride = (c, rows * c) if batch_axis == 0 else (b * c, c)
-  rows_per_warp = max(1, -(-rows // (_TARGET_BLOCKS * _WARPS)))
-  num_blocks = max(1, -(-rows // (rows_per_warp * _WARPS)))
+  code_dtype = _DTYPE_CODES[x.dtype]
+  blocks = launch_blocks(
+      rows, b, _resident_blocks(x.device.index, code_dtype, c),
+      cuda_lib.sm_count(x.device.index))
   dx = torch.empty_like(x)
-  parts = torch.empty(2, b, num_blocks, c, dtype=torch.float32,
+  parts = torch.empty(b * blocks, 2, c, dtype=torch.float32,
                       device=x.device)
   sums = torch.empty(2, b, c, dtype=torch.float32, device=x.device)
   lib = cuda_lib.library()
   stream = torch.cuda.current_stream(x.device).cuda_stream
   code = lib.gt_ln_film_bwd(
-      _DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(), scale.data_ptr(),
-      dx.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
-      sums[0].data_ptr(), sums[1].data_ptr(), b, rows, c, row_stride,
-      batch_stride, rows_per_warp, num_blocks, eps, stream)
+      code_dtype, x.data_ptr(), dy.data_ptr(), scale.data_ptr(),
+      dx.data_ptr(), parts.data_ptr(), sums[0].data_ptr(),
+      sums[1].data_ptr(), b, rows, c, row_stride, batch_stride, blocks, eps,
+      stream)
   cuda_lib.check(code, 'gt_ln_film_bwd')
   KERNEL.launches += 1
   return dx, sums[0], sums[1]

@@ -7,7 +7,8 @@ Counterpart of `gencast_tpu.ops.segment`. Three strategies, as there:
    receiver gather a broadcast).
 2. Planned sum (`segment_sum_planned`) over a `graph.plans.AggPlan`, for the
    skewed mesh-side degree distributions: on a CUDA tensor the
-   hand-written CSR row reduction `csrc/segment_sum.cu`, on a CPU tensor
+   hand-written CSR row reduction `csrc/segment_sum.cu`, which reads float32
+   or bf16 edges and sums in float32, on a CPU tensor
    `planned_segment_sum_plain` (an index_add_ in float32).
 3. Plain `index_add_` for everything else, on the CPU only: on the card it
    adds atomically, in an order that changes from run to run
@@ -31,6 +32,13 @@ from gencast_tpu_torch.ops import cuda_lib
 KERNEL = cuda_lib.KernelCounter(
     'segment_sum', 'gencast_tpu_torch/csrc/segment_sum.cu',
     'gencast_tpu/ops/segment.py:189')
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Rows of more edges than this are summed by all 8 warps of the kernel's
+# block, an eighth each, the eighths added in order (other bits than the
+# stored-order sum, the same from run to run); shorter rows by one warp in
+# stored order.
+SPLIT_DEGREE = 64
 
 
 def adds_atomically(x: torch.Tensor) -> bool:
@@ -89,14 +97,25 @@ def planned_segment_sum_plain(data: torch.Tensor, row_ptr: torch.Tensor,
 
 
 def planned_segment_sum_cuda(data: torch.Tensor, row_ptr: torch.Tensor,
-                             perm: Optional[torch.Tensor]) -> torch.Tensor:
-  """Launches kernel B: data [E, F] float32 -> [N, F] float32."""
-  if data.dtype != torch.float32:
-    raise TypeError(f'segment-sum kernel takes float32 (accumulate with '
-                    f'f32_accumulate=True), got {data.dtype}')
-  if not data.is_cuda or data.dim() != 2 or not data.is_contiguous():
+                             perm: Optional[torch.Tensor],
+                             split_degree: int = SPLIT_DEGREE
+                             ) -> torch.Tensor:
+  """Launches kernel B: data [E, F] float32 or bf16 -> [N, F] float32 (bf16
+  rows are widened in the kernel: the sums are those of the exact float32
+  upcast)."""
+  if data.dtype not in _DTYPE_CODES:
+    raise TypeError(f'segment-sum kernel takes float32 or bfloat16, got '
+                    f'{data.dtype}')
+  if data.dim() != 2 or not data.is_contiguous():
     raise ValueError('data must be a contiguous [E, F] CUDA tensor')
   e, f = data.shape
+  vec = 16 // data.element_size()
+  if f % vec:
+    raise ValueError(f'F must be a multiple of {vec} (16-byte loads of '
+                     f'{data.dtype}), got {f}')
+  cuda_lib.check_aligned({'data': data.data_ptr()})
+  if not data.is_cuda:
+    raise ValueError('data must be a contiguous [E, F] CUDA tensor')
   if (row_ptr.dtype != torch.int32 or row_ptr.dim() != 1
       or row_ptr.device != data.device or not row_ptr.is_contiguous()):
     raise ValueError('row_ptr must be a contiguous int32 vector on the '
@@ -110,8 +129,9 @@ def planned_segment_sum_cuda(data: torch.Tensor, row_ptr: torch.Tensor,
   lib = cuda_lib.library()
   stream = torch.cuda.current_stream(data.device).cuda_stream
   code = lib.gt_segment_sum(
-      data.data_ptr(), row_ptr.data_ptr(),
-      None if perm is None else perm.data_ptr(), out.data_ptr(), n, f, stream)
+      _DTYPE_CODES[data.dtype], data.data_ptr(), row_ptr.data_ptr(),
+      None if perm is None else perm.data_ptr(), out.data_ptr(), n, f,
+      split_degree, cuda_lib.sm_count(data.device.index), stream)
   cuda_lib.check(code, 'gt_segment_sum')
   KERNEL.launches += 1
   return out
@@ -119,8 +139,8 @@ def planned_segment_sum_cuda(data: torch.Tensor, row_ptr: torch.Tensor,
 
 def planned_segment_sum(data: torch.Tensor, row_ptr: torch.Tensor,
                         perm: Optional[torch.Tensor]) -> torch.Tensor:
-  """[E, F] -> [N, F]: kernel B on a CUDA tensor, the plain version on a
-  CPU tensor."""
+  """[E, F] -> [N, F]: kernel B on a CUDA tensor (float32 sums), the plain
+  version on a CPU tensor (float32 sums in data's dtype)."""
   if not data.is_cuda:
     return planned_segment_sum_plain(data, row_ptr, perm)
   return planned_segment_sum_cuda(data, row_ptr, perm)
@@ -146,6 +166,7 @@ class _PlannedSegmentSum(torch.autograd.Function):
   def forward(ctx, x, row_ptr, perm, use_kernel):
     ctx.save_for_backward(row_ptr, perm)
     ctx.num_edges = x.shape[0]
+    ctx.dtype = x.dtype
     fn = planned_segment_sum if use_kernel else planned_segment_sum_plain
     return fn(x, row_ptr, perm)
 
@@ -153,7 +174,9 @@ class _PlannedSegmentSum(torch.autograd.Function):
   def backward(ctx, g):
     row_ptr, perm = ctx.saved_tensors
     ids = plan_segment_ids(row_ptr, perm, ctx.num_edges)
-    return g.index_select(0, ids), None, None, None
+    # The kernel's float32 sums of bf16 edges: cast the node rows, not the
+    # gathered edge rows (the same values, fewer bytes).
+    return g.to(ctx.dtype).index_select(0, ids), None, None, None
 
 
 def segment_sum_planned(data: torch.Tensor, row_ptr: torch.Tensor,
@@ -164,17 +187,22 @@ def segment_sum_planned(data: torch.Tensor, row_ptr: torch.Tensor,
   """Planned segment sum of [E, B, C] data -> [N, B, C].
 
   use_kernel=False takes the plain version on any device (the reference
-  path for comparisons on the card). The kernel sums float32 only: on the
-  card, bf16 data needs f32_accumulate=True.
+  path for comparisons on the card). Both sum in float32, as the
+  reference's kernel. f32_accumulate keeps that sum in float32 through the
+  normalization; without it the sum is rounded to data's dtype first (the
+  reference's kernel writes data's dtype). The kernel reads bf16 data
+  itself, so on the card no float32 copy of the edges is made; the plain
+  version sums the float32 upcast, the same values.
   """
   e = data.shape[0]
   rest = data.shape[1:]
   dtype = data.dtype
   x = data.reshape(e, -1)
-  if f32_accumulate:
+  if f32_accumulate and not (use_kernel and x.is_cuda):
     x = x.float()
-  x = x.contiguous()
-  out = _PlannedSegmentSum.apply(x, row_ptr, perm, use_kernel)
+  out = _PlannedSegmentSum.apply(x.contiguous(), row_ptr, perm, use_kernel)
+  if not f32_accumulate:
+    out = out.to(dtype)
   if normalization is not None:
     out = out / normalization
   return out.to(dtype).reshape((row_ptr.shape[0] - 1,) + rest)
@@ -182,8 +210,9 @@ def segment_sum_planned(data: torch.Tensor, row_ptr: torch.Tensor,
 
 class _GatherPlanned(torch.autograd.Function):
   """nodes[indices]; its backward is the planned sum of the cotangent over
-  the plan built on `indices` (kernel B on the card), in float32 when the
-  cotangent is bf16 (the reference's _gp_bwd)."""
+  the plan built on `indices` (kernel B on the card, reading a bf16
+  cotangent itself), in float32 when the cotangent is bf16 (the reference's
+  _gp_bwd)."""
 
   @staticmethod
   def forward(ctx, nodes, indices, row_ptr, perm):

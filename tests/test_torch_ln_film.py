@@ -122,3 +122,54 @@ def test_kernel_wrapper_rejects_cpu_tensors():
   with pytest.raises(ValueError, match='must be contiguous'):
     ln_film.ln_film_bwd_cuda(x, x, torch.ones(1, 64), 1)
   assert ln_film.KERNEL.launches == 0
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_kernel_wrapper_rejects_misaligned_rows(dtype):
+  """The kernel loads and stores rows in 16-byte vectors."""
+  flat = torch.zeros(4 * 64 + 1, dtype=dtype)
+  x = flat[1:].view(4, 1, 64)  # 2 or 4 bytes past 16
+  with pytest.raises(ValueError, match='x starts at address'):
+    ln_film.ln_film_bwd_cuda(x, torch.zeros(4, 1, 64, dtype=dtype),
+                             torch.ones(1, 64, dtype=dtype), 1)
+  assert ln_film.KERNEL.launches == 0
+
+
+@pytest.mark.parametrize('c', [36, 48, 1056])
+def test_kernel_wrapper_rejects_channels_it_does_not_vectorize(c):
+  """C must be a multiple of 32 (so of the 8 bf16 or 4 float32 of a 16-byte
+  vector) up to 1024."""
+  x = torch.zeros(4, 1, c, dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match='multiple of 32'):
+    ln_film.ln_film_bwd_cuda(x, x, torch.ones(1, c, dtype=torch.bfloat16), 1)
+  with pytest.raises(TypeError, match='float32 or bfloat16'):
+    ln_film.ln_film_bwd_cuda(x.half(), x.half(), torch.ones(1, c).half(), 1)
+  assert ln_film.KERNEL.launches == 0
+
+
+# Every shape the 1-degree and nano training steps give kernel E (rows,
+# batch), both layouts at batch 2, and TINY's; resident blocks as on an H100
+# SXM (132 SMs) at 1-3 blocks per SM and on an H100 PCIe (114 SMs).
+_SHAPES = [(10304, 1), (10242, 1), (65160, 1), (101892, 1), (195480, 1),
+           (2624, 1), (2562, 1), (10304, 2), (10242, 2), (162, 2), (0, 1),
+           (7, 1)]
+
+
+@pytest.mark.parametrize('rows, batch', _SHAPES)
+@pytest.mark.parametrize('resident, sms', [(132, 132), (264, 132),
+                                           (396, 132), (228, 114)])
+def test_launch_partition_covers_every_row_once(rows, batch, resident, sms):
+  blocks = ln_film.launch_blocks(rows, batch, resident, sms)
+  assert 1 <= blocks and batch * blocks <= resident
+  taken = np.zeros(rows, np.int64)
+  for r in ln_film.warp_rows(rows, blocks):
+    taken[list(r)] += 1
+  assert (taken == 1).all()
+  # No block without a row, unless there are fewer rows than one block's
+  # warps.
+  assert blocks == 1 or (blocks - 1) * 8 < rows
+
+
+def test_launch_needs_a_block_per_batch_element():
+  with pytest.raises(ValueError, match='resident'):
+    ln_film.launch_blocks(100, 4, 3, 3)
