@@ -1,6 +1,7 @@
 """Card-side check of the PyTorch/CUDA port: 1-degree GenCast and nano
-GenCast, served and trained, and the 1-degree train, resume and evaluate
-path with the fused attention backward.
+GenCast, served and trained, the 1-degree train, resume and evaluate
+path with the fused attention backward, and the CUDA-graph replays of the
+denoiser call and of the training step against their eager runs.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -31,7 +32,11 @@ Phases (any failure raises and exits non-zero):
      through the kernels against the same call through the plain path, and
      a small (TINY, float32) forecast on the card against the CPU;
   6. serving: two forecast requests of one 12-hour step (39 denoiser calls
-     each), with kernel launch counts checked;
+     each), each call a replay of the denoiser's CUDA graph (the first
+     request captures it), then the first request again with
+     graphed=False (eager) from the same generator seed: bitwise equal,
+     kernel launch counts checked per request both ways, seconds per
+     request both ways, the graph's capture time and private pool;
   7. kernel F (block-sparse attention backward: dq, then dk/dv) against its
      plain version at the transformer's padded shape [1, 10304, 4, 128], at
      the mesh's ragged [1, 10242, 4, 128] (2 rows in the last tile) and at
@@ -63,9 +68,10 @@ Phases (any failure raises and exits non-zero):
      plain version at the same shapes, from kernel C's lse, with timings;
  13. the NANO denoiser (random seeded weights, perturbed, bf16 stack)
      through the kernels against the plain path; then two forecast requests
-     of a 10-step (5-day) `rollout.sample_rollout`, with 6,240 launches of C
-     and 390 of B each, finite float32 output of the right shape, seconds
-     per request;
+     of a 10-step (5-day) `rollout.sample_rollout` (graph replays), and the
+     first again with jit=False (eager), bitwise equal, with 6,240 launches
+     of C and 390 of B each, finite float32 output of the right shape,
+     seconds per request both ways;
  14. phase 9 on the tri-block backend: a TINY_TRIBLOCK float32 training
      step (batch 2) on the card against the CPU, 3 AdamW steps, and the
      bf16 gradients against the float32 ones ('full' remat, nano's);
@@ -94,8 +100,21 @@ Phases (any failure raises and exits non-zero):
      and parameters (no aggregation adds atomically); before them, two
      steps under torch.profiler cast no planned edge array (kernel B reads
      the bf16 edges itself);
+ 19. fused training (`steps.scanned_train_steps`, the CLI's
+     --steps_per_call): at nano and at 1 degree, two calls of 4 steps that
+     replay one CUDA graph of the whole training step against 4 + 4 eager
+     steps of an identical twin on the same pool rows and step generators
+     (losses and all parameters bitwise equal after each call, launches per
+     step as derived), seconds per step both ways, the capture time, the
+     graph's private pool and the peak memory; then 2 steps at 1 degree
+     under GENCAST_SPARSE_FUSED_BWD=1 (kernel G and its dq reduce
+     replayed), the same checks;
+ 20. the training CLI's fused path: `train.main --preset nano
+     --steps_per_call 2 --save_every 2` for 4 steps, then a run to step 6
+     that resumes at step 4 through the fused path, launches per step
+     checked, checkpoints at steps 1, 3 and 5;
 then one JSON line of kernel results (launches from the training runs of
-each kernel's paths), the card's name and power limit, and a last JSON line
+each kernel's paths, eager and graphed), the card's name and power limit, and a last JSON line
 {"ok": true, "device": {...}}.
 
 Each kernel's row also gives its bound (the least time the card could take
@@ -105,14 +124,15 @@ float32) and the time of one PyTorch call computing the same function, timed
 in turns with the kernel (scaled_dot_product_attention with the dense mask
 and its backward, segment_reduce, native_layer_norm_backward; none for
 G's dq reduce, whose row says so); the port never calls those. TF32 is off
-for matmuls and cuDNN: float32 products run in full float32. Phase 17
-writes under build/chip_smoke/ (git-ignored) and removes it. A few minutes
-on an H100, build included.
+for matmuls and cuDNN: float32 products run in full float32. Phases 17
+and 20 write under build/ (git-ignored) and remove what they wrote. A few
+minutes on an H100, build included.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -1078,6 +1098,114 @@ def check_reproducible(argv, steps_run) -> None:
       'bitwise equal')
 
 
+def fused_training(argv, dev, card, k, rounds, pool_rows=4, tag=None):
+  """Phase 19: `rounds` calls of `k` graphed training steps
+  (`steps.scanned_train_steps`, the training CLI's --steps_per_call) against
+  as many eager steps (`steps.train_step`) of an identical twin, from one
+  setup of the training CLI's `argv`, on the same pool rows and step
+  generators: losses and parameters bitwise equal after each call, each
+  kernel's launches per graphed step as derived. Returns (the graphed
+  run's launches, its seconds per step by call, the eager seconds per
+  step, the graph's capture seconds and private pool bytes, the peak
+  device memory)."""
+  from gencast_tpu_torch.models.gencast import GenCast
+  from gencast_tpu_torch.training import steps, train
+  tag = tag or ' '.join(argv)
+  torch.cuda.reset_peak_memory_stats()
+  args = train.parse_args(argv + ['--data', 'synthetic'])
+  run = train.setup(args)
+  eager, eager_opt = run.wrapped, run.optimizer
+  graphed = copy.deepcopy(eager)
+  graphed_opt = steps.create_optimizer(graphed, eager_opt.config)
+  pool = train.device_pool(run.source, pool_rows, dev)
+  fused = steps.scanned_train_steps(graphed, graphed_opt)
+  per_step = expected_step_launches(
+      next(m for m in eager.modules() if isinstance(m, GenCast)))
+  launches = {c.name: 0 for c in counters()}
+  eager_s, graphed_s = [], []
+  for r in range(rounds):
+    step_ids = list(range(r * k, (r + 1) * k))
+    rows = [(5 * i + 1) % pool_rows for i in step_ids]
+    eager_losses = []
+    for c in counters():
+      c.reset()
+    for row, step in zip(rows, step_ids):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      loss, _ = steps.train_step(
+          eager, eager_opt, pool['inputs'][row], pool['targets'][row],
+          pool['forcings'][row], train.step_generator(args.seed, step, dev))
+      torch.cuda.synchronize()
+      eager_s.append(time.perf_counter() - t0)
+      eager_losses.append(loss)
+    eager_launches = {c.name: c.launches for c in counters()}
+    for c in counters():
+      c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = fused(pool, rows, step_ids, args.seed)
+    torch.cuda.synchronize()
+    graphed_s.append((time.perf_counter() - t0) / k)
+    got = {c.name: c.launches for c in counters()}
+    expected = {name: n * k for name, n in per_step.items()}
+    if got != expected or eager_launches != expected:
+      raise AssertionError(f'{tag}: launches of {k} graphed steps {got}, of '
+                           f'{k} eager steps {eager_launches}, expected '
+                           f'{expected}')
+    launches = {name: launches[name] + n for name, n in got.items()}
+    params = list(zip(eager.parameters(), graphed.parameters()))
+    differing = sum(not torch.equal(a, b) for a, b in params)
+    if (not torch.equal(torch.stack(eager_losses), losses) or differing
+        or not torch.isfinite(losses).all()
+        or eager_opt.step_count != graphed_opt.step_count):
+      raise AssertionError(
+          f'{tag}, steps {step_ids}: graphed losses {losses.tolist()}, eager '
+          f'{[float(x) for x in eager_losses]}; {differing} of {len(params)} '
+          f'parameters differ')
+  peak = torch.cuda.max_memory_allocated()
+  log(f'[fused {tag}] {rounds} x {k} steps: CUDA-graph replays bitwise equal '
+      f'to eager steps of a twin (losses and all {len(params)} parameters '
+      f'after each call); launches per step {per_step}, as derived; seconds '
+      f'per step graphed {[round(x, 4) for x in graphed_s]} by call (the '
+      f'first with its eager warm-up step and the capture), eager '
+      f'{[round(x, 4) for x in eager_s]}; capture '
+      f'{fused.graph.capture_seconds:.2f} s, private pool '
+      f'{fused.graph.pool_bytes / 2**30:.2f} GiB; peak memory of both '
+      f'{peak / 2**30:.2f} GiB; {card}')
+  result = (launches, graphed_s, eager_s, fused.graph.capture_seconds,
+            fused.graph.pool_bytes, peak)
+  del fused, graphed, graphed_opt, eager, eager_opt, run, pool
+  torch.cuda.empty_cache()
+  return result
+
+
+def fused_cli(spec, statics, dev, card) -> dict:
+  """Phase 20: `train.main` with --steps_per_call 2 for 4 steps, checkpoints
+  every 2, then a run to step 6 that resumes at step 4 from the newest
+  checkpoint through the fused path (launches per step checked by
+  train_preset). Returns each kernel's launches in both runs."""
+  from gencast_tpu_torch.training import checkpoint
+  work = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                      'chip_smoke_fused')
+  shutil.rmtree(work, ignore_errors=True)
+  argv = ['--preset', spec.name, '--steps_per_call', '2', '--save_every',
+          '2', '--ckpt_dir', work]
+  first, first_s, _ = train_preset(spec, statics, dev, card, argv,
+                                   steps_run=4, tag=f'{spec.name} fused CLI')
+  second, second_s, _ = train_preset(spec, statics, dev, card, argv,
+                                     steps_run=6, start=4,
+                                     tag=f'{spec.name} fused CLI, resumed')
+  saved = checkpoint.all_steps(checkpoint.create_manager(work))
+  if saved != [1, 3, 5]:
+    raise AssertionError(f'fused CLI checkpoints at steps {saved}')
+  log(f'[fused CLI {spec.name}] --steps_per_call 2: seconds per step '
+      f'{[round(x, 4) for x in first_s]} then '
+      f'{[round(x, 4) for x in second_s]} (resumed at step 4); checkpoints '
+      f'kept at steps {saved}; {card}')
+  shutil.rmtree(work, ignore_errors=True)
+  return {k: first[k] + second[k] for k in first}
+
+
 def count_edge_casts(argv, statics, width) -> Tuple[int, int]:
   """Phase 18: two training steps through the CLI under torch.profiler
   (host ops, with shapes): (dtype casts of a whole planned edge array, the
@@ -1274,15 +1402,20 @@ def serve_nano(dev, g) -> float:
   del out_k, out_p, plain_stack, plain_model
 
   calls = ROLLOUT_STEPS * (2 * spec.num_noise_levels - 1)
-  for seed in (1, 2):
+  seconds, forecasts = [], []
+  # Requests 1 and 2 replay the denoiser's CUDA graph (the first captures
+  # it); request 1 again with jit=False, the eager path, from the same
+  # generator seed must give its bits.
+  for seed, jit in ((1, True), (2, True), (1, False)):
     gen = torch.Generator(device=dev).manual_seed(seed)
     banded_attention.KERNEL.reset()
     segment.KERNEL.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    forecast = rollout.sample_rollout(stack, inputs, forcings, gen)
+    forecast = rollout.sample_rollout(stack, inputs, forcings, gen, jit=jit)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    seconds.append(time.perf_counter() - t0)
+    forecasts.append(forecast)
     launched = (banded_attention.KERNEL.launches, segment.KERNEL.launches)
     expected_shape = (ROLLOUT_STEPS,) + grid + (
         den.target_layout.num_channels,)
@@ -1295,12 +1428,46 @@ def serve_nano(dev, g) -> float:
     if launched != (calls * spec.num_layers, calls):
       raise AssertionError(f'nano forecast {seed}: launches (C, B) {launched}, '
                            f'expected {(calls * spec.num_layers, calls)}')
-    log(f'[nano serve] request {seed}: {ROLLOUT_STEPS}-step rollout '
-        f'{tuple(forecast.shape)} float32, finite; {seconds:.3f} s '
-        f'({seconds / ROLLOUT_STEPS:.3f} s per 12-hour step, '
-        f'{1e3 * seconds / calls:.2f} ms per denoiser call); launches C '
-        f'{launched[0]}, B {launched[1]}')
+    log(f'[nano serve] request {seed} ({"graphed" if jit else "eager"}): '
+        f'{ROLLOUT_STEPS}-step rollout {tuple(forecast.shape)} float32, '
+        f'finite; {seconds[-1]:.3f} s ({seconds[-1] / ROLLOUT_STEPS:.3f} s '
+        f'per 12-hour step, {1e3 * seconds[-1] / calls:.2f} ms per denoiser '
+        f'call); launches C {launched[0]}, B {launched[1]}')
+  check_graphed_equals_eager('nano 10-step request', forecasts[0],
+                             forecasts[2])
+  log(f'[nano serve] 10-step request: graphed {seconds[0]:.3f} s (with the '
+      f'capture), {seconds[1]:.3f} s; eager {seconds[2]:.3f} s; '
+      f'{graph_note(stack)}; {card_line()}')
   return ms['kernel']
+
+
+def sampler_graphs(stack) -> list:
+  """The denoiser graphs of the serving copy inside a wrapper stack."""
+  from gencast_tpu_torch.models import casting
+  from gencast_tpu_torch.models.gencast import GenCast
+  for m in stack.modules():
+    if isinstance(m, casting.Bfloat16Cast):
+      return list(m._bf16.denoiser_graphs.graphs.values())
+    if isinstance(m, GenCast):
+      return list(m.denoiser_graphs.graphs.values())
+  raise ValueError('no GenCast in the stack')
+
+
+def graph_note(stack) -> str:
+  graphs = sampler_graphs(stack)
+  return ', '.join(
+      f'denoiser graph captured in {g.graph.capture_seconds:.2f} s, private '
+      f'pool {g.graph.pool_bytes / 2**30:.3f} GiB' for g in graphs)
+
+
+def check_graphed_equals_eager(what, graphed, eager) -> None:
+  """CUDA-graph replays run the eager path's kernels on the same inputs, in
+  the same order, so they must give its bits."""
+  if not torch.equal(graphed, eager):
+    diff = float((graphed - eager).abs().nan_to_num().max())
+    raise AssertionError(f'{what}: graph replays differ from the eager path '
+                         f'(max abs difference {diff})')
+  log(f'[graphs] {what}: graph replays bitwise equal to the eager path')
 
 
 def fused_path(spec, statics, dev, card, f_seconds, f_peak):
@@ -1415,6 +1582,7 @@ def main() -> int:
   from gencast_tpu_torch.data import layout
   from gencast_tpu_torch.graph import plans
   from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.nn import transformer
   from gencast_tpu_torch.ops import banded_attention, cuda_lib, ln_film, \
       segment, sparse_attention
 
@@ -1584,19 +1752,23 @@ def main() -> int:
   log(f'[denoiser] tiny f32 forecast ({calls} calls), card kernels vs CPU '
       f'plain path: max rel err {rel:.3e} (tol {TINY_SAMPLE_RTOL})')
 
-  # --- 6. serving: two forecast requests ---
+  # --- 6. serving: two forecast requests, then the first again eagerly ---
   calls = 2 * spec.num_noise_levels - 1
   for counter in (sparse_attention.KERNEL, segment.KERNEL):
     counter.reset()
-  seconds = []
-  for seed in (1, 2):
+  seconds, forecasts = [], []
+  # Requests 1 and 2 replay the denoiser's CUDA graph (the first captures
+  # it); request 1 again with graphed=False, the eager path, from the same
+  # generator seed must give its bits.
+  for seed, graphed in ((1, True), (2, True), (1, False)):
     before = (sparse_attention.KERNEL.launches, segment.KERNEL.launches)
     gen = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    forecast = stack.sample(inputs, forcings, gen)
+    forecast = stack.sample(inputs, forcings, gen, graphed=graphed)
     torch.cuda.synchronize()
     seconds.append(time.perf_counter() - t0)
+    forecasts.append(forecast)
     added = (sparse_attention.KERNEL.launches - before[0],
              segment.KERNEL.launches - before[1])
     expected_shape = grid + (den.target_layout.num_channels,)
@@ -1609,13 +1781,20 @@ def main() -> int:
     if added != (calls * spec.num_layers, calls):
       raise AssertionError(f'forecast {seed}: launches {added}, expected '
                            f'{(calls * spec.num_layers, calls)}')
-    log(f'[serve] request {seed}: {tuple(forecast.shape)} float32, finite; '
-        f'{seconds[-1]:.2f} s ({1e3 * seconds[-1] / calls:.1f} ms per '
-        f'denoiser call); launches A {added[0]}, B {added[1]}')
+    log(f'[serve] request {seed} ({"graphed" if graphed else "eager"}): '
+        f'{tuple(forecast.shape)} float32, finite; {seconds[-1]:.3f} s '
+        f'({1e3 * seconds[-1] / calls:.2f} ms per denoiser call); launches '
+        f'A {added[0]}, B {added[1]}')
+  check_graphed_equals_eager('1-degree forecast step', forecasts[0],
+                             forecasts[2])
+  log(f'[serve] 1-degree forecast step: graphed {seconds[0]:.3f} s (with '
+      f'the capture), {seconds[1]:.3f} s; eager {seconds[2]:.3f} s; '
+      f'{graph_note(stack)}; {card}')
   serve_launches = {'A': sparse_attention.KERNEL.launches,
                     'B': segment.KERNEL.launches}
   if min(serve_launches.values()) == 0:
     raise AssertionError(f'a kernel was not launched: {serve_launches}')
+  del forecasts
 
   # --- 7. kernel F vs plain ---
   plan_t = tuple(torch.as_tensor(a, device=dev) for a in (
@@ -1740,6 +1919,26 @@ def main() -> int:
       f'of kernel B, which reads the bf16 edges itself')
   check_reproducible(['--preset', 'nano'], steps_run=2)
 
+  # --- 19. fused training: CUDA-graph replays against eager steps ---
+  fused_nano = fused_training(['--preset', 'nano'], dev, card, k=4,
+                              rounds=2, tag='nano')
+  fused_1deg = fused_training(['--preset', '1deg', '--clean_sst_nans'], dev,
+                              card, k=4, rounds=2, tag='1deg')
+  before = os.environ.get(transformer.FUSED_BWD_ENV)
+  os.environ[transformer.FUSED_BWD_ENV] = '1'
+  try:
+    fused_1deg_g = fused_training(['--preset', '1deg', '--clean_sst_nans'],
+                                  dev, card, k=2, rounds=1,
+                                  tag='1deg, GENCAST_SPARSE_FUSED_BWD=1')
+  finally:
+    if before is None:
+      del os.environ[transformer.FUSED_BWD_ENV]
+    else:
+      os.environ[transformer.FUSED_BWD_ENV] = before
+
+  # --- 20. the training CLI's fused path: checkpoints and a resume ---
+  cli_launches = fused_cli(nano, nano_statics, dev, card)
+
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B on the grid2mesh
   # receiver plan from bf16 edges (float32 out), E in bf16 at the largest
@@ -1800,7 +1999,11 @@ def main() -> int:
   for k in kernels:
     by_path = {'1deg': one_deg_launches[k['name']],
                'nano': nano_launches[k['name']],
-               '1deg_fused': fused_launches[k['name']]}
+               '1deg_fused': fused_launches[k['name']],
+               'nano_graphed': fused_nano[0][k['name']],
+               '1deg_graphed': fused_1deg[0][k['name']],
+               '1deg_fused_graphed': fused_1deg_g[0][k['name']],
+               'nano_cli_graphed': cli_launches[k['name']]}
     k['launches'] = sum(by_path.values())
     if sum(1 for n in by_path.values() if n) > 1:
       k['launches_by_path'] = by_path

@@ -22,7 +22,7 @@ from gencast_tpu_torch.graph.compiler import GraphStatics
 from gencast_tpu_torch.models import diffusion_utils
 from gencast_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
 from gencast_tpu_torch.nn.transformer import TransformerConfig
-from gencast_tpu_torch.ops import losses, sph_harm
+from gencast_tpu_torch.ops import cuda_lib, losses, sph_harm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +56,79 @@ LOSS_WEIGHTS_SURFACE = {
     'sea_surface_temperature': 0.1,
     'total_precipitation_12hr': 0.1,
 }
+
+
+class DenoiserGraph:
+  """One preconditioned denoiser call of the sampler, captured in a CUDA
+  graph over static buffers: the window `inputs` and `forcings` (loaded once
+  per sample), the state `x` and the [B] noise level `sigma` (filled before
+  each call). The first call runs eagerly on the graph's side stream (its
+  warm-up) and is then captured; every later call replays. The output of a
+  replay is the graph's static buffer, overwritten by the next replay."""
+
+  def __init__(self, inputs: torch.Tensor, forcings: torch.Tensor,
+               x_channels: int, dtype: torch.dtype):
+    self.graph = cuda_lib.Graph(inputs.device)
+    self.inputs = torch.empty_like(inputs)
+    self.forcings = torch.empty_like(forcings)
+    self.x = torch.empty(inputs.shape[:-1] + (x_channels,), dtype=dtype,
+                         device=inputs.device)
+    self.sigma = torch.empty(inputs.shape[0], dtype=torch.float32,
+                             device=inputs.device)
+    self.out: Optional[torch.Tensor] = None
+
+  def load(self, inputs: torch.Tensor, forcings: torch.Tensor) -> None:
+    self.inputs.copy_(inputs)
+    self.forcings.copy_(forcings)
+
+  def __call__(self, model: 'GenCast', x: torch.Tensor,
+               sigma: float) -> torch.Tensor:
+    # `model` is passed per call, not kept: the graph lives on the model
+    # (`DenoiserGraphs`) and must not keep it alive.
+    self.x.copy_(x)
+    self.sigma.fill_(sigma)
+
+    def call():
+      return model._precond_denoise(self.inputs, self.forcings, self.x,
+                                    self.sigma)
+
+    if self.out is None:
+      out = self.graph.warm_up(call)
+      self.out = self.graph.capture(call)
+      return out
+    self.graph.replay()
+    return self.out
+
+
+class DenoiserGraphs:
+  """A model's sampler graphs, one per (shapes, dtype, device) of a call.
+
+  They hold the addresses of the model's parameters, so they live on the
+  model and die with it: the serving copy that `Bfloat16Cast.refresh()`
+  replaces takes its graphs along, and a replay never reads weights a
+  refresh has replaced. A deep copy of the model (how that copy is made)
+  starts with none, since a CUDA graph cannot be copied; so does a model
+  moved by `.to()` (`GenCast._apply`).
+  """
+
+  def __init__(self):
+    self.graphs: Dict[tuple, DenoiserGraph] = {}
+
+  def __deepcopy__(self, memo):
+    return DenoiserGraphs()
+
+  def get(self, inputs: torch.Tensor, forcings: torch.Tensor,
+          x_channels: int, dtype: torch.dtype) -> DenoiserGraph:
+    """The graph of calls on these inputs and forcings (their shapes,
+    dtypes and device) and a state of `x_channels` in `dtype`, loaded with
+    their values."""
+    key = tuple((tuple(t.shape), t.dtype, t.device)
+                for t in (inputs, forcings)) + (x_channels, dtype)
+    if key not in self.graphs:
+      self.graphs[key] = DenoiserGraph(inputs, forcings, x_channels, dtype)
+    graph = self.graphs[key]
+    graph.load(inputs, forcings)
+    return graph
 
 
 def rounded(value, dtype) -> float:
@@ -96,12 +169,19 @@ class GenCast(nn.Module):
                          persistent=False)
     self.register_buffer('sh_fourier', torch.as_tensor(basis.fourier),
                          persistent=False)
+    self.denoiser_graphs = DenoiserGraphs()
     chan_w, diag_w = layout_lib.loss_channel_weights(self.target_layout,
                                                      LOSS_WEIGHTS_SURFACE)
     for name, array in (
         ('lat_weights', layout_lib.latitude_weights(statics.grid_lat)),
         ('loss_weights', chan_w), ('diag_weights', diag_w)):
       self.register_buffer(name, torch.as_tensor(array), persistent=False)
+
+  def _apply(self, fn, recurse=True):
+    # Moving the parameters (.to(), .cuda()) gives them new storage, which
+    # the sampler's graphs would not see.
+    self.denoiser_graphs = DenoiserGraphs()
+    return super()._apply(fn, recurse)
 
   # --- EDM preconditioning (sigma_data = 1) ---
 
@@ -125,6 +205,22 @@ class GenCast(nn.Module):
 
   # --- Training loss ---
 
+  def training_draws(self, generator: torch.Generator, batch: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training loss's random draws, from `generator` in this order:
+    the noise level sigma [B] (float32) from the training distribution,
+    then unit sphere noise [B, lat, lon, C] (float32), both on the model's
+    device. The loss draws through this function, and the graphed training
+    step (`training.steps.scanned_train_steps`) calls it outside its graph,
+    so both draw the same bits from a step's generator."""
+    nc = self.noise_config
+    u = torch.rand((batch,), generator=generator, device=generator.device,
+                   dtype=torch.float32).to(self.sh_legendre.device)
+    sigma = diffusion_utils.rho_inverse_cdf(
+        nc.training_min_noise_level, nc.training_max_noise_level,
+        nc.training_noise_level_rho, u)
+    return sigma, self.sphere_noise(generator, batch)
+
   def loss(self, inputs: torch.Tensor, targets: torch.Tensor,
            forcings: torch.Tensor,
            generator: Optional[torch.Generator] = None, *,
@@ -144,23 +240,18 @@ class GenCast(nn.Module):
     """EDM loss and the denoised predictions from the same (single)
     denoiser call: ((loss [B], diagnostics), predictions).
 
-    The noise level sigma [B] (float32) is drawn from the training
-    distribution and the noise [B, lat, lon, C] is unit sphere noise in the
-    targets' dtype, both from `generator` (sigma first), unless given.
+    The noise level sigma [B] and the unit sphere noise [B, lat, lon, C]
+    come from `training_draws(generator)`, or are both given; the noise is
+    rounded to the targets' dtype.
     """
-    nc = self.noise_config
     batch = targets.shape[0]
-    if generator is None and (sigma is None or noise is None):
-      raise ValueError('loss needs a generator, or both sigma and noise')
-    if sigma is None:
-      u = torch.rand((batch,), generator=generator, device=generator.device,
-                     dtype=torch.float32).to(targets.device)
-      sigma = diffusion_utils.rho_inverse_cdf(
-          nc.training_min_noise_level, nc.training_max_noise_level,
-          nc.training_noise_level_rho, u)
+    if sigma is None and noise is None:
+      if generator is None:
+        raise ValueError('loss needs a generator, or both sigma and noise')
+      sigma, noise = self.training_draws(generator, batch)
+    elif sigma is None or noise is None:
+      raise ValueError('loss takes both sigma and noise, or neither')
     sigma = sigma.to(targets.device, torch.float32)
-    if noise is None:
-      noise = self.sphere_noise(generator, batch, targets.dtype)
     noise = noise.to(targets.device, targets.dtype)
     noisy = targets + noise * sigma.to(targets.dtype)[:, None, None, None]
     denoised = self._precond_denoise(inputs, forcings, noisy, sigma)
@@ -185,13 +276,20 @@ class GenCast(nn.Module):
   def sample(self, inputs: torch.Tensor, forcings: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              dtype=torch.float32,
-             noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+             noise: Optional[Sequence[torch.Tensor]] = None,
+             graphed: bool = True) -> torch.Tensor:
     """Draws one sample of the (normalized-space) targets: [B, lat, lon, C].
 
     Noise comes from `generator`, or, when `noise` is given, from its N + 1
     precomputed unit fields [B, lat, lon, C]: the initial state's, then one
     per churn step (N steps; drawn, as in the reference, even where the
     churn rate is 0). Each field is cast to `dtype` before use.
+
+    On the card each denoiser call replays one CUDA graph of it (the port's
+    counterpart of the reference's jitted sampler scan), captured at this
+    model's first call of these shapes; the draws and the few elementwise
+    ops between calls stay eager. `graphed=False` runs every call eagerly.
+    On the CPU the calls run eagerly either way.
     """
     sc = self.sampler_config
     batch = inputs.shape[0]
@@ -216,9 +314,17 @@ class GenCast(nn.Module):
         return noise[i].to(inputs.device, dtype)
       return self.sphere_noise(generator, batch, dtype)
 
+    graph = None
+    if graphed and inputs.is_cuda:
+      graph = self.denoiser_graphs.get(
+          inputs, forcings, self.target_layout.num_channels, dtype)
+
     def denoise(x, sigma):
-      sigma_b = torch.full((batch,), max(float(sigma), 1e-6),
-                           dtype=torch.float32, device=x.device)
+      level = max(float(sigma), 1e-6)
+      if graph is not None:
+        return graph(self, x, level)
+      sigma_b = torch.full((batch,), level, dtype=torch.float32,
+                           device=x.device)
       return self._precond_denoise(inputs, forcings, x, sigma_b)
 
     def churn(x, sigma, churn_rate, i):
@@ -248,4 +354,6 @@ class GenCast(nn.Module):
     # The final level (sigma_next == 0) is a single Euler step to the
     # denoised state: one call instead of two.
     x, sigma_last = churn(x, sigmas[-2], churns[-1], num_steps)
-    return denoise(x, sigma_last)
+    out = denoise(x, sigma_last)
+    # A replay's output is the graph's buffer, which the next call rewrites.
+    return out if graph is None else out.clone()

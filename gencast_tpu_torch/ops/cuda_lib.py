@@ -12,6 +12,7 @@ machine has neither nvcc nor a card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import glob
@@ -19,7 +20,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
@@ -86,16 +87,106 @@ _SIGNATURES = {
 
 
 class KernelCounter:
-  """Launch count of one kernel: its wrapper adds one where it launches."""
+  """Launch count of one kernel: its wrapper adds one where it launches,
+  and a `Graph` adds the launches it captured at each replay."""
 
   def __init__(self, name: str, source: str, replaces: str):
     self.name = name
     self.source = source      # path in the repository
     self.replaces = replaces  # file:line of the TPU kernel it ports
     self.launches = 0
+    COUNTERS.append(self)
 
   def reset(self) -> None:
     self.launches = 0
+
+
+# Every kernel's counter, in the order the kernels' modules made them.
+COUNTERS: List[KernelCounter] = []
+
+
+class CapturedLaunches:
+  """The launches of each kernel that a capture recorded.
+
+  A wrapper counts in Python where it launches, so under capture it counts
+  launches that have not run, and a replay runs them without Python.
+  `recording()` takes the counts a block adds and sets the counters back;
+  `replayed()` adds them once per replay.
+  """
+
+  def __init__(self):
+    self.launches: Dict[KernelCounter, int] = {}
+
+  @contextlib.contextmanager
+  def recording(self):
+    before = [c.launches for c in COUNTERS]
+    try:
+      yield self
+    finally:
+      self.launches = {c: c.launches - n for c, n in zip(COUNTERS, before)
+                       if c.launches != n}
+      for c, n in zip(COUNTERS, before):
+        c.launches = n
+
+  def replayed(self) -> None:
+    for c, n in self.launches.items():
+      c.launches += n
+
+
+class Graph:
+  """One CUDA graph of a step of the port, warmed up and captured on a side
+  stream of its own and replayed on the current stream, with its kernels'
+  launches counted per replay.
+
+  The first call of `fn` runs eagerly on the side stream (`warm_up`): it
+  builds the kernel library, fills the launch caches and lets lazily made
+  state (an optimizer's moments, cuBLAS's workspace) exist before the
+  capture, which would otherwise freeze its creation into every replay.
+  A capture or replay that fails raises; nothing falls back to eager.
+  """
+
+  def __init__(self, device: torch.device):
+    self.device = device
+    self.stream = torch.cuda.Stream(device)
+    self.graph: Optional[torch.cuda.CUDAGraph] = None
+    self.counts = CapturedLaunches()
+    self.capture_seconds = 0.0
+    self.pool_bytes = 0  # device memory the capture reserved: its pool
+
+  def warm_up(self, fn: Callable):
+    """fn() run eagerly on the side stream, after the current stream's
+    work; its result, ready for the current stream. (Blocks the side
+    stream frees are reused only by later side-stream work, which again
+    waits for the current stream first.)"""
+    current = torch.cuda.current_stream(self.device)
+    self.stream.wait_stream(current)
+    with torch.cuda.stream(self.stream):
+      out = fn()
+    current.wait_stream(self.stream)
+    return out
+
+  def capture(self, fn: Callable):
+    """Captures fn() (after a warm-up) into this graph; returns its static
+    outputs, which each replay overwrites."""
+    if self.graph is not None:
+      raise RuntimeError('this graph is captured already')
+    t0 = time.perf_counter()
+    self.stream.wait_stream(torch.cuda.current_stream(self.device))
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(self.device)
+    graph = torch.cuda.CUDAGraph()
+    with self.counts.recording():
+      with torch.cuda.graph(graph, stream=self.stream):
+        out = fn()
+    torch.cuda.current_stream(self.device).wait_stream(self.stream)
+    self.graph = graph
+    self.capture_seconds = time.perf_counter() - t0
+    self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+    return out
+
+  def replay(self) -> None:
+    self.graph.replay()
+    self.counts.replayed()
 
 
 class _Library:

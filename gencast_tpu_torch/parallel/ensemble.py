@@ -36,7 +36,8 @@ def ensemble_rollout(model: nn.Module,
                      teacher_targets: Optional[torch.Tensor] = None,
                      keys: Optional[Sequence[torch.Generator]] = None,
                      noise: Optional[Sequence] = None,
-                     member_chunk: Optional[int] = None) -> torch.Tensor:
+                     member_chunk: Optional[int] = None,
+                     jit: bool = True) -> torch.Tensor:
   """A K-step sampled ensemble forecast, on the host:
   [M, K, B, lat, lon, C_tgt].
 
@@ -47,7 +48,8 @@ def ensemble_rollout(model: nn.Module,
   advances every member's window with the ground truth. Each group of
   `member_chunk` finished members (default 1) is copied to the host before
   the next begins (the reference's --member_chunk); the grouping does not
-  change a member's forecast.
+  change a member's forecast. `jit` goes to `rollout.sample_rollout`: on
+  the card, True replays each denoiser call from a CUDA graph.
   """
   if noise is not None:
     draws = [{'noise': member_noise} for member_noise in noise]
@@ -65,7 +67,8 @@ def ensemble_rollout(model: nn.Module,
   for lo in range(0, len(draws), chunk):
     group = torch.stack([
         rollout_lib.sample_rollout(model, inputs, forcings,
-                                   teacher_targets=teacher_targets, **draw)
+                                   teacher_targets=teacher_targets, jit=jit,
+                                   **draw)
         for draw in draws[lo:lo + chunk]])
     if out is None:
       out = torch.empty((len(draws),) + group.shape[1:], dtype=group.dtype)

@@ -2,7 +2,7 @@
 
 Counterpart of `gencast_tpu.rollout` (`advance_inputs`, `rollout`,
 `sample_rollout`). The reference's `lax.scan` over forecast steps is a
-Python loop here; the input window advances on the device by one channel
+Python loop here (on the card each denoiser call replays a CUDA graph); the input window advances on the device by one channel
 gather per step. The reference splits one key into per-step keys; here the
 caller gives either one `torch.Generator`, drawn from step after step, or
 each step's precomputed noise fields (as `GenCast.sample` takes them).
@@ -85,8 +85,8 @@ def sample_rollout(model: nn.Module,
                    forcings: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
-                   teacher_targets: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   teacher_targets: Optional[torch.Tensor] = None,
+                   jit: bool = True) -> torch.Tensor:
   """Diffusion-sampled autoregressive rollout of a (wrapped) GenCast model.
 
   `model` exposes .sample(inputs, forcings, generator, noise=...) in raw
@@ -96,6 +96,10 @@ def sample_rollout(model: nn.Module,
   `GenCast.sample` takes. With teacher_targets [K, B, lat, lon, C_tgt] the
   window advances with them (teacher forcing, see `rollout`). Returns
   [K, B, lat, lon, C_tgt].
+
+  `jit` is the reference's flag: on the card, True replays each denoiser
+  call from the model's CUDA graph (`GenCast.sample`), False runs every
+  call eagerly; on the CPU both run eagerly.
   """
   if (generator is None) == (noise is None):
     raise ValueError('sample_rollout needs a generator or per-step noise')
@@ -108,7 +112,7 @@ def sample_rollout(model: nn.Module,
 
   def predict(x, frc, step):
     if noise is None:
-      return model.sample(x, frc, generator)
-    return model.sample(x, frc, noise=noise[step])
+      return model.sample(x, frc, generator, graphed=jit)
+    return model.sample(x, frc, noise=noise[step], graphed=jit)
 
   return rollout(predict, inputs, forcings, maps, teacher_targets)

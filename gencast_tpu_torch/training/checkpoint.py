@@ -69,8 +69,7 @@ def save(manager: CheckpointManager, step: int, model: nn.Module,
            'params': {name: p.detach().cpu()
                       for name, p in model.named_parameters()}}
   if optimizer is not None:
-    state['opt_state'] = {'adamw': optimizer.adamw.state_dict(),
-                          'step_count': optimizer.step_count}
+    state['opt_state'] = optimizer.state_dict()
   path = _path(manager, step)
   tmp = f'{path}.tmp{os.getpid()}'
   torch.save(state, tmp)
@@ -103,7 +102,6 @@ def restore(manager: CheckpointManager, model: nn.Module,
                          f'model {tuple(p.shape)}')
       p.copy_(saved[name])
   if optimizer is not None:
-    optimizer.adamw.load_state_dict(state['opt_state']['adamw'])
-    optimizer.step_count = state['opt_state']['step_count']
+    optimizer.load_state_dict(state['opt_state'])
   casting.refresh_all(model)
   return int(state['step'])

@@ -2,17 +2,25 @@
 one card.
 
     python -m gencast_tpu_torch.training.profile_step [--preset 1deg] \
-        [--mode train|denoise] [--steps 3] [--trace PATH]
+        [--mode train|denoise|sample] [--steps 3] [--steps_per_call K] \
+        [--trace PATH]
 
 Sets up the preset's run as the training CLI does (`--data synthetic
 --clean_sst_nans`, seed 0) and packs the batches. `--mode train` takes one
 warm-up training step, then runs `--steps` training steps under
-torch.profiler; `--mode denoise` does the same with undifferentiated calls
+torch.profiler; with `--steps_per_call K` (> 1) the steps are the training
+CLI's fused ones (`steps.scanned_train_steps`, K per call over a device
+pool: replays of one CUDA graph), after one warm-up call that captures the
+graph. `--mode denoise` does the same with eager, undifferentiated calls
 of the wrapped denoiser (the serving stack, bf16 where the preset is) at
-noise level 1. Prints seconds per step or call (host clock), device time
-per step, the device's busy share of the profiled window (device activity
-over wall time; the work runs on one stream), the device time of each of
-the port's kernels and of the other kernel families, and the ten costliest
+noise level 1; `--mode sample` with forecast steps of the serving stack,
+one `sample` each: its 2N - 1 denoiser calls replay the model's CUDA graph,
+with the sampler's eager ops between them (per-call figures are the step's
+over its calls). Prints seconds per step or call (host clock, unprofiled
+and profiled), device time per step, the device's busy share of the
+profiled window (device activity over wall time; the work runs on one
+stream) and of the unprofiled wall, the device time of each of the port's
+kernels and of the other kernel families, and the ten costliest
 kernels. `--trace` writes the profiler's Chrome trace. With
 GENCAST_SPARSE_FUSED_BWD=1 in the environment the 1-degree step runs the
 fused attention backward (kernel G and its dq reduce) instead of kernel F.
@@ -56,8 +64,11 @@ def _family(name: str) -> str:
 def main(argv=None) -> None:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument('--preset', default='1deg', help='tiny, nano or 1deg')
-  p.add_argument('--mode', default='train', choices=('train', 'denoise'))
+  p.add_argument('--mode', default='train',
+                 choices=('train', 'denoise', 'sample'))
   p.add_argument('--steps', type=int, default=3)
+  p.add_argument('--steps_per_call', type=int, default=1,
+                 help='train mode: K > 1 profiles fused steps, K per call')
   p.add_argument('--trace', default=None,
                  help='write the Chrome trace of the profiled steps here')
   args = p.parse_args(argv)
@@ -75,23 +86,49 @@ def main(argv=None) -> None:
   batches = [{k: torch.as_tensor(v).to(device)
               for k, v in next(run.batches).items()}
              for _ in range(args.steps + 1)]
+  k_call = args.steps_per_call if args.mode == 'train' else 1
+  if k_call > 1 and args.steps % k_call:
+    raise SystemExit('profile_step: --steps must be a multiple of '
+                     '--steps_per_call')
+  if k_call > 1:
+    pool = train.device_pool(run.source, len(batches), device)
+    fused = steps_lib.scanned_train_steps(wrapped, optimizer)
+    taken = [0]  # fused steps so far: their global step numbers
+  calls = ((2 * run.model.sampler_config.num_noise_levels - 1)
+           if args.mode == 'sample' else 1)
 
   def step(batch):
+    if k_call > 1:
+      first = taken[0]
+      taken[0] += k_call
+      fused(pool, [i % len(batches) for i in range(first, first + k_call)],
+            range(first, first + k_call), targs.seed)
+      return
     if args.mode == 'train':
       steps_lib.train_step(wrapped, optimizer, batch['inputs'],
                            batch['targets'], batch['forcings'], generator)
+      return
+    if args.mode == 'sample':
+      wrapped.sample(batch['inputs'], batch['forcings'], generator)
       return
     sigma = torch.ones(batch['inputs'].shape[0], device=device)
     with torch.no_grad():
       wrapped(batch['inputs'], batch['targets'], sigma, batch['forcings'])
 
-  step(batches[0])  # warm-up: builds the kernels, settles the allocator
+  # Warm-up: builds the kernels, settles the allocator, captures the graph.
+  step(batches[0])
+  profiled = batches[1:1 + args.steps // k_call]
   torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for batch in profiled:
+    step(batch)
+  torch.cuda.synchronize()
+  unprofiled = time.perf_counter() - t0
   activities = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
   with torch.profiler.profile(activities=activities) as prof:
     t0 = time.perf_counter()
-    for batch in batches[1:]:
+    for batch in profiled:
       step(batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -112,15 +149,24 @@ def main(argv=None) -> None:
     families[_family(name)][0] += ms
     families[_family(name)][1] += count
   device_ms = sum(ms for ms, _ in by_name.values())
-  n = args.steps
+  # Per training step (K per fused call) or forecast step, then per
+  # denoiser call in sample mode.
+  n = len(profiled) * k_call * calls
   card = subprocess.run(
       ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
       capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-  what = 'training step' if args.mode == 'train' else 'denoiser call'
-  print(f'[profile] {card}; {args.preset} {what}, {n} profiled: '
-        f'{wall / n:.4f} s each (host clock), {device_ms / n:.2f} ms of '
-        f'device time each, device busy {100 * device_ms / (1e3 * wall):.1f}'
-        f'% of the window')
+  what = {'train': 'training step', 'denoise': 'denoiser call',
+          'sample': 'denoiser call'}[args.mode]
+  how = {'train': (f', fused, {k_call} per call (CUDA-graph replays)'
+                   if k_call > 1 else ', eager'),
+         'denoise': ', eager', 'sample': (
+             f' in forecast steps of {calls} (CUDA-graph replays)')}[
+                 args.mode]
+  print(f'[profile] {card}; {args.preset} {what}{how}, {n} profiled: '
+        f'{unprofiled / n:.4f} s each unprofiled, {wall / n:.4f} s profiled '
+        f'(host clock), {device_ms / n:.2f} ms of device time each, device '
+        f'busy {100 * device_ms / (1e3 * wall):.1f}% of the profiled window, '
+        f'{100 * device_ms / (1e3 * unprofiled):.1f}% of the unprofiled wall')
   print(f'[profile] per {what}: family, device ms, share, launches')
   for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
     print(f'[profile]   {fam}: {ms / n:.3f} ms, {100 * ms / device_ms:.1f}%, '

@@ -5,17 +5,22 @@ Counterpart of `gencast_tpu.training.steps` (`OptimizerConfig`,
 1.0 and AdamW (b1 0.9, b2 0.999, eps 1e-8, weight decay 0.1 on every
 parameter: the reference passes no mask) under a linear-warmup / cosine
 schedule, with the reference's warmup clamp. As in optax, the first update
-uses the schedule's value at step 0, which is 0.
+uses the schedule's value at step 0, which is 0. `scanned_train_steps` is
+the counterpart of the reference's fused multi-step training: on the card
+K steps per host call replay one CUDA graph of the step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from gencast_tpu_torch.models import diffusion_utils
+from gencast_tpu_torch.ops import cuda_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,35 +76,83 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor],
 class Optimizer:
   """AdamW over `params` under the warmup-cosine schedule, after global-norm
   clipping of their gradients: the reference's optax chain. `update()` takes
-  one step from the parameters' `.grad`."""
+  one step from the parameters' `.grad`.
+
+  On the card the AdamW update is capturable: its step counts live on the
+  card and its rate is a 0-d float32 tensor that `set_rate` fills before
+  each step, so a CUDA graph of the step (`scanned_train_steps`) reads each
+  replay's rate, where a float would be frozen into the graph. The per-step
+  loop on the card runs the same update, so the two give the same bits. On
+  the CPU the rate is a float, as before.
+  """
 
   def __init__(self, params: Iterable[nn.Parameter], config: OptimizerConfig):
     self.params = [p for p in params if p.requires_grad]
     self.config = config
     self.schedule = warmup_cosine_schedule(config)
-    self.step_count = 0
+    self.step_count = 0  # on the host: the schedule's and checkpoints' step
+    capturable = bool(self.params) and self.params[0].is_cuda
+    self.lr = (torch.zeros((), dtype=torch.float32,
+                           device=self.params[0].device)
+               if capturable else None)
     # foreach: one launch per group of tensors rather than per tensor.
     self.adamw = torch.optim.AdamW(
-        self.params, lr=self.schedule(0), betas=(config.b1, config.b2),
-        eps=1e-8, weight_decay=config.weight_decay, foreach=True)
+        self.params, lr=self.schedule(0) if self.lr is None else self.lr,
+        betas=(config.b1, config.b2), eps=1e-8,
+        weight_decay=config.weight_decay, foreach=True,
+        capturable=capturable)
+    # Eager steps of the capturable update are meant (see above): no
+    # warning that they could be captured.
+    self.adamw._warned_capturable_if_run_uncaptured = True
 
   def zero_grad(self) -> None:
     for p in self.params:
       p.grad = None
 
-  def update(self) -> torch.Tensor:
-    """Clips, steps at the schedule's current rate; returns the gradient
-    norm before clipping (on the device)."""
+  def set_rate(self) -> None:
+    """Sets the rate of step `step_count` (on the card, into the rate
+    tensor: a kernel launch, no copy from the host)."""
+    rate = self.schedule(self.step_count)
+    if self.lr is None:
+      for group in self.adamw.param_groups:
+        group['lr'] = rate
+    else:
+      self.lr.fill_(rate)
+
+  def apply(self) -> torch.Tensor:
+    """Clips and steps at the rate `set_rate` set: the part of `update()`
+    that runs on the device, which a CUDA graph captures. Returns the
+    gradient norm before clipping (on the device)."""
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in self.params]
     for p, g in zip(self.params, grads):
       p.grad = g
     norm = clip_by_global_norm_(grads, self.config.clip_norm)
-    for group in self.adamw.param_groups:
-      group['lr'] = self.schedule(self.step_count)
     self.adamw.step()
+    return norm
+
+  def update(self) -> torch.Tensor:
+    """Clips, steps at the schedule's current rate; returns the gradient
+    norm before clipping (on the device)."""
+    self.set_rate()
+    norm = self.apply()
     self.step_count += 1
     return norm
+
+  def state_dict(self) -> dict:
+    """The AdamW state and the step count, as checkpoints keep them."""
+    return {'adamw': self.adamw.state_dict(), 'step_count': self.step_count}
+
+  def load_state_dict(self, state: dict) -> None:
+    """Restores the AdamW state and the step count. The moments are new
+    tensors afterwards: a CUDA graph captured before reads the old ones
+    (`scanned_train_steps` captures anew)."""
+    self.adamw.load_state_dict(state['adamw'])
+    if self.lr is not None:
+      # The saved rate (a tensor or a float) replaced the rate tensor.
+      for group in self.adamw.param_groups:
+        group['lr'] = self.lr
+    self.step_count = state['step_count']
 
 
 def create_optimizer(model: nn.Module, config: OptimizerConfig) -> Optimizer:
@@ -123,3 +176,124 @@ def train_step(model: nn.Module, optimizer: Optimizer,
   loss.backward()
   optimizer.update()
   return loss.detach(), {k: v.detach() for k, v in diags.items()}
+
+
+def _draws_owner(model: nn.Module) -> nn.Module:
+  """The GenCast inside a wrapper stack: the module whose
+  `training_draws` the loss calls."""
+  m = model
+  while not hasattr(m, 'training_draws'):
+    m = m.predictor
+  return m
+
+
+class FusedTrainSteps:
+  """`scanned_train_steps`' callable: fused_fn(pool, idx, steps, seed) ->
+  losses [K].
+
+  Per step it stages, on the host and outside any graph, the step's pool
+  row, its rate (`Optimizer.set_rate`) and its draws (the noise level and
+  noise of the generator of (seed, step), `GenCast.training_draws`) into
+  static buffers, then runs `_step`: the row's gather by a device index,
+  the mean loss, its backward (with the remat recomputation), the clip and
+  the AdamW update. On the card `_step` is one CUDA graph: the first step
+  runs it eagerly on the graph's side stream (the warm-up), the graph is
+  captured after it, and every later step replays it. The graph holds the
+  addresses of the pool, the parameters and the optimizer's tensors, so it
+  is captured anew when a call finds any of them changed (a checkpoint
+  restore gives the moments new tensors). On the CPU `_step` runs eagerly.
+  """
+
+  def __init__(self, model: nn.Module, optimizer: Optimizer):
+    self.model = model
+    self.optimizer = optimizer
+    self.draws = _draws_owner(model)
+    self.graph = None        # cuda_lib.Graph, on the card
+    self.captured = None     # the addresses the graph holds
+    self.loss = None         # the graph's output
+    self.row = self.sigma = self.noise = None
+
+  def _addresses(self, pool) -> tuple:
+    opt = self.optimizer
+    tensors = ([pool[k] for k in sorted(pool)] + opt.params
+               + [t for state in opt.adamw.state.values()
+                  for t in state.values() if torch.is_tensor(t)])
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+
+  def _stage(self, pool, row: int, step: int, seed: int) -> None:
+    device = pool['inputs'].device
+    generator = diffusion_utils.keyed_generator(seed, step, device=device)
+    sigma, noise = self.draws.training_draws(generator,
+                                             pool['targets'].shape[1])
+    if self.row is None:
+      self.row = torch.zeros(1, dtype=torch.long, device=device)
+      self.sigma, self.noise = torch.empty_like(sigma), torch.empty_like(noise)
+    self.row.fill_(row)
+    self.sigma.copy_(sigma)
+    self.noise.copy_(noise)
+    self.optimizer.set_rate()
+
+  def _step(self, pool) -> torch.Tensor:
+    batch = [pool[k].index_select(0, self.row)[0]
+             for k in ('inputs', 'targets', 'forcings')]
+    self.optimizer.zero_grad()
+    loss, _ = self.model.loss(*batch, sigma=self.sigma, noise=self.noise)
+    loss = loss.mean()
+    loss.backward()
+    self.optimizer.apply()
+    return loss.detach()
+
+  def __call__(self, pool: Dict[str, torch.Tensor], idx: Sequence[int],
+               steps: Sequence[int], seed: int) -> torch.Tensor:
+    idx, steps = [int(i) for i in idx], [int(s) for s in steps]
+    if len(idx) != len(steps):
+      raise ValueError(f'{len(idx)} pool rows for {len(steps)} steps')
+    device = pool['inputs'].device
+    losses = torch.empty(len(steps), dtype=torch.float32, device=device)
+    card = device.type == 'cuda'
+    if self._addresses(pool) != self.captured:
+      # A graph reads what it captured: start anew, buffers and all (on
+      # the CPU, where nothing is captured, at every call).
+      self.graph = self.captured = self.loss = None
+      self.row = self.sigma = self.noise = None
+    for k, (row, step) in enumerate(zip(idx, steps)):
+      self._stage(pool, row, step, seed)
+      if not card:
+        losses[k] = self._step(pool)
+      elif self.graph is None:
+        graph = cuda_lib.Graph(device)
+        losses[k] = graph.warm_up(lambda: self._step(pool))
+        # After the warm-up: its step made the optimizer's moments.
+        self.captured = self._addresses(pool)
+        self.loss = graph.capture(lambda: self._step(pool))
+        self.graph = graph
+      else:
+        self.graph.replay()
+        losses[k] = self.loss
+      self.optimizer.step_count += 1
+    return losses
+
+
+def scanned_train_steps(model: nn.Module, optimizer: Optimizer,
+                        ar: bool = False) -> FusedTrainSteps:
+  """Fused multi-step training: K optimizer steps per host call over a
+  device-resident sample pool. Counterpart of the reference's
+  `scanned_train_steps` (one jitted `lax.scan` of K steps there): on the
+  card each step replays one CUDA graph of the whole step (see
+  `FusedTrainSteps`), in place on `model` and `optimizer`.
+
+  Returns fused_fn(pool, idx, steps, seed) -> losses [K] (float32, on the
+  pool's device), where pool is a dict of [M, B, lat, lon, C] tensors
+  ('inputs'/'targets'/'forcings') on the model's device, idx the K pool
+  rows of the steps and steps their K global step numbers: step s draws
+  from the generator of (seed, s), as the per-step loop's
+  `train.step_generator`, so both give the same bits.
+
+  The reference's `ar=True` trains GraphCast's autoregressive loss; it
+  comes with GraphCast.
+  """
+  if ar:
+    raise NotImplementedError(
+        'fused autoregressive training (ar=True) is not ported yet: '
+        'ROADMAP.md, "Still to port": GraphCast')
+  return FusedTrainSteps(model, optimizer)

@@ -2,11 +2,13 @@
 
 Counterpart of `gencast_tpu.training.train` for the paths the port runs:
 the TINY, nano and 1-degree presets on the synthetic source, one training
-step per batch, on the CUDA card (the kernels) unless `--device cpu` asks
-for the CPU (their plain versions). Flags keep the reference's names,
-defaults and meanings: checkpoints with resume (`--ckpt_dir`,
-`--save_every`), metrics (`--metrics_jsonl`, `--wandb`), stats files
-(`--stats_path`), the sampling eval (`--eval_every`,
+step per batch or, with `--steps_per_call K`, K steps per host call over a
+device-resident pool of `--pool_size` samples (on the card each step
+replays one CUDA graph), on the CUDA card (the kernels) unless
+`--device cpu` asks for the CPU (their plain versions). Flags keep the
+reference's names, defaults and meanings: checkpoints with resume
+(`--ckpt_dir`, `--save_every`), metrics (`--metrics_jsonl`, `--wandb`),
+stats files (`--stats_path`), the sampling eval (`--eval_every`,
 `--do_sampling_eval`), `--no_normalization` and the architecture
 overrides. Every flag of the reference's CLI parses; those of paths not
 ported yet are refused with the ROADMAP.md item that brings them, and the
@@ -26,6 +28,9 @@ Examples:
 
   # Three full-width nano steps on one H100 (the default preset):
   python -m gencast_tpu_torch.training.train --steps 3 --data synthetic
+
+  # Nano on one H100, 8 steps per host call (CUDA-graph replays):
+  python -m gencast_tpu_torch.training.train --preset nano --steps_per_call 8
 
   # Full-width 1-degree steps on one H100 with checkpoints; run it again
   # with a larger --steps to resume from the newest checkpoint:
@@ -51,7 +56,6 @@ _PRESETS = ('tiny', 'nano', '1deg')
 _LATER_PRESETS = {'0.25deg': '0.25 degree'}
 _LATER_DATA = 'CLIs and data'
 _LATER_GRAPHCAST = 'GraphCast'
-_LATER_LAUNCHES = 'Host launches'
 _LATER_PARALLEL = 'Parallelism'
 _LATER_ATTENTION = {'triblock': "The reference's other attention backends",
                     'dense': "The reference's other attention backends"}
@@ -161,10 +165,11 @@ def parse_args(argv=None):
   p.add_argument('--functional_step', action='store_true', default=None,
                  help='not ported: the donated-state step is TPU-only')
   p.add_argument('--steps_per_call', type=int, default=1,
-                 help='1 (fused multi-step calls are not ported yet)')
+                 help='K > 1 runs K training steps per host call over a '
+                      'device-resident sample pool (on the card, K replays '
+                      'of one CUDA graph of the step; batch_size 1)')
   p.add_argument('--pool_size', type=int, default=64,
-                 help='samples resident on the device in fused mode (not '
-                      'ported yet, with --steps_per_call)')
+                 help='max samples resident on the device in fused mode')
   # Checkpointing / eval / logging.
   p.add_argument('--ckpt_dir', default=None,
                  help='save checkpoints here, and resume from the newest')
@@ -172,7 +177,8 @@ def parse_args(argv=None):
   p.add_argument('--eval_every', type=int, default=500)
   p.add_argument('--do_sampling_eval', action='store_true',
                  help='every --eval_every steps, sample one forecast of '
-                      'the first window and log its RMSE')
+                      'the first window and log its RMSE (per-step mode '
+                      'only, as in the reference)')
   p.add_argument('--log_every', type=int, default=10)
   p.add_argument('--metrics_jsonl', default=None,
                  help='append one JSON line per log/eval event here')
@@ -199,6 +205,8 @@ def parse_args(argv=None):
                       'devices is TPU-only (--device cpu runs on the CPU)')
   args = p.parse_args(argv)
   check_model_flags(p, args)
+  if args.pool_size < 1:
+    p.error(f'--pool_size must be positive, got {args.pool_size}')
   # --ar_steps is not looked at: AR training is a GraphCast mode, and a
   # stray --ar_steps K on a GenCast run is the reference's no-op.
   for flag in ('functional_step', 'cpu'):
@@ -208,8 +216,6 @@ def parse_args(argv=None):
   for flag, value, off, item in (
       ('task', args.task, (None,), _LATER_GRAPHCAST),
       ('remat_group', args.remat_group, (1,), _LATER_GRAPHCAST),
-      ('steps_per_call', args.steps_per_call, (1, 0), _LATER_DATA),
-      ('pool_size', args.pool_size, (64,), _LATER_LAUNCHES),
       ('profile_dir', args.profile_dir, (None,), _LATER_DATA),
       ('prefetch', args.prefetch, (None, 0), _LATER_DATA),
       ('data_workers', args.data_workers, (0,), _LATER_DATA),
@@ -317,10 +323,9 @@ def main(argv=None) -> TrainRun:
   args = parse_args(argv)
   from gencast_tpu_torch.models import casting
   from gencast_tpu_torch.training import checkpoint as ckpt_lib
-  from gencast_tpu_torch.training import steps as steps_lib
   from gencast_tpu_torch.training.metrics_sink import MetricsSink
   s = setup(args)
-  wrapped, optimizer, device = s.wrapped, s.optimizer, s.device
+  wrapped, optimizer = s.wrapped, s.optimizer
 
   start_step = 0
   manager = None
@@ -339,43 +344,133 @@ def main(argv=None) -> TrainRun:
                                  'lr': args.learning_rate})
   run = TrainRun(model=wrapped, losses=[], step_seconds=[],
                  start_step=start_step)
-  losses: List[torch.Tensor] = []
-  t_log = time.perf_counter()
+  # Fused multi-step training: K steps per host call (see
+  # steps_lib.scanned_train_steps), batch 1 only, as the reference's.
+  fused = args.steps_per_call > 1 and args.batch_size == 1
+  if args.steps_per_call > 1 and not fused:
+    print('[train] fused steps_per_call requires batch_size=1 and no '
+          'mesh; falling back to per-step dispatch', flush=True)
   try:
-    for step in range(start_step, args.steps):
-      batch = {k: torch.as_tensor(v).to(device)
-               for k, v in next(s.batches).items()}
-      _synchronize(device)
-      t0 = time.perf_counter()
-      loss, _ = steps_lib.train_step(
-          wrapped, optimizer, batch['inputs'], batch['targets'],
-          batch['forcings'], step_generator(args.seed, step, device))
-      _synchronize(device)
-      run.step_seconds.append(time.perf_counter() - t0)
-      losses.append(loss)
-      if (step + 1) % args.log_every == 0:
-        dt = time.perf_counter() - t_log
-        mean_loss = float(torch.stack(losses[-args.log_every:]).mean())
-        print(f'[train] step {step + 1}/{args.steps} loss={mean_loss:.4f} '
-              f'{args.log_every / dt:.2f} steps/s', flush=True)
-        sink.log('train', step + 1, loss=mean_loss,
-                 steps_per_sec=args.log_every / dt)
-        t_log = time.perf_counter()
-
-      if manager is not None and (step + 1) % args.save_every == 0:
-        ckpt_lib.save(manager, step, wrapped, optimizer)
-
-      if args.do_sampling_eval and (step + 1) % args.eval_every == 0:
-        _sampling_eval(args, s, sink, step)
+    if fused:
+      _run_fused(args, s, manager, sink, run)
+    else:
+      _run_per_step(args, s, manager, sink, run)
   finally:
     sink.close()
-  run.losses = [float(x) for x in losses]
   if manager is not None and args.steps > start_step:
     ckpt_lib.save(manager, args.steps - 1, wrapped, optimizer)
     print(f'[train] final checkpoint at {args.ckpt_dir}', flush=True)
   casting.refresh_all(wrapped)
   print('[train] done', flush=True)
   return run
+
+
+def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
+  """One training step per host call from the batch iterator, with the
+  logs, checkpoints and sampling evals `args` asks for; fills `run`."""
+  from gencast_tpu_torch.training import checkpoint as ckpt_lib
+  from gencast_tpu_torch.training import steps as steps_lib
+  wrapped, optimizer, device = s.wrapped, s.optimizer, s.device
+  losses: List[torch.Tensor] = []
+  t_log = time.perf_counter()
+  for step in range(run.start_step, args.steps):
+    batch = {k: torch.as_tensor(v).to(device)
+             for k, v in next(s.batches).items()}
+    _synchronize(device)
+    t0 = time.perf_counter()
+    loss, _ = steps_lib.train_step(
+        wrapped, optimizer, batch['inputs'], batch['targets'],
+        batch['forcings'], step_generator(args.seed, step, device))
+    _synchronize(device)
+    run.step_seconds.append(time.perf_counter() - t0)
+    losses.append(loss)
+    if (step + 1) % args.log_every == 0:
+      dt = time.perf_counter() - t_log
+      mean_loss = float(torch.stack(losses[-args.log_every:]).mean())
+      print(f'[train] step {step + 1}/{args.steps} loss={mean_loss:.4f} '
+            f'{args.log_every / dt:.2f} steps/s', flush=True)
+      sink.log('train', step + 1, loss=mean_loss,
+               steps_per_sec=args.log_every / dt)
+      t_log = time.perf_counter()
+
+    if manager is not None and (step + 1) % args.save_every == 0:
+      ckpt_lib.save(manager, step, wrapped, optimizer)
+
+    if args.do_sampling_eval and (step + 1) % args.eval_every == 0:
+      _sampling_eval(args, s, sink, step)
+  run.losses = [float(x) for x in losses]
+
+
+def device_pool(source, size: int, device) -> dict:
+  """The first `size` samples of `source` as [M, B=1, lat, lon, C] float32
+  tensors on `device` ('inputs', 'targets', 'forcings'), copied one sample
+  at a time."""
+  pool = {}
+  for i in range(size):
+    w = source.sample(i)
+    for name in ('inputs', 'targets', 'forcings'):
+      x = torch.as_tensor(np.asarray(getattr(w, name), np.float32))
+      if name not in pool:
+        pool[name] = torch.empty((size, 1) + tuple(x.shape),
+                                 dtype=torch.float32, device=device)
+      pool[name][i, 0].copy_(x)
+  return pool
+
+
+def _run_fused(args, s: Setup, manager, sink, run: TrainRun) -> None:
+  """K = --steps_per_call training steps per host call over a device pool
+  of the first --pool_size samples: the counterpart of the reference's
+  `_run_fused`. Its pool rows come from the reference's stream (one
+  numpy generator of --seed, extended by a permutation of the pool at a
+  time) and step s draws from the generator of (--seed, s), as the
+  per-step loop. Logs and checkpoints where --log_every / --save_every
+  are crossed (saving the last step taken); --do_sampling_eval is not run
+  here, as in the reference. Fills `run` (each call's seconds shared out
+  over its steps)."""
+  from gencast_tpu_torch.training import checkpoint as ckpt_lib
+  from gencast_tpu_torch.training import steps as steps_lib
+  k_call = args.steps_per_call
+  m_pool = min(len(s.source), args.pool_size)
+  pool = device_pool(s.source, m_pool, s.device)
+  fused_fn = steps_lib.scanned_train_steps(s.wrapped, s.optimizer)
+  print(f'[train] fused mode: {k_call} steps/call, device pool of {m_pool} '
+        'samples', flush=True)
+
+  rng = np.random.default_rng(args.seed)
+  perm: List[int] = []
+  losses_acc: List[torch.Tensor] = []
+  steps_acc = 0
+  t_log = time.perf_counter()
+  step = run.start_step
+
+  def crossed(every, lo, hi):
+    return (hi // every) != (lo // every)
+
+  while step < args.steps:
+    k = min(k_call, args.steps - step)
+    while len(perm) < k:
+      perm.extend(rng.permutation(m_pool).tolist())
+    idx, perm = perm[:k], perm[k:]
+    _synchronize(s.device)
+    t0 = time.perf_counter()
+    losses = fused_fn(pool, idx, range(step, step + k), args.seed)
+    _synchronize(s.device)
+    run.step_seconds.extend([(time.perf_counter() - t0) / k] * k)
+    run.losses.extend(float(x) for x in losses.cpu())
+    losses_acc.append(losses)
+    steps_acc += k
+    prev, step = step, step + k
+
+    if crossed(args.log_every, prev, step):
+      dt = time.perf_counter() - t_log
+      mean_loss = float(torch.cat(losses_acc).mean())
+      print(f'[train] step {step}/{args.steps} loss={mean_loss:.4f} '
+            f'{steps_acc / dt:.2f} steps/s', flush=True)
+      sink.log('train', step, loss=mean_loss, steps_per_sec=steps_acc / dt)
+      losses_acc, steps_acc, t_log = [], 0, time.perf_counter()
+
+    if manager is not None and crossed(args.save_every, prev, step):
+      ckpt_lib.save(manager, step - 1, s.wrapped, s.optimizer)
 
 
 def _sampling_eval(args, s: Setup, sink, step: int) -> None:

@@ -227,7 +227,7 @@ def test_netcdf_stats_directories_are_refused(tmp_path):
 
 
 @pytest.mark.parametrize('argv,match', [
-    (['--steps_per_call', '2'], 'CLIs and data'),
+    (['--profile_dir', 'traces'], 'CLIs and data'),
     (['--prefetch', '2'], 'CLIs and data'),
     (['--data_workers', '2'], 'CLIs and data'),
     (['--model', 'graphcast'], 'GraphCast'),

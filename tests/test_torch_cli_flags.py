@@ -18,7 +18,8 @@ FLAGS = {
     'task': (['graphcast_37'], 'GraphCast'),
     'remat_group': (['4'], 'GraphCast'),
     'functional_step': ([], 'not ported: TPU-only'),
-    'pool_size': (['8'], 'Host launches'),
+    'steps_per_call': (['4'], None),
+    'pool_size': (['8'], None),
     'profile_dir': (['traces'], 'CLIs and data'),
     'dp': (['2'], 'Parallelism'),
     'mp': (['2'], 'Parallelism'),
