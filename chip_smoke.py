@@ -1,7 +1,9 @@
 """Card-side check of the PyTorch/CUDA port: 1-degree GenCast and nano
 GenCast, served and trained, the 1-degree train, resume and evaluate
-path with the fused attention backward, and the CUDA-graph replays of the
-denoiser call and of the training step against their eager runs.
+path with the fused attention backward, the CUDA-graph replays of the
+denoiser call and of the training step against their eager runs, and the
+paper-scale 0.25-degree GenCast (QUARTER_DEG: streamed-edge GNNs, GNN
+remat, a bf16 noise basis) served, trained and evaluated.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -113,6 +115,32 @@ Phases (any failure raises and exits non-zero):
      --steps_per_call 2 --save_every 2` for 4 steps, then a run to step 6
      that resumes at step 4 through the fused path, launches per step
      checked, checkpoints at steps 1, 3 and 5;
+ 21. the 0.25-degree statics: built (the run's statics cache under
+     build/ is empty at its start), then loaded from the cache, the same
+     arrays; their counts;
+ 22. kernels at the 0.25-degree shapes against their plain versions,
+     float32 and bf16, with timings, bounds and library calls: A and F at
+     [1, 41024, 4, 128] on the 0.25-degree plan and at the ragged 40,962;
+     B on the receiver and sender plans of the grid2mesh chunk with the
+     longest receiver row; E at every shape the 0.25-degree training step
+     gives it (edge chunks, grid-node chunks, the mesh, the transformer);
+ 23. the QUARTER_DEG denoiser (seeded, perturbed, bf16 stack) through the
+     kernels against the plain path (A 16, B 13 launches: one per grid2mesh
+     chunk); the 1-degree denoiser with streamed edges against the dense
+     one, float32, the same weights;
+ 24. serving: one 0.25-degree 12-hour forecast step graphed, then eagerly
+     from the same generator seed: bitwise equal, A 624 and B 507 launches
+     each, seconds both ways, the capture, its pool, the peak memory;
+ 25. training: `train.main --preset 0.25deg` for 2 steps (checkpoint at
+     the end; kernel E sees exactly phase 22's shapes), the same 2 steps
+     again from the seed (bitwise equal), the CLI's --steps_per_call 2, and
+     2 graphed steps against 2 eager steps of a twin (bitwise equal),
+     launches per step as derived in each, seconds per step, peak memory;
+ 26. `evaluate.main --preset 0.25deg --chunk_size 1` on phase 25's
+     checkpoint: 1 member, 2 steps, launches as derived, finite where the
+     truth is, the wall and the peak memory;
+ 27. `rollout.chunked_rollout` at nano, 4 steps in chunks of 2, the host
+     copies overlapped and serialized: both bitwise the unchunked rollout;
 then one JSON line of kernel results (launches from the training runs of
 each kernel's paths, eager and graphed), the card's name and power limit, and a last JSON line
 {"ok": true, "device": {...}}.
@@ -124,9 +152,10 @@ float32) and the time of one PyTorch call computing the same function, timed
 in turns with the kernel (scaled_dot_product_attention with the dense mask
 and its backward, segment_reduce, native_layer_norm_backward; none for
 G's dq reduce, whose row says so); the port never calls those. TF32 is off
-for matmuls and cuDNN: float32 products run in full float32. Phases 17
-and 20 write under build/ (git-ignored) and remove what they wrote. A few
-minutes on an H100, build included.
+for matmuls and cuDNN: float32 products run in full float32. Phases 17,
+20, 25 and 26 write under build/ (git-ignored) and remove what they wrote;
+the graph statics are cached under build/chip_smoke_cache for the run and
+removed at its end. About six minutes on an H100, build included.
 """
 
 from __future__ import annotations
@@ -202,6 +231,16 @@ PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 # Forecast steps of phase 13's requests: 10 x 12 hours, 5 days.
 ROLLOUT_STEPS = 10
+# The 1-degree denoiser with streamed edges against the dense one (phase
+# 23), float32 on the card, max|streamed - dense| / max|dense|: the same
+# arithmetic but for the order of the grid2mesh sums (per chunk, then
+# across chunks), carried through 16 layers.
+STREAMED_F32_RTOL = 1e-4
+# Its chunk: grid2mesh's 1-degree edges in 4 chunks, mesh2grid's in 6, so
+# receivers straddle chunks.
+ONE_DEG_CHUNK = 32 * 1024
+# Forecast steps of phase 27's chunked rollouts (chunks of 2).
+OFFLOAD_STEPS = 4
 
 
 def log(*args):
@@ -325,7 +364,7 @@ def nan_tailed(shape, count, dtype, g, dev, tail):
 
 
 def check_attention(shape, dtype, atol, mt, ids, pids, tile, g, dense,
-                    allowed):
+                    allowed, reps=10):
   """Kernel A against its plain version on seeded q/k/v [1, *shape] with NaN
   behind the last row: o, lse on the rows that see a key, and o = 0 and
   lse ~ -1e30 on the others. Returns (max abs err, {'kernel': ms,
@@ -357,7 +396,7 @@ def check_attention(shape, dtype, atol, mt, ids, pids, tile, g, dense,
           q, k, v, mt, ids, pids, tile),
       'kernel': lambda: sparse_attention.sparse_attention_fwd_cuda(
           q, k, v, mt, ids, pids, tile),
-      'library': lambda: sdpa_forward(*sdpa)}, reps=10)
+      'library': lambda: sdpa_forward(*sdpa)}, reps=reps)
   h, d = shape[1], shape[2]
   cost = (4 * d * allowed * h,
           nbytes(q, k, v, mt, ids, pids, got, lse))
@@ -429,7 +468,7 @@ def library_backward_ms(q, k, v, dout, dense, reps):
 
 
 def check_attention_bwd(shape, dtype, rtol, mt, plan_t, tile, g, dense,
-                        allowed):
+                        allowed, reps=5):
   """Kernel F (dq, then dk/dv) against the plain backward on seeded q/k/v
   and dO [1, *shape], from kernel A's lse: returns ({'dq': (rel, abs),
   'dkv': (rel, abs)}, {'dq': ms, 'dq_plain': ms, 'dkv': ms,
@@ -460,11 +499,11 @@ def check_attention_bwd(shape, dtype, rtol, mt, plan_t, tile, g, dense,
   del got, want
   ms = time_in_turns({
       'dq_plain': lambda: sa.sparse_attention_dq_plain(*dq_args),
-      'dq': lambda: sa.sparse_attention_dq_cuda(*dq_args)}, reps=5)
+      'dq': lambda: sa.sparse_attention_dq_cuda(*dq_args)}, reps=reps)
   ms.update(time_in_turns({
       'dkv_plain': lambda: sa.sparse_attention_dkv_plain(*dkv_args),
-      'dkv': lambda: sa.sparse_attention_dkv_cuda(*dkv_args)}, reps=5))
-  ms['library'] = library_backward_ms(q, k, v, dout, dense, reps=5)
+      'dkv': lambda: sa.sparse_attention_dkv_cuda(*dkv_args)}, reps=reps))
+  ms['library'] = library_backward_ms(q, k, v, dout, dense, reps=reps)
   h, d = shape[1], shape[2]
   rows = nbytes(lse, delta)
   costs = {'dq': (6 * d * allowed * h,
@@ -671,12 +710,18 @@ def ln_film_shapes(presets):
   return shapes
 
 
-def check_ln_film_shapes(shapes, g, card):
+def check_ln_film_shapes(shapes, g, card, profile=True):
   """Phase 8: kernel E at every shape, float32 and bf16, against its plain
-  version and twice for equal bits (check_ln_film_bwd); one call of each
-  under torch.profiler must run exactly one kernel, E's; a call captured in
-  a CUDA graph and replayed twice gives the eager call's bits. Returns
-  {(shape, dtype): check_ln_film_bwd's result}."""
+  version and twice for equal bits (check_ln_film_bwd); with `profile`, one
+  call of each under torch.profiler must run exactly one kernel, E's; a
+  call captured in a CUDA graph and replayed twice gives the eager call's
+  bits. Returns {(shape, dtype): check_ln_film_bwd's result}.
+
+  Phase 22 (the 0.25-degree shapes) passes profile=False: a second
+  torch.profiler session with device activity in one process, after the
+  CUDA-graph replays of phases 19 and 20, recorded one kernel of 14 calls
+  (an H100 run); one launch per call does not depend on the shape, and
+  phase 8's session holds it."""
   from gencast_tpu_torch.ops import ln_film
   results, calls = {}, []
   for shape, axis in shapes:
@@ -686,19 +731,24 @@ def check_ln_film_shapes(shapes, g, card):
       results[(shape, dtype)] = res[:3]
       calls.append((res[3], axis))
   torch.cuda.synchronize()
-  activities = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=activities) as prof:
-    for (x, dy, scale), axis in calls:
-      ln_film.ln_film_bwd_cuda(x, dy, scale, axis)
-    torch.cuda.synchronize()
-  kernels = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not e.is_user_annotation]
-  if (len(kernels) != len(calls)
-      or not all('ln_film_bwd_kernel' in k for k in kernels)):
-    raise AssertionError(f'kernel E: {len(calls)} calls ran {len(kernels)} '
-                         f'kernels under the profiler: {sorted(set(kernels))}')
+  profiled = 'not profiled (see phase 8)'
+  if profile:
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+      for (x, dy, scale), axis in calls:
+        ln_film.ln_film_bwd_cuda(x, dy, scale, axis)
+      torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    if (len(kernels) != len(calls)
+        or not all('ln_film_bwd_kernel' in k for k in kernels)):
+      raise AssertionError(f'kernel E: {len(calls)} calls ran '
+                           f'{len(kernels)} kernels under the profiler: '
+                           f'{sorted(set(kernels))}')
+    profiled = (f'one kernel per call under torch.profiler ({len(kernels)} '
+                f'calls, {len(kernels)} ln_film_bwd_kernel launches)')
   # A CUDA graph replays the launch: no state to reset between calls.
   (x, dy, scale), axis = next(c for c in calls if c[0][0].shape == shapes[0][0]
                               and c[0][0].dtype == torch.bfloat16)
@@ -720,10 +770,9 @@ def check_ln_film_shapes(shapes, g, card):
     raise AssertionError(f'kernel E in a CUDA graph: replays equal to the '
                          f'eager call {replays}')
   del graph, captured, calls
-  log(f'[kernel E] {len(shapes)} shapes x 2 dtypes: one kernel per call '
-      f'under torch.profiler ({len(kernels)} calls, {len(kernels)} '
-      f'ln_film_bwd_kernel launches); a call captured in a CUDA graph and '
-      f'replayed twice gives the eager bits; {card}')
+  log(f'[kernel E] {len(shapes)} shapes x 2 dtypes: {profiled}; a call '
+      f'captured in a CUDA graph and replayed twice gives the eager bits; '
+      f'{card}')
   return results
 
 
@@ -764,19 +813,9 @@ def capped_plan(row_ptr, perm, cap):
 
 def check_segment_sums(spec, statics, g, card):
   """Phase 4: kernel B on the plans of the 1-degree training step (the
-  grid2mesh receivers, its senders, the mesh2grid senders), float32 and
-  bf16 in: against the plain version, bf16 in bitwise equal to the kernel
-  on the exact float32 upcast, and twice for equal bits; timings of the
-  kernel, of the old path (the float32 copy, then the kernel), of the
-  plain version and of segment_reduce, and on plans with rows over
-  segment.SPLIT_DEGREE edges of the kernel without the split, with half and
-  twice that threshold, and of the plan with its rows capped at
-  SPLIT_DEGREE (the kernel's paths as CUDA graph replays, graph_ms). Returns {(plan, dtype): (max abs err, ms,
-  bound inputs)}."""
-  from gencast_tpu_torch.graph import plans
-  from gencast_tpu_torch.ops import segment
-  f = spec.d_model
-  unsplit = 2**31 - 1
+  grid2mesh receivers, its senders, the mesh2grid senders); see
+  check_segment_plan. Returns {(plan, dtype): (max abs err, ms, bound
+  inputs)}."""
   results = {}
   for name, ids, n in (
       ('grid2mesh receivers', statics.grid2mesh.receivers,
@@ -785,63 +824,81 @@ def check_segment_sums(spec, statics, g, card):
        statics.num_grid_nodes),
       ('mesh2grid senders', statics.mesh2grid.senders,
        statics.num_mesh_nodes)):
-    plan = plans.build_agg_plan(ids, n)
-    row_ptr = torch.as_tensor(plan.row_ptr, device=g.device)
-    perm = (None if plan.perm is None
-            else torch.as_tensor(plan.perm, device=g.device))
-    lengths = (row_ptr[1:] - row_ptr[:-1]).long()
-    max_degree = int(lengths.max())
-    e = len(ids)
-    base = torch.randn(e, f, generator=g, device=g.device)
-    for dtype in (torch.float32, torch.bfloat16):
-      data = base.to(dtype)
-      upcast = data.float()
-      want = segment.planned_segment_sum_plain(upcast, row_ptr, perm)
-      got = segment.planned_segment_sum_cuda(data, row_ptr, perm)
-      again = segment.planned_segment_sum_cuda(data, row_ptr, perm)
-      from_upcast = segment.planned_segment_sum_cuda(upcast, row_ptr, perm)
-      torch.cuda.synchronize()
-      rel, err = rel_err(got, want)
-      same = (torch.equal(got, again), torch.equal(got, from_upcast))
-      if not (rel <= SEGMENT_RTOL and all(same)):
-        raise AssertionError(f'kernel B {name} {dtype}: relative err {rel} '
-                             f'> {SEGMENT_RTOL}, or bits differ (twice, '
-                             f'float32 upcast: {same})')
-      permuted = data if perm is None else data[perm.long()]
-      ms = time_in_turns({
-          'plain': lambda: segment.planned_segment_sum_plain(data, row_ptr,
-                                                             perm),
-          'library': lambda: torch.segment_reduce(permuted, 'sum',
-                                                  lengths=lengths)}, reps=20)
-      fns = {'kernel': lambda: segment.planned_segment_sum_cuda(data, row_ptr,
-                                                                perm)}
-      if dtype == torch.bfloat16:
-        fns['cast_then_kernel'] = lambda: segment.planned_segment_sum_cuda(
-            data.float(), row_ptr, perm)
-      if max_degree > segment.SPLIT_DEGREE:
-        capped = capped_plan(row_ptr, perm, segment.SPLIT_DEGREE)
-        fns['unsplit'] = lambda: segment.planned_segment_sum_cuda(
-            data, row_ptr, perm, split_degree=unsplit)
-        for degree in (segment.SPLIT_DEGREE // 2, 2 * segment.SPLIT_DEGREE):
-          fns[f'split_{degree}'] = (
-              lambda degree=degree: segment.planned_segment_sum_cuda(
-                  data, row_ptr, perm, split_degree=degree))
-        fns['capped'] = lambda: segment.planned_segment_sum_cuda(
-            data, *capped, split_degree=unsplit)
-      ms.update(graph_ms(fns, reps=20))
-      cost = (e * f, nbytes(data, row_ptr, got)
-              + (0 if perm is None else nbytes(perm)))
-      results[(name, dtype)] = (err, ms, cost)
-      bound_ms, _ = bound(*cost, dtype)
-      extra = ''.join(f', {k} {v:.4f} ms' for k, v in ms.items()
-                      if k not in ('plain', 'kernel', 'library'))
-      log(f'[kernel B] {name}: {dtype} [{e}, {f}] -> [{n}, {f}] float32, '
-          f'max degree {max_degree}, perm {"yes" if perm is not None else "no"}'
-          f': relative err {rel:.3e} (tol {SEGMENT_RTOL}), equal bits twice '
-          f'and on the float32 upcast; kernel {ms["kernel"]:.4f} ms (bound '
-          f'{bound_ms:.4f}), plain {ms["plain"]:.3f} ms, library '
-          f'(segment_reduce) {ms["library"]:.4f} ms{extra}; {card}')
-      del data, upcast, want, got, again, from_upcast, permuted, fns
+    results.update(check_segment_plan(name, ids, n, spec.d_model, g, card))
+  return results
+
+
+def check_segment_plan(name, ids, n, f, g, card):
+  """Kernel B on the plan of segment ids `ids` over `n` segments, [E, f]
+  edges, float32 and bf16 in: against the plain version, bf16 in bitwise
+  equal to the kernel on the exact float32 upcast, and twice for equal
+  bits; timings of the kernel, of the old path (the float32 copy, then the
+  kernel), of the plain version and of segment_reduce, and on plans with
+  rows over segment.SPLIT_DEGREE edges of the kernel without the split,
+  with half and twice that threshold, and of the plan with its rows capped
+  at SPLIT_DEGREE (the kernel's paths as CUDA graph replays, graph_ms).
+  Returns {(name, dtype): (max abs err, ms, bound inputs)}."""
+  from gencast_tpu_torch.graph import plans
+  from gencast_tpu_torch.ops import segment
+  unsplit = 2**31 - 1
+  results = {}
+  plan = plans.build_agg_plan(ids, n)
+  row_ptr = torch.as_tensor(plan.row_ptr, device=g.device)
+  perm = (None if plan.perm is None
+          else torch.as_tensor(plan.perm, device=g.device))
+  lengths = (row_ptr[1:] - row_ptr[:-1]).long()
+  max_degree = int(lengths.max())
+  e = len(ids)
+  base = torch.randn(e, f, generator=g, device=g.device)
+  for dtype in (torch.float32, torch.bfloat16):
+    data = base.to(dtype)
+    upcast = data.float()
+    want = segment.planned_segment_sum_plain(upcast, row_ptr, perm)
+    got = segment.planned_segment_sum_cuda(data, row_ptr, perm)
+    again = segment.planned_segment_sum_cuda(data, row_ptr, perm)
+    from_upcast = segment.planned_segment_sum_cuda(upcast, row_ptr, perm)
+    torch.cuda.synchronize()
+    rel, err = rel_err(got, want)
+    same = (torch.equal(got, again), torch.equal(got, from_upcast))
+    if not (rel <= SEGMENT_RTOL and all(same)):
+      raise AssertionError(f'kernel B {name} {dtype}: relative err {rel} '
+                           f'> {SEGMENT_RTOL}, or bits differ (twice, '
+                           f'float32 upcast: {same})')
+    permuted = data if perm is None else data[perm.long()]
+    ms = time_in_turns({
+        'plain': lambda: segment.planned_segment_sum_plain(data, row_ptr,
+                                                           perm),
+        'library': lambda: torch.segment_reduce(permuted, 'sum',
+                                                lengths=lengths)}, reps=20)
+    fns = {'kernel': lambda: segment.planned_segment_sum_cuda(data, row_ptr,
+                                                              perm)}
+    if dtype == torch.bfloat16:
+      fns['cast_then_kernel'] = lambda: segment.planned_segment_sum_cuda(
+          data.float(), row_ptr, perm)
+    if max_degree > segment.SPLIT_DEGREE:
+      capped = capped_plan(row_ptr, perm, segment.SPLIT_DEGREE)
+      fns['unsplit'] = lambda: segment.planned_segment_sum_cuda(
+          data, row_ptr, perm, split_degree=unsplit)
+      for degree in (segment.SPLIT_DEGREE // 2, 2 * segment.SPLIT_DEGREE):
+        fns[f'split_{degree}'] = (
+            lambda degree=degree: segment.planned_segment_sum_cuda(
+                data, row_ptr, perm, split_degree=degree))
+      fns['capped'] = lambda: segment.planned_segment_sum_cuda(
+          data, *capped, split_degree=unsplit)
+    ms.update(graph_ms(fns, reps=20))
+    cost = (e * f, nbytes(data, row_ptr, got)
+            + (0 if perm is None else nbytes(perm)))
+    results[(name, dtype)] = (err, ms, cost)
+    bound_ms, _ = bound(*cost, dtype)
+    extra = ''.join(f', {k} {v:.4f} ms' for k, v in ms.items()
+                    if k not in ('plain', 'kernel', 'library'))
+    log(f'[kernel B] {name}: {dtype} [{e}, {f}] -> [{n}, {f}] float32, '
+        f'max degree {max_degree}, perm {"yes" if perm is not None else "no"}'
+        f': relative err {rel:.3e} (tol {SEGMENT_RTOL}), equal bits twice '
+        f'and on the float32 upcast; kernel {ms["kernel"]:.4f} ms (bound '
+        f'{bound_ms:.4f}), plain {ms["plain"]:.3f} ms, library '
+        f'(segment_reduce) {ms["library"]:.4f} ms{extra}; {card}')
+    del data, upcast, want, got, again, from_upcast, permuted, fns
   return results
 
 
@@ -857,6 +914,51 @@ def counters():
           sparse_attention.KERNEL_DQ_REDUCE)
 
 
+def node_chunk_rows(n: int, chunk: int) -> list:
+  """Rows of each chunk a streamed net's node MLPs take over n rows
+  (`TypedGraphNet._node_chunked`): one call under the chunk, else equal
+  chunks where they divide n, else chunks of `chunk` and a shorter last."""
+  if n <= chunk:
+    return [n]
+  k = -(-n // chunk)
+  if n % k == 0:
+    return [n // k] * k
+  return [chunk] * (n // chunk) + [n % chunk]
+
+
+def edge_chunk_rows(net, topo) -> list:
+  """Edges of each chunk of `topo` in a streamed net."""
+  stream = net.streams[topo.name]
+  e = topo.num_edges
+  return [min(stream.chunk, e - c * stream.chunk)
+          for c in range(stream.num_chunks)]
+
+
+def streamed_ln_film_shapes(net, used, batch=1) -> list:
+  """The [rows, B, C] of every kernel E launch a training step's backward
+  makes in the CondMLPs of a streamed TypedGraphNet: one per chunk of each
+  node embedder, edge embedder and edge MLP, and of each node MLP whose
+  output reaches the loss (`used`: node set names)."""
+  chunk = net.edge_chunk_size
+
+  def width(mlp):
+    return mlp.network.layers[-1].weight.shape[0]
+
+  shapes = []
+  for name, mlp in net.node_embedders.items():
+    shapes += [(r, batch, width(mlp))
+               for r in node_chunk_rows(net.num_nodes[name], chunk)]
+  for topo in net.topologies:
+    for mlp in (net.edge_embedders[topo.name],
+                net.processors[0].edge_mlps[topo.name]):
+      shapes += [(r, batch, width(mlp)) for r in edge_chunk_rows(net, topo)]
+  for name, mlp in net.processors[0].node_mlps.items():
+    if name in used:
+      shapes += [(r, batch, width(mlp))
+                 for r in node_chunk_rows(net.num_nodes[name], chunk)]
+  return shapes
+
+
 def expected_step_launches(gencast) -> dict:
   """Launches of each kernel in one training step, derived from the model.
   The attention backend's forward (A or C) runs once per layer under
@@ -864,30 +966,44 @@ def expected_step_launches(gencast) -> dict:
   'full'; its backward (F or D: dq and dk/dv; G and its dq reduce when the
   transformer holds the fused backward's gather map) once per layer; the other
   backend's kernels never. B once per receiver aggregation over a side of
-  non-uniform degree (forward) and once per gather over such a side (its
-  backward): on the card each of them carries a plan, the reference's or
-  one of its own; E once per LN+FiLM whose output reaches the loss."""
-  from gencast_tpu_torch.nn import gnn, mlp
+  non-uniform degree each time it runs (the forward; with remat_gnns also
+  its recomputation; in a streamed net per chunk, and again in the chunk's
+  own recomputation) and once per gather over such a side (its backward;
+  a streamed net's sender gathers always): on the card each of them
+  carries a plan, the reference's or one of its own; E once per LN+FiLM
+  whose output reaches the loss (in a streamed net, per chunk)."""
+  from gencast_tpu_torch.nn import mlp
   from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
       sparse_attention
   arch = gencast.denoiser.architecture
   cfg = arch.processor.cfg
   layers = cfg.num_layers
   recompute = cfg.remat_policy == 'full'
-  planned = 0
-  for net in arch.modules():
-    if isinstance(net, gnn.InteractionNetwork):
+  planned, gnn_e = 0, 0
+  for net in (arch.grid2mesh, arch.mesh2grid):
+    # The decoder updates mesh nodes it never decodes: no gradient there.
+    used = (set(net.node_decoders) if net is arch.mesh2grid
+            else set(net.num_nodes))
+    if net.edge_chunk_size is not None:
+      runs = 2 + arch.remat_gnns  # forward, chunk remat, GNN remat
       for topo in net.topologies:
-        send_k, recv_k = net._uniform[topo.name]
+        stream = net.streams[topo.name]
+        if stream.uniform_k is None:
+          planned += stream.num_chunks * (runs + 1)
+        planned += stream.num_chunks
+      gnn_e += len(streamed_ln_film_shapes(net, used))
+      continue
+    for inet in net.processors:
+      for topo in inet.topologies:
+        send_k, recv_k = inet._uniform[topo.name]
         if recv_k is None:
-          planned += 2  # the forward sum and the receiver gather's backward
+          # The forward sum (and its remat) and the receiver gather's
+          # backward.
+          planned += 2 + arch.remat_gnns
         if send_k is None:
           planned += 1  # the sender gather's backward
-  cond_mlps = sum(isinstance(m, mlp.CondMLP) for m in arch.modules())
-  # The decoder updates mesh nodes it never decodes: no gradient there.
-  decoded = set(arch.mesh2grid.node_decoders)
-  unused = sum(len(set(p.node_mlps) - decoded)
-               for p in arch.mesh2grid.processors)
+      gnn_e -= len(set(inet.node_mlps) - used)
+    gnn_e += sum(isinstance(m, mlp.CondMLP) for m in net.modules())
   if 'slot_ids' in arch.processor.operand_names:
     attn = (sparse_attention.KERNEL, sparse_attention.KERNEL_DKVQ,
             sparse_attention.KERNEL_DQ_REDUCE)
@@ -902,7 +1018,7 @@ def expected_step_launches(gencast) -> dict:
   launches.update({
       attn[0].name: layers * (2 if recompute else 1),
       segment.KERNEL.name: planned,
-      ln_film.KERNEL.name: 2 * layers + 1 + cond_mlps - unused,
+      ln_film.KERNEL.name: 2 * layers + 1 + gnn_e,
   })
   return launches
 
@@ -914,7 +1030,6 @@ def train_tiny_against_cpu(dev, remat_policy, spec) -> None:
   and the bf16 stack's gradients on the card against the float32 ones.
   `spec` is TINY on one attention backend."""
   from gencast_tpu_torch import bridge, configs
-  from gencast_tpu_torch.data import layout
   from gencast_tpu_torch.models import wrappers
   from gencast_tpu_torch.training import steps
   spec = dataclasses.replace(spec, attention_tile_size=64,
@@ -924,10 +1039,7 @@ def train_tiny_against_cpu(dev, remat_policy, spec) -> None:
   statics = configs.build_statics(spec)
   flat = None
   stacks, models = {}, {}
-  task = spec.task
-  stats = layout.Stats.unit(
-      sorted(set(task.input_variables + task.target_variables
-                 + task.forcing_variables)), task.pressure_levels)
+  stats = unit_stats(spec.task)
   for where in ('cpu', dev):
     model, _ = configs.build_gencast(spec, seed=3, statics=statics,
                                      device=where)
@@ -1026,13 +1138,14 @@ def train_tiny_against_cpu(dev, remat_policy, spec) -> None:
 
 
 def train_preset(spec, statics, dev, card, argv, steps_run=3, start=0,
-                 tag=None):
+                 tag=None, runs=None):
   """Phases 10, 15 and 17: full-width training steps of `spec` through the
   CLI (`argv` names the preset and any checkpoint directory), up to step
   `steps_run`, starting at `start` (a resumed run starts past its
   checkpoint). Checks the losses, the parameters' change and each kernel's
   launches against the counts derived from the model; returns (those
-  launches, the seconds of each step, the peak device memory in bytes)."""
+  launches, the seconds of each step, the peak device memory in bytes),
+  and appends the run (train.TrainRun) to `runs` when given."""
   from gencast_tpu_torch import configs
   from gencast_tpu_torch.training import train
   tag = tag or spec.name
@@ -1069,6 +1182,8 @@ def train_preset(spec, statics, dev, card, argv, steps_run=3, start=0,
       f'{wall:.1f} s with set-up and data); max |parameter change| '
       f'{changed:.3e}; launches per step {per_step}, as derived; peak memory '
       f'{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); {card}')
+  if runs is not None:
+    runs.append(run)
   return launches, run.step_seconds, peak
 
 
@@ -1243,16 +1358,18 @@ def dense_from_blocks(blocks: np.ndarray, dev) -> torch.Tensor:
 
 
 def dense_from_plan(plan, dev) -> torch.Tensor:
-  """The [padded_n, padded_n] boolean mask that a tile plan describes."""
+  """The [padded_n, padded_n] boolean mask that a tile plan describes, made
+  on `dev` (at 0.25 degrees it is 1.7 GB)."""
   t, nq = plan.tile, plan.num_q_tiles
-  dense = np.zeros((nq, nq, t, t), dtype=bool)
+  dense = torch.zeros((nq, nq, t, t), dtype=torch.bool, device=dev)
   rows = np.repeat(np.arange(nq), plan.fwd_kv_ids.shape[1])
   cols = plan.fwd_kv_ids.reshape(-1)
   pids = plan.fwd_pair_ids.reshape(-1)
   real = pids != plan.mask_tiles.shape[0] - 1  # pad slots repeat a pair
-  dense[rows[real], cols[real]] = plan.mask_tiles[pids[real]] != 0
-  return torch.as_tensor(
-      dense.transpose(0, 2, 1, 3).reshape(nq * t, nq * t), device=dev)
+  dense[torch.as_tensor(rows[real], device=dev),
+        torch.as_tensor(cols[real], device=dev)] = torch.as_tensor(
+            plan.mask_tiles[pids[real]], device=dev) != 0
+  return dense.permute(0, 2, 1, 3).reshape(nq * t, nq * t)
 
 
 def check_banded(shape, dtype, atol, mask, bs, g, dense, allowed):
@@ -1344,29 +1461,12 @@ def serve_nano(dev, g) -> float:
   """Phase 13: the nano denoiser through the kernels against the plain
   path, then two 10-step forecast requests through `sample_rollout`.
   Returns the kernel path's ms per denoiser call (timed alone)."""
-  from gencast_tpu_torch import bridge, configs, rollout
-  from gencast_tpu_torch.data import layout
-  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch import configs, rollout
   from gencast_tpu_torch.ops import banded_attention, segment
   spec = configs.NANO
-  t0 = time.perf_counter()
   statics = configs.build_statics(spec)
-  model, _ = configs.build_gencast(spec, seed=0, statics=statics, device=dev)
-  flat = bridge.perturbed(bridge.export_reference_params(model), seed=1)
-  bridge.load_reference_params(model, flat)
-  plain_model, _ = configs.build_gencast(spec, seed=0, statics=statics,
-                                         device=dev, use_kernels=False)
-  bridge.load_reference_params(plain_model, flat)
-  task = spec.task
-  stats = layout.Stats.unit(
-      sorted(set(task.input_variables + task.target_variables
-                 + task.forcing_variables)), task.pressure_levels)
-  stack = wrappers.build_stack(model, stats, bf16=spec.cast_bf16).to(dev)
-  plain_stack = wrappers.build_stack(plain_model, stats,
-                                     bf16=spec.cast_bf16).to(dev)
-  log(f'[nano] built two {spec.name} models '
-      f'({sum(p.numel() for p in model.parameters())} parameters each, '
-      f'seeded and perturbed) in {time.perf_counter() - t0:.1f} s')
+  model, stack, plain_stack = kernel_and_plain_stacks(spec, statics, dev,
+                                                      'nano')
   den = model.denoiser
   grid = (1, statics.grid_lat.shape[0], statics.grid_lon.shape[0])
   inputs = torch.randn(grid + (den.input_layout.num_channels,), generator=g,
@@ -1399,7 +1499,7 @@ def serve_nano(dev, g) -> float:
   log(f'[nano] denoiser bf16 {tuple(out_k.shape)}: max rel err {rel:.3e} '
       f'(tol {DENOISER_BF16_RTOL}); kernel path {ms["kernel"]:.2f} ms, plain '
       f'path {ms["plain"]:.2f} ms per call')
-  del out_k, out_p, plain_stack, plain_model
+  del out_k, out_p, plain_stack
 
   calls = ROLLOUT_STEPS * (2 * spec.num_noise_levels - 1)
   seconds, forecasts = [], []
@@ -1573,15 +1673,470 @@ def fused_path(spec, statics, dev, card, f_seconds, f_peak):
   return launches
 
 
+def unit_stats(task):
+  """Unit normalization statistics for every variable of `task`."""
+  from gencast_tpu_torch.data import layout
+  return layout.Stats.unit(
+      sorted(set(task.input_variables + task.target_variables
+                 + task.forcing_variables)), task.pressure_levels)
+
+
+def kernel_and_plain_stacks(spec, statics, dev, tag):
+  """`spec`'s model through the kernels and through the plain path
+  (use_kernels=False), with the same seeded weights perturbed
+  (bridge.perturbed), each in its serving stack (unit statistics, bf16
+  where the spec is): (model, stack, plain stack)."""
+  from gencast_tpu_torch import bridge, configs
+  from gencast_tpu_torch.models import wrappers
+  t0 = time.perf_counter()
+  model, _ = configs.build_gencast(spec, seed=0, statics=statics, device=dev)
+  flat = bridge.perturbed(bridge.export_reference_params(model), seed=1)
+  bridge.load_reference_params(model, flat)
+  plain_model, _ = configs.build_gencast(spec, seed=0, statics=statics,
+                                         device=dev, use_kernels=False)
+  bridge.load_reference_params(plain_model, flat)
+  stats = unit_stats(spec.task)
+  stack = wrappers.build_stack(model, stats, bf16=spec.cast_bf16).to(dev)
+  plain_stack = wrappers.build_stack(plain_model, stats,
+                                     bf16=spec.cast_bf16).to(dev)
+  log(f'[{tag}] built two {spec.name} models '
+      f'({sum(p.numel() for p in model.parameters())} parameters each, '
+      f'seeded and perturbed) in {time.perf_counter() - t0:.1f} s')
+  return model, stack, plain_stack
+
+
+def quarter_deg_statics(spec, card):
+  """Phase 21: the 0.25-degree graph statics, built (the cache is empty at
+  the start of the run), then loaded from the on-disk cache, array for
+  array the same; their counts."""
+  from gencast_tpu_torch import configs
+  t0 = time.perf_counter()
+  statics = configs.build_statics(spec)
+  built = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  again = configs.build_statics(spec)
+  loaded = time.perf_counter() - t0
+  plan = statics.attention_tile_plan
+  for name in ('grid2mesh', 'mesh2grid', 'mesh_edges'):
+    for field in ('senders', 'receivers', 'features'):
+      if not np.array_equal(getattr(getattr(statics, name), field),
+                            getattr(getattr(again, name), field)):
+        raise AssertionError(f'cached statics: {name}.{field} differs')
+  for field in ('mask_tiles', 'fwd_kv_ids', 'fwd_pair_ids', 'bwd_q_ids',
+                'bwd_pair_ids'):
+    if not np.array_equal(getattr(plan, field),
+                          getattr(again.attention_tile_plan, field)):
+      raise AssertionError(f'cached statics: tile plan {field} differs')
+  degree = np.bincount(statics.grid2mesh.receivers).max()
+  log(f'[0.25deg statics] built in {built:.1f} s, loaded from the cache in '
+      f'{loaded:.2f} s (the same arrays); grid {statics.num_grid_nodes} '
+      f'nodes, mesh {statics.num_mesh_nodes} nodes, grid2mesh '
+      f'{statics.grid2mesh.num_edges} edges (receiver degree up to '
+      f'{degree}), mesh2grid {statics.mesh2grid.num_edges} edges, mesh '
+      f'{statics.mesh_edges.num_edges} edges; tile plan tile {plan.tile}: '
+      f'{plan.num_q_tiles} q tiles x {plan.num_active_fwd} slots, '
+      f'{plan.num_pairs} mask-tile pairs, padded n {plan.padded_n}, mask '
+      f'tiles {plan.mask_tiles.nbytes / 1e6:.0f} MB; {card}')
+  return statics
+
+
+def quarter_deg_e_shapes(gencast):
+  """(shape, batch axis) of every kernel E call of a training step of the
+  streamed model: the transformer's [1, padded n, C] and the streamed
+  GNNs' chunks."""
+  arch = gencast.denoiser.architecture
+  padded = arch.processor.padded_n
+  shapes = {((1, padded, arch.grid2mesh.edge_latent_size['g2m']), 0)}
+  for net, used in ((arch.grid2mesh, set(arch.grid2mesh.num_nodes)),
+                    (arch.mesh2grid, set(arch.mesh2grid.node_decoders))):
+    shapes |= {(shape, 1) for shape in streamed_ln_film_shapes(net, used)}
+  return sorted(shapes)
+
+
+def check_quarter_deg_kernels(spec, statics, gencast, g, card):
+  """Phase 22: kernels A and F at the 0.25-degree plan's padded and ragged
+  shapes, B on one grid2mesh chunk's receiver and sender plans (the chunk
+  with the longest receiver row), E at every shape a 0.25-degree training
+  step gives it, float32 and bf16, each against its plain version, with
+  timings, bounds and the library calls (check_attention,
+  check_attention_bwd, check_segment_plan, check_ln_film_shapes; the slow
+  plain versions and library calls timed over fewer calls). Returns
+  ({(kernel, dtype, rows): result}, E's results, E's shapes)."""
+  from gencast_tpu_torch.nn import gnn
+  dev = g.device
+  t_phase = time.perf_counter()
+  plan = statics.attention_tile_plan
+  n, h = statics.num_mesh_nodes, spec.num_heads
+  d = spec.d_model // h
+  mt = torch.as_tensor(plan.mask_tiles, device=dev)
+  plan_t = tuple(torch.as_tensor(a, device=dev) for a in (
+      plan.fwd_kv_ids, plan.fwd_pair_ids, plan.bwd_q_ids, plan.bwd_pair_ids))
+  dense = dense_from_plan(plan, dev)
+  allowed = int(plan.mask_tiles.sum(dtype=np.int64))
+  results = {}
+  for dtype, atol, rtol in ((torch.float32, ATTN_F32_ATOL, BWD_F32_RTOL),
+                            (torch.bfloat16, ATTN_BF16_ATOL, BWD_BF16_RTOL)):
+    for rows in (plan.padded_n, n):
+      results[('A', dtype, rows)] = check_attention(
+          (rows, h, d), dtype, atol, mt, plan_t[0], plan_t[1], plan.tile, g,
+          dense[:rows, :rows], allowed, reps=3)
+      results[('F', dtype, rows)] = check_attention_bwd(
+          (rows, h, d), dtype, rtol, mt, plan_t, plan.tile, g,
+          dense[:rows, :rows], allowed, reps=1)
+  del dense, mt, plan_t
+  torch.cuda.empty_cache()
+
+  topo = gnn.EdgeTopology('g2m', 'grid', 'mesh', statics.grid2mesh.senders,
+                          statics.grid2mesh.receivers)
+  stream = gnn.EdgeStream(topo, {'grid': statics.num_grid_nodes,
+                                 'mesh': statics.num_mesh_nodes},
+                          spec.edge_chunk_size)
+  c = max(range(stream.num_chunks), key=lambda i: int(np.bincount(
+      stream.local_ids(i, 'recv').numpy()).max()))
+  for side, what in (('recv', 'receivers'), ('send', 'senders')):
+    lo, hi = stream.rows(c, side)
+    found = check_segment_plan(
+        f'0.25deg grid2mesh chunk {c} of {stream.num_chunks} {what} '
+        f'(nodes {lo}-{hi - 1})', stream.local_ids(c, side).numpy(), hi - lo,
+        spec.d_model, g, card)
+    for (name, dtype), value in found.items():
+      results[('B', dtype, side)] = value
+    results[('B shape', side)] = [len(stream.local_ids(c, side)),
+                                  spec.d_model]
+
+  e_shapes = quarter_deg_e_shapes(gencast)
+  e_results = check_ln_film_shapes(e_shapes, g, card, profile=False)
+  log(f'[0.25deg kernels] A, F, B and E at the 0.25-degree shapes in '
+      f'{time.perf_counter() - t_phase:.1f} s; {card}')
+  return results, e_results, e_shapes
+
+
+def quarter_deg_denoiser(spec, statics, model, stack, plain_stack, dev, g,
+                         card):
+  """Phase 23: the QUARTER_DEG denoiser call through the kernels (A once
+  per layer, B once per grid2mesh chunk) against the same call through the
+  plain path. Returns (inputs, forcings, {'kernel': ms, 'plain': ms})."""
+  from gencast_tpu_torch.ops import segment, sparse_attention
+  t_phase = time.perf_counter()
+  den = model.denoiser
+  chunks = den.architecture.grid2mesh.streams['g2m'].num_chunks
+  grid = (1, statics.grid_lat.shape[0], statics.grid_lon.shape[0])
+  inputs = torch.randn(grid + (den.input_layout.num_channels,), generator=g,
+                       device=dev)
+  forcings = torch.randn(grid + (den.forcing_layout.num_channels,),
+                         generator=g, device=dev)
+  noisy = torch.randn(grid + (den.target_layout.num_channels,), generator=g,
+                      device=dev) * 3.0
+  sigma = torch.full((1,), 3.0, device=dev)
+  with torch.no_grad():
+    for counter in (sparse_attention.KERNEL, segment.KERNEL):
+      counter.reset()
+    out_k = stack(inputs, noisy, sigma, forcings)
+    torch.cuda.synchronize()
+    launched = (sparse_attention.KERNEL.launches, segment.KERNEL.launches)
+    if launched != (spec.num_layers, chunks):
+      raise AssertionError(f'0.25deg denoiser call launched (A, B) '
+                           f'{launched}, expected ({spec.num_layers}, '
+                           f'{chunks})')
+    out_p = plain_stack(inputs, noisy, sigma, forcings)
+    rel = float((out_k - out_p).abs().max() / out_p.abs().max())
+    mean_rel = float((out_k - out_p).abs().mean() / out_p.abs().mean())
+    if not (torch.isfinite(out_k).all() and rel <= DENOISER_BF16_RTOL):
+      raise AssertionError(f'0.25deg denoiser kernels vs plain: {rel} > '
+                           f'{DENOISER_BF16_RTOL} or not finite')
+    del out_k, out_p
+    ms = time_in_turns({
+        'plain': lambda: plain_stack(inputs, noisy, sigma, forcings),
+        'kernel': lambda: stack(inputs, noisy, sigma, forcings)}, reps=1)
+  log(f'[0.25deg denoiser] bf16 {grid + (den.target_layout.num_channels,)}:'
+      f' max rel err {rel:.3e} (tol {DENOISER_BF16_RTOL}), mean rel err '
+      f'{mean_rel:.3e}; launches A {spec.num_layers}, B {chunks} (one per '
+      f'grid2mesh chunk); kernel path {ms["kernel"]:.2f} ms, plain path '
+      f'{ms["plain"]:.2f} ms per call; phase '
+      f'{time.perf_counter() - t_phase:.1f} s; {card}')
+  return inputs, forcings, ms
+
+
+def streamed_against_dense(statics, dev, g, card):
+  """Phase 23, second part: the 1-degree denoiser with streamed edges
+  (chunks of ONE_DEG_CHUNK edges, so grid2mesh receivers straddle chunks)
+  against the dense 1-degree denoiser, the same weights, float32 through
+  the kernels on the card."""
+  from gencast_tpu_torch import bridge, configs
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.ops import segment
+  t_phase = time.perf_counter()
+  spec = configs.ONE_DEG
+  streamed = dataclasses.replace(spec, edge_chunk_size=ONE_DEG_CHUNK)
+  dense_model, _ = configs.build_gencast(spec, seed=0, statics=statics,
+                                         device=dev)
+  flat = bridge.perturbed(bridge.export_reference_params(dense_model),
+                          seed=2)
+  bridge.load_reference_params(dense_model, flat)
+  stream_model, _ = configs.build_gencast(streamed, seed=0, statics=statics,
+                                          device=dev)
+  bridge.load_reference_params(stream_model, flat)
+  stats = unit_stats(spec.task)
+  stacks = [wrappers.build_stack(m, stats, bf16=False).to(dev)
+            for m in (dense_model, stream_model)]
+  den = dense_model.denoiser
+  grid = (1, statics.grid_lat.shape[0], statics.grid_lon.shape[0])
+  inputs, noisy, forcings = (
+      torch.randn(grid + (lay.num_channels,), generator=g, device=dev)
+      for lay in (den.input_layout, den.target_layout, den.forcing_layout))
+  sigma = torch.full((1,), 2.0, device=dev)
+  chunks = stream_model.denoiser.architecture.grid2mesh.streams[
+      'g2m'].num_chunks
+  with torch.no_grad():
+    want = stacks[0](inputs, noisy, sigma, forcings)
+    segment.KERNEL.reset()
+    got = stacks[1](inputs, noisy, sigma, forcings)
+    torch.cuda.synchronize()
+  rel = float((got - want).abs().max() / want.abs().max())
+  if not (torch.isfinite(got).all() and rel <= STREAMED_F32_RTOL
+          and segment.KERNEL.launches == chunks):
+    raise AssertionError(f'1deg streamed vs dense: max rel err {rel} > '
+                         f'{STREAMED_F32_RTOL}, or B launched '
+                         f'{segment.KERNEL.launches} times, not {chunks}')
+  log(f'[streamed 1deg] float32 denoiser with edges in chunks of '
+      f'{ONE_DEG_CHUNK} ({chunks} grid2mesh chunks, each summed by kernel B'
+      f') against the dense one, same weights: max rel err {rel:.3e} (tol '
+      f'{STREAMED_F32_RTOL}); phase {time.perf_counter() - t_phase:.1f} s')
+
+
+def serve_quarter_deg(spec, model, stack, inputs, forcings, dev, card):
+  """Phase 24: one 12-hour 0.25-degree forecast step (39 denoiser calls),
+  graphed (its first call captures the graph), then the same step eagerly
+  from the same generator seed: bitwise equal; launches of A and B per
+  request, seconds both ways, the capture, the private pool and the peak
+  memory. Returns (seconds graphed, seconds eager, peak bytes, launches)."""
+  from gencast_tpu_torch.ops import segment, sparse_attention
+  calls = 2 * spec.num_noise_levels - 1
+  chunks = model.denoiser.architecture.grid2mesh.streams['g2m'].num_chunks
+  expected = (calls * spec.num_layers, calls * chunks)
+  torch.cuda.reset_peak_memory_stats()
+  seconds, forecasts, launches = [], [], {'A': 0, 'B': 0}
+  for graphed in (True, False):
+    for counter in (sparse_attention.KERNEL, segment.KERNEL):
+      counter.reset()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forecast = stack.sample(inputs, forcings, gen, graphed=graphed)
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+    added = (sparse_attention.KERNEL.launches, segment.KERNEL.launches)
+    if (added != expected or forecast.dtype != torch.float32
+        or not torch.isfinite(forecast).all()):
+      how = 'graphed' if graphed else 'eager'
+      raise AssertionError(f'0.25deg forecast ({how}): launches (A, B) '
+                           f'{added}, expected {expected}; '
+                           f'{forecast.dtype}, finite '
+                           f'{bool(torch.isfinite(forecast).all())}')
+    launches = {'A': launches['A'] + added[0], 'B': launches['B'] + added[1]}
+    forecasts.append(forecast)
+  peak = torch.cuda.max_memory_allocated()
+  check_graphed_equals_eager('0.25-degree forecast step', forecasts[0],
+                             forecasts[1])
+  log(f'[0.25deg serve] one 12-hour step {tuple(forecasts[0].shape)} '
+      f'float32, finite; graphed {seconds[0]:.3f} s (with the capture; '
+      f'{1e3 * seconds[0] / calls:.1f} ms per denoiser call), eager '
+      f'{seconds[1]:.3f} s ({1e3 * seconds[1] / calls:.1f} ms per call); '
+      f'launches per request A {expected[0]}, B {expected[1]}; '
+      f'{graph_note(stack)}; peak memory {peak / 2**30:.2f} GiB; {card}')
+  return seconds[0], seconds[1], peak, launches
+
+
+def quarter_deg_stats(spec, path):
+  """Normalization statistics for the 0.25-degree runs, written to `path`:
+  those of the same synthetic source on the 1-degree grid (per variable and
+  level; computed on the 0.25-degree grid they cost a minute of host
+  time)."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import sources
+  lat, lon = configs.grid_for_resolution(1.0)
+  stats = sources.compute_stats(sources.SyntheticSource(spec.task, lat, lon,
+                                                        seed=0))
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  sources.save_stats(stats, path)
+
+
+def train_quarter_deg(spec, statics, e_shapes, dev, card, work):
+  """Phase 25: `train.main` for 2 steps at --preset 0.25deg (checkpoint at
+  the end), the kernel E shapes it gives exactly phase 22's; the same 2
+  steps again from the seed, bitwise equal (phase 18's determinism); the
+  CLI's --steps_per_call 2; then 2 graphed steps against 2 eager steps of a
+  twin (phase 19): launches per step as derived in each. Returns (launches
+  of all runs, seconds per step, seconds per fused step, peak bytes,
+  the checkpoint directory, the stats path)."""
+  t_phase = time.perf_counter()
+  stats = os.path.join(work, 'stats.npz')
+  quarter_deg_stats(spec, stats)
+  ckpt = os.path.join(work, 'ckpt')
+  argv = ['--preset', '0.25deg', '--clean_sst_nans', '--stats_path', stats]
+  runs, seen = [], set()
+  with recording_ln_film_shapes(seen):
+    first, seconds, peak = train_preset(
+        spec, statics, dev, card, argv + ['--ckpt_dir', ckpt], steps_run=2,
+        tag='0.25deg', runs=runs)
+  if seen != set(e_shapes):
+    raise AssertionError(f'0.25deg training gave kernel E the shapes '
+                         f'{sorted(seen)}, phase 22 checked {e_shapes}')
+  log(f'[kernel E] the 0.25-degree training step gave it exactly the '
+      f'{len(seen)} shapes phase 22 checked: {sorted(seen)}')
+  again, _, _ = train_preset(spec, statics, dev, card, argv, steps_run=2,
+                             tag='0.25deg, again from the seed', runs=runs)
+  (losses_a, params_a), (losses_b, params_b) = (
+      (r.losses, list(r.model.parameters())) for r in runs)
+  differing = sum(not torch.equal(a, b) for a, b in zip(params_a, params_b))
+  if losses_a != losses_b or differing:
+    raise AssertionError(f'0.25deg: two runs from one seed differ: losses '
+                         f'{losses_a} and {losses_b}, {differing} of '
+                         f'{len(params_a)} parameters differ')
+  log(f'[reproducible] 0.25deg: 2 training steps twice from one seed: '
+      f'losses {losses_a} and all {len(params_a)} parameters bitwise equal')
+  del runs, params_a, params_b
+  fused_cli_run, fused_seconds, fused_peak = train_preset(
+      spec, statics, dev, card, argv + ['--steps_per_call', '2',
+                                        '--pool_size', '2'],
+      steps_run=2, tag='0.25deg --steps_per_call 2')
+  torch.cuda.empty_cache()
+  twin = fused_training(argv, dev, card, k=2, rounds=1, pool_rows=2,
+                        tag='0.25deg')
+  launches = {k: first[k] + again[k] + fused_cli_run[k] + twin[0][k]
+              for k in first}
+  log(f'[train 0.25deg] seconds per step {[round(x, 4) for x in seconds]} '
+      f'(per-step loop), {[round(x, 4) for x in fused_seconds]} '
+      f'(--steps_per_call 2, the first call with its capture); peak memory '
+      f'{max(peak, fused_peak) / 2**30:.2f} GiB; phase '
+      f'{time.perf_counter() - t_phase:.1f} s; {card}')
+  return launches, seconds, fused_seconds, max(peak, fused_peak), ckpt, stats
+
+
+def evaluate_quarter_deg(spec, dev, card, ckpt, stats, work):
+  """Phase 26: `evaluate.main` at 0.25 degrees on phase 25's checkpoint: 1
+  member, 2 steps, --chunk_size 1 (each step to the host as it ends):
+  launches as derived, finite predictions where the truth is, finite RMSE,
+  the peak memory and the wall."""
+  from gencast_tpu_torch.ops import segment, sparse_attention
+  from gencast_tpu_torch.training import evaluate
+  rollout_steps = 2
+  torch.cuda.reset_peak_memory_stats()
+  for c in counters():
+    c.reset()
+  out = os.path.join(work, 'eval')
+  t0 = time.perf_counter()
+  run = evaluate.main(['--preset', '0.25deg', '--clean_sst_nans',
+                       '--stats_path', stats, '--ckpt_dir', ckpt,
+                       '--num_members', '1', '--max_rollout_steps',
+                       str(rollout_steps), '--chunk_size', '1', '--out_dir',
+                       out, '--plot_vars'])
+  wall = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated()
+  served = {c.name: c.launches for c in counters()}
+  chunks = next(m for m in run.model.modules() if hasattr(m, 'streams')
+                and 'g2m' in m.streams).streams['g2m'].num_chunks
+  calls = rollout_steps * (2 * spec.num_noise_levels - 1)
+  expected = {c.name: 0 for c in counters()}
+  expected.update({sparse_attention.KERNEL.name: calls * spec.num_layers,
+                   segment.KERNEL.name: calls * chunks})
+  rollout = np.load(os.path.join(out, 'rollout.npz'))
+  preds, truth = rollout['predictions'], rollout['truth']
+  with open(os.path.join(out, 'metrics.json')) as f:
+    scores = json.load(f)
+  finite = bool((np.isfinite(preds) | np.isnan(truth)[None]).all())
+  if (served != expected or not finite
+      or preds.shape[:4] != (1, rollout_steps, 721, 1440)
+      or not np.isfinite(list(scores['rmse'].values())).all()):
+    raise AssertionError(f'0.25deg evaluate: launches {served} (expected '
+                         f'{expected}), predictions {preds.shape}, finite '
+                         f'where the truth is {finite}, rmse {scores["rmse"]}')
+  log(f'[evaluate 0.25deg] 1 member x {rollout_steps} steps '
+      f'{preds.shape} with --chunk_size 1, finite where the truth is; RMSE '
+      f'finite (2m_temperature {scores["rmse"]["2m_temperature"]:.4f}); '
+      f'launches A {served[sparse_attention.KERNEL.name]}, B '
+      f'{served[segment.KERNEL.name]}, as derived; {wall:.1f} s with '
+      f'set-up; peak memory {peak / 2**30:.2f} GiB; {card}')
+  return wall, peak
+
+
+def offload_nano(dev, card):
+  """Phase 27: `rollout.chunked_rollout` at nano, 4 steps in chunks of 2,
+  with the host copy of a chunk overlapped with the next chunk's work and
+  serialized after it: both bitwise the unchunked `sample_rollout`, the
+  overlapped result in pinned host memory."""
+  from gencast_tpu_torch import configs, rollout
+  from gencast_tpu_torch.models import wrappers
+  spec = configs.NANO
+  t_phase = time.perf_counter()
+  model, statics = configs.build_gencast(spec, seed=0, device=dev)
+  stack = wrappers.build_stack(model, unit_stats(spec.task),
+                               bf16=spec.cast_bf16).to(dev)
+  den = model.denoiser
+  g = torch.Generator(device=dev).manual_seed(7)
+  grid = (1, statics.grid_lat.shape[0], statics.grid_lon.shape[0])
+  inputs = torch.randn(grid + (den.input_layout.num_channels,), generator=g,
+                       device=dev)
+  forcings = torch.randn((OFFLOAD_STEPS,) + grid
+                         + (den.forcing_layout.num_channels,), generator=g,
+                         device=dev)
+  want = rollout.sample_rollout(stack, inputs, forcings,
+                                torch.Generator(device=dev).manual_seed(3))
+  want = want.cpu()
+  seconds = {}
+  for overlap in (True, False):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = rollout.chunked_rollout(
+        stack, inputs, forcings, torch.Generator(device=dev).manual_seed(3),
+        chunk_size=2, overlap_offload=overlap)
+    seconds[overlap] = time.perf_counter() - t0
+    if not (got.device.type == 'cpu' and got.is_pinned() == overlap
+            and torch.equal(got, want)):
+      raise AssertionError(f'nano chunked rollout (overlap_offload={overlap})'
+                           f' differs from sample_rollout, or pinned '
+                           f'{got.is_pinned()}')
+  log(f'[offload nano] chunked_rollout, {OFFLOAD_STEPS} steps in chunks of '
+      f'2: overlap_offload on ({seconds[True]:.3f} s, pinned host memory) and'
+      f' off ({seconds[False]:.3f} s) bitwise equal to the unchunked '
+      f'sample_rollout; phase {time.perf_counter() - t_phase:.1f} s; {card}')
+
+
+def quarter_deg_f_row(result, part, shape) -> dict:
+  """Kernel F's (part 'dq' or 'dkv') 0.25-degree figures in bf16 for its
+  JSON row; the library call is the whole backward (dq, dk and dv)."""
+  errs, ms, costs = result
+  bound_ms, bound_by = bound(*costs[part], torch.bfloat16)
+  return {'shape': list(shape), 'max_abs_err': errs[part][1],
+          'ms': ms[part], 'plain_ms': ms[f'{part}_plain'],
+          'bound_ms': bound_ms, 'bound_by': bound_by,
+          'library_ms': ms['library']}
+
+
+def quarter_deg_row(result, shape, dtype) -> dict:
+  """A kernel's 0.25-degree figures for its JSON row."""
+  err, ms, cost = result
+  bound_ms, bound_by = bound(*cost, dtype)
+  return {'shape': list(shape), 'max_abs_err': err, 'ms': ms['kernel'],
+          'plain_ms': ms['plain'], 'bound_ms': bound_ms, 'bound_by': bound_by,
+          'library_ms': ms['library']}
+
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this check runs on the card only',
           file=sys.stderr)
     return 1
+  # The graph statics' on-disk cache of this run, empty at its start: each
+  # configuration's statics are built once (the 0.25-degree ones in 21 s),
+  # then loaded by every later phase and CLI run.
+  repo = os.path.dirname(os.path.abspath(__file__))
+  cache_root = os.path.join(repo, 'build', 'chip_smoke_cache')
+  shutil.rmtree(cache_root, ignore_errors=True)
+  os.environ['GENCAST_TPU_TORCH_CACHE'] = cache_root
   from gencast_tpu_torch import bridge, configs
-  from gencast_tpu_torch.data import layout
   from gencast_tpu_torch.graph import plans
-  from gencast_tpu_torch.models import wrappers
   from gencast_tpu_torch.nn import transformer
   from gencast_tpu_torch.ops import banded_attention, cuda_lib, ln_film, \
       segment, sparse_attention
@@ -1589,6 +2144,7 @@ def main() -> int:
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   dev = torch.device('cuda', 0)
+  t_start = time.perf_counter()
   card = card_line()
   results = {}
 
@@ -1672,23 +2228,8 @@ def main() -> int:
   segment_results = check_segment_sums(spec, statics, g, card)
 
   # --- 5. denoiser: kernel path vs plain path; small forecast vs CPU ---
-  t0 = time.perf_counter()
-  model, _ = configs.build_gencast(spec, seed=0, statics=statics, device=dev)
-  flat = bridge.perturbed(bridge.export_reference_params(model), seed=1)
-  bridge.load_reference_params(model, flat)
-  plain_model, _ = configs.build_gencast(spec, seed=0, statics=statics,
-                                         device=dev, use_kernels=False)
-  bridge.load_reference_params(plain_model, flat)
-  task = spec.task
-  stats = layout.Stats.unit(
-      sorted(set(task.input_variables + task.target_variables
-                 + task.forcing_variables)), task.pressure_levels)
-  stack = wrappers.build_stack(model, stats, bf16=spec.cast_bf16).to(dev)
-  plain_stack = wrappers.build_stack(plain_model, stats,
-                                     bf16=spec.cast_bf16).to(dev)
-  num_params = sum(p.numel() for p in model.parameters())
-  log(f'[denoiser] built two {spec.name} models ({num_params} parameters '
-      f'each, seeded and perturbed) in {time.perf_counter() - t0:.1f} s')
+  model, stack, plain_stack = kernel_and_plain_stacks(spec, statics, dev,
+                                                     'denoiser')
 
   den = model.denoiser
   grid = (1, statics.grid_lat.shape[0], statics.grid_lon.shape[0])
@@ -1722,7 +2263,7 @@ def main() -> int:
       f'{DENOISER_BF16_RTOL}), mean rel err {mean_rel:.3e}; kernel path '
       f'{ms["kernel"]:.2f} ms, plain path {ms["plain"]:.2f} ms per call')
   denoiser_ms = ms
-  del out_k, out_p, plain_stack, plain_model
+  del out_k, out_p, plain_stack
 
   tiny_cpu, _ = configs.build_gencast(tiny, seed=3, device='cpu')
   bridge.load_reference_params(tiny_cpu, bridge.perturbed(
@@ -1938,16 +2479,61 @@ def main() -> int:
 
   # --- 20. the training CLI's fused path: checkpoints and a resume ---
   cli_launches = fused_cli(nano, nano_statics, dev, card)
+  log(f'[timing] phases 1-20 in {time.perf_counter() - t_start:.1f} s')
+
+  # --- 21. the 0.25-degree statics, built then loaded from the cache ---
+  qdeg = configs.QUARTER_DEG
+  q_statics = quarter_deg_statics(qdeg, card)
+
+  # --- 22. kernels A, F, B and E at the 0.25-degree shapes ---
+  q_model, q_stack, q_plain_stack = kernel_and_plain_stacks(
+      qdeg, q_statics, dev, '0.25deg denoiser')
+  q_results, q_e_results, q_e_shapes = check_quarter_deg_kernels(
+      qdeg, q_statics, q_model, g, card)
+
+  # --- 23. the 0.25-degree denoiser, kernels vs plain; the 1-degree
+  # denoiser, streamed vs dense ---
+  q_inputs, q_forcings, q_call_ms = quarter_deg_denoiser(
+      qdeg, q_statics, q_model, q_stack, q_plain_stack, dev, g, card)
+  del q_plain_stack
+  torch.cuda.empty_cache()
+  streamed_against_dense(statics, dev, g, card)
+
+  # --- 24. serving: one 0.25-degree forecast step, graphed and eager ---
+  t0 = time.perf_counter()
+  q_graphed_s, q_eager_s, q_serve_peak, q_serve_launches = serve_quarter_deg(
+      qdeg, q_model, q_stack, q_inputs, q_forcings, dev, card)
+  log(f'[timing] phase 24 in {time.perf_counter() - t0:.1f} s')
+  del q_model, q_stack, q_inputs, q_forcings
+  torch.cuda.empty_cache()
+
+  # --- 25. 0.25-degree training: CLI steps, twice from one seed, fused ---
+  q_work = os.path.join(repo, 'build', 'chip_smoke_0.25deg')
+  shutil.rmtree(q_work, ignore_errors=True)
+  (q_launches, q_step_s, q_fused_s, q_train_peak, q_ckpt,
+   q_stats) = train_quarter_deg(qdeg, q_statics, q_e_shapes, dev, card,
+                                q_work)
+
+  # --- 26. 0.25-degree evaluate with --chunk_size 1 ---
+  q_eval_wall, q_eval_peak = evaluate_quarter_deg(qdeg, dev, card, q_ckpt,
+                                                  q_stats, q_work)
+  shutil.rmtree(q_work, ignore_errors=True)
+
+  # --- 27. chunked rollout at nano, the host copies overlapped or not ---
+  offload_nano(dev, card)
 
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B on the grid2mesh
   # receiver plan from bf16 edges (float32 out), E in bf16 at the largest
   # shape it gets (the 1-degree mesh2grid edges; the mesh-node shape, 33 of
   # its 42 calls per 1-degree step, in extra fields), C and D at nano's
-  # [1, 2624, 4, 64] in bf16, G and its dq reduce as A.
+  # [1, 2624, 4, 64] in bf16, G and its dq reduce as A. A, B, E and F also
+  # carry their 0.25-degree figures (phase 22, bf16): A and F at the padded
+  # and the ragged shape, B on the grid2mesh chunk's receiver and sender
+  # plans, E at the largest chunk and at the transformer's shape.
   # Launches come from the training runs of each kernel's paths (1 degree,
-  # nano, and the 1-degree path with the fused backward), by path where a
-  # kernel runs on more than one.
+  # nano, the 1-degree path with the fused backward, and 0.25 degrees), by
+  # path where a kernel runs on more than one.
   bf16 = torch.bfloat16
   err_a, ms_a, cost_a = results[('A', bf16, plan.padded_n)]
   err_b, ms_b, cost_b = segment_results[('grid2mesh receivers', bf16)]
@@ -1959,16 +2545,27 @@ def main() -> int:
   err_c, ms_c, cost_c = results[('C', 'nano', bf16)]
   errs_d, ms_d, costs_d = results[('D', 'nano', bf16)]
   errs_g, ms_g, costs_g = results[('G', bf16)]
+  q_plan = q_statics.attention_tile_plan
+  q_attn = (1, q_plan.padded_n, qdeg.num_heads, qdeg.d_model // qdeg.num_heads)
+  q_rows = {'0.25deg_ragged': q_statics.num_mesh_nodes,
+            '0.25deg': q_plan.padded_n}
+  q_e_big = max(s for s, axis in q_e_shapes if axis == 1)
   kernels = [
-      row(sparse_attention.KERNEL, err_a, ms_a['kernel'], ms_a['plain'],
-          ms_a['library'], *cost_a, bf16),
+      dict(row(sparse_attention.KERNEL, err_a, ms_a['kernel'], ms_a['plain'],
+               ms_a['library'], *cost_a, bf16),
+           **{key: quarter_deg_row(q_results[('A', bf16, rows)],
+                                   q_attn[:1] + (rows,) + q_attn[2:], bf16)
+              for key, rows in q_rows.items()}),
       dict(row(segment.KERNEL, err_b, ms_b['kernel'], ms_b['plain'],
                ms_b['library'], *cost_b, bf16),
            dtype='bfloat16 in, float32 out',
            cast_then_kernel_ms=ms_b['cast_then_kernel'],
            unsplit_ms=ms_b['unsplit'],
            float32_in_ms=segment_results[('grid2mesh receivers',
-                                          torch.float32)][1]['kernel']),
+                                          torch.float32)][1]['kernel'],
+           **{f'0.25deg_chunk_{side}': quarter_deg_row(
+               q_results[('B', bf16, side)], q_results[('B shape', side)],
+               bf16) for side in ('recv', 'send')}),
       row(banded_attention.KERNEL, err_c, ms_c['kernel'], ms_c['plain'],
           ms_c['library'], *cost_c, bf16),
       row(banded_attention.KERNEL_DQ, errs_d['dq'][1], ms_d['dq'],
@@ -1980,11 +2577,22 @@ def main() -> int:
            mesh_shape=[1, plan.padded_n, spec.d_model],
            mesh_ms=ms_e_mesh['kernel'],
            mesh_bound_ms=bound(*cost_e_mesh, bf16)[0],
-           mesh_library_ms=ms_e_mesh['library']),
-      row(sparse_attention.KERNEL_DQ, errs_f['dq'][1], ms_f['dq'],
-          ms_f['dq_plain'], ms_f['library'], *costs_f['dq'], bf16),
-      row(sparse_attention.KERNEL_DKV, errs_f['dkv'][1], ms_f['dkv'],
-          ms_f['dkv_plain'], ms_f['library'], *costs_f['dkv'], bf16),
+           mesh_library_ms=ms_e_mesh['library'],
+           **{'0.25deg_' + ('mesh' if axis == 0 else 'chunk'): quarter_deg_row(
+               (q_e_results[(shape, bf16)][0][1],)
+               + q_e_results[(shape, bf16)][1:], shape, bf16)
+              for shape, axis in q_e_shapes
+              if axis == 0 or shape == q_e_big}),
+      dict(row(sparse_attention.KERNEL_DQ, errs_f['dq'][1], ms_f['dq'],
+               ms_f['dq_plain'], ms_f['library'], *costs_f['dq'], bf16),
+           **{key: quarter_deg_f_row(q_results[('F', bf16, rows)], 'dq',
+                                     q_attn[:1] + (rows,) + q_attn[2:])
+              for key, rows in q_rows.items()}),
+      dict(row(sparse_attention.KERNEL_DKV, errs_f['dkv'][1], ms_f['dkv'],
+               ms_f['dkv_plain'], ms_f['library'], *costs_f['dkv'], bf16),
+           **{key: quarter_deg_f_row(q_results[('F', bf16, rows)], 'dkv',
+                                     q_attn[:1] + (rows,) + q_attn[2:])
+              for key, rows in q_rows.items()}),
       row(sparse_attention.KERNEL_DKVQ, errs_g['G'][1], ms_g['kernel'],
           ms_g['plain'], ms_g['library'], *costs_g['G'], bf16),
       # No single PyTorch call computes the reduce: plain_ms is the
@@ -2003,7 +2611,8 @@ def main() -> int:
                'nano_graphed': fused_nano[0][k['name']],
                '1deg_graphed': fused_1deg[0][k['name']],
                '1deg_fused_graphed': fused_1deg_g[0][k['name']],
-               'nano_cli_graphed': cli_launches[k['name']]}
+               'nano_cli_graphed': cli_launches[k['name']],
+               '0.25deg': q_launches[k['name']]}
     k['launches'] = sum(by_path.values())
     if sum(1 for n in by_path.values() if n) > 1:
       k['launches_by_path'] = by_path
@@ -2013,6 +2622,16 @@ def main() -> int:
       f'kernel path {denoiser_ms["kernel"]:.2f} ms, plain path '
       f'{denoiser_ms["plain"]:.2f} ms; nano denoiser call kernel path '
       f'{nano_call_ms:.2f} ms')
+  log(f'[summary] 0.25-degree: denoiser call kernel path '
+      f'{q_call_ms["kernel"]:.1f} ms, plain path {q_call_ms["plain"]:.1f} ms;'
+      f' forecast step graphed {q_graphed_s:.3f} s (with the capture), eager '
+      f'{q_eager_s:.3f} s, peak {q_serve_peak / 2**30:.2f} GiB; training '
+      f'step {[round(x, 4) for x in q_step_s]} s, fused '
+      f'{[round(x, 4) for x in q_fused_s]} s, peak '
+      f'{q_train_peak / 2**30:.2f} GiB; evaluate (1 member, 2 steps) '
+      f'{q_eval_wall:.1f} s, peak {q_eval_peak / 2**30:.2f} GiB; the run '
+      f'{time.perf_counter() - t_start:.1f} s; {card}')
+  shutil.rmtree(cache_root, ignore_errors=True)
   print(json.dumps({'kernels': kernels}))
   print(card_line())
   print(json.dumps({'ok': True, 'device': {

@@ -4,13 +4,17 @@ Counterpart of `gencast_tpu.graph.compiler`: the RCM-permuted icosahedral
 mesh, the grid2mesh / mesh / mesh2grid edge sets (sorted by receiver) with
 their spatial features, and the k-hop attention mask, as a tri-block
 `BandedMask` (the tri-block backend) and/or a block-sparse `TilePlan` (the
-block-sparse backend). The GraphCast multimesh is not built here, and there
-is no on-disk cache.
+block-sparse backend). The GraphCast multimesh is not built here. As in
+the reference, a build can be cached on disk, keyed by what it is built
+from (`cache_dir`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import pickle
 from typing import Optional
 
 import numpy as np
@@ -166,6 +170,16 @@ def banded_mask_from_csr(mask: sparse.csr_matrix) -> BandedMask:
                     num_padding_nodes=num_pad)
 
 
+# Bumped whenever the statics' content or layout changes for the same
+# arguments, so that an older cache file is not read.
+CACHE_VERSION = 1
+
+
+def _cache_key(**kwargs) -> str:
+  blob = pickle.dumps(sorted(kwargs.items()))
+  return hashlib.sha256(blob).hexdigest()[:16]
+
+
 def build_graph_statics(
     mesh_splits: int,
     grid_lat: np.ndarray,
@@ -174,6 +188,7 @@ def build_graph_statics(
     attention_k_hop: int = 16,
     attention_tile_size: int = 0,
     build_triblock_mask: bool = False,
+    cache_dir: Optional[str] = None,
 ) -> GraphStatics:
   """Compiles all static graph structure for a (mesh, grid) pair.
 
@@ -188,9 +203,25 @@ def build_graph_statics(
       the plan.
     build_triblock_mask: build the tri-block mask (`BandedMask`) that the
       'triblock_pallas' attention backend reads.
+    cache_dir: directory of the on-disk cache; None builds without it. A
+      build is stored under a key of every argument above, written to a
+      temporary file and renamed into place, so a reader never sees a
+      partial file.
   """
   grid_lat = np.asarray(grid_lat, dtype=np.float32)
   grid_lon = np.asarray(grid_lon, dtype=np.float32)
+
+  cache_path = None
+  if cache_dir is not None:
+    key = _cache_key(splits=mesh_splits, lat=grid_lat.tobytes(),
+                     lon=grid_lon.tobytes(),
+                     frac=radius_query_fraction_edge_length,
+                     k_hop=attention_k_hop, tile=attention_tile_size,
+                     triblock=build_triblock_mask, v=CACHE_VERSION)
+    cache_path = os.path.join(cache_dir, f'graph_{key}.pkl')
+    if os.path.exists(cache_path):
+      with open(cache_path, 'rb') as f:
+        return pickle.load(f)
 
   mesh, _ = rcm_permute(icosahedron.finest_mesh(mesh_splits))
   mesh_phi, mesh_theta = features.xyz_to_spherical(mesh.vertices)
@@ -234,7 +265,7 @@ def build_graph_statics(
     if attention_tile_size:
       tile_plan = build_tile_plan(csr, tile=attention_tile_size)
 
-  return GraphStatics(
+  statics = GraphStatics(
       mesh_vertices=mesh.vertices.astype(np.float32),
       mesh_faces=mesh.faces,
       mesh_lat=mesh_lat,
@@ -251,3 +282,11 @@ def build_graph_statics(
       attention_mask=mask,
       attention_tile_plan=tile_plan,
   )
+  if cache_path is not None:
+    os.makedirs(cache_dir, exist_ok=True)
+    # One temporary name per process: builds of one key may race.
+    tmp = f'{cache_path}.{os.getpid()}.tmp'
+    with open(tmp, 'wb') as f:
+      pickle.dump(statics, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, cache_path)
+  return statics

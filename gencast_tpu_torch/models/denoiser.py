@@ -1,9 +1,11 @@
 """GenCast denoiser: grid2mesh GNN -> sparse mesh transformer ->
 mesh2grid GNN.
 
-Counterpart of `gencast_tpu.models.denoiser`, with its deliberate deviation
-kept: the mesh-node embedder takes only the 3 structural features (the
-reference's always-zero "dummy data" channels contribute nothing).
+Counterpart of `gencast_tpu.models.denoiser` (with the streamed-edge GNNs
+and whole-GNN remat of the 0.25-degree configuration), with its deliberate
+deviation kept: the mesh-node embedder takes only the 3 structural
+features (the reference's always-zero "dummy data" channels contribute
+nothing).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from torch import nn
 from gencast_tpu_torch.data import layout as layout_lib
 from gencast_tpu_torch.data.registry import TaskSpec
 from gencast_tpu_torch.graph.compiler import GraphStatics
+from gencast_tpu_torch.nn import remat
 from gencast_tpu_torch.nn.gnn import EdgeTopology, TypedGraphNet
 from gencast_tpu_torch.nn.mlp import FourierFeaturesMLP
 from gencast_tpu_torch.nn.transformer import MeshTransformer, \
@@ -43,6 +46,13 @@ class DenoiserConfig:
   use_agg_plans: bool = False
   # Minimum segment max-degree for an edge side to get a plan.
   agg_plan_min_degree: int = 32
+  # Streamed edges in the encoder and decoder GNNs (nn/gnn.py
+  # _streaming_call): edges this many at a time; None keeps the dense path.
+  edge_chunk_size: Optional[int] = None
+  # Remat the encoder and decoder GNNs as whole units: their backward
+  # recomputes them instead of keeping their [num_grid_nodes, latent]-sized
+  # activations (at 0.25 degrees, a GB each).
+  remat_gnns: bool = False
 
 
 class DenoiserArchitecture(nn.Module):
@@ -56,6 +66,7 @@ class DenoiserArchitecture(nn.Module):
     super().__init__()
     cfg = config
     latent = cfg.latent_size
+    self.remat_gnns = cfg.remat_gnns
     if transformer.d_model != latent:
       raise ValueError(
           f'transformer d_model ({transformer.d_model}) must equal the GNN '
@@ -94,6 +105,7 @@ class DenoiserArchitecture(nn.Module):
         num_message_passing_steps=1,
         f32_aggregation=True,
         aggregate_normalization=cfg.grid2mesh_aggregate_normalization,
+        edge_chunk_size=cfg.edge_chunk_size,
         rng=rng, use_kernels=use_kernels)
 
     # The backend takes the tile plan ('pallas') or the tri-block mask
@@ -115,6 +127,7 @@ class DenoiserArchitecture(nn.Module):
         embed_nodes=False,
         node_output_sizes={'grid': node_output_size},
         f32_aggregation=False,
+        edge_chunk_size=cfg.edge_chunk_size,
         rng=rng, use_kernels=use_kernels)
 
   def forward(self, grid_data: torch.Tensor,
@@ -128,14 +141,31 @@ class DenoiserArchitecture(nn.Module):
                                                feat.shape[1])
 
     grid_in = torch.cat([bcast(self.grid_struct), grid_data], dim=-1)
-    nodes, _ = self.grid2mesh({'grid': grid_in,
-                               'mesh': bcast(self.mesh_struct)},
-                              {'g2m': bcast(self.g2m_edge_feats)}, cond)
-    latent_grid, latent_mesh = nodes['grid'], nodes['mesh']
+
+    def run_g2m(grid_in, mesh_in, edge_in, cond):
+      nodes, _ = self.grid2mesh({'grid': grid_in, 'mesh': mesh_in},
+                                {'g2m': edge_in}, cond)
+      return nodes['grid'], nodes['mesh']
+
+    def run_m2g(latent_grid, latent_mesh, edge_in, cond):
+      nodes, _ = self.mesh2grid({'grid': latent_grid, 'mesh': latent_mesh},
+                                {'m2g': edge_in}, cond)
+      return nodes['grid']
+
+    g2m_args = (grid_in, bcast(self.mesh_struct), bcast(self.g2m_edge_feats),
+                cond)
+    if self.remat_gnns and torch.is_grad_enabled():
+      # Whole-GNN remat (the reference's jax.checkpoint of run_g2m and
+      # run_m2g); the streamed path's per-chunk remat nests inside.
+      latent_grid, latent_mesh = remat.checkpoint(self.grid2mesh, run_g2m,
+                                                  *g2m_args)
+    else:
+      latent_grid, latent_mesh = run_g2m(*g2m_args)
     latent_mesh = self.processor(latent_mesh, cond).to(dtype)
-    nodes, _ = self.mesh2grid({'grid': latent_grid, 'mesh': latent_mesh},
-                              {'m2g': bcast(self.m2g_edge_feats)}, cond)
-    return nodes['grid']
+    m2g_args = (latent_grid, latent_mesh, bcast(self.m2g_edge_feats), cond)
+    if self.remat_gnns and torch.is_grad_enabled():
+      return remat.checkpoint(self.mesh2grid, run_m2g, *m2g_args)
+    return run_m2g(*m2g_args)
 
 
 class Denoiser(nn.Module):

@@ -156,7 +156,9 @@ class GenCast(nn.Module):
                denoiser_config: DenoiserConfig = DenoiserConfig(),
                sampler_config: SamplerConfig = SamplerConfig(),
                noise_config: NoiseConfig = NoiseConfig(), *,
-               rng: torch.Generator, use_kernels: bool = True):
+               rng: torch.Generator, use_kernels: bool = True,
+               noise_basis_dtype: torch.dtype = torch.float32,
+               basis_device: torch.device | str = 'cpu'):
     super().__init__()
     self.task = task
     self.sampler_config = sampler_config
@@ -164,11 +166,14 @@ class GenCast(nn.Module):
     self.denoiser = Denoiser(task, statics, transformer, denoiser_config,
                              rng=rng, use_kernels=use_kernels)
     self.target_layout = self.denoiser.target_layout
-    basis = sph_harm.basis_for_grid(statics.grid_lat, statics.grid_lon)
-    self.register_buffer('sh_legendre', torch.as_tensor(basis.legendre),
-                         persistent=False)
-    self.register_buffer('sh_fourier', torch.as_tensor(basis.fourier),
-                         persistent=False)
+    # The noise basis in its storage dtype (the reference's
+    # noise_basis_dtype), made on `basis_device`: a bf16 0.25-degree table
+    # is computed there (ops/sph_harm.py).
+    basis = sph_harm.basis_for_grid(statics.grid_lat, statics.grid_lon,
+                                    dtype=noise_basis_dtype,
+                                    device=basis_device)
+    self.register_buffer('sh_legendre', basis.legendre, persistent=False)
+    self.register_buffer('sh_fourier', basis.fourier, persistent=False)
     self.denoiser_graphs = DenoiserGraphs()
     chan_w, diag_w = layout_lib.loss_channel_weights(self.target_layout,
                                                      LOSS_WEIGHTS_SURFACE)

@@ -1,4 +1,4 @@
-"""Typed graph networks over static topologies (dense path).
+"""Typed graph networks over static topologies.
 
 Counterpart of `gencast_tpu.nn.gnn`: node/edge sets are dicts of [N, B, C]
 / [E, B, C] tensors, topology (sender/receiver indices) is fixed numpy at
@@ -9,8 +9,15 @@ the planned sum as their backward. On the card every other side of
 non-uniform degree carries a plan too and takes the same two paths: there
 `index_add_`, and with it the backward of `index_select`, adds atomically
 in an order that changes from run to run, where the reference is bitwise
-reproducible. The streamed-edge path and GNN remat of the reference are
-memory machinery for 0.25 degrees and are not ported.
+reproducible.
+
+Two paths, as the reference's: the dense one, and for single-step nets with
+`edge_chunk_size` the streamed one (`TypedGraphNet._streaming_call`, the
+0.25-degree memory machinery), which takes the edges a chunk at a time
+through the edge MLP and the receiver sum, each chunk recomputed in the
+backward, so no [E, B, latent] tensor exists; node MLPs over more rows than
+a chunk run chunk by chunk too. Each chunk carries its own plans, built
+once in numpy, so the streamed path is as free of atomics on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gencast_tpu_torch.graph import plans
+from gencast_tpu_torch.nn import remat
 from gencast_tpu_torch.nn.mlp import MLP, CondMLP
 from gencast_tpu_torch.ops import segment
 
@@ -223,10 +231,28 @@ class TypedGraphNet(nn.Module):
                activation: str = 'swish',
                f32_aggregation: bool = False,
                aggregate_normalization: Optional[float] = None,
+               edge_chunk_size: Optional[int] = None,
                rng: torch.Generator,
                use_kernels: bool = True):
     super().__init__()
     act = _activation(activation)
+    self.topologies = topologies
+    self.num_nodes = dict(num_nodes)
+    self.f32_aggregation = f32_aggregation
+    self.aggregate_normalization = aggregate_normalization
+    self.use_kernels = use_kernels
+    self.edge_latent_size = dict(edge_latent_size)
+    # Streamed edges (the reference's edge_chunk_size): valid only for a
+    # single-step net whose caller does not read the output edge latents
+    # (the encoder and decoder of the denoiser); see _streaming_call.
+    self.edge_chunk_size = edge_chunk_size
+    self.streams = nn.ModuleDict()
+    if edge_chunk_size is not None:
+      if num_message_passing_steps != 1:
+        raise ValueError('edge_chunk_size requires a single-step graph net')
+      for topo in topologies:
+        self.streams[topo.name] = EdgeStream(topo, num_nodes,
+                                             edge_chunk_size)
     self.node_embedders = nn.ModuleDict()
     if embed_nodes:
       for name, latent in node_latent_size.items():
@@ -261,6 +287,8 @@ class TypedGraphNet(nn.Module):
 
   def forward(self, nodes: NodeFeats, edges: EdgeFeats, cond: torch.Tensor
               ) -> Tuple[NodeFeats, EdgeFeats]:
+    if self.edge_chunk_size is not None:
+      return self._streaming_call(nodes, edges, cond)
     nodes = {k: (self.node_embedders[k](v, cond)
                  if k in self.node_embedders else v)
              for k, v in nodes.items()}
@@ -275,3 +303,211 @@ class TypedGraphNet(nn.Module):
                      if k in self.node_decoders else v)
                  for k, v in nodes.items()}
     return out_nodes, edges
+
+  # --- The streamed path ---
+
+  def _remat(self, fn: Callable, *args) -> torch.Tensor:
+    """fn(*args), recomputed in the backward pass when gradients are on (the
+    reference's jax.checkpoint of a scan body): only the inputs are kept,
+    and the parameters are bound again in the recomputation (nn/remat.py)."""
+    if torch.is_grad_enabled():
+      return remat.checkpoint(self, fn, *args)
+    return fn(*args)
+
+  def _node_chunked(self, fn: Callable, arrays: List[torch.Tensor]
+                    ) -> torch.Tensor:
+    """fn over leading-axis chunks of `arrays` when they have more rows than
+    a chunk (the reference's _chunked_node_apply): chunks of equal size when
+    they divide the rows, else of edge_chunk_size and a shorter last one;
+    each recomputed in the backward. The chunks are views from one split, so
+    the backward writes each input's gradient once, not one [N, ...] tensor
+    per chunk."""
+    n = arrays[0].shape[0]
+    chunk = self.edge_chunk_size
+    if n <= chunk:
+      return fn(*arrays)
+    n_chunks = -(-n // chunk)
+    if n % n_chunks == 0:
+      chunk = n // n_chunks
+    pieces = [a.split(chunk) for a in arrays]
+    return torch.cat([self._remat(fn, *xs) for xs in zip(*pieces)])
+
+  def _streaming_call(self, nodes: NodeFeats, edges: EdgeFeats,
+                      cond: torch.Tensor) -> Tuple[NodeFeats, EdgeFeats]:
+    """The single-step forward with the edges taken a chunk at a time
+    (the reference's _streaming_call). The same numbers as the dense path
+    but for summation order across chunks, and the output edges are the
+    raw input edges (no edge latents are made)."""
+    node_lat = {}
+    for k, v in nodes.items():
+      if k in self.node_embedders:
+        emb = self.node_embedders[k]
+        node_lat[k] = self._node_chunked(
+            lambda v_c, emb=emb: emb(v_c, cond), [v])
+      else:
+        node_lat[k] = v
+    processor = self.processors[0]
+    agg = {topo.name: self._stream_edges(topo, processor, edges[topo.name],
+                                         node_lat, cond)
+           for topo in self.topologies}
+
+    out_nodes = {}
+    for name, mlp in processor.node_mlps.items():
+      aggs = [agg[t.name] for t in self.topologies if t.receiver_set == name]
+      decoder = (self.node_decoders[name] if name in self.node_decoders
+                 else None)
+
+      def update(lat_c, *agg_c, mlp=mlp, decoder=decoder):
+        out = lat_c + mlp(torch.cat([lat_c, *agg_c], dim=-1), cond)
+        return decoder(out) if decoder is not None else out
+
+      out_nodes[name] = self._node_chunked(update, [node_lat[name], *aggs])
+    return out_nodes, edges
+
+  def _stream_edges(self, topo: EdgeTopology,
+                    processor: InteractionNetwork, raw_e: torch.Tensor,
+                    node_lat: NodeFeats, cond: torch.Tensor) -> torch.Tensor:
+    """The receiver aggregation [N_recv, B, latent] (in the edges' dtype) of
+    `topo`'s edge-MLP messages, edges a chunk at a time."""
+    stream = self.streams[topo.name]
+    embed = (self.edge_embedders[topo.name]
+             if topo.name in self.edge_embedders else None)
+    edge_mlp = processor.edge_mlps[topo.name]
+    norm = self.aggregate_normalization
+    sender_lat = node_lat[topo.sender_set]
+    receiver_lat = node_lat[topo.receiver_set]
+    plan_send = stream.takes_plan(topo.sender_plan, sender_lat)
+    raw_chunks = raw_e.split(stream.chunk)
+
+    def message(c, raw_c, senders, received):
+      e_lat = embed(raw_c, cond) if embed is not None else raw_c
+      sent = stream.gather(senders, c, 'send', plan_send)
+      return edge_mlp(torch.cat([e_lat, sent, received], dim=-1), cond)
+
+    if stream.uniform_k is not None:
+      # Uniform receiver degree (mesh2grid's 3 senders per grid node): each
+      # chunk holds whole receivers, whose latents are a row slice broadcast
+      # edge-wise and whose sums are a dense reshape-sum finished inside the
+      # chunk: no accumulator, no scatter, the dense path's sums.
+      k = stream.uniform_k
+
+      def body_u(c, raw_c, senders, rows):
+        msg = message(c, raw_c, senders, segment.gather(rows, None, k))
+        return segment.sorted_segment_sum(
+            msg, None, rows.shape[0], f32_accumulate=self.f32_aggregation,
+            normalization=norm, uniform_k=k)
+
+      rows = receiver_lat.split(stream.chunk // k)
+      return torch.cat([
+          self._remat(lambda *a, c=c: body_u(c, *a), raw_c, sender_lat,
+                      rows[c])
+          for c, raw_c in enumerate(raw_chunks)])
+
+    # Any other degree: each chunk's messages are summed per receiver over
+    # the chunk (kernel B over the chunk's plan, or index_add_ on the CPU)
+    # and the sum added into the receivers' rows of an accumulator, chunk
+    # after chunk: a receiver whose edges straddle chunks gets its parts in
+    # chunk order.
+    plan_recv = stream.takes_plan(topo.recv_plan, receiver_lat)
+    acc_dtype = torch.float32 if self.f32_aggregation else raw_e.dtype
+    acc = raw_e.new_zeros(
+        (self.num_nodes[topo.receiver_set],) + raw_e.shape[1:-1]
+        + (self.edge_latent_size[topo.name],), dtype=acc_dtype)
+
+    def body(c, raw_c, senders, receivers):
+      msg = message(c, raw_c, senders,
+                    stream.gather(receivers, c, 'recv', plan_recv))
+      if plan_recv:
+        return segment.segment_sum_planned(
+            msg, *stream.plan(c, 'recv'), f32_accumulate=True,
+            use_kernel=self.use_kernels, out_dtype=acc_dtype)
+      lo, hi = stream.rows(c, 'recv')
+      return segment.sorted_segment_sum(
+          msg.to(acc_dtype), stream.local_ids(c, 'recv'), hi - lo)
+
+    for c, raw_c in enumerate(raw_chunks):
+      lo, hi = stream.rows(c, 'recv')
+      acc[lo:hi] += self._remat(lambda *a, c=c: body(c, *a), raw_c,
+                                sender_lat, receiver_lat)
+    if norm is not None:
+      acc = acc / norm
+    return acc.to(raw_e.dtype)
+
+
+class EdgeStream(nn.Module):
+  """The chunks of one edge set for the streamed path, built once in numpy
+  (the reference's stream_meta and stream_indices).
+
+  Chunks are consecutive runs of `chunk` edges (receiver order), the last
+  one shorter; where the receiver degree is a uniform k (and k <= the
+  requested chunk) the chunk is cut down to a multiple of k, so each chunk
+  holds whole receivers. On each side (but the receivers of a uniform
+  degree) each chunk spans a range of nodes [lo, hi) and carries, as
+  non-persistent buffers, its edges' node ids within that range and the
+  CSR plan of those ids (graph.plans): the gather over the side reads the
+  range and its backward is the planned sum, and a receiver sum is the
+  planned sum, so neither direction scatters on the card.
+  """
+
+  def __init__(self, topo: EdgeTopology, num_nodes: Mapping[str, int],
+               edge_chunk_size: int):
+    super().__init__()
+    e = topo.num_edges
+    k = plans.uniform_degree(topo.receivers, num_nodes[topo.receiver_set])
+    chunk = edge_chunk_size
+    if k is not None and chunk >= k:
+      chunk -= chunk % k
+    else:
+      k = None
+    self.chunk = chunk
+    self.uniform_k = k
+    self.num_chunks = -(-e // chunk)
+    self._rows = {}
+    sides = [('send', topo.senders)]
+    if k is None:
+      sides.append(('recv', topo.receivers))
+    for side, ids in sides:
+      for c in range(self.num_chunks):
+        chunk_ids = np.asarray(ids[c * chunk:(c + 1) * chunk], np.int64)
+        lo, hi = int(chunk_ids.min()), int(chunk_ids.max()) + 1
+        self._rows[(c, side)] = (lo, hi)
+        plan = plans.build_agg_plan(chunk_ids - lo, hi - lo)
+        self._buffer(f'{side}{c}_ids', chunk_ids - lo, torch.long)
+        self._buffer(f'{side}{c}_row_ptr', plan.row_ptr, torch.int32)
+        self._buffer(f'{side}{c}_perm', plan.perm, torch.int32)
+
+  def _buffer(self, name: str, array: Optional[np.ndarray], dtype) -> None:
+    tensor = None if array is None else torch.as_tensor(array, dtype=dtype)
+    self.register_buffer(name, tensor, persistent=False)
+
+  def rows(self, c: int, side: str) -> Tuple[int, int]:
+    """[lo, hi): the node range chunk `c` reaches on `side`."""
+    return self._rows[(c, side)]
+
+  def local_ids(self, c: int, side: str) -> torch.Tensor:
+    """Chunk `c`'s node ids on `side`, less the range's start."""
+    return getattr(self, f'{side}{c}_ids')
+
+  def plan(self, c: int, side: str
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(row_ptr, perm) of chunk `c`'s plan on `side`, over its range."""
+    return (getattr(self, f'{side}{c}_row_ptr'),
+            getattr(self, f'{side}{c}_perm'))
+
+  @staticmethod
+  def takes_plan(topo_plan: Optional[plans.AggPlan], x: torch.Tensor) -> bool:
+    """Whether a side goes through the chunks' plans for a tensor like `x`:
+    where the topology planned the side (the reference's choice) or where
+    the plain path would add atomically (the card)."""
+    return topo_plan is not None or segment.adds_atomically(x)
+
+  def gather(self, nodes: torch.Tensor, c: int, side: str,
+             planned: bool) -> torch.Tensor:
+    """nodes[ids of chunk c on `side`], read from the chunk's node range:
+    with `planned` through `gather_planned` (its backward the planned sum
+    over the range), else index_select."""
+    lo, hi = self.rows(c, side)
+    if planned:
+      return segment.gather_planned(nodes[lo:hi], self.local_ids(c, side),
+                                    *self.plan(c, side))
+    return segment.gather(nodes[lo:hi], self.local_ids(c, side))

@@ -183,8 +183,11 @@ def segment_sum_planned(data: torch.Tensor, row_ptr: torch.Tensor,
                         perm: Optional[torch.Tensor],
                         f32_accumulate: bool = False,
                         normalization: Optional[float] = None,
-                        use_kernel: bool = True) -> torch.Tensor:
-  """Planned segment sum of [E, B, C] data -> [N, B, C].
+                        use_kernel: bool = True,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+  """Planned segment sum of [E, B, C] data -> [N, B, C] in `out_dtype`
+  (default data's).
 
   use_kernel=False takes the plain version on any device (the reference
   path for comparisons on the card). Both sum in float32, as the
@@ -192,7 +195,9 @@ def segment_sum_planned(data: torch.Tensor, row_ptr: torch.Tensor,
   normalization; without it the sum is rounded to data's dtype first (the
   reference's kernel writes data's dtype). The kernel reads bf16 data
   itself, so on the card no float32 copy of the edges is made; the plain
-  version sums the float32 upcast, the same values.
+  version sums the float32 upcast, the same values. out_dtype=float32
+  with f32_accumulate returns the float32 sums unrounded (the streamed
+  GNN path adds them into a float32 accumulator).
   """
   e = data.shape[0]
   rest = data.shape[1:]
@@ -205,7 +210,7 @@ def segment_sum_planned(data: torch.Tensor, row_ptr: torch.Tensor,
     out = out.to(dtype)
   if normalization is not None:
     out = out / normalization
-  return out.to(dtype).reshape((row_ptr.shape[0] - 1,) + rest)
+  return out.to(out_dtype or dtype).reshape((row_ptr.shape[0] - 1,) + rest)
 
 
 class _GatherPlanned(torch.autograd.Function):

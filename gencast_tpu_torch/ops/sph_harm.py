@@ -1,10 +1,13 @@
 """Real spherical harmonics on lat/lon grids: isotropic noise on the sphere.
 
-Counterpart of `gencast_tpu.ops.sph_harm` for float32 bases. The Legendre
-table is built in numpy (float64 recursion, stored float32; at 1 degree
-max_l = 179 and the table is [180, 180, 181], 23 MB). Synthesis is two
-dense contractions, Legendre over total wavenumber l, then Fourier over
-zonal wavenumber m, which stay plain torch.einsum products.
+Counterpart of `gencast_tpu.ops.sph_harm`. The Legendre table is built in
+numpy (float64 recursion; at 1 degree max_l = 179 and the float32 table is
+[180, 180, 181], 23 MB) or, for a large table stored in bf16 (0.25
+degrees: max_l = 719, [720, 720, 721], 747 MB in bf16 where the float64
+table is 3 GB of host work), by a scaled float32 recursion on the device
+(`legendre_table_device`). Synthesis is two dense contractions, Legendre
+over total wavenumber l, then Fourier over zonal wavenumber m, plain
+torch.einsum products that sum in float32 whatever the basis dtype.
 
 Conventions (as the reference): orthonormal real spherical harmonics
   Y_{l0}        = Q_{l0}(x)
@@ -17,11 +20,24 @@ give noise of pointwise variance sum_l power_l and rotation-invariant law.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+# Tables at or above this max_l stored in a dtype narrower than 4 bytes are
+# computed on the device (`legendre_table_device`), as in the reference:
+# the float32 recursion drifts ~1.5e-3 of the table's largest value at
+# L = 719, under bf16's rounding, so float32 bases keep the float64 host
+# table at any size. GENCAST_SH_DEVICE_TABLE=0/1 forces the choice; it is
+# read by `basis_for_grid`, so it is part of the basis cache's key.
+_DEVICE_TABLE_MIN_L = 256
+# Zonal wavenumbers per float32 slice of a narrower Legendre table in
+# `synthesize`: the transient float32 copy stays [L+1, 64, lat].
+_SYNTH_M_SLICE = 64
 
 
 def legendre_table(x: np.ndarray, max_l: int) -> np.ndarray:
@@ -59,39 +75,166 @@ def legendre_table(x: np.ndarray, max_l: int) -> np.ndarray:
   return p
 
 
+def legendre_table_device(x: np.ndarray, max_l: int, dtype: torch.dtype,
+                          device: torch.device | str = 'cpu'
+                          ) -> torch.Tensor:
+  """`legendre_table` computed by a scaled float32 recursion on `device`,
+  returned in `dtype` (the reference's `legendre_table_device`).
+
+  The plain float32 recursion underflows: the diagonal seed Q_mm ~ s^m
+  (s = sin theta) reaches 1e-39 near the poles long before l brings the
+  values back to O(1). So it recurses on u_lm = Q_lm / s^m, whose seeds
+  c_m are O(m^(1/4)), carrying a power-of-two exponent per (m, lat) that
+  is renormalized whenever |u| leaves [2^-64, 2^64]; s^m and the exponent
+  are applied in exponent space when a row is emitted. Each step of the
+  loop over l is a few elementwise ops on [L+1, lat] and emits its
+  finished row, so the float32 working set is three rows. Powers of two
+  are applied as two half-exponent factors, so that no factor is
+  subnormal where the product is not.
+
+  Accuracy against the float64 table (max abs error / table max): 2.4e-4
+  at L = 300, 1.5e-3 at L = 719, below bf16's rounding of the stored table.
+  """
+  dev = torch.device(device)
+  f32 = torch.float32
+  lmax = max_l
+  x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+  nx = x.shape[0]
+  s = torch.sqrt(torch.clamp(1.0 - x * x, min=0.0))
+
+  # Scaled diagonal seeds c_m = Q_mm / s^m (a cumulative product of O(1)
+  # factors).
+  mf = torch.arange(1, lmax + 1, dtype=f32, device=dev)[:, None]
+  d0 = torch.full((1, nx), 1.0 / math.sqrt(4.0 * math.pi), dtype=f32,
+                  device=dev)
+  c = torch.cat([d0, d0 * torch.cumprod(
+      (-torch.sqrt((2.0 * mf + 1.0) / (2.0 * mf))).expand(lmax, nx),
+      dim=0)], dim=0)
+
+  m_idx = torch.arange(lmax + 1, dtype=f32, device=dev)
+  # log2(s^m), with the m = 0 column pinned to 0 (0 * log2(0) is nan).
+  pole = torch.where(
+      m_idx[:, None] > 0,
+      m_idx[:, None] * torch.log2(torch.clamp(s, min=1e-30))[None, :],
+      torch.zeros((), dtype=f32, device=dev))
+  # The sqrt(2) real-harmonic fold for m >= 1.
+  fold = torch.where(m_idx > 0, math.sqrt(2.0), 1.0)[:, None].to(f32)
+
+  out = torch.empty((lmax + 1, lmax + 1, nx), dtype=dtype, device=dev)
+
+  def emit(l, u, e):
+    # Q = u * 2^(e + m log2 s), as (u * f) * f with f = 2^((e + ...) / 2).
+    f = torch.exp2((e + pole) * 0.5)
+    out[l] = (u * f * f * fold).to(dtype)
+
+  row0 = torch.zeros((lmax + 1, nx), dtype=f32, device=dev)
+  row0[0] = d0[0]
+  e = torch.zeros_like(row0)
+  emit(0, row0, e)
+  u1, u2 = row0, torch.zeros_like(row0)
+  for l in range(1, lmax + 1):
+    # The coefficients in float32, as the reference computes them.
+    lf = torch.tensor(float(l), dtype=f32, device=dev)
+    # The three-term upward recursion; b vanishes at m = l - 1, so the first
+    # off-diagonal needs no case of its own. Columns m >= l are masked (a
+    # is nan there).
+    a = torch.sqrt((4.0 * lf * lf - 1.0) / (lf * lf - m_idx * m_idx))
+    b = torch.sqrt(((lf - 1.0) ** 2 - m_idx * m_idx)
+                   / (4.0 * (lf - 1.0) ** 2 - 1.0))
+    u = a[:, None] * (x[None, :] * u1 - b[:, None] * u2)
+    u = torch.where((m_idx < lf)[:, None], u, 0.0)
+    u[l] = c[l]
+    # Joint renormalization of (u, u1) keeping |u| in [2^-64, 2^64];
+    # columns still exactly zero (not reached yet) are left alone.
+    mx = torch.maximum(u.abs(), u1.abs())
+    shift = torch.where((mx > 0.0) & (mx < 2.0 ** -64), 128.0,
+                        torch.where(mx > 2.0 ** 64, -128.0, 0.0))
+    half = torch.exp2(shift * 0.5)
+    emit(l, u, e)
+    u2, u1, e = u1 * half * half, u * half * half, e - shift
+  return out
+
+
 @dataclasses.dataclass(frozen=True)
 class SphericalHarmonicBasis:
-  """Synthesis operators for a fixed lat/lon grid (numpy, float32).
+  """Synthesis operators for a fixed lat/lon grid, on one device.
 
   legendre: [L+1, L+1, num_lat]  (l, m, lat)
   fourier:  [2, L+1, num_lon]    (cos(m phi), sin(m phi))
+  both in the basis dtype.
   """
-  legendre: np.ndarray
-  fourier: np.ndarray
+  legendre: torch.Tensor
+  fourier: torch.Tensor
   max_l: int
 
 
-def basis_for_grid(lat_deg: Sequence[float], lon_deg: Sequence[float],
-                   max_l: int | None = None) -> SphericalHarmonicBasis:
-  """Basis resolving wavenumbers up to max_l (default num_lon // 2 - 1, the
-  most the grid resolves, as the reference)."""
-  lat = np.asarray(lat_deg, dtype=np.float64)
-  lon = np.asarray(lon_deg, dtype=np.float64)
-  if max_l is None:
-    max_l = len(lon) // 2 - 1
-  leg = legendre_table(np.sin(np.deg2rad(lat)), max_l)
-  phi = np.deg2rad(lon)
+@functools.lru_cache(maxsize=4)
+def _basis_cached(lat_key: Tuple[float, ...], lon_key: Tuple[float, ...],
+                  max_l: int, dtype: torch.dtype, on_device: bool,
+                  device: torch.device) -> SphericalHarmonicBasis:
+  x = np.sin(np.deg2rad(np.asarray(lat_key)))
+  if on_device:
+    leg = legendre_table_device(x, max_l, dtype, device)
+  else:
+    leg = torch.as_tensor(legendre_table(x, max_l)).to(device, dtype)
+  phi = np.deg2rad(np.asarray(lon_key))
   m = np.arange(max_l + 1)[:, None]
   four = np.stack([np.cos(m * phi[None]), np.sin(m * phi[None])])
-  return SphericalHarmonicBasis(legendre=leg.astype(np.float32),
-                                fourier=four.astype(np.float32), max_l=max_l)
+  return SphericalHarmonicBasis(
+      legendre=leg, fourier=torch.as_tensor(four).to(device, dtype),
+      max_l=max_l)
+
+
+def basis_for_grid(lat_deg: Sequence[float], lon_deg: Sequence[float],
+                   max_l: int | None = None, dtype=torch.float32,
+                   device: torch.device | str = 'cpu'
+                   ) -> SphericalHarmonicBasis:
+  """Basis resolving wavenumbers up to max_l (default num_lon // 2 - 1, the
+  most the grid resolves, as the reference), stored in `dtype` on
+  `device`. The Legendre table comes from the device recursion when
+  max_l >= 256 and `dtype` is narrower than 4 bytes (or as
+  GENCAST_SH_DEVICE_TABLE=0/1 says), else from the float64 host table.
+  Bases are cached by their arguments and the switch (the models of one
+  grid share their tensors, which nothing writes)."""
+  lat = tuple(float(v) for v in lat_deg)
+  lon = tuple(float(v) for v in lon_deg)
+  if max_l is None:
+    max_l = len(lon) // 2 - 1
+  env = os.environ.get('GENCAST_SH_DEVICE_TABLE')
+  if env is not None:
+    on_device = bool(int(env))
+  else:
+    on_device = (max_l >= _DEVICE_TABLE_MIN_L
+                 and torch.finfo(dtype).bits < 32)
+  device = torch.device(device)
+  if device.type == 'cuda' and device.index is None:
+    # 'cuda' and 'cuda:0' name one card: one cache entry.
+    device = torch.device('cuda', torch.cuda.current_device())
+  return _basis_cached(lat, lon, max_l, dtype, on_device, device)
 
 
 def synthesize(coeffs: torch.Tensor, legendre: torch.Tensor,
                fourier: torch.Tensor) -> torch.Tensor:
-  """Inverse transform: [..., 2, L+1, L+1] (s=cos/sin, l, m) -> [..., lat, lon]."""
-  g = torch.einsum('...slm,lmj->...smj', coeffs, legendre)
-  return torch.einsum('...smj,smi->...ji', g, fourier)
+  """Inverse transform: [..., 2, L+1, L+1] (s=cos/sin, l, m) -> [..., lat, lon].
+
+  With a basis narrower than the coefficients (bf16), as the reference: the
+  coefficients are rounded to the basis dtype, each contraction sums in
+  float32 and its result is rounded to the basis dtype before the next; the
+  output has the coefficients' dtype. The table is widened to float32 a
+  slice of zonal wavenumbers at a time, so no float32 copy of it is made.
+  """
+  bt = legendre.dtype
+  if bt == coeffs.dtype:
+    g = torch.einsum('...slm,lmj->...smj', coeffs, legendre)
+    return torch.einsum('...smj,smi->...ji', g, fourier)
+  c = coeffs.to(bt).float()
+  n_m = legendre.shape[1]
+  g = torch.cat([
+      torch.einsum('...slm,lmj->...smj', c[..., lo:lo + _SYNTH_M_SLICE],
+                   legendre[:, lo:lo + _SYNTH_M_SLICE].float())
+      for lo in range(0, n_m, _SYNTH_M_SLICE)], dim=-2)
+  out = torch.einsum('...smj,smi->...ji', g.to(bt).float(), fourier.float())
+  return out.to(coeffs.dtype)
 
 
 def unit_white_noise(generator: torch.Generator, batch_shape: Tuple[int, ...],

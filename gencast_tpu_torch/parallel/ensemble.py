@@ -37,7 +37,9 @@ def ensemble_rollout(model: nn.Module,
                      keys: Optional[Sequence[torch.Generator]] = None,
                      noise: Optional[Sequence] = None,
                      member_chunk: Optional[int] = None,
-                     jit: bool = True) -> torch.Tensor:
+                     jit: bool = True,
+                     chunk_size: Optional[int] = None,
+                     overlap_offload: bool = True) -> torch.Tensor:
   """A K-step sampled ensemble forecast, on the host:
   [M, K, B, lat, lon, C_tgt].
 
@@ -49,7 +51,11 @@ def ensemble_rollout(model: nn.Module,
   `member_chunk` finished members (default 1) is copied to the host before
   the next begins (the reference's --member_chunk); the grouping does not
   change a member's forecast. `jit` goes to `rollout.sample_rollout`: on
-  the card, True replays each denoiser call from a CUDA graph.
+  the card, True replays each denoiser call from a CUDA graph. With
+  `chunk_size`, each member's rollout runs through
+  `rollout.chunked_rollout` (its steps `chunk_size` at a time, moved to the
+  host as they end, with `overlap_offload`): the same forecast, with at
+  most a chunk of steps on the device.
   """
   if noise is not None:
     draws = [{'noise': member_noise} for member_noise in noise]
@@ -63,13 +69,21 @@ def ensemble_rollout(model: nn.Module,
   chunk = member_chunk or 1
   if chunk < 1:
     raise ValueError(f'member_chunk must be positive, got {member_chunk}')
+  if chunk_size is not None:
+    def member(draw):
+      return rollout_lib.chunked_rollout(
+          model, inputs, forcings, draw.get('generator'),
+          noise=draw.get('noise'), chunk_size=chunk_size,
+          teacher_targets=teacher_targets, overlap_offload=overlap_offload,
+          jit=jit)
+  else:
+    def member(draw):
+      return rollout_lib.sample_rollout(
+          model, inputs, forcings, teacher_targets=teacher_targets, jit=jit,
+          **draw)
   out = None
   for lo in range(0, len(draws), chunk):
-    group = torch.stack([
-        rollout_lib.sample_rollout(model, inputs, forcings,
-                                   teacher_targets=teacher_targets, jit=jit,
-                                   **draw)
-        for draw in draws[lo:lo + chunk]])
+    group = torch.stack([member(draw) for draw in draws[lo:lo + chunk]])
     if out is None:
       out = torch.empty((len(draws),) + group.shape[1:], dtype=group.dtype)
     out[lo:lo + group.shape[0]].copy_(group)

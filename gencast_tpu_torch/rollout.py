@@ -1,11 +1,13 @@
 """Autoregressive forecast rollouts.
 
 Counterpart of `gencast_tpu.rollout` (`advance_inputs`, `rollout`,
-`sample_rollout`). The reference's `lax.scan` over forecast steps is a
-Python loop here (on the card each denoiser call replays a CUDA graph); the input window advances on the device by one channel
-gather per step. The reference splits one key into per-step keys; here the
-caller gives either one `torch.Generator`, drawn from step after step, or
-each step's precomputed noise fields (as `GenCast.sample` takes them).
+`sample_rollout`, and `chunked_rollout` in its 'sample' mode). The
+reference's `lax.scan` over forecast steps is a Python loop here (on the
+card each denoiser call replays a CUDA graph); the input window advances on
+the device by one channel gather per step. The reference splits one key
+into per-step keys; here the caller gives either one `torch.Generator`,
+drawn from step after step, or each step's precomputed noise fields (as
+`GenCast.sample` takes them).
 """
 
 from __future__ import annotations
@@ -56,9 +58,11 @@ def rollout(predict_fn: PredictFn,
             inputs: torch.Tensor,      # [B, lat, lon, C_in]
             forcings: torch.Tensor,    # [K, B, lat, lon, C_frc]
             maps: layout_lib.RolloutMaps,
-            teacher_targets: Optional[torch.Tensor] = None  # [K, B, ...]
-            ) -> torch.Tensor:
-  """K autoregressive steps; returns predictions [K, B, lat, lon, C_tgt].
+            teacher_targets: Optional[torch.Tensor] = None,  # [K, B, ...]
+            return_final_inputs: bool = False):
+  """K autoregressive steps; returns predictions [K, B, lat, lon, C_tgt],
+  and with return_final_inputs also the window after the last step (the
+  inputs of a step K + 1).
 
   With teacher_targets, the window advances with the ground truth instead
   of the model's own predictions (teacher forcing, as in the reference's
@@ -76,6 +80,8 @@ def rollout(predict_fn: PredictFn,
     truth = preds if teacher_targets is None else teacher_targets[step]
     carry = _advance(carry, truth, forcings[step], index)
     predictions.append(preds)
+  if return_final_inputs:
+    return torch.stack(predictions), carry
   return torch.stack(predictions)
 
 
@@ -86,7 +92,7 @@ def sample_rollout(model: nn.Module,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
                    teacher_targets: Optional[torch.Tensor] = None,
-                   jit: bool = True) -> torch.Tensor:
+                   jit: bool = True, return_final_inputs: bool = False):
   """Diffusion-sampled autoregressive rollout of a (wrapped) GenCast model.
 
   `model` exposes .sample(inputs, forcings, generator, noise=...) in raw
@@ -99,7 +105,8 @@ def sample_rollout(model: nn.Module,
 
   `jit` is the reference's flag: on the card, True replays each denoiser
   call from the model's CUDA graph (`GenCast.sample`), False runs every
-  call eagerly; on the CPU both run eagerly.
+  call eagerly; on the CPU both run eagerly. return_final_inputs also
+  returns the window after the last step (see `rollout`).
   """
   if (generator is None) == (noise is None):
     raise ValueError('sample_rollout needs a generator or per-step noise')
@@ -115,4 +122,75 @@ def sample_rollout(model: nn.Module,
       return model.sample(x, frc, generator, graphed=jit)
     return model.sample(x, frc, noise=noise[step], graphed=jit)
 
-  return rollout(predict, inputs, forcings, maps, teacher_targets)
+  return rollout(predict, inputs, forcings, maps, teacher_targets,
+                 return_final_inputs=return_final_inputs)
+
+
+@torch.no_grad()
+def chunked_rollout(model: nn.Module,
+                    inputs: torch.Tensor,    # [B, lat, lon, C_in]
+                    forcings: torch.Tensor,  # [K, B, lat, lon, C_frc]
+                    generator: Optional[torch.Generator] = None,
+                    *,
+                    chunk_size: int,
+                    noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+                    mode: str = 'sample',
+                    teacher_targets: Optional[torch.Tensor] = None,
+                    overlap_offload: bool = True,
+                    jit: bool = True) -> torch.Tensor:
+  """A long sampled rollout in chunks of `chunk_size` steps, each chunk's
+  predictions moved to the host (the reference's chunked_rollout, mode
+  'sample'): the device holds the input window and one or two chunks of
+  predictions, never all K steps (a 30-step 0.25-degree forecast is
+  10 GB in float32). Returns host [K, B, lat, lon, C_tgt], bitwise the
+  unchunked `sample_rollout`'s for any chunk_size: the draws are the
+  generator's stream (or `noise`, per step), consumed step after step.
+
+  overlap_offload copies chunk c - 1's predictions to pinned host memory
+  on a side stream while chunk c computes; False copies each chunk before
+  the next starts. The last chunk runs only the steps left: the reference
+  pads it so every chunk has one compiled shape, and the port's CUDA
+  graphs are per denoiser call, which a shorter chunk does not change.
+  """
+  if mode != 'sample':
+    raise ValueError(f"chunked_rollout: mode {mode!r} is not ported; "
+                     "'predict' comes with GraphCast (ROADMAP.md, \"Still "
+                     'to port": GraphCast)')
+  if chunk_size < 1:
+    raise ValueError(f'chunk_size must be positive, got {chunk_size}')
+  num_steps = forcings.shape[0]
+  side = (torch.cuda.Stream(inputs.device)
+          if overlap_offload and inputs.is_cuda else None)
+  out = None
+  pending = None  # (device predictions, copy-done event) of the last chunk
+  window = inputs
+  for lo in range(0, num_steps, chunk_size):
+    sl = slice(lo, min(lo + chunk_size, num_steps))
+    preds, window = sample_rollout(
+        model, window, forcings[sl], generator,
+        noise=None if noise is None else noise[sl],
+        teacher_targets=(None if teacher_targets is None
+                         else teacher_targets[sl]),
+        jit=jit, return_final_inputs=True)
+    if out is None:
+      out = torch.empty((num_steps,) + preds.shape[1:], dtype=preds.dtype,
+                        pin_memory=side is not None)
+    if side is None:
+      out[sl].copy_(preds)
+      continue
+    # The copy waits for this chunk on the side stream; the next chunk's
+    # work is queued on the compute stream meanwhile.
+    side.wait_stream(torch.cuda.current_stream(inputs.device))
+    with torch.cuda.stream(side):
+      out[sl].copy_(preds, non_blocking=True)
+      done = torch.cuda.Event()
+      done.record(side)
+    # The caching allocator must not hand preds' memory to the compute
+    # stream before the side stream has read it.
+    preds.record_stream(side)
+    if pending is not None:
+      pending.synchronize()
+    pending = done
+  if pending is not None:
+    pending.synchronize()
+  return out

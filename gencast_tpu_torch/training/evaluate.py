@@ -6,7 +6,9 @@ CLI, restores the newest checkpoint of `--ckpt_dir` (parameters only; the
 bf16 serving copy is refreshed from them), samples a `--num_members`
 ensemble over `--max_rollout_steps` 12-hour steps (free-running, or
 teacher-forced; each `--member_chunk` members, default 1, move to the host
-as they end), and writes `metrics.json` (per-variable RMSE of the
+as they end; with `--chunk_size N` each member's steps run N at a time
+through `rollout.chunked_rollout`, as the 0.25-degree model needs), and
+writes `metrics.json` (per-variable RMSE of the
 ensemble mean; CRPS and spread with more than one member, the reference's
 keys) and `rollout.npz` (predictions [M, K, lat, lon, C], truth, lat,
 lon), plus a triptych PNG and a GIF per `--plot_vars` name (matplotlib).
@@ -16,6 +18,11 @@ Example (1-degree, two members, two steps, from a training checkpoint):
   python -m gencast_tpu_torch.training.evaluate --preset 1deg \
       --ckpt_dir /path/to/ckpt --num_members 2 --max_rollout_steps 2 \
       --clean_sst_nans --out_dir /path/to/eval
+
+  # 0.25 degree (the paper's model), one member, steps one at a time:
+  python -m gencast_tpu_torch.training.evaluate --preset 0.25deg \
+      --clean_sst_nans --num_members 1 --max_rollout_steps 2 \
+      --chunk_size 1 --plot_vars --out_dir /path/to/eval
 """
 
 from __future__ import annotations
@@ -34,9 +41,7 @@ from gencast_tpu_torch.training import train
 
 # Options of the reference's CLI that the port does not take yet, with the
 # ROADMAP.md item ("Still to port") that brings them.
-_LATER_OPTIONS = {'chunk_size': '0.25 degree',
-                  'no_overlap_offload': '0.25 degree',
-                  'save_netcdf': 'CLIs and data'}
+_LATER_OPTIONS = {'save_netcdf': 'CLIs and data'}
 
 
 @dataclasses.dataclass
@@ -60,17 +65,23 @@ def parse_args(argv=None):
   p.add_argument('--teacher_forcing', action='store_true')
   p.add_argument('--plot_vars', nargs='*', default=['2m_temperature'])
   p.add_argument('--chunk_size', type=int, default=None,
-                 help='not ported yet (0.25 degree)')
+                 help='roll each member out this many steps at a time, '
+                      'moving each chunk of predictions to the host '
+                      '(rollout.chunked_rollout; the same forecast, at most '
+                      'a chunk of steps on the card: use it at 0.25deg)')
   p.add_argument('--member_chunk', type=int, default=None,
                  help='run ensemble members in groups of this size, moving '
                       'each group to the host as it ends (default 1; the '
                       'grouping does not change a member)')
   p.add_argument('--no_overlap_offload', action='store_true',
-                 help='not ported yet (0.25 degree)')
+                 help='with --chunk_size, copy each chunk to the host before '
+                      'the next starts (default: while the next computes)')
   p.add_argument('--save_netcdf', action='store_true',
                  help='not ported yet (the ERA5 data path)')
   args = p.parse_args(argv)
   train.check_model_flags(p, args)
+  if args.chunk_size is not None and args.chunk_size < 1:
+    p.error(f'--chunk_size must be positive, got {args.chunk_size}')
   for option, item in _LATER_OPTIONS.items():
     if getattr(args, option):
       train.later(p, f'--{option}', item)
@@ -131,7 +142,8 @@ def main(argv=None) -> EvalRun:
   preds = ensemble_lib.ensemble_rollout(
       wrapped, inputs, forcings, seed=args.seed,
       num_members=args.num_members, teacher_targets=teacher,
-      member_chunk=args.member_chunk)
+      member_chunk=args.member_chunk, chunk_size=args.chunk_size,
+      overlap_offload=not args.no_overlap_offload)
   preds = preds[:, :, 0].numpy()                       # [M, K, lat, lon, C]
   ens_mean = preds.mean(axis=0)
 

@@ -1,7 +1,7 @@
 """Where the device time of a training step or a denoiser call goes, on
 one card.
 
-    python -m gencast_tpu_torch.training.profile_step [--preset 1deg] \
+    python -m gencast_tpu_torch.training.profile_step [--preset 0.25deg] \
         [--mode train|denoise|sample] [--steps 3] [--steps_per_call K] \
         [--trace PATH]
 
@@ -21,7 +21,8 @@ and profiled), device time per step, the device's busy share of the
 profiled window (device activity over wall time; the work runs on one
 stream) and of the unprofiled wall, the device time of each of the port's
 kernels and of the other kernel families, and the ten costliest
-kernels. `--trace` writes the profiler's Chrome trace. With
+kernels, and the peak of allocated device memory. `--trace` writes the
+profiler's Chrome trace. With
 GENCAST_SPARSE_FUSED_BWD=1 in the environment the 1-degree step runs the
 fused attention backward (kernel G and its dq reduce) instead of kernel F.
 """
@@ -63,7 +64,8 @@ def _family(name: str) -> str:
 
 def main(argv=None) -> None:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  p.add_argument('--preset', default='1deg', help='tiny, nano or 1deg')
+  p.add_argument('--preset', default='1deg',
+                 help='tiny, nano, 1deg or 0.25deg')
   p.add_argument('--mode', default='train',
                  choices=('train', 'denoise', 'sample'))
   p.add_argument('--steps', type=int, default=3)
@@ -71,15 +73,20 @@ def main(argv=None) -> None:
                  help='train mode: K > 1 profiles fused steps, K per call')
   p.add_argument('--trace', default=None,
                  help='write the Chrome trace of the profiled steps here')
+  p.add_argument('--stats_path', default=None,
+                 help="the training CLI's --stats_path: an npz of "
+                      'normalization stats, loaded when it exists, else '
+                      'computed from the data and written there')
   args = p.parse_args(argv)
   if not torch.cuda.is_available():
     raise SystemExit('profile_step: needs a CUDA card')
   from gencast_tpu_torch.training import steps as steps_lib
   from gencast_tpu_torch.training import train
 
-  targs = train.parse_args(['--preset', args.preset, '--data', 'synthetic',
-                            '--clean_sst_nans',
-                            '--steps', str(args.steps + 1)])
+  targs = train.parse_args(
+      ['--preset', args.preset, '--data', 'synthetic', '--clean_sst_nans',
+       '--steps', str(args.steps + 1)]
+      + (['--stats_path', args.stats_path] if args.stats_path else []))
   run = train.setup(targs)
   wrapped, optimizer, device = run.wrapped, run.optimizer, run.device
   generator = train.step_generator(targs.seed, 0, device)
@@ -116,6 +123,7 @@ def main(argv=None) -> None:
       wrapped(batch['inputs'], batch['targets'], sigma, batch['forcings'])
 
   # Warm-up: builds the kernels, settles the allocator, captures the graph.
+  torch.cuda.reset_peak_memory_stats(device)
   step(batches[0])
   profiled = batches[1:1 + args.steps // k_call]
   torch.cuda.synchronize()
@@ -167,6 +175,9 @@ def main(argv=None) -> None:
         f'(host clock), {device_ms / n:.2f} ms of device time each, device '
         f'busy {100 * device_ms / (1e3 * wall):.1f}% of the profiled window, '
         f'{100 * device_ms / (1e3 * unprofiled):.1f}% of the unprofiled wall')
+  print(f'[profile] peak allocated device memory '
+        f'{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB (the '
+        f'model, its optimizer state, {len(batches)} batches and the steps)')
   print(f'[profile] per {what}: family, device ms, share, launches')
   for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
     print(f'[profile]   {fam}: {ms / n:.3f} ms, {100 * ms / device_ms:.1f}%, '

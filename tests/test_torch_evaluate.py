@@ -65,9 +65,7 @@ def test_evaluate_restores_the_checkpoint(evaluated):
 
 
 @pytest.mark.parametrize('argv,match', [
-    (['--chunk_size', '2'], '0.25 degree'),
     (['--attention_type', 'dense'], 'other attention backends'),
-    (['--no_overlap_offload'], '0.25 degree'),
     (['--save_netcdf'], 'CLIs and data'),
     (['--model', 'graphcast'], 'GraphCast'),
 ])
@@ -75,6 +73,39 @@ def test_evaluate_refuses_what_is_not_ported(argv, match, capsys):
   with pytest.raises(SystemExit):
     evaluate.parse_args(['--preset', 'tiny'] + argv)
   assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize('argv,overlap', [
+    (['--chunk_size', '1'], True),
+    (['--chunk_size', '1', '--no_overlap_offload'], False),
+])
+def test_evaluate_takes_the_chunked_rollout_options(evaluated, argv, overlap,
+                                                    tmp_path, monkeypatch):
+  """--chunk_size (and --no_overlap_offload), refused until the 0.25-degree
+  slice, parse and reach the rollout: each member's steps go through
+  rollout.chunked_rollout, with the offload the flags ask for, and the
+  predictions and scores are the unchunked run's."""
+  from gencast_tpu_torch import rollout
+  run, ckpt, _ = evaluated
+  args = evaluate.parse_args(['--preset', 'tiny'] + argv)
+  assert (args.chunk_size, args.no_overlap_offload) == (1, not overlap)
+  seen = []
+  chunked = rollout.chunked_rollout
+
+  def spy(*a, **kwargs):
+    seen.append((kwargs['chunk_size'], kwargs['overlap_offload']))
+    return chunked(*a, **kwargs)
+
+  monkeypatch.setattr(rollout, 'chunked_rollout', spy)
+  again = evaluate.main(['--preset', 'tiny', '--device', 'cpu', '--ckpt_dir',
+                         ckpt, '--num_members', str(MEMBERS),
+                         '--max_rollout_steps', str(STEPS), '--out_dir',
+                         str(tmp_path), '--plot_vars'] + argv)
+  assert seen == [(1, overlap)] * MEMBERS
+  np.testing.assert_array_equal(again.predictions, run.predictions)
+  assert again.results == run.results
+  with pytest.raises(SystemExit):
+    evaluate.parse_args(['--preset', 'tiny', '--chunk_size', '0'])
 
 
 @pytest.mark.parametrize('member_chunk', [1, 2])

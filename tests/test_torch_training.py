@@ -293,7 +293,7 @@ def test_train_cli_tiny_on_cpu():
   assert len(run.step_seconds) == 3
 
 
-@pytest.mark.parametrize('preset', ['nano', 'tiny'])
+@pytest.mark.parametrize('preset', ['nano', 'tiny', '0.25deg'])
 def test_train_cli_needs_the_card_unless_told(preset, monkeypatch):
   """The CLI runs on the card by default: without one it raises before
   building anything, and never carries on on the CPU."""
@@ -304,10 +304,24 @@ def test_train_cli_needs_the_card_unless_told(preset, monkeypatch):
 
 @pytest.mark.parametrize('argv,match', [
     (['--preset', 'graphcast'], 'unknown --preset'),
-    (['--preset', '0.25deg'], '0.25 degree'),
     (['--data', '/some/era5'], 'ERA5'),
 ])
 def test_train_cli_rejects_what_is_not_ported(argv, match, capsys):
   with pytest.raises(SystemExit):
     train.parse_args(['--preset', 'tiny'] + argv)
   assert match in capsys.readouterr().err
+
+
+def test_train_cli_takes_the_quarter_degree_preset():
+  """--preset 0.25deg, refused until the 0.25-degree slice, parses to
+  QUARTER_DEG with its memory fields, the architecture overrides apply to
+  it, and the fused path's pool is allowed."""
+  args = train.parse_args(['--preset', '0.25deg', '--steps_per_call', '2',
+                           '--pool_size', '2'])
+  spec = train.build_spec(args)
+  assert spec is configs.QUARTER_DEG
+  assert (spec.edge_chunk_size, spec.remat_gnns, spec.noise_basis_dtype) == (
+      128 * 1024, True, 'bfloat16')
+  small = train.build_spec(train.parse_args(['--preset', '0.25deg',
+                                             '--num_layers', '2']))
+  assert small.num_layers == 2 and small.edge_chunk_size == 128 * 1024
