@@ -3,7 +3,8 @@ GenCast, served and trained, the 1-degree train, resume and evaluate
 path with the fused attention backward, the CUDA-graph replays of the
 denoiser call and of the training step against their eager runs, and the
 paper-scale 0.25-degree GenCast (QUARTER_DEG: streamed-edge GNNs, GNN
-remat, a bf16 noise basis) served, trained and evaluated.
+remat, a bf16 noise basis) served, trained and evaluated, and nano and
+1-degree GenCast trained and evaluated from ERA5-format directories.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -123,7 +124,10 @@ Phases (any failure raises and exits non-zero):
      [1, 41024, 4, 128] on the 0.25-degree plan and at the ragged 40,962;
      B on the receiver and sender plans of the grid2mesh chunk with the
      longest receiver row; E at every shape the 0.25-degree training step
-     gives it (edge chunks, grid-node chunks, the mesh, the transformer);
+     gives it (edge chunks, grid-node chunks, the mesh, the transformer),
+     and one kernel per E call at these shapes under torch.profiler in a
+     fresh python3 process (a profiler session that is not its process's
+     first may record fewer kernels than were launched);
  23. the QUARTER_DEG denoiser (seeded, perturbed, bf16 stack) through the
      kernels against the plain path (A 16, B 13 launches: one per grid2mesh
      chunk); the 1-degree denoiser with streamed edges against the dense
@@ -141,6 +145,30 @@ Phases (any failure raises and exits non-zero):
      truth is, the wall and the peak memory;
  27. `rollout.chunked_rollout` at nano, 4 steps in chunks of 2, the host
      copies overlapped and serialized: both bitwise the unchunked rollout;
+ 28. ERA5-format corpora: `tools.synth_era5 --layout npz` writes a
+     2.5-degree corpus (2 months x 10 frames) and a 1-degree one (6
+     frames), the seconds of each write; where h5py imports, also the
+     2.5-degree corpus as NetCDF files (its source gives the npz source's
+     windows) and a published-structure stats directory, else one line
+     says they did not run;
+ 29. nano from the 2.5-degree directory through `python3 -m
+     gencast_tpu_torch.training.train`, each run a fresh process: 16 steps
+     with --prefetch 2 --data_workers 2 --profile_dir and checkpoints, the
+     same 16 steps with --prefetch 0 --data_workers 0 (bitwise equal losses
+     and checkpoints) and with --prefetch 2 alone (equal losses), a resume
+     to step 20 (its losses equal the same steps
+     taken in this process from the checkpoint); the trace holds B, C, D
+     and E for steps 10-15 in the derived counts, and each run's launches
+     (and the 4 steps' taken here) are the derived counts per step; the
+     kernels line's `nano_era5` counts the CLI processes' launches only;
+     packing ms per batch, worker
+     start-up, batch wait and step ms with and without prefetch and
+     workers;
+ 30. full-width 1 degree from the 1-degree directory in this process:
+     `train.main` for 3 steps (A, B, E and F launches per step as derived)
+     and `evaluate.main` on its checkpoint, 1 member x 2 steps (finite
+     where the truth is; --save_netcdf where h5py imports), walls and peak
+     memory;
 then one JSON line of kernel results (launches from the training runs of
 each kernel's paths, eager and graphed), the card's name and power limit, and a last JSON line
 {"ok": true, "device": {...}}.
@@ -153,9 +181,10 @@ in turns with the kernel (scaled_dot_product_attention with the dense mask
 and its backward, segment_reduce, native_layer_norm_backward; none for
 G's dq reduce, whose row says so); the port never calls those. TF32 is off
 for matmuls and cuDNN: float32 products run in full float32. Phases 17,
-20, 25 and 26 write under build/ (git-ignored) and remove what they wrote;
+20, 25, 26 and 28-30 write under build/ (git-ignored) and remove what they
+wrote;
 the graph statics are cached under build/chip_smoke_cache for the run and
-removed at its end. About six minutes on an H100, build included.
+removed at its end. About nine minutes on an H100, build included.
 """
 
 from __future__ import annotations
@@ -241,6 +270,28 @@ STREAMED_F32_RTOL = 1e-4
 ONE_DEG_CHUNK = 32 * 1024
 # Forecast steps of phase 27's chunked rollouts (chunks of 2).
 OFFLOAD_STEPS = 4
+# ERA5-format corpora of phases 28-30 (resolution, months, frames per
+# month): 2.5 degrees, 2 x 10 frames (18 training windows, across a month
+# boundary); 1 degree, 6 frames (4 windows; one 2-step evaluate window):
+# 82 channels x 65,160 points x 4 bytes, 21 MB a frame.
+ERA5_CORPORA = {'nano': (2.5, ('202001', '202002'), 10),
+                '1deg': (1.0, ('202001',), 6)}
+# Phase 29: the CLI's steps, then the step its resume runs to.
+ERA5_NANO_STEPS = 16
+ERA5_RESUME_STEPS = 20
+# Kernel symbols in a torch.profiler trace, by launch counter.
+TRACE_KERNELS = {
+    'sparse_attention_fwd': r'sparse_attention_fwd_(mma_)?kernel',
+    'sparse_attention_bwd_dq': r'sparse_attention_dq_(mma_)?kernel',
+    'sparse_attention_bwd_dkv': r'sparse_attention_dkv_(mma_)?kernel',
+    'sparse_attention_bwd_dkvq': r'sparse_attention_dkvq_(mma_)?kernel',
+    'sparse_attention_dq_reduce': r'sparse_attention_dq_reduce_kernel',
+    'segment_sum': r'segment_sum_kernel',
+    'ln_film_bwd': r'ln_film_bwd_kernel',
+    'banded_attention_fwd': r'banded_attention_fwd_(mma_)?kernel',
+    'banded_attention_bwd_dq': r'banded_attention_dq_(mma_)?kernel',
+    'banded_attention_bwd_dkv': r'banded_attention_dkv_(mma_)?kernel',
+}
 
 
 def log(*args):
@@ -710,18 +761,21 @@ def ln_film_shapes(presets):
   return shapes
 
 
-def check_ln_film_shapes(shapes, g, card, profile=True):
-  """Phase 8: kernel E at every shape, float32 and bf16, against its plain
-  version and twice for equal bits (check_ln_film_bwd); with `profile`, one
-  call of each under torch.profiler must run exactly one kernel, E's; a
-  call captured in a CUDA graph and replayed twice gives the eager call's
-  bits. Returns {(shape, dtype): check_ln_film_bwd's result}.
+def check_ln_film_shapes(shapes, g, card, fresh_process=False):
+  """Phases 8 and 22: kernel E at every shape, float32 and bf16, against its
+  plain version and twice for equal bits (check_ln_film_bwd); one call of
+  each under torch.profiler must run exactly one kernel, E's; a call
+  captured in a CUDA graph and replayed twice gives the eager call's bits.
+  Returns {(shape, dtype): check_ln_film_bwd's result}.
 
-  Phase 22 (the 0.25-degree shapes) passes profile=False: a second
-  torch.profiler session with device activity in one process, after the
-  CUDA-graph replays of phases 19 and 20, recorded one kernel of 14 calls
-  (an H100 run); one launch per call does not depend on the shape, and
-  phase 8's session holds it."""
+  Phase 22 (the 0.25-degree shapes) passes fresh_process=True: its profiler
+  session runs in a new python3 process (`--profile-ln-film`), which loads
+  the kernels already built under build/. A torch.profiler session that
+  is not its process's first may record fewer kernels than were launched:
+  in this process, one of 14 calls in an H100 run; in
+  `gencast_tpu_torch.tools.profiler_sessions`, 13 of 14 in later sessions
+  whatever ran between them, while every process's first session recorded
+  all 14."""
   from gencast_tpu_torch.ops import ln_film
   results, calls = {}, []
   for shape, axis in shapes:
@@ -731,24 +785,10 @@ def check_ln_film_shapes(shapes, g, card, profile=True):
       results[(shape, dtype)] = res[:3]
       calls.append((res[3], axis))
   torch.cuda.synchronize()
-  profiled = 'not profiled (see phase 8)'
-  if profile:
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-      for (x, dy, scale), axis in calls:
-        ln_film.ln_film_bwd_cuda(x, dy, scale, axis)
-      torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    if (len(kernels) != len(calls)
-        or not all('ln_film_bwd_kernel' in k for k in kernels)):
-      raise AssertionError(f'kernel E: {len(calls)} calls ran '
-                           f'{len(kernels)} kernels under the profiler: '
-                           f'{sorted(set(kernels))}')
-    profiled = (f'one kernel per call under torch.profiler ({len(kernels)} '
-                f'calls, {len(kernels)} ln_film_bwd_kernel launches)')
+  if fresh_process:
+    profiled = profile_ln_film_in_fresh_process(shapes)
+  else:
+    profiled = profile_ln_film_calls(calls)
   # A CUDA graph replays the launch: no state to reset between calls.
   (x, dy, scale), axis = next(c for c in calls if c[0][0].shape == shapes[0][0]
                               and c[0][0].dtype == torch.bfloat16)
@@ -774,6 +814,62 @@ def check_ln_film_shapes(shapes, g, card, profile=True):
       f'captured in a CUDA graph and replayed twice gives the eager bits; '
       f'{card}')
   return results
+
+
+def profile_ln_film_calls(calls) -> str:
+  """Runs each kernel E call ((x, dy, scale), batch axis) once under
+  torch.profiler; raises unless every call ran exactly one kernel, E's."""
+  from gencast_tpu_torch.ops import ln_film
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    for (x, dy, scale), axis in calls:
+      ln_film.ln_film_bwd_cuda(x, dy, scale, axis)
+    torch.cuda.synchronize()
+  kernels = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation]
+  if (len(kernels) != len(calls)
+      or not all('ln_film_bwd_kernel' in k for k in kernels)):
+    raise AssertionError(f'kernel E: {len(calls)} calls ran '
+                         f'{len(kernels)} kernels under the profiler: '
+                         f'{sorted(set(kernels))}')
+  return (f'one kernel per call under torch.profiler ({len(kernels)} '
+          f'calls, {len(kernels)} ln_film_bwd_kernel launches)')
+
+
+def profile_ln_film_main(shapes_json: str) -> int:
+  """`python3 chip_smoke.py --profile-ln-film SHAPES`: kernel E on seeded
+  inputs at each ([shape], batch axis) of SHAPES, float32 and bf16, under
+  the process's only torch.profiler session (profile_ln_film_calls)."""
+  dev = torch.device('cuda', 0)
+  g = torch.Generator(device=dev).manual_seed(0)
+  calls = []
+  for shape, axis in json.loads(shapes_json):
+    b, c = shape[axis], shape[2]
+    for dtype in (torch.float32, torch.bfloat16):
+      x = torch.randn(shape, generator=g, device=dev).to(dtype)
+      dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+      scale = (1 + 0.1 * torch.randn((b, c), generator=g, device=dev)
+               ).to(dtype)
+      calls.append(((x, dy, scale), axis))
+  print(profile_ln_film_calls(calls), flush=True)
+  return 0
+
+
+def profile_ln_film_in_fresh_process(shapes) -> str:
+  """profile_ln_film_main in a new python3 process; raises if it fails."""
+  t0 = time.perf_counter()
+  done = subprocess.run(
+      [sys.executable, os.path.abspath(__file__), '--profile-ln-film',
+       json.dumps([[list(shape), axis] for shape, axis in shapes])],
+      capture_output=True, text=True, timeout=600)
+  if done.returncode:
+    raise AssertionError(f'kernel E under torch.profiler in a fresh process: '
+                         f'exit {done.returncode}\n{done.stdout[-2000:]}'
+                         f'\n{done.stderr[-4000:]}')
+  return (f'{done.stdout.strip().splitlines()[-1]} in a fresh process '
+          f'({time.perf_counter() - t0:.1f} s)')
 
 
 @contextlib.contextmanager
@@ -1138,9 +1234,10 @@ def train_tiny_against_cpu(dev, remat_policy, spec) -> None:
 
 
 def train_preset(spec, statics, dev, card, argv, steps_run=3, start=0,
-                 tag=None, runs=None):
-  """Phases 10, 15 and 17: full-width training steps of `spec` through the
-  CLI (`argv` names the preset and any checkpoint directory), up to step
+                 tag=None, runs=None, data='synthetic'):
+  """Phases 10, 15, 17 and 30: full-width training steps of `spec` through
+  the CLI (`argv` names the preset and any checkpoint directory) on `data`
+  (synthetic, or an ERA5 directory), up to step
   `steps_run`, starting at `start` (a resumed run starts past its
   checkpoint). Checks the losses, the parameters' change and each kernel's
   launches against the counts derived from the model; returns (those
@@ -1153,7 +1250,7 @@ def train_preset(spec, statics, dev, card, argv, steps_run=3, start=0,
   for c in counters():
     c.reset()
   t0 = time.perf_counter()
-  run = train.main(argv + ['--steps', str(steps_run), '--data', 'synthetic',
+  run = train.main(argv + ['--steps', str(steps_run), '--data', data,
                            '--log_every', '1'])
   wall = time.perf_counter() - t0
   launches = {c.name: c.launches for c in counters()}
@@ -1805,7 +1902,7 @@ def check_quarter_deg_kernels(spec, statics, gencast, g, card):
                                   spec.d_model]
 
   e_shapes = quarter_deg_e_shapes(gencast)
-  e_results = check_ln_film_shapes(e_shapes, g, card, profile=False)
+  e_results = check_ln_film_shapes(e_shapes, g, card, fresh_process=True)
   log(f'[0.25deg kernels] A, F, B and E at the 0.25-degree shapes in '
       f'{time.perf_counter() - t_phase:.1f} s; {card}')
   return results, e_results, e_shapes
@@ -2100,6 +2197,303 @@ def offload_nano(dev, card):
       f'2: overlap_offload on ({seconds[True]:.3f} s, pinned host memory) and'
       f' off ({seconds[False]:.3f} s) bitwise equal to the unchunked '
       f'sample_rollout; phase {time.perf_counter() - t_phase:.1f} s; {card}')
+
+
+def era5_corpora(work, card):
+  """Phase 28: the ERA5-format corpora of phases 29 and 30, written by
+  `tools.synth_era5 --layout npz` (numpy only); where h5py imports, also
+  the 2.5-degree corpus as NetCDF files, whose source must give the npz
+  source's windows, and a published-structure stats directory. Returns
+  ({name: directory}, seconds of each write, whether h5py imported)."""
+  from gencast_tpu_torch.tools import synth_era5
+  dirs, seconds = {}, {}
+  for name, (res, months, steps) in ERA5_CORPORA.items():
+    dirs[name] = os.path.join(work, f'{name}_npz')
+    t0 = time.perf_counter()
+    synth_era5.synthesize(dirs[name], resolution_deg=res, months=months,
+                          steps_per_month=steps, seed=0, layout='npz')
+    seconds[name] = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(dirs[name], f))
+               for f in os.listdir(dirs[name]))
+    log(f'[era5] {name}: {len(months)} month(s) x {steps} frames at {res} '
+        f'degrees, npz layout, {size / 2**20:.1f} MiB written in '
+        f'{seconds[name]:.2f} s')
+  try:
+    import h5py  # noqa: F401
+  except ImportError:
+    log('[era5] h5py does not import on this machine: the NetCDF layout, '
+        'the published stats directory and evaluate --save_netcdf did not '
+        'run here; tests/test_torch_era5_*.py hold them on the CPU')
+    return dirs, seconds, False
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import era5_netcdf, sources
+  res, months, steps = ERA5_CORPORA['nano']
+  dirs['nano_netcdf'] = os.path.join(work, 'nano_netcdf')
+  dirs['stats'] = os.path.join(work, 'stats')
+  t0 = time.perf_counter()
+  synth_era5.synthesize(dirs['nano_netcdf'], resolution_deg=res,
+                        months=months, steps_per_month=steps, seed=0)
+  synth_era5.synthesize_stats(dirs['stats'])
+  seconds['nano_netcdf'] = time.perf_counter() - t0
+  task = configs.NANO.task
+  nc = era5_netcdf.Era5NetCDFSource(dirs['nano_netcdf'], task,
+                                    resolution_deg=res)
+  npz = sources.Era5NpzSource(dirs['nano'], task)
+  for index in (0, len(npz) - 1):
+    a, b = nc.sample(index), npz.sample(index)
+    if not all(np.array_equal(getattr(a, k), getattr(b, k), equal_nan=True)
+               for k in ('inputs', 'targets', 'forcings')):
+      raise AssertionError(f'ERA5 window {index}: the NetCDF and npz '
+                           'layouts differ')
+  stats = sources.load_stats_netcdf(dirs['stats'], task.pressure_levels)
+  if stats.mean['temperature'].shape != (len(task.pressure_levels),):
+    raise AssertionError(f'published stats: {stats.mean["temperature"]}')
+  log(f'[era5] h5py imports: the 2.5-degree corpus as NetCDF and a '
+      f'published stats directory in {seconds["nano_netcdf"]:.2f} s; the '
+      f'NetCDF source gives the npz source\'s windows; {card}')
+  return dirs, seconds, True
+
+
+def trace_kernel_counts(path) -> dict:
+  """Kernels of each launch counter in a torch.profiler Chrome trace."""
+  with open(path) as f:
+    events = json.load(f)['traceEvents']
+  names = [e.get('name', '') for e in events if e.get('cat') == 'kernel']
+  return {name: sum(1 for n in names if re.search(pattern, n))
+          for name, pattern in TRACE_KERNELS.items()}
+
+
+def run_train_cli(argv, metrics, tag):
+  """`python3 -m gencast_tpu_torch.training.train argv` in a fresh
+  process from the repository root: its wall seconds, stdout, losses (from
+  --metrics_jsonl `metrics`), input pipeline summary, kernel launches and
+  worker start-up seconds. Raises if it fails."""
+  repo = os.path.dirname(os.path.abspath(__file__))
+  t0 = time.perf_counter()
+  done = subprocess.run(
+      [sys.executable, '-m', 'gencast_tpu_torch.training.train'] + argv
+      + ['--metrics_jsonl', metrics], cwd=repo, capture_output=True,
+      text=True, timeout=900)
+  wall = time.perf_counter() - t0
+  if done.returncode:
+    raise AssertionError(f'{tag}: train CLI exit {done.returncode}\n'
+                         f'{done.stdout[-3000:]}\n{done.stderr[-5000:]}')
+  out = done.stdout
+
+  def line(prefix):
+    return json.loads(next(x for x in out.splitlines()
+                           if x.startswith(prefix))[len(prefix):])
+
+  with open(metrics) as f:
+    losses = [r['loss'] for r in map(json.loads, f) if r['event'] == 'train']
+  started = re.search(r'worker processes \(started in ([0-9.]+) s\)', out)
+  return {'wall': wall, 'stdout': out, 'losses': losses,
+          'pipeline': line('[train] pipeline '),
+          'launches': line('[train] kernel launches in this process '),
+          'worker_start_s': float(started.group(1)) if started else None}
+
+
+def same_state(a, b) -> bool:
+  """Bitwise equality of two checkpoint trees (dicts, lists, tensors)."""
+  if isinstance(a, dict):
+    return a.keys() == b.keys() and all(same_state(a[k], b[k]) for k in a)
+  if isinstance(a, (list, tuple)):
+    return len(a) == len(b) and all(same_state(x, y) for x, y in zip(a, b))
+  if isinstance(a, torch.Tensor):
+    return torch.equal(a, b)
+  return a == b
+
+
+def nano_era5_cli(spec, statics, dev, card, data, work) -> dict:
+  """Phase 29: nano from the 2.5-degree npz directory through the CLI's
+  module entry point, each run a fresh process: 16 steps with --prefetch 2,
+  --data_workers 2, --profile_dir (the process's only profiler session)
+  and checkpoints; the same 16 steps with --prefetch 0 --data_workers 0:
+  bitwise equal losses and checkpoint (parameters and optimizer state);
+  and with --prefetch 2 alone: bitwise equal losses;
+  a resume of the first to step 20, whose losses equal 4 steps taken here
+  from the second's checkpoint on the stream's first 4 batches (the
+  reference restarts the stream on resume) with steps 16-19's draws. The
+  trace holds B, C, D and E for steps 10-15 in the counts the launch
+  counters derive, and each run's launches are 'per step x steps', as are
+  the 4 steps taken here. Returns each kernel's launches over the CLI's
+  runs (the steps taken here only check the resume)."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import sources
+  from gencast_tpu_torch.training import checkpoint, steps, train
+  t_phase = time.perf_counter()
+  t0 = time.perf_counter()
+  source = sources.Era5NpzSource(data, spec.task)
+  load_s = time.perf_counter() - t0
+  it = sources.batch_iterator(source, 1, seed=0)
+  next(it)
+  t0 = time.perf_counter()
+  for _ in range(8):
+    next(it)
+  pack_ms = (time.perf_counter() - t0) / 8 * 1e3
+  del it, source
+
+  gencast, _ = configs.build_gencast(spec, seed=0, statics=statics,
+                                     device=dev)
+  per_step = expected_step_launches(gencast)
+  del gencast
+  trace_dir = os.path.join(work, 'trace')
+  ckpt = {k: os.path.join(work, f'ckpt_{k}') for k in ('piped', 'plain')}
+  base = ['--preset', spec.name, '--device', dev.type, '--data', data,
+          '--log_every', '1', '--save_every', '8']
+  piped = ['--prefetch', '2', '--data_workers', '2']
+  runs = {
+      'piped': run_train_cli(
+          base + piped + ['--steps', str(ERA5_NANO_STEPS), '--profile_dir',
+                          trace_dir, '--ckpt_dir', ckpt['piped']],
+          os.path.join(work, 'piped.jsonl'), 'nano ERA5, piped'),
+      'plain': run_train_cli(
+          base + ['--prefetch', '0', '--data_workers', '0', '--steps',
+                  str(ERA5_NANO_STEPS), '--ckpt_dir', ckpt['plain']],
+          os.path.join(work, 'plain.jsonl'), 'nano ERA5, plain'),
+      'prefetch only': run_train_cli(
+          base + ['--prefetch', '2', '--data_workers', '0', '--steps',
+                  str(ERA5_NANO_STEPS)],
+          os.path.join(work, 'prefetch.jsonl'), 'nano ERA5, prefetch only'),
+      'resumed': run_train_cli(
+          base + piped + ['--steps', str(ERA5_RESUME_STEPS), '--ckpt_dir',
+                          ckpt['piped']],
+          os.path.join(work, 'resumed.jsonl'), 'nano ERA5, resumed')}
+  taken = {'piped': ERA5_NANO_STEPS, 'plain': ERA5_NANO_STEPS,
+           'prefetch only': ERA5_NANO_STEPS,
+           'resumed': ERA5_RESUME_STEPS - ERA5_NANO_STEPS}
+  for name, run in runs.items():
+    want = {k: v * taken[name] for k, v in per_step.items()}
+    if run['launches'] != want or len(run['losses']) != taken[name]:
+      raise AssertionError(f'nano ERA5 {name}: launches {run["launches"]}, '
+                           f'expected {want}; {len(run["losses"])} losses')
+  first, last_step = train.PROFILE_STEPS
+  profiled = last_step - first + 1
+  in_trace = trace_kernel_counts(os.path.join(
+      trace_dir, train.PROFILE_TRACE))
+  want = {k: v * profiled for k, v in per_step.items()}
+  if in_trace != want:
+    raise AssertionError(f'nano ERA5 trace of steps {first}-{last_step}: '
+                         f'kernels {in_trace}, expected {want}')
+  last = f'step_{ERA5_NANO_STEPS - 1}.pt'
+  states = [torch.load(os.path.join(ckpt[k], last), map_location='cpu',
+                       weights_only=True) for k in ('piped', 'plain')]
+  if (runs['piped']['losses'] != runs['plain']['losses']
+      or runs['prefetch only']['losses'] != runs['plain']['losses']
+      or not np.isfinite(runs['piped']['losses']).all()
+      or not same_state(*states)):
+    raise AssertionError(
+        f'nano ERA5: --prefetch 2 --data_workers 2 and --prefetch 0 '
+        f'--data_workers 0 differ: losses {runs["piped"]["losses"]} and '
+        f'{runs["plain"]["losses"]}, checkpoints equal '
+        f'{same_state(*states)}')
+  del states
+  if f'resumed from step {ERA5_NANO_STEPS - 1}' not in runs['resumed'][
+      'stdout']:
+    raise AssertionError('nano ERA5: the run did not resume')
+  args = train.parse_args(base[:6] + ['--steps', str(ERA5_RESUME_STEPS)])
+  here = train.setup(args)
+  checkpoint.restore(checkpoint.create_manager(ckpt['plain']), here.wrapped,
+                     here.optimizer)
+  for c in counters():
+    c.reset()
+  losses = []
+  for step in range(ERA5_NANO_STEPS, ERA5_RESUME_STEPS):
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in next(here.batches).items()}
+    loss, _ = steps.train_step(here.wrapped, here.optimizer, batch['inputs'],
+                               batch['targets'], batch['forcings'],
+                               train.step_generator(args.seed, step, dev))
+    losses.append(float(loss))
+  resumed_here = {c.name: c.launches for c in counters()}
+  want = {k: v * taken['resumed'] for k, v in per_step.items()}
+  if losses != runs['resumed']['losses'] or resumed_here != want:
+    raise AssertionError(f'nano ERA5 resume: losses {runs["resumed"]["losses"]}'
+                         f', the same steps here {losses}; launches here '
+                         f'{resumed_here}, expected {want}')
+  del here
+
+  def pipeline(run):
+    p = run['pipeline']
+    wait = 1e3 * p['batch_wait_s']['mean']
+    step = 1e3 * p['step_s']['mean']
+    start = (f', workers started in {run["worker_start_s"]:.2f} s'
+             if run['worker_start_s'] is not None else '')
+    return (f'prefetch {p["prefetch"]}, {p["data_workers"]} workers: wall '
+            f'{run["wall"]:.1f} s{start}; mean over steps 2-: batch wait '
+            f'{wait:.3f} ms, step {step:.2f} ms, step wall '
+            f'{wait + step:.2f} ms')
+
+  log(f'[era5 nano CLI] packing {pack_ms:.2f} ms per batch in-process '
+      f'(Era5NpzSource, 2.5 degrees, batch 1; the source loads in '
+      f'{load_s:.2f} s); 16 steps {pipeline(runs["piped"])}; 16 steps '
+      f'{pipeline(runs["prefetch only"])}; 16 steps '
+      f'{pipeline(runs["plain"])}; losses (and the first and last run\'s '
+      f'checkpoints) bitwise equal; '
+      f'resumed at step {ERA5_NANO_STEPS}: {pipeline(runs["resumed"])}, '
+      f'losses equal to the same steps here; trace of steps '
+      f'{first}-{last_step}: {in_trace}, as derived; '
+      f'phase {time.perf_counter() - t_phase:.1f} s; {card}')
+  return {c.name: sum(r['launches'][c.name] for r in runs.values())
+          for c in counters()}
+
+
+def one_deg_era5(spec, statics, dev, card, data, work, has_h5py) -> dict:
+  """Phase 30: full-width 1 degree from the 1-degree npz directory in this
+  process: `train.main` for 3 steps (stats computed from the source; A, B,
+  E and F launches per step as derived, as phase 10), then `evaluate.main`
+  on its checkpoint, 1 member x 2 steps, truth from the directory (with
+  --save_netcdf where h5py imports): launches as derived, finite where the
+  truth is, the walls and peak memory. Returns each kernel's launches."""
+  from gencast_tpu_torch.ops import segment, sparse_attention
+  from gencast_tpu_torch.training import evaluate
+  ckpt = os.path.join(work, 'ckpt_1deg')
+  t0 = time.perf_counter()
+  trained, seconds, train_peak = train_preset(
+      spec, statics, dev, card, ['--preset', '1deg', '--clean_sst_nans',
+                                 '--ckpt_dir', ckpt],
+      tag='1deg from ERA5', data=data)
+  train_wall = time.perf_counter() - t0
+  rollout_steps = 2
+  torch.cuda.reset_peak_memory_stats()
+  for c in counters():
+    c.reset()
+  out = os.path.join(work, 'eval_1deg')
+  t0 = time.perf_counter()
+  evaluate.main(['--preset', '1deg', '--clean_sst_nans', '--data', data,
+                 '--ckpt_dir', ckpt, '--num_members', '1',
+                 '--max_rollout_steps', str(rollout_steps), '--out_dir', out,
+                 '--plot_vars'] + (['--save_netcdf'] if has_h5py else []))
+  eval_wall = time.perf_counter() - t0
+  eval_peak = torch.cuda.max_memory_allocated()
+  served = {c.name: c.launches for c in counters()}
+  calls = rollout_steps * (2 * spec.num_noise_levels - 1)
+  expected = {c.name: 0 for c in counters()}
+  expected.update({sparse_attention.KERNEL.name: calls * spec.num_layers,
+                   segment.KERNEL.name: calls})
+  rollout = np.load(os.path.join(out, 'rollout.npz'))
+  preds, truth = rollout['predictions'], rollout['truth']
+  with open(os.path.join(out, 'metrics.json')) as f:
+    scores = json.load(f)
+  finite = bool((np.isfinite(preds) | np.isnan(truth)[None]).all())
+  netcdf = os.path.exists(os.path.join(out, 'rollout.nc'))
+  if (served != expected or not finite or netcdf != has_h5py
+      or preds.shape[:4] != (1, rollout_steps, 181, 360)
+      or not np.isfinite(list(scores['rmse'].values())).all()):
+    raise AssertionError(f'1deg evaluate from ERA5: launches {served} '
+                         f'(expected {expected}), predictions {preds.shape}, '
+                         f'finite where the truth is {finite}, rollout.nc '
+                         f'{netcdf}, rmse {scores["rmse"]}')
+  log(f'[era5 1deg] training 3 steps from the ERA5 directory: wall '
+      f'{train_wall:.1f} s with set-up, steps {[round(x, 4) for x in seconds]}'
+      f' s, peak {train_peak / 2**30:.2f} GiB; evaluate 1 member x '
+      f'{rollout_steps} steps: wall {eval_wall:.1f} s with set-up, peak '
+      f'{eval_peak / 2**30:.2f} GiB, launches A '
+      f'{served[sparse_attention.KERNEL.name]}, B {served[segment.KERNEL.name]}'
+      f' as derived, finite where the truth is, RMSE 2m_temperature '
+      f'{scores["rmse"]["2m_temperature"]:.4f}'
+      f'{", rollout.nc written" if netcdf else ""}; {card}')
+  return {k: trained[k] + served[k] for k in trained}
 
 
 def quarter_deg_f_row(result, part, shape) -> dict:
@@ -2522,6 +2916,23 @@ def main() -> int:
   # --- 27. chunked rollout at nano, the host copies overlapped or not ---
   offload_nano(dev, card)
 
+  # --- 28. ERA5-format corpora ---
+  t0 = time.perf_counter()
+  era5_work = os.path.join(repo, 'build', 'chip_smoke_era5')
+  shutil.rmtree(era5_work, ignore_errors=True)
+  era5_dirs, _, has_h5py = era5_corpora(era5_work, card)
+
+  # --- 29. nano from ERA5 through the CLI's module entry point ---
+  nano_era5_launches = nano_era5_cli(nano, nano_statics, dev, card,
+                                     era5_dirs['nano'], era5_work)
+
+  # --- 30. 1 degree from ERA5 in this process: train, then evaluate ---
+  one_deg_era5_launches = one_deg_era5(spec, statics, dev, card,
+                                       era5_dirs['1deg'], era5_work,
+                                       has_h5py)
+  shutil.rmtree(era5_work, ignore_errors=True)
+  log(f'[timing] phases 28-30 in {time.perf_counter() - t0:.1f} s')
+
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B on the grid2mesh
   # receiver plan from bf16 edges (float32 out), E in bf16 at the largest
@@ -2612,7 +3023,9 @@ def main() -> int:
                '1deg_graphed': fused_1deg[0][k['name']],
                '1deg_fused_graphed': fused_1deg_g[0][k['name']],
                'nano_cli_graphed': cli_launches[k['name']],
-               '0.25deg': q_launches[k['name']]}
+               '0.25deg': q_launches[k['name']],
+               'nano_era5': nano_era5_launches[k['name']],
+               '1deg_era5': one_deg_era5_launches[k['name']]}
     k['launches'] = sum(by_path.values())
     if sum(1 for n in by_path.values() if n) > 1:
       k['launches_by_path'] = by_path
@@ -2641,4 +3054,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+  if sys.argv[1:2] == ['--profile-ln-film']:
+    sys.exit(profile_ln_film_main(sys.argv[2]))
   sys.exit(main())

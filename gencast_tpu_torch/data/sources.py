@@ -6,15 +6,20 @@ of `num_input_frames` input frames, one (or more) target frames and the
 target-time forcings; `SyntheticSource` generates physically-flavored
 fields deterministically per (seed, index); `selection_stream`,
 `batch_iterator` and `compute_stats` batch them and compute normalization
-statistics; `save_stats` / `load_stats` / `load_stats_auto` keep them in the
-reference's npz format, so a file written by either package loads in the
-other. The ERA5 sources and DeepMind's NetCDF stats are not carried over
-yet (ROADMAP.md, "Still to port": CLIs and data).
+statistics; `save_stats` / `load_stats` keep them in the reference's npz
+format, so a file written by either package loads in the other.
+`Era5NpzSource` reads the monthly npz shards of `tools/convert_era5.py`
+(numpy only: the ERA5 layout of the card's machine, which has no h5py;
+`data.era5_netcdf` reads the NetCDF files themselves), and
+`load_stats_netcdf` DeepMind's published NetCDF statistics (h5py, imported
+where a file is read); `load_stats_auto` picks by path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
 import os
 from typing import Dict, Iterator, Sequence
 
@@ -215,6 +220,58 @@ class SyntheticSource(WindowedSource):
     return out.astype(np.float32)
 
 
+class Era5NpzSource(WindowedSource):
+  """Monthly .npz shards + manifest.json, produced by tools/convert_era5.py
+  (or tools/synth_era5.py --layout npz).
+
+  Shard format: one .npz per month holding, per variable, an array
+  [T, lat, lon] (surface) or [T, L, lat, lon] (atmospheric), plus
+  'timestamps' [T] (seconds since epoch). Statics live in statics.npz.
+  """
+
+  def __init__(self, directory: str, task: registry.TaskSpec,
+               step_seconds: float = 12 * 3600):
+    with open(os.path.join(directory, 'manifest.json')) as f:
+      manifest = json.load(f)
+    lat = np.asarray(manifest['lat'], np.float32)
+    lon = np.asarray(manifest['lon'], np.float32)
+    super().__init__(task, lat, lon, step_seconds)
+    with np.load(os.path.join(directory, 'statics.npz')) as z:
+      self._statics = dict(z)
+    self._shards = sorted(glob.glob(os.path.join(directory, 'era5_*.npz')))
+    if not self._shards:
+      raise FileNotFoundError(f'no era5_*.npz shards in {directory}')
+    self._data: Dict[str, np.ndarray] = {}
+    self._times = None
+    self._load()
+
+  def _load(self):
+    times, per_var = [], {}
+    for shard in self._shards:
+      with np.load(shard) as z:
+        times.append(z['timestamps'])
+        for k in z.files:
+          if k != 'timestamps':
+            per_var.setdefault(k, []).append(z[k])
+    self._times = np.concatenate(times)
+    order = np.argsort(self._times)
+    self._times = self._times[order]
+    for k, chunks in per_var.items():
+      self._data[k] = np.concatenate(chunks, axis=0)[order]
+
+  def timestamps(self) -> np.ndarray:
+    return self._times
+
+  def field(self, name: str, times: np.ndarray) -> np.ndarray:
+    if registry.is_static(name):
+      return self._statics[name]
+    if name in registry.FORCING_VARS and name not in self._data:
+      return forcings_lib.all_forcings(times, self.lat, self.lon,
+                                       (name,))[name]
+    idx = np.searchsorted(self._times, times)
+    return self._data[name][idx]
+
+
 # ---------------------------------------------------------------------------
 # Batching & statistics.
 # ---------------------------------------------------------------------------
@@ -329,13 +386,96 @@ def load_stats(path: str) -> layout_lib.Stats:
                           diffs_std=tables['diffs'])
 
 
+# DeepMind's published normalization statistics: one NetCDF file per table
+# (the reference loads them with xr.load_dataset,
+# training/train_helpers.py:190-211). The gencast_stats_* names ship with
+# the published GenCast weights; the unprefixed names with GraphCast's.
+_STATS_NC_NAMES = {
+    'mean': ('gencast_stats_mean_by_level.nc', 'mean_by_level.nc'),
+    'std': ('gencast_stats_stddev_by_level.nc', 'stddev_by_level.nc'),
+    'diffs': ('gencast_stats_diffs_stddev_by_level.nc',
+              'diffs_stddev_by_level.nc'),
+}
+
+
+def _read_stats_netcdf(path: str, pressure_levels) -> Dict[str, np.ndarray]:
+  """One {mean,stddev,diffs_stddev}_by_level.nc -> {var: scalar or [L]}.
+
+  Surface variables are 0-d scalars; atmospheric variables carry a 'level'
+  dimension, subselected (exact match required) to the task's pressure
+  levels so the table indexes by level POSITION like compute_stats' output.
+  """
+  import h5py
+
+  from gencast_tpu_torch.data import era5_netcdf as nc
+
+  table: Dict[str, np.ndarray] = {}
+  with h5py.File(path, 'r') as f:
+    level = None
+    for raw in f.keys():
+      if (nc.DIM_RENAMES.get(raw, raw) == 'level'
+          and f[raw].attrs.get('CLASS') == b'DIMENSION_SCALE'):
+        level = np.asarray(f[raw][...], np.float64)
+    lvl_sel = None
+    if pressure_levels is not None and level is not None:
+      # Exact matches only: silently taking the NEAREST level would hand
+      # the task wrong per-level normalization with no error (e.g. a
+      # 37-level task against a 13-level stats file).
+      idx = [int(np.argmin(np.abs(level - l))) for l in pressure_levels]
+      missing = [int(l) for l, i in zip(pressure_levels, idx)
+                 if abs(level[i] - l) > 1e-6]
+      if missing:
+        raise ValueError(
+            f'{os.path.basename(path)} has levels '
+            f'{[int(l) for l in level]}; the task requests levels '
+            f'{missing} that are not in the file — refusing to '
+            f'substitute nearest-level statistics')
+      lvl_sel = np.asarray(idx)
+    for raw in f.keys():
+      dset = f[raw]
+      if dset.attrs.get('CLASS') == b'DIMENSION_SCALE':
+        continue  # coordinate variable
+      dims = nc._dim_names(dset)
+      v = np.asarray(dset[...], np.float32)
+      if 'level' in dims:
+        v = np.transpose(v, [dims.index('level')]
+                         + [i for i, d in enumerate(dims) if d != 'level'])
+        v = v.reshape(v.shape[0])  # stats files are level-only
+        if lvl_sel is not None:
+          v = v[lvl_sel]
+      else:
+        v = v.reshape(())
+      table[raw] = v
+  return table
+
+
+def load_stats_netcdf(stats_dir: str,
+                      pressure_levels=None) -> layout_lib.Stats:
+  """Loads DeepMind's published normalization statistics from a directory.
+
+  Reads gencast_stats_{mean,stddev,diffs_stddev}_by_level.nc (falling back
+  to GraphCast's unprefixed names) via h5py — the published-weights
+  counterpart of the reference's xarray loader
+  (training/train_helpers.py:190-211). pressure_levels (the task's) select
+  the matching rows of each file's level coordinate; pass None to keep
+  every level in file order.
+  """
+  tables = {}
+  for kind, names in _STATS_NC_NAMES.items():
+    path = next((p for p in (os.path.join(stats_dir, n) for n in names)
+                 if os.path.exists(p)), None)
+    if path is None:
+      raise FileNotFoundError(
+          f'normalization stats not found in {stats_dir}: expected one of '
+          f'{names}')
+    tables[kind] = _read_stats_netcdf(path, pressure_levels)
+  return layout_lib.Stats(mean=tables['mean'], std=tables['std'],
+                          diffs_std=tables['diffs'])
+
+
 def load_stats_auto(path: str, pressure_levels=None) -> layout_lib.Stats:
-  """Loads --stats_path: a file is the npz of `save_stats`. A directory
-  means DeepMind's published NetCDF stats, which the port does not read
-  yet."""
-  del pressure_levels  # selects the levels of the NetCDF tables
+  """Dispatches --stats_path: a directory means published NetCDF stats,
+  a file means this package's own npz format (save_stats)."""
   if os.path.isdir(path):
-    raise NotImplementedError(
-        f'{path} is a directory of NetCDF stats; they come with the ERA5 '
-        'sources (ROADMAP.md, "Still to port": CLIs and data)')
+    return load_stats_netcdf(path, pressure_levels)
   return load_stats(path)

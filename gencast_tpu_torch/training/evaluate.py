@@ -1,23 +1,32 @@
 """Evaluation CLI: restore a checkpoint, sample an ensemble rollout, score it.
 
-Counterpart of `gencast_tpu.training.evaluate` for the synthetic source:
-rebuilds the model and wrapper stack from the same flags as the training
-CLI, restores the newest checkpoint of `--ckpt_dir` (parameters only; the
-bf16 serving copy is refreshed from them), samples a `--num_members`
-ensemble over `--max_rollout_steps` 12-hour steps (free-running, or
-teacher-forced; each `--member_chunk` members, default 1, move to the host
-as they end; with `--chunk_size N` each member's steps run N at a time
-through `rollout.chunked_rollout`, as the 0.25-degree model needs), and
-writes `metrics.json` (per-variable RMSE of the
-ensemble mean; CRPS and spread with more than one member, the reference's
-keys) and `rollout.npz` (predictions [M, K, lat, lon, C], truth, lat,
-lon), plus a triptych PNG and a GIF per `--plot_vars` name (matplotlib).
-Runs on the card unless `--device cpu`; without a card it raises.
+Counterpart of `gencast_tpu.training.evaluate`: rebuilds the model and
+wrapper stack from the same flags as the training CLI, restores the newest
+checkpoint of `--ckpt_dir` (parameters only; the bf16 serving copy is
+refreshed from them), takes the first window of the source (`--data`:
+synthetic, or an ERA5 directory as in the training CLI) as the initial
+state and its frames as the truth, samples a `--num_members` ensemble over
+`--max_rollout_steps` 12-hour steps (free-running, or teacher-forced; each
+`--member_chunk` members, default 1, move to the host as they end; with
+`--chunk_size N` each member's steps run N at a time through
+`rollout.chunked_rollout`, as the 0.25-degree model needs), and writes
+`metrics.json` (per-variable RMSE of the ensemble mean; CRPS and spread
+with more than one member, the reference's keys) and `rollout.npz`
+(predictions [M, K, lat, lon, C], truth, lat, lon), with `--save_netcdf`
+`rollout.nc` (the ensemble mean and the truth as NetCDF4; skipped with a
+message where h5py is missing, as the reference's), plus a triptych PNG
+and a GIF per `--plot_vars` name (matplotlib). Runs on the card unless
+`--device cpu`; without a card it raises.
 
 Example (1-degree, two members, two steps, from a training checkpoint):
   python -m gencast_tpu_torch.training.evaluate --preset 1deg \
       --ckpt_dir /path/to/ckpt --num_members 2 --max_rollout_steps 2 \
       --clean_sst_nans --out_dir /path/to/eval
+
+  # From an ERA5 directory (NetCDF files or npz shards), with NetCDF out:
+  python -m gencast_tpu_torch.training.evaluate --preset nano \
+      --data /path/to/era5 --ckpt_dir /path/to/ckpt --num_members 2 \
+      --max_rollout_steps 2 --save_netcdf --out_dir /path/to/eval
 
   # 0.25 degree (the paper's model), one member, steps one at a time:
   python -m gencast_tpu_torch.training.evaluate --preset 0.25deg \
@@ -38,11 +47,6 @@ import numpy as np
 import torch
 
 from gencast_tpu_torch.training import train
-
-# Options of the reference's CLI that the port does not take yet, with the
-# ROADMAP.md item ("Still to port") that brings them.
-_LATER_OPTIONS = {'save_netcdf': 'CLIs and data'}
-
 
 @dataclasses.dataclass
 class EvalRun:
@@ -77,14 +81,14 @@ def parse_args(argv=None):
                  help='with --chunk_size, copy each chunk to the host before '
                       'the next starts (default: while the next computes)')
   p.add_argument('--save_netcdf', action='store_true',
-                 help='not ported yet (the ERA5 data path)')
+                 help='write the ensemble-mean rollout (+ matching '
+                      'targets) as compressed NetCDF4, rollout.nc (h5py '
+                      'dimension-scale writer; no xarray needed). Skipped '
+                      'with a message if h5py is unavailable.')
   args = p.parse_args(argv)
   train.check_model_flags(p, args)
   if args.chunk_size is not None and args.chunk_size < 1:
     p.error(f'--chunk_size must be positive, got {args.chunk_size}')
-  for option, item in _LATER_OPTIONS.items():
-    if getattr(args, option):
-      train.later(p, f'--{option}', item)
   return args
 
 
@@ -114,10 +118,19 @@ def main(argv=None) -> EvalRun:
   model, statics = configs.build_gencast(spec, seed=args.seed, device=device)
   task = model.task
   lat, lon = np.asarray(statics.grid_lat), np.asarray(statics.grid_lon)
-  source = sources.SyntheticSource(
-      task, lat, lon,
-      num_times=args.max_rollout_steps + task.num_input_frames + 2,
-      seed=args.seed + 1)
+  if args.data == 'synthetic':
+    source = sources.SyntheticSource(
+        task, lat, lon,
+        num_times=args.max_rollout_steps + task.num_input_frames + 2,
+        seed=args.seed + 1)
+  else:
+    source = train.era5_source_factory(args.data, task,
+                                       spec.resolution_deg)()
+    train.require_frames(
+        source, task.num_input_frames + args.max_rollout_steps, args.data,
+        f'a {args.max_rollout_steps}-step rollout '
+        f'({task.num_input_frames} input frames and '
+        f'{args.max_rollout_steps} targets)')
   stats = train.load_or_compute_stats(args, source, task, 'eval',
                                       save=False)
 
@@ -170,6 +183,20 @@ def main(argv=None) -> EvalRun:
       print(f'  {name}: {v:.4f}')
   np.savez(os.path.join(args.out_dir, 'rollout.npz'), predictions=preds,
            truth=truth, lat=lat, lon=lon)
+
+  if args.save_netcdf:
+    # The reference's deliverable artifact format (compressed NetCDF of
+    # predictions + target_* variables, evaluation.py:194-260).
+    try:
+      from gencast_tpu_torch.data import netcdf_writer
+      nc_path = os.path.join(args.out_dir, 'rollout.nc')
+      netcdf_writer.write_forecast(
+          nc_path, ens_mean, d.target_layout, lat, lon, truth=truth,
+          global_attrs={'members': args.num_members, 'steps': k,
+                        'rmse_mean': float(np.mean(list(rmse.values())))})
+      print(f'[eval] NetCDF rollout written to {nc_path}', flush=True)
+    except ImportError as e:
+      print(f'[eval] --save_netcdf skipped: {e}', flush=True)
 
   for var in args.plot_vars:
     if var not in d.target_layout.var_names:

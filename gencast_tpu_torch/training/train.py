@@ -1,19 +1,26 @@
-"""Training CLI (GenCast on synthetic data).
+"""Training CLI (GenCast on synthetic or ERA5 data).
 
 Counterpart of `gencast_tpu.training.train` for the paths the port runs:
-the TINY, nano, 1-degree and 0.25-degree presets on the synthetic source,
-one training step per batch or, with `--steps_per_call K`, K steps per host
-call over a device-resident pool of `--pool_size` samples (on the card each
-step replays one CUDA graph), on the CUDA card (the kernels) unless
-`--device cpu` asks for the CPU (their plain versions). Flags keep the
-reference's names, defaults and meanings: checkpoints with resume
-(`--ckpt_dir`, `--save_every`), metrics (`--metrics_jsonl`, `--wandb`),
-stats files (`--stats_path`), the sampling eval (`--eval_every`,
-`--do_sampling_eval`), `--no_normalization` and the architecture
-overrides. Every flag of the reference's CLI parses; those of paths not
-ported yet are refused with the ROADMAP.md item that brings them, and the
-TPU-only ones (`--functional_step`, `--cpu`) as such. `--ar_steps K` on a
-GenCast run is the reference's no-op.
+the TINY, nano, 1-degree and 0.25-degree presets on the synthetic source
+or an ERA5 directory (`--data <dir>`: the monthly NetCDF files when
+`era5_pressure_levels_*.nc` are there, else the npz shards of
+`tools.convert_era5`), one training step per batch or, with
+`--steps_per_call K`, K steps per host call over a device-resident pool of
+`--pool_size` samples (on the card each step replays one CUDA graph), on
+the CUDA card (the kernels) unless `--device cpu` asks for the CPU (their
+plain versions). Flags keep the reference's names, defaults and meanings:
+checkpoints with resume (`--ckpt_dir`, `--save_every`), metrics
+(`--metrics_jsonl`, `--wandb`), stats (`--stats_path`: an npz file, or a
+directory of DeepMind's published NetCDF statistics), the sampling eval
+(`--eval_every`, `--do_sampling_eval`), `--no_normalization`, the
+architecture overrides, and in the per-step loop the input pipeline
+(`--prefetch`: batches copied to the card by a background thread through
+pinned memory; `--data_workers`: windows packed in spawned processes; the
+batches are bitwise the same either way) and `--profile_dir` (a
+torch.profiler trace of steps 10-15). Every flag of the reference's CLI
+parses; those of paths not ported yet are refused with the ROADMAP.md item
+that brings them, and the TPU-only ones (`--functional_step`, `--cpu`) as
+such. `--ar_steps K` on a GenCast run is the reference's no-op.
 
 Randomness: step `s` draws its noise level and noise from a generator
 seeded from (`--seed`, s) alone, as the reference folds the step into its
@@ -25,6 +32,14 @@ Examples:
   # Smoke-train a tiny model on synthetic data on the CPU:
   python -m gencast_tpu_torch.training.train --preset tiny --steps 3 \
       --data synthetic --device cpu
+
+  # Nano from an ERA5 directory on one H100 (the card's machine has no
+  # h5py: write the npz layout, with tools.synth_era5 --layout npz or
+  # tools.convert_era5 on a machine with h5py):
+  python -m gencast_tpu_torch.tools.synth_era5 --out /path/to/era5_npz \
+      --resolution 2.5 --steps_per_month 20 --layout npz
+  python -m gencast_tpu_torch.training.train --preset nano --steps 16 \
+      --data /path/to/era5_npz --data_workers 2 --profile_dir /path/to/trace
 
   # Three full-width nano steps on one H100 (the default preset):
   python -m gencast_tpu_torch.training.train --steps 3 --data synthetic
@@ -48,6 +63,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import glob
+import json
 import os
 import tempfile
 import time
@@ -57,26 +75,30 @@ import numpy as np
 import torch
 
 _PRESETS = ('tiny', 'nano', '1deg', '0.25deg')
-# Options and data the reference's CLIs take and the port does not yet,
-# with the ROADMAP.md item ("Still to port") that brings them.
-_LATER_DATA = 'CLIs and data'
+# Options the reference's CLIs take and the port does not yet, with the
+# ROADMAP.md item ("Still to port") that brings them.
 _LATER_GRAPHCAST = 'GraphCast'
 _LATER_PARALLEL = 'Parallelism'
 _LATER_ATTENTION = {'triblock': "The reference's other attention backends",
                     'dense': "The reference's other attention backends"}
 _ATTENTION_TYPES = ('pallas', 'triblock_pallas')
+# --profile_dir traces these steps, as the reference's.
+PROFILE_STEPS = (10, 15)
+PROFILE_TRACE = 'train_steps_10-15.pt.trace.json'
 
 
 @dataclasses.dataclass
 class TrainRun:
   """What a run leaves: the trained wrapper stack, the mean loss of every
   step it took, the seconds each step took (host clock, the device
-  synchronized at its end; batch packing excluded) and the step it started
-  at (0, or one past the checkpoint it resumed from)."""
+  synchronized at its end; batch packing excluded), the step it started
+  at (0, or one past the checkpoint it resumed from) and, in the per-step
+  loop, the seconds each step waited for its batch on the device."""
   model: torch.nn.Module
   losses: List[float]
   step_seconds: List[float]
   start_step: int = 0
+  batch_seconds: List[float] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -85,6 +107,7 @@ class Setup:
   model: torch.nn.Module      # the unwrapped GenCast
   statics: object             # its graph statics
   source: object              # the data source
+  source_factory: object      # picklable; builds the source (--data_workers)
   wrapped: torch.nn.Module    # the wrapper stack that is trained
   optimizer: object           # steps.Optimizer
   batches: object             # iterator of numpy batches
@@ -99,7 +122,9 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
   p.add_argument('--preset', default='nano',
                  help='tiny, nano, 1deg or 0.25deg')
   p.add_argument('--data', default='synthetic',
-                 help="'synthetic' (ERA5 directories are not ported yet)")
+                 help="'synthetic' or a directory of ERA5 data: monthly "
+                      'NetCDF files (era5_pressure_levels_*.nc; h5py) or '
+                      'the npz shards of tools.convert_era5 (numpy only)')
   p.add_argument('--seed', type=int, default=0)
   # Architecture overrides (None -> preset value).
   p.add_argument('--mesh_size', type=int, default=None)
@@ -121,7 +146,9 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
                  help='fill the NaNs of sea_surface_temperature (land) '
                       'before the model sees them (NaNCleaner)')
   p.add_argument('--stats_path', default=None,
-                 help='npz normalization stats (default: compute from data)')
+                 help='npz normalization stats, or a directory of '
+                      "DeepMind's published NetCDF stats (default: compute "
+                      'from data)')
   p.add_argument('--device', default='cuda',
                  help="'cuda' (the default: the card, through the kernels) "
                       "or 'cpu' (the kernels' plain versions)")
@@ -138,9 +165,6 @@ def check_model_flags(p: argparse.ArgumentParser, args) -> None:
     later(p, f'--model {args.model}', _LATER_GRAPHCAST)
   if args.preset not in _PRESETS:
     p.error(f'unknown --preset {args.preset!r}: {", ".join(_PRESETS)}')
-  if args.data != 'synthetic':
-    p.error(f'--data {args.data!r}: only synthetic data is ported; ERA5 '
-            f'sources come with ROADMAP.md, "Still to port": {_LATER_DATA}')
   if args.attention_type in _LATER_ATTENTION:
     later(p, f'--attention_type {args.attention_type}',
           _LATER_ATTENTION[args.attention_type])
@@ -194,11 +218,19 @@ def parse_args(argv=None):
                       'falls back to a warning without it)')
   p.add_argument('--wandb_project', default='gencast_tpu')
   p.add_argument('--profile_dir', default=None,
-                 help='capture a profiler trace here (not ported yet)')
+                 help='write a torch.profiler trace of steps 10-15 here '
+                      f'({PROFILE_TRACE}; per-step mode)')
   p.add_argument('--prefetch', type=int, default=None,
-                 help='0 (background prefetch is not ported yet)')
+                 help='batches kept in flight by the background '
+                      'host->device pipeline (data/prefetch.py: pinned '
+                      'host memory, copies on a side stream); 0 disables. '
+                      'Default: 2 on hosts with more than 2 CPUs, else 0 '
+                      '(per-step mode)')
   p.add_argument('--data_workers', type=int, default=0,
-                 help='0 (out-of-process packing is not ported yet)')
+                 help='out-of-process batch-packing workers '
+                      "(data/workers.py, 'spawn' processes); 0 packs "
+                      'in-process. The batches are bitwise the same '
+                      'either way (per-step mode)')
   # Parallelism and multi-host, the reference's names and defaults.
   p.add_argument('--dp', type=int, default=1)
   p.add_argument('--mp', type=int, default=1)
@@ -223,9 +255,6 @@ def parse_args(argv=None):
   for flag, value, off, item in (
       ('task', args.task, (None,), _LATER_GRAPHCAST),
       ('remat_group', args.remat_group, (1,), _LATER_GRAPHCAST),
-      ('profile_dir', args.profile_dir, (None,), _LATER_DATA),
-      ('prefetch', args.prefetch, (None, 0), _LATER_DATA),
-      ('data_workers', args.data_workers, (0,), _LATER_DATA),
       ('dp', args.dp, (1,), _LATER_PARALLEL),
       ('mp', args.mp, (1,), _LATER_PARALLEL),
       ('multihost', args.multihost, (False,), _LATER_PARALLEL),
@@ -260,6 +289,26 @@ def select_device(name: str) -> torch.device:
     raise RuntimeError(f'--device {name}: no CUDA card is available; pass '
                        '--device cpu to run on the CPU')
   return device
+
+
+def era5_source_factory(path: str, task, resolution_deg: float):
+  """A picklable factory of the ERA5 source of directory `path`: the
+  monthly NetCDF files when there are any (h5py), else the npz shards."""
+  from gencast_tpu_torch.data import sources
+  if glob.glob(os.path.join(path, 'era5_pressure_levels_*.nc')):
+    from gencast_tpu_torch.data import era5_netcdf
+    return functools.partial(era5_netcdf.Era5NetCDFSource, path, task,
+                             resolution_deg=resolution_deg)
+  return functools.partial(sources.Era5NpzSource, path, task)
+
+
+def require_frames(source, needed: int, data: str, what: str) -> None:
+  """Exits with a message naming the frames found and needed when `source`
+  holds fewer frames than `what` needs."""
+  found = len(source.timestamps())
+  if found < needed:
+    raise SystemExit(f'--data {data}: {found} frames found; {what} needs '
+                     f'{needed} consecutive 12-hour frames')
 
 
 def load_or_compute_stats(args, source, task, tag: str, save: bool):
@@ -310,9 +359,19 @@ def setup(args) -> Setup:
   model, statics = configs.build_gencast(spec, seed=args.seed, device=device)
   task = model.task
 
-  source = sources.SyntheticSource(
-      task, np.asarray(statics.grid_lat), np.asarray(statics.grid_lon),
-      num_times=max(40, args.batch_size * 8), seed=args.seed)
+  # source_factory is the picklable recipe --data_workers ships to its
+  # packing processes (each builds its own source).
+  if args.data == 'synthetic':
+    source_factory = functools.partial(
+        sources.SyntheticSource, task, np.asarray(statics.grid_lat),
+        np.asarray(statics.grid_lon), num_times=max(40, args.batch_size * 8),
+        seed=args.seed)
+  else:
+    source_factory = era5_source_factory(args.data, task, spec.resolution_deg)
+  source = source_factory()
+  require_frames(source, task.num_input_frames + 1, args.data,
+                 f'a training window ({task.num_input_frames} input frames '
+                 'and a target)')
   print(f'[train] data source: {type(source).__name__}, {len(source)} '
         f'samples', flush=True)
   stats = load_or_compute_stats(args, source, task, 'train', save=True)
@@ -322,7 +381,8 @@ def setup(args) -> Setup:
           learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
           total_steps=args.steps, weight_decay=args.weight_decay))
   batches = sources.batch_iterator(source, args.batch_size, seed=args.seed)
-  return Setup(model=model, statics=statics, source=source, wrapped=wrapped,
+  return Setup(model=model, statics=statics, source=source,
+               source_factory=source_factory, wrapped=wrapped,
                optimizer=optimizer, batches=batches, device=device)
 
 
@@ -357,6 +417,10 @@ def main(argv=None) -> TrainRun:
   if args.steps_per_call > 1 and not fused:
     print('[train] fused steps_per_call requires batch_size=1 and no '
           'mesh; falling back to per-step dispatch', flush=True)
+  if args.data_workers > 0 and fused:
+    # The fused loop packs its device pool in-process, as the reference's.
+    print('[train] --data_workers is ignored in fused steps_per_call mode; '
+          'batches are packed in-process', flush=True)
   try:
     if fused:
       _run_fused(args, s, manager, sink, run)
@@ -368,44 +432,132 @@ def main(argv=None) -> TrainRun:
     ckpt_lib.save(manager, args.steps - 1, wrapped, optimizer)
     print(f'[train] final checkpoint at {args.ckpt_dir}', flush=True)
   casting.refresh_all(wrapped)
+  if s.device.type == 'cuda':
+    from gencast_tpu_torch.ops import cuda_lib
+    print('[train] kernel launches in this process ' + json.dumps(
+        {c.name: c.launches for c in cuda_lib.COUNTERS}), flush=True)
   print('[train] done', flush=True)
   return run
 
 
+def default_prefetch(prefetch) -> int:
+  """--prefetch, or when not given the reference's default: 2 on hosts
+  with more than 2 CPUs, else 0."""
+  if prefetch is not None:
+    return prefetch
+  return 2 if (os.cpu_count() or 1) > 2 else 0
+
+
 def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
-  """One training step per host call from the batch iterator, with the
-  logs, checkpoints and sampling evals `args` asks for; fills `run`."""
+  """One training step per host call from the batch stream (in-process or
+  --data_workers processes, through --prefetch's thread), with the logs,
+  checkpoints, sampling evals and profile `args` asks for; fills `run`."""
+  from gencast_tpu_torch.data import prefetch as prefetch_lib
   from gencast_tpu_torch.training import checkpoint as ckpt_lib
   from gencast_tpu_torch.training import steps as steps_lib
   wrapped, optimizer, device = s.wrapped, s.optimizer, s.device
+  packer = prefetcher = prof = None
   losses: List[torch.Tensor] = []
-  t_log = time.perf_counter()
-  for step in range(run.start_step, args.steps):
-    batch = {k: torch.as_tensor(v).to(device)
-             for k, v in next(s.batches).items()}
-    _synchronize(device)
-    t0 = time.perf_counter()
-    loss, _ = steps_lib.train_step(
-        wrapped, optimizer, batch['inputs'], batch['targets'],
-        batch['forcings'], step_generator(args.seed, step, device))
-    _synchronize(device)
-    run.step_seconds.append(time.perf_counter() - t0)
-    losses.append(loss)
-    if (step + 1) % args.log_every == 0:
-      dt = time.perf_counter() - t_log
-      mean_loss = float(torch.stack(losses[-args.log_every:]).mean())
-      print(f'[train] step {step + 1}/{args.steps} loss={mean_loss:.4f} '
-            f'{args.log_every / dt:.2f} steps/s', flush=True)
-      sink.log('train', step + 1, loss=mean_loss,
-               steps_per_sec=args.log_every / dt)
-      t_log = time.perf_counter()
+  try:
+    started = time.perf_counter()
+    if args.data_workers > 0:
+      from gencast_tpu_torch.data import workers as workers_lib
+      it = packer = workers_lib.ParallelBatchIterator(
+          s.source_factory, args.batch_size, num_workers=args.data_workers,
+          seed=args.seed)
+      print(f'[train] packing batches in {args.data_workers} worker '
+            f'processes (started in {time.perf_counter() - started:.2f} s)',
+            flush=True)
+    else:
+      it = s.batches
+    put = prefetch_lib.CardCopy(device)
+    n_prefetch = default_prefetch(args.prefetch)
+    if n_prefetch > 0:
+      # Background host packing + device copy (the Grain role): the step
+      # loop consumes batches already on the device.
+      it = prefetcher = prefetch_lib.DevicePrefetcher(it, transform=put,
+                                                      buffer_size=n_prefetch)
+      get_batch = lambda: prefetch_lib.arrived(next(it))  # noqa: E731
+    else:
+      get_batch = lambda: prefetch_lib.arrived(put(next(it)))  # noqa: E731
 
-    if manager is not None and (step + 1) % args.save_every == 0:
-      ckpt_lib.save(manager, step, wrapped, optimizer)
+    t_log = time.perf_counter()
+    for step in range(run.start_step, args.steps):
+      if args.profile_dir and step == PROFILE_STEPS[0]:
+        prof = _start_profiler(device)
+      t_wait = time.perf_counter()
+      batch = get_batch()
+      _synchronize(device)
+      t0 = time.perf_counter()
+      run.batch_seconds.append(t0 - t_wait)
+      loss, _ = steps_lib.train_step(
+          wrapped, optimizer, batch['inputs'], batch['targets'],
+          batch['forcings'], step_generator(args.seed, step, device))
+      _synchronize(device)
+      run.step_seconds.append(time.perf_counter() - t0)
+      losses.append(loss)
+      if prof is not None and step == PROFILE_STEPS[1]:
+        _stop_profiler(prof, args.profile_dir)
+        prof = None
+      if (step + 1) % args.log_every == 0:
+        dt = time.perf_counter() - t_log
+        mean_loss = float(torch.stack(losses[-args.log_every:]).mean())
+        print(f'[train] step {step + 1}/{args.steps} loss={mean_loss:.4f} '
+              f'{args.log_every / dt:.2f} steps/s', flush=True)
+        sink.log('train', step + 1, loss=mean_loss,
+                 steps_per_sec=args.log_every / dt)
+        t_log = time.perf_counter()
 
-    if args.do_sampling_eval and (step + 1) % args.eval_every == 0:
-      _sampling_eval(args, s, sink, step)
+      if manager is not None and (step + 1) % args.save_every == 0:
+        ckpt_lib.save(manager, step, wrapped, optimizer)
+
+      if args.do_sampling_eval and (step + 1) % args.eval_every == 0:
+        _sampling_eval(args, s, sink, step)
+  finally:
+    if prof is not None:  # the run ended inside the profiled steps
+      _stop_profiler(prof, args.profile_dir)
+    if prefetcher is not None:
+      prefetcher.close()
+    if packer is not None:
+      packer.close()
   run.losses = [float(x) for x in losses]
+  print('[train] pipeline ' + json.dumps(pipeline_summary(
+      n_prefetch, args.data_workers, run)), flush=True)
+
+
+def pipeline_summary(prefetch: int, data_workers: int, run: TrainRun) -> dict:
+  """The input pipeline's settings and, for the batch wait and the step,
+  the first step's seconds (kernel builds, warm-up) and the mean and
+  largest over the later steps."""
+  summary = {'prefetch': prefetch, 'data_workers': data_workers,
+             'steps': len(run.step_seconds)}
+  for name, seconds in (('batch_wait_s', run.batch_seconds),
+                        ('step_s', run.step_seconds)):
+    if seconds:
+      rest = seconds[1:] or seconds
+      summary[name] = {'first': seconds[0], 'mean': float(np.mean(rest)),
+                       'max': max(rest)}
+  return summary
+
+
+def _start_profiler(device: torch.device):
+  """A started torch.profiler session: host ops, and the card's kernels
+  when `device` is the card."""
+  activities = [torch.profiler.ProfilerActivity.CPU]
+  if device.type == 'cuda':
+    activities.append(torch.profiler.ProfilerActivity.CUDA)
+  prof = torch.profiler.profile(activities=activities)
+  prof.start()
+  return prof
+
+
+def _stop_profiler(prof, profile_dir: str) -> None:
+  """Stops `prof` and writes its Chrome trace under `profile_dir`."""
+  prof.stop()
+  os.makedirs(profile_dir, exist_ok=True)
+  path = os.path.join(profile_dir, PROFILE_TRACE)
+  prof.export_chrome_trace(path)
+  print(f'[train] profiler trace written to {path}', flush=True)
 
 
 def device_pool(source, size: int, device) -> dict:

@@ -1,7 +1,8 @@
 """The training CLI knows every flag of the reference's
 (`gencast_tpu.training.train.parse_args`): each parses with the reference's
-default, `--ar_steps K` on a GenCast run is the reference's no-op, and the
-flags of paths not ported are refused by name, with the ROADMAP.md item
+default and, where it is ported, with the reference's meaning of a value;
+`--ar_steps K` on a GenCast run is the reference's no-op, and the flags of
+paths not ported are refused by name, with the ROADMAP.md item
 that brings them or as TPU-only, never as "unrecognized arguments".
 """
 
@@ -20,7 +21,9 @@ FLAGS = {
     'functional_step': ([], 'not ported: TPU-only'),
     'steps_per_call': (['4'], None),
     'pool_size': (['8'], None),
-    'profile_dir': (['traces'], 'CLIs and data'),
+    'profile_dir': (['traces'], None),
+    'prefetch': (['2'], None),
+    'data_workers': (['2'], None),
     'dp': (['2'], 'Parallelism'),
     'mp': (['2'], 'Parallelism'),
     'multihost': ([], 'Parallelism'),
@@ -39,7 +42,8 @@ def test_reference_flag_parses_or_is_refused_by_name(flag, capsys):
   assert default == getattr(jax_train.parse_args(['--preset', 'tiny']), flag)
   argv = ['--preset', 'tiny', f'--{flag}'] + value
   if refusal is None:
-    assert getattr(train.parse_args(argv), flag) == int(value[0])
+    assert (getattr(train.parse_args(argv), flag)
+            == getattr(jax_train.parse_args(argv), flag))
     return
   with pytest.raises(SystemExit):
     train.parse_args(argv)

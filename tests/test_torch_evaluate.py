@@ -66,13 +66,47 @@ def test_evaluate_restores_the_checkpoint(evaluated):
 
 @pytest.mark.parametrize('argv,match', [
     (['--attention_type', 'dense'], 'other attention backends'),
-    (['--save_netcdf'], 'CLIs and data'),
     (['--model', 'graphcast'], 'GraphCast'),
 ])
 def test_evaluate_refuses_what_is_not_ported(argv, match, capsys):
   with pytest.raises(SystemExit):
     evaluate.parse_args(['--preset', 'tiny'] + argv)
   assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize('h5py_present', [True, False])
+def test_evaluate_save_netcdf(evaluated, h5py_present, tmp_path, monkeypatch,
+                              capsys):
+  """--save_netcdf, refused until the ERA5 data path was ported, writes
+  rollout.nc (the ensemble mean and the truth, read back with h5py); where
+  h5py is missing it says so and skips, as the reference's CLI does, and
+  the rest of the outputs are written."""
+  import sys
+  h5py = pytest.importorskip('h5py')
+  run, ckpt, _ = evaluated
+  if not h5py_present:
+    monkeypatch.setitem(sys.modules, 'h5py', None)
+  again = evaluate.main(['--preset', 'tiny', '--device', 'cpu', '--ckpt_dir',
+                         ckpt, '--num_members', str(MEMBERS),
+                         '--max_rollout_steps', str(STEPS), '--out_dir',
+                         str(tmp_path), '--plot_vars', '--save_netcdf'])
+  np.testing.assert_array_equal(again.predictions, run.predictions)
+  path = os.path.join(str(tmp_path), 'rollout.nc')
+  out = capsys.readouterr().out
+  if not h5py_present:
+    assert '--save_netcdf skipped' in out and not os.path.exists(path)
+    assert os.path.exists(os.path.join(str(tmp_path), 'rollout.npz'))
+    return
+  assert f'NetCDF rollout written to {path}' in out
+  task = registry.GENCAST_TASK
+  target = layout.build_layout(task.target_variables, task.pressure_levels, 1)
+  ch = target.var_channels('2m_temperature')[0]
+  with h5py.File(path, 'r') as f, \
+      np.load(os.path.join(str(tmp_path), 'rollout.npz')) as z:
+    np.testing.assert_array_equal(f['2m_temperature'][...],
+                                  run.predictions.mean(axis=0)[..., ch])
+    np.testing.assert_array_equal(f['target_2m_temperature'][...],
+                                  z['truth'][..., ch])
 
 
 @pytest.mark.parametrize('argv,overlap', [

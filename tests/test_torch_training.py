@@ -304,12 +304,31 @@ def test_train_cli_needs_the_card_unless_told(preset, monkeypatch):
 
 @pytest.mark.parametrize('argv,match', [
     (['--preset', 'graphcast'], 'unknown --preset'),
-    (['--data', '/some/era5'], 'ERA5'),
 ])
 def test_train_cli_rejects_what_is_not_ported(argv, match, capsys):
   with pytest.raises(SystemExit):
     train.parse_args(['--preset', 'tiny'] + argv)
   assert match in capsys.readouterr().err
+
+
+def test_train_cli_takes_an_era5_directory(tmp_path):
+  """--data <dir>, refused until the ERA5 data path was ported, parses; the
+  source is the NetCDF files' where the directory holds them (as the
+  reference's CLI picks), else the npz shards'; a directory with neither
+  fails when the source is built."""
+  from gencast_tpu_torch.data import era5_netcdf
+  from gencast_tpu_torch.data import sources as port_sources
+  root = str(tmp_path)
+  assert train.parse_args(['--preset', 'tiny', '--data', root]).data == root
+  task = configs.TINY.task
+  factory = train.era5_source_factory(root, task, 10.0)
+  assert factory.func is port_sources.Era5NpzSource
+  with pytest.raises(FileNotFoundError):
+    factory()
+  (tmp_path / 'era5_pressure_levels_202001_10.00deg.nc').touch()
+  factory = train.era5_source_factory(root, task, 10.0)
+  assert factory.func is era5_netcdf.Era5NetCDFSource
+  assert factory.keywords == {'resolution_deg': 10.0}
 
 
 def test_train_cli_takes_the_quarter_degree_preset():
