@@ -3,8 +3,10 @@ GenCast, served and trained, the 1-degree train, resume and evaluate
 path with the fused attention backward, the CUDA-graph replays of the
 denoiser call and of the training step against their eager runs, and the
 paper-scale 0.25-degree GenCast (QUARTER_DEG: streamed-edge GNNs, GNN
-remat, a bf16 noise basis) served, trained and evaluated, and nano and
-1-degree GenCast trained and evaluated from ERA5-format directories.
+remat, a bf16 noise basis) served, trained and evaluated, nano and
+1-degree GenCast trained and evaluated from ERA5-format directories, and
+GraphCast (GraphCast_small at 1 degree, the 37-level paper configuration
+at 0.25 degrees) served, trained (autoregressively too) and evaluated.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -169,6 +171,38 @@ Phases (any failure raises and exits non-zero):
      and `evaluate.main` on its checkpoint, 1 member x 2 steps (finite
      where the truth is; --save_netcdf where h5py imports), walls and peak
      memory;
+ 31. GraphCast_small's 1-degree statics (the multimesh of levels 0-5:
+     81,900 edges into 10,242 nodes; no attention mask), built, then
+     loaded from the cache under their own key; TISR for one 1-degree
+     frame on the CPU and on the card (and one 0.25-degree frame on the
+     card), and a GraphCast window packed with TISR on each; kernel B
+     against its plain version on the multimesh receiver and sender plans
+     and the grid2mesh receiver and sender plans, float32 and bf16 in, as
+     phase 4;
+ 32. GraphCast_small served (seeded, perturbed, bf16 stack): a forecast
+     step through the kernels against the plain path, 17 B launches per
+     step as derived; a 4-step `rollout.predict_rollout` replaying the
+     model's CUDA graph against the eager rollout (bitwise equal) and
+     `chunked_rollout(mode='predict', chunk_size=2)` (bitwise equal); ms
+     per step graphed, eager, plain, and of the graph's replay alone;
+ 33. GraphCast_small trained through `train.main --model graphcast
+     --preset 1deg`: 4 eager steps, each followed by a sampling eval
+     (a predict graph captured, then replayed, while --prefetch's
+     thread packs windows, TISR on the card; batch waits logged); 4 with
+     --steps_per_call 2 (graph
+     replays), bitwise the eager ones, and again from the seed; --ar_steps
+     2 for 4 steps with a checkpoint, resumed to step 5; --ar_steps 2
+     --steps_per_call 2, bitwise the eager AR steps; B launches per step as
+     derived (52, 138 with the AR loss), no other kernel; then
+     `evaluate.main --model graphcast` on the checkpoint, 2 steps;
+ 34. the paper's GraphCast at 0.25 degrees (`--preset 0.25deg --task
+     graphcast_37 --remat_group 4`: streamed grid2mesh and mesh2grid,
+     grouped processor remat): its statics built; kernel B against its
+     plain version on the splits-6 multimesh's receiver and sender plans
+     (327,660 edges into 40,962 nodes), as phase 31; one forecast step
+     graphed and eagerly (bitwise equal), and through the plain path
+     within the bf16 tolerance; then 2 training steps through the CLI, B
+     launches as derived, peak memory;
 then one JSON line of kernel results (launches from the training runs of
 each kernel's paths, eager and graphed), the card's name and power limit, and a last JSON line
 {"ok": true, "device": {...}}.
@@ -181,10 +215,10 @@ in turns with the kernel (scaled_dot_product_attention with the dense mask
 and its backward, segment_reduce, native_layer_norm_backward; none for
 G's dq reduce, whose row says so); the port never calls those. TF32 is off
 for matmuls and cuDNN: float32 products run in full float32. Phases 17,
-20, 25, 26 and 28-30 write under build/ (git-ignored) and remove what they
-wrote;
+20, 25, 26, 28-30, 33 and 34 write under build/ (git-ignored) and remove
+what they wrote;
 the graph statics are cached under build/chip_smoke_cache for the run and
-removed at its end. About nine minutes on an H100, build included.
+removed at its end. About eleven minutes on an H100, build included.
 """
 
 from __future__ import annotations
@@ -2516,6 +2550,518 @@ def quarter_deg_row(result, shape, dtype) -> dict:
           'library_ms': ms['library']}
 
 
+# --- GraphCast (phases 31-34) ---
+
+# Steps of the served GraphCast rollouts (phase 32).
+GC_ROLLOUT_STEPS = 4
+
+
+def graphcast_b_launches(gc, train: bool, ar_steps: int = 1) -> int:
+  """Kernel B launches of one GraphCast forward (train=False) or one
+  training step (train=True; with ar_steps K > 1 the K-step autoregressive
+  loss, each of its steps recomputed in the backward), derived from the
+  model. On the card every edge side of non-uniform degree carries a plan:
+  B runs once per receiver sum over such a side each time its net runs
+  forward (again in each recomputation: a streamed net's chunks always,
+  the whole encoder and decoder and each processor step with remat, each
+  group of steps too with remat_group > 1), and in training once per
+  gather over such a side (its backward; a streamed net's sender gathers
+  always)."""
+  outer = 2 if (train and ar_steps > 1) else 1
+  remat = train and gc.config.remat
+  group = gc.mesh_gnn.remat_group if remat else 1
+  per_step = 0
+  for net in (gc.grid2mesh, gc.mesh_gnn, gc.mesh2grid):
+    if net.edge_chunk_size is not None:
+      runs = outer + train + remat  # forward, chunk remat, GNN remat
+      for topo in net.topologies:
+        stream = net.streams[topo.name]
+        if stream.uniform_k is None:
+          per_step += stream.num_chunks * (runs + train)
+        per_step += stream.num_chunks * train
+      continue
+    runs = outer + remat
+    steps = len(net.processors)
+    for inet in net.processors:
+      for topo in inet.topologies:
+        send_k, recv_k = inet._uniform[topo.name]
+        if recv_k is None:
+          per_step += runs + train  # the sums, the receiver gather's bwd
+        if send_k is None:
+          per_step += train  # the sender gather's backward
+    if net is gc.mesh_gnn and group > 1:
+      # A group's recomputation runs its steps but the last: torch's
+      # checkpoint stops once it has what the backward needs, the last
+      # step's inputs (that step is recomputed by its own checkpoint).
+      groups = -(-steps // group)
+      sums = sum(net.processors[0]._uniform[t.name][1] is None
+                 for t in net.topologies)
+      per_step += (steps - groups) * sums
+  return per_step * (ar_steps if train else 1)
+
+
+def graphcast_launches(gc, train: bool, ar_steps: int = 1) -> dict:
+  """Every kernel's launches per GraphCast forward or training step: B as
+  derived, no other (its MLPs end in a LayerNorm with a learned scale and
+  bias, so kernel E, the LN+FiLM backward, is not on its path)."""
+  from gencast_tpu_torch.ops import segment
+  launches = {c.name: 0 for c in counters()}
+  launches[segment.KERNEL.name] = graphcast_b_launches(gc, train, ar_steps)
+  return launches
+
+
+def graphcast_statics(spec, card):
+  """Phase 31: GraphCast_small's statics at 1 degree (the multimesh, no
+  attention mask), built, then loaded from the on-disk cache under their
+  own key (GenCast's 1-degree entry, from phase 2, is another file): the
+  same arrays; the multimesh's counts and degrees."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.graph import compiler
+  lat, lon = configs.grid_for_resolution(spec.resolution_deg)
+  cache = configs.DEFAULT_CACHE_DIR
+  before = set(os.listdir(cache))
+  seconds, built = [], []
+  for _ in range(2):
+    t0 = time.perf_counter()
+    built.append(compiler.build_graph_statics(
+        spec.mesh_splits, lat, lon,
+        radius_query_fraction_edge_length=(
+            spec.radius_query_fraction_edge_length),
+        build_multimesh=True, cache_dir=cache))
+    seconds.append(time.perf_counter() - t0)
+  added = set(os.listdir(cache)) - before
+  cold, warm = built
+  for name in ('multimesh_edges', 'grid2mesh', 'mesh2grid', 'mesh_edges'):
+    for field in ('senders', 'receivers', 'features'):
+      if not np.array_equal(getattr(getattr(cold, name), field),
+                            getattr(getattr(warm, name), field)):
+        raise AssertionError(f'GraphCast statics from the cache: {name}.'
+                             f'{field} differs from the build')
+  mm = warm.multimesh_edges
+  indeg = np.bincount(mm.receivers, minlength=warm.num_mesh_nodes)
+  outdeg = np.bincount(mm.senders, minlength=warm.num_mesh_nodes)
+  want_edges = sum(3 * 20 * 4 ** s for s in range(spec.mesh_splits + 1))
+  if (len(added) != 1 or mm.num_edges != want_edges
+      or warm.attention_tile_plan is not None
+      or warm.attention_mask is not None):
+    raise AssertionError(f'GraphCast statics: {len(added)} new cache files, '
+                         f'{mm.num_edges} multimesh edges (expected '
+                         f'{want_edges}), tile plan or mask built')
+  log(f'[graphcast statics] {spec.name}: built in {seconds[0]:.1f} s, '
+      f'loaded from the cache in {seconds[1]:.2f} s (a file of its own, '
+      f'beside GenCast\'s); multimesh {mm.num_edges} edges into '
+      f'{warm.num_mesh_nodes} nodes, in-degree {indeg.min()}-{indeg.max()} '
+      f'({int((indeg == indeg.max()).sum())} nodes at the maximum), '
+      f'out-degree {outdeg.min()}-{outdeg.max()}; grid2mesh '
+      f'{warm.grid2mesh.num_edges} edges, mesh2grid '
+      f'{warm.mesh2grid.num_edges}; {card}')
+  return warm
+
+
+def tisr_timing(spec, statics, dev, card):
+  """Phase 31: TISR (`ops.solar.tisr_for_grid`, 361 flux evaluations per
+  point) for one 1-degree frame on this machine's CPU and on the card, one
+  0.25-degree frame on the card, and the packing of one GraphCast_small
+  window (three TISR frames among its channels) with TISR on each, the
+  card's bitwise the CPU's to 1e-5 of the field's maximum. Returns the
+  seconds."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import registry, sources
+  from gencast_tpu_torch.ops import solar
+  t = np.array([1.0e9])
+  lat, lon = configs.grid_for_resolution(spec.resolution_deg)
+  out = {}
+  for where in ('cpu', dev):
+    solar.tisr_for_grid(t, lat, lon, device=where)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    field = solar.tisr_for_grid(t, lat, lon, device=where)
+    torch.cuda.synchronize()
+    out[f'frame_{torch.device(where).type}_s'] = time.perf_counter() - t0
+    out[torch.device(where).type] = field.cpu()
+  err = float((out['cuda'] - out['cpu']).abs().max())
+  if err > 1e-5 * float(out['cpu'].abs().max()):
+    raise AssertionError(f'TISR on the card vs the CPU: {err}')
+  q_lat, q_lon = configs.grid_for_resolution(0.25)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  solar.tisr_for_grid(t, q_lat, q_lon, device=dev)
+  torch.cuda.synchronize()
+  out['frame_0.25deg_cuda_s'] = time.perf_counter() - t0
+  task = dataclasses.replace(registry.GRAPHCAST_TASK_13,
+                             pressure_levels=spec.task.pressure_levels)
+  source = sources.SyntheticSource(task, statics.grid_lat, statics.grid_lon)
+  source.sample(0)  # the synthetic fields' cache
+  for where in ('cpu', dev):
+    source.forcing_device = where
+    t0 = time.perf_counter()
+    source.sample(1)
+    out[f'window_{torch.device(where).type}_s'] = time.perf_counter() - t0
+  log(f'[tisr] one 1-degree frame (65,160 points x 361 bins): CPU '
+      f'{out["frame_cpu_s"]:.3f} s ({torch.get_num_threads()} threads), card '
+      f'{out["frame_cuda_s"]:.4f} s, max abs difference {err:.3e} J/m^2; a '
+      f'0.25-degree frame on the card {out["frame_0.25deg_cuda_s"]:.4f} s; '
+      f'packing a GraphCast_small window (3 TISR frames) with TISR on the '
+      f'CPU {out["window_cpu_s"]:.3f} s, on the card '
+      f'{out["window_cuda_s"]:.3f} s; {card}')
+  return {k: v for k, v in out.items() if k.endswith('_s')}
+
+
+def check_graphcast_segment_sums(spec, statics, g, card):
+  """Phase 31: kernel B on the plans GraphCast's path takes on the card
+  (the multimesh's receivers and senders, the grid2mesh receivers and
+  senders), as phase 4 (check_segment_plan)."""
+  results = {}
+  mm = statics.multimesh_edges
+  for name, ids, n in (
+      ('multimesh receivers', mm.receivers, statics.num_mesh_nodes),
+      ('multimesh senders', mm.senders, statics.num_mesh_nodes),
+      ('graphcast grid2mesh receivers', statics.grid2mesh.receivers,
+       statics.num_mesh_nodes),
+      ('graphcast grid2mesh senders', statics.grid2mesh.senders,
+       statics.num_grid_nodes)):
+    results.update(check_segment_plan(name, ids, n, spec.d_model, g, card))
+  return results
+
+
+def graphcast_stacks(spec, statics, dev):
+  """GraphCast through the kernels and through the plain path
+  (use_kernels=False), the same seeded weights perturbed, each in its
+  serving stack (unit statistics, bf16 where the spec is): (model, stack,
+  plain stack)."""
+  from gencast_tpu_torch import bridge, configs
+  from gencast_tpu_torch.models import wrappers
+  model, _ = configs.build_graphcast(spec, statics=statics, device=dev)
+  flat = bridge.perturbed(bridge.export_reference_params(model), seed=1)
+  bridge.load_reference_params(model, flat)
+  plain, _ = configs.build_graphcast(spec, statics=statics, device=dev,
+                                     use_kernels=False)
+  bridge.load_reference_params(plain, flat)
+  stats = unit_stats(model.task)
+  return (model,
+          wrappers.build_stack(model, stats, bf16=spec.cast_bf16).to(dev),
+          wrappers.build_stack(plain, stats, bf16=spec.cast_bf16).to(dev))
+
+
+def graphcast_inputs(model, dev, g, steps):
+  """Seeded inputs [1, lat, lon, C_in] and forcings [steps, 1, lat, lon,
+  C_frc] (raw space; unit statistics)."""
+  grid = (1, model.num_lat, model.num_lon)
+  inputs = torch.randn(grid + (model.input_layout.num_channels,),
+                       generator=g, device=dev)
+  forcings = torch.randn((steps,) + grid
+                         + (model.forcing_layout.num_channels,),
+                         generator=g, device=dev)
+  return inputs, forcings
+
+
+def serve_graphcast(spec, statics, dev, g, card):
+  """Phase 32: GraphCast_small at 1 degree (seeded, perturbed, bf16 stack):
+  one forecast step through the kernels against the plain path; a
+  4-step `rollout.predict_rollout` whose steps replay the model's CUDA
+  graph, against the same rollout eagerly (bitwise equal) and
+  `chunked_rollout(mode='predict', chunk_size=2)` (bitwise equal); B
+  launches per step as derived, ms per step graphed and eager, the
+  graph's replay alone (the forward's device time), the peak memory.
+  Returns the timings."""
+  from gencast_tpu_torch import rollout
+  from gencast_tpu_torch.models import casting
+  from gencast_tpu_torch.ops import segment
+  torch.cuda.reset_peak_memory_stats()
+  model, stack, plain_stack = graphcast_stacks(spec, statics, dev)
+  inputs, forcings = graphcast_inputs(model, dev, g, GC_ROLLOUT_STEPS)
+  per_call = graphcast_b_launches(model, train=False)
+  with torch.no_grad():
+    segment.KERNEL.reset()
+    out_k = stack.predict(inputs, forcings[0])
+    torch.cuda.synchronize()
+    launched = segment.KERNEL.launches
+    out_p = plain_stack.predict(inputs, forcings[0], graphed=False)
+    rel = float((out_k - out_p).abs().max() / out_p.abs().max())
+    if (launched != per_call or not torch.isfinite(out_k).all()
+        or rel > DENOISER_BF16_RTOL):
+      raise AssertionError(f'GraphCast step: B launches {launched} '
+                           f'(expected {per_call}), kernels vs plain rel err '
+                           f'{rel} > {DENOISER_BF16_RTOL} or not finite')
+    (cast,) = [m for m in stack.modules()
+               if isinstance(m, casting.Bfloat16Cast)]
+    (pgraph,) = cast._bf16.predict_graphs.graphs.values()
+    ms = time_in_turns({
+        'plain': lambda: plain_stack.predict(inputs, forcings[0],
+                                             graphed=False),
+        'eager': lambda: stack.predict(inputs, forcings[0], graphed=False),
+        'graphed': lambda: stack.predict(inputs, forcings[0]),
+        'replay': pgraph.graph.graph.replay}, reps=5)
+    seconds, outs = {}, {}
+    for how, jit in (('graphed', True), ('eager', False)):
+      segment.KERNEL.reset()
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      outs[how] = rollout.predict_rollout(stack, inputs, forcings, jit=jit)
+      torch.cuda.synchronize()
+      seconds[how] = time.perf_counter() - t0
+      if segment.KERNEL.launches != GC_ROLLOUT_STEPS * per_call:
+        raise AssertionError(f'GraphCast rollout ({how}): B launches '
+                             f'{segment.KERNEL.launches}, expected '
+                             f'{GC_ROLLOUT_STEPS * per_call}')
+    check_graphed_equals_eager('GraphCast 4-step rollout', outs['graphed'],
+                               outs['eager'])
+    chunked = rollout.chunked_rollout(stack, inputs, forcings, chunk_size=2,
+                                      mode='predict')
+    if not torch.equal(chunked, outs['graphed'].cpu()):
+      raise AssertionError('GraphCast chunked rollout differs from the '
+                           'unchunked one')
+  peak = torch.cuda.max_memory_allocated()
+  shape = tuple(outs['graphed'].shape)
+  log(f'[graphcast serve] {spec.name} GraphCast_small '
+      f'({sum(p.numel() for p in model.parameters())} parameters, bf16): '
+      f'kernels vs plain max rel err {rel:.3e} (tol {DENOISER_BF16_RTOL}); '
+      f'B {per_call} launches per step, as derived; ms per step graphed '
+      f'{ms["graphed"]:.2f} (the graph\'s replay alone {ms["replay"]:.2f}), '
+      f'eager {ms["eager"]:.2f}, plain path {ms["plain"]:.2f}; '
+      f'{GC_ROLLOUT_STEPS}-step rollout {shape}: graphed '
+      f'{seconds["graphed"]:.3f} s, eager {seconds["eager"]:.3f} s, bitwise '
+      f'equal; chunked (2) bitwise equal; capture '
+      f'{pgraph.graph.capture_seconds:.2f} s, private pool '
+      f'{pgraph.graph.pool_bytes / 2**30:.2f} GiB; peak memory '
+      f'{peak / 2**30:.2f} GiB; {card}')
+  return dict(ms, rollout_graphed_s=seconds['graphed'],
+              rollout_eager_s=seconds['eager'], peak=peak)
+
+
+def graphcast_cli(argv, steps_run, tag, card, start=0):
+  """`train.main` of a GraphCast run (`argv`) up to step `steps_run`,
+  starting at `start`: finite losses, each kernel's launches per step as
+  derived (B only; with --do_sampling_eval --eval_every 1, a forward's
+  more per step). Logs the batch wait (--prefetch's thread packs the
+  windows, TISR on the card). Returns (the run, its launches)."""
+  from gencast_tpu_torch.models.graphcast import GraphCast
+  from gencast_tpu_torch.ops import segment
+  from gencast_tpu_torch.training import train
+  torch.cuda.reset_peak_memory_stats()
+  for c in counters():
+    c.reset()
+  t0 = time.perf_counter()
+  run = train.main(argv + ['--steps', str(steps_run), '--log_every', '1'])
+  wall = time.perf_counter() - t0
+  launches = {c.name: c.launches for c in counters()}
+  gc = next(m for m in run.model.modules() if isinstance(m, GraphCast))
+  ar = int(argv[argv.index('--ar_steps') + 1]) if '--ar_steps' in argv else 1
+  per_step = graphcast_launches(gc, train=True, ar_steps=ar)
+  taken = steps_run - start
+  expected = {k: v * taken for k, v in per_step.items()}
+  if '--do_sampling_eval' in argv:
+    assert argv[argv.index('--eval_every') + 1] == '1'
+    for k, v in graphcast_launches(gc, train=False).items():
+      expected[k] += v * taken
+  if not (run.start_step == start and len(run.losses) == taken
+          and np.isfinite(run.losses).all() and launches == expected):
+    raise AssertionError(f'{tag}: from step {run.start_step} (expected '
+                         f'{start}), losses {run.losses}, launches '
+                         f'{launches} (expected {expected})')
+  peak = torch.cuda.max_memory_allocated()
+  log(f'[graphcast train {tag}] steps {start + 1}-{steps_run}, losses '
+      f'{run.losses}; seconds per step '
+      f'{[round(x, 4) for x in run.step_seconds]}, batch wait '
+      f'{[round(x, 4) for x in run.batch_seconds]} (wall {wall:.1f} s with '
+      f'set-up and data); B {per_step[segment.KERNEL.name]} launches per '
+      f'step, no other kernel, as derived; peak memory '
+      f'{peak / 2**30:.2f} GiB; {card}')
+  run.peak = peak
+  return run, launches
+
+
+def same_run(a, b) -> bool:
+  """Equal losses and bitwise equal parameters."""
+  return a.losses == b.losses and same_state(
+      dict(a.model.named_parameters()), dict(b.model.named_parameters()))
+
+
+def train_graphcast(spec, statics, dev, card, work):
+  """Phase 33: GraphCast_small at 1 degree through the training CLI
+  (synthetic data, statistics computed by the first run and read by the
+  others): 4 per-step (eager) steps, each followed by a sampling eval
+  (--do_sampling_eval --eval_every 1: a predict graph captured, then
+  replayed, while --prefetch's thread packs windows with TISR on the
+  card); 4 steps with --steps_per_call 2
+  (replays of one CUDA graph of the step), bitwise the eager run's, and
+  again from the seed, the same bits; --ar_steps 2 for 4 steps with a
+  checkpoint, resumed to step 5; --ar_steps 2 --steps_per_call 2, bitwise
+  the eager AR run's 4 steps; then `evaluate.main --model graphcast` on
+  the checkpoint, 2 steps. Returns (the launches of every run, seconds per
+  step by run, the peak)."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.models.graphcast import GraphCast
+  from gencast_tpu_torch.training import evaluate
+  t_phase = time.perf_counter()
+  os.makedirs(work, exist_ok=True)
+  stats = os.path.join(work, 'stats.npz')
+  ckpt = os.path.join(work, 'ckpt')
+  base = ['--model', 'graphcast', '--preset', spec.name, '--data',
+          'synthetic', '--stats_path', stats]
+  eager, l_eager = graphcast_cli(
+      base + ['--do_sampling_eval', '--eval_every', '1'], 4,
+      'eager, sampling evals', card)
+  initial, _ = configs.build_graphcast(spec, statics=statics, device=dev)
+  changed = max(float((p.detach() - p0.detach()).abs().max())
+                for p, p0 in zip(eager.model.parameters(),
+                                 initial.parameters()))
+  del initial
+  fused = base + ['--steps_per_call', '2']
+  graphed, l_graphed = graphcast_cli(fused, 4, 'graphed', card)
+  again, l_again = graphcast_cli(fused, 4, 'graphed, again', card)
+  if not (changed > 0 and same_run(eager, graphed)
+          and same_run(graphed, again)):
+    raise AssertionError(f'GraphCast 1deg: parameters changed by {changed}; '
+                         f'graphed {graphed.losses} against eager '
+                         f'{eager.losses} and again {again.losses}, or the '
+                         'parameters differ')
+  ar = base + ['--ar_steps', '2']
+  ar_eager, l_ar = graphcast_cli(ar + ['--ckpt_dir', ckpt], 4, 'AR 2', card)
+  resumed, l_resumed = graphcast_cli(ar + ['--ckpt_dir', ckpt], 5,
+                                     'AR 2, resumed', card, start=4)
+  ar_graphed, l_ar_graphed = graphcast_cli(ar + ['--steps_per_call', '2'], 4,
+                                           'AR 2, graphed', card)
+  if not same_run(ar_eager, ar_graphed):
+    raise AssertionError(f'GraphCast AR graphed {ar_graphed.losses} against '
+                         f'eager {ar_eager.losses}, or the parameters differ')
+  for c in counters():
+    c.reset()
+  t0 = time.perf_counter()
+  ev = evaluate.main(['--model', 'graphcast', '--preset', spec.name,
+                      '--stats_path', stats, '--ckpt_dir', ckpt,
+                      '--max_rollout_steps', '2', '--plot_vars',
+                      '--out_dir', os.path.join(work, 'eval')])
+  ev_wall = time.perf_counter() - t0
+  gc = next(m for m in ev.model.modules() if isinstance(m, GraphCast))
+  ev_launches = {c.name: c.launches for c in counters()}
+  want = {k: 2 * v for k, v in graphcast_launches(gc, train=False).items()}
+  if (ev_launches != want or not np.isfinite(ev.predictions).all()
+      or ev.predictions.shape[:2] != (1, 2)):
+    raise AssertionError(f'GraphCast evaluate: launches {ev_launches} '
+                         f'(expected {want}), {ev.predictions.shape}')
+  runs = {'eager': eager, 'graphed': graphed, 'ar_eager': ar_eager,
+          'ar_graphed': ar_graphed}
+  peak = max(r.peak for r in runs.values())
+  log(f'[graphcast train] {spec.name}: graphed steps (--steps_per_call 2) '
+      f'bitwise the eager ones and again from the seed; AR graphed bitwise '
+      f'AR eager; resumed at step 4 from the checkpoint; max |parameter '
+      f'change| {changed:.3e}; evaluate 1 x 2 steps finite, RMSE '
+      f'2m_temperature {ev.results["rmse"]["2m_temperature"]:.4f}, '
+      f'{ev_wall:.1f} s with set-up; peak memory {peak / 2**30:.2f} GiB; '
+      f'phase {time.perf_counter() - t_phase:.1f} s; {card}')
+  launches = [l_eager, l_graphed, l_again, l_ar, l_resumed, l_ar_graphed,
+              ev_launches]
+  total = {k: sum(x[k] for x in launches) for k in l_eager}
+  return total, {k: r.step_seconds for k, r in runs.items()}, peak
+
+
+def graphcast_stats(task, path):
+  """Normalization statistics for the 0.25-degree GraphCast runs, written
+  to `path`: those of the same synthetic source on the 2.5-degree grid
+  over 8 frames (per variable and level; on the 0.25-degree grid with 37
+  levels they would take GBs and minutes of host time)."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import sources
+  lat, lon = configs.grid_for_resolution(2.5)
+  stats = sources.compute_stats(sources.SyntheticSource(task, lat, lon,
+                                                        seed=0),
+                                max_samples=8)
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  sources.save_stats(stats, path)
+
+
+def quarter_deg_graphcast(dev, g, card, work):
+  """Phase 34: the paper's GraphCast at 0.25 degrees (`--preset 0.25deg
+  --task graphcast_37 --remat_group 4`: 37 levels, splits 6, streamed
+  grid2mesh and mesh2grid, grouped processor remat): its statics (built,
+  then from the cache for the CLI); kernel B against its plain version on
+  the splits-6 multimesh's receiver and sender plans, as phase 31; one
+  forecast step graphed and eagerly (bitwise equal, B as derived), and
+  eagerly through the plain path (use_kernels=False, the same weights)
+  within DENOISER_BF16_RTOL; then 2 training steps through the CLI, B as
+  derived. Returns (the training launches, seconds per step, the serving
+  seconds and the peaks, B's results on the multimesh)."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import registry
+  from gencast_tpu_torch.ops import segment
+  t_phase = time.perf_counter()
+  spec = dataclasses.replace(configs.QUARTER_DEG,
+                             task=registry.TASKS['graphcast_37'])
+  stats = os.path.join(work, 'stats.npz')
+  graphcast_stats(spec.task, stats)
+  t0 = time.perf_counter()
+  model, statics = configs.build_graphcast(spec, seed=0, device=dev,
+                                           remat_group=4)
+  built_s = time.perf_counter() - t0
+  mm = statics.multimesh_edges
+  b_results = {'edges': mm.num_edges}
+  for name, ids in (('receivers', mm.receivers), ('senders', mm.senders)):
+    b_results.update(check_segment_plan(
+        f'0.25deg multimesh {name}', ids, statics.num_mesh_nodes,
+        spec.d_model, g, card))
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  from gencast_tpu_torch.data import sources
+  from gencast_tpu_torch.models import wrappers
+  stack = wrappers.build_stack(model, sources.load_stats(stats),
+                               bf16=True).to(dev)
+  inputs, forcings = graphcast_inputs(model, dev, g, 1)
+  per_call = graphcast_b_launches(model, train=False)
+  outs, seconds = {}, {}
+  with torch.no_grad():
+    for how, jit in (('graphed', True), ('graphed, replay', True),
+                     ('eager', False)):
+      segment.KERNEL.reset()
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      outs[how] = stack.predict(inputs, forcings[0], graphed=jit)
+      torch.cuda.synchronize()
+      seconds[how] = time.perf_counter() - t0
+      if (segment.KERNEL.launches != per_call
+          or not torch.isfinite(outs[how]).all()):
+        raise AssertionError(f'0.25deg GraphCast step ({how}): B launches '
+                             f'{segment.KERNEL.launches}, expected '
+                             f'{per_call}, or not finite')
+  check_graphed_equals_eager('0.25-degree GraphCast step',
+                             outs['graphed, replay'], outs['eager'])
+  serve_peak = torch.cuda.max_memory_allocated()
+  plain, _ = configs.build_graphcast(spec, statics=statics, device=dev,
+                                     remat_group=4, use_kernels=False)
+  plain.load_state_dict(model.state_dict())
+  plain_stack = wrappers.build_stack(plain, sources.load_stats(stats),
+                                     bf16=True).to(dev)
+  with torch.no_grad():
+    out_p = plain_stack.predict(inputs, forcings[0], graphed=False)
+  rel = float((outs['eager'] - out_p).abs().max() / out_p.abs().max())
+  if not rel <= DENOISER_BF16_RTOL:
+    raise AssertionError(f'0.25deg GraphCast step: kernels vs plain rel err '
+                         f'{rel} > {DENOISER_BF16_RTOL}')
+  del plain, plain_stack, out_p
+  log(f'[graphcast 0.25deg serve] graphcast_37 '
+      f'({model.input_layout.num_channels} input, '
+      f'{model.target_layout.num_channels} target channels; '
+      f'{sum(p.numel() for p in model.parameters())} parameters, bf16): '
+      f'statics and model in {built_s:.1f} s (multimesh {mm.num_edges} '
+      f'edges, grid2mesh {statics.grid2mesh.num_edges}, mesh2grid '
+      f'{statics.mesh2grid.num_edges}); one step {tuple(outs["eager"].shape)}'
+      f' finite: graphed {seconds["graphed"]:.3f} s (with the capture), '
+      f'{seconds["graphed, replay"]:.3f} s replayed, eager '
+      f'{seconds["eager"]:.3f} s, bitwise equal; against the plain path '
+      f'rel err {rel:.3e} (<= {DENOISER_BF16_RTOL}); B {per_call} launches '
+      f'per step, as derived; peak memory {serve_peak / 2**30:.2f} GiB; '
+      f'{card}')
+  del model, stack, outs, inputs, forcings
+  torch.cuda.empty_cache()
+  run, launches = graphcast_cli(
+      ['--model', 'graphcast', '--preset', '0.25deg', '--task',
+       'graphcast_37', '--remat_group', '4', '--data', 'synthetic',
+       '--stats_path', stats], 2, '0.25deg graphcast_37', card)
+  log(f'[graphcast 0.25deg] phase {time.perf_counter() - t_phase:.1f} s; '
+      f'{card}')
+  return (launches, run.step_seconds, seconds, serve_peak, run.peak,
+          b_results)
+
 
 def main() -> int:
   if not torch.cuda.is_available():
@@ -2933,6 +3479,36 @@ def main() -> int:
   shutil.rmtree(era5_work, ignore_errors=True)
   log(f'[timing] phases 28-30 in {time.perf_counter() - t0:.1f} s')
 
+  # --- 31. GraphCast_small's 1-degree statics; TISR; B on its plans ---
+  t0 = t_phase = time.perf_counter()
+  torch.cuda.reset_peak_memory_stats()
+  gc_statics = graphcast_statics(spec, card)
+  tisr_timing(spec, gc_statics, dev, card)
+  gc_segment = check_graphcast_segment_sums(spec, gc_statics, g, card)
+  log(f'[timing] phase 31 in {time.perf_counter() - t_phase:.1f} s, peak '
+      f'memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}')
+
+  # --- 32. serving GraphCast_small: a step, rollouts graphed and eager ---
+  t_phase = time.perf_counter()
+  gc_serve = serve_graphcast(spec, gc_statics, dev, g, card)
+  log(f'[timing] phase 32 in {time.perf_counter() - t_phase:.1f} s; {card}')
+
+  # --- 33. training GraphCast_small through the CLI, AR, graphed;
+  # evaluate ---
+  gc_work = os.path.join(repo, 'build', 'chip_smoke_graphcast')
+  shutil.rmtree(gc_work, ignore_errors=True)
+  gc_launches, gc_seconds, gc_peak = train_graphcast(spec, gc_statics, dev,
+                                                     card, gc_work)
+  shutil.rmtree(gc_work, ignore_errors=True)
+
+  # --- 34. the paper's GraphCast at 0.25 degrees: serve, train ---
+  gc_work = os.path.join(repo, 'build', 'chip_smoke_graphcast_0.25deg')
+  shutil.rmtree(gc_work, ignore_errors=True)
+  (gcq_launches, gcq_step_s, gcq_serve_s, gcq_serve_peak,
+   gcq_train_peak, gcq_segment) = quarter_deg_graphcast(dev, g, card, gc_work)
+  shutil.rmtree(gc_work, ignore_errors=True)
+  log(f'[timing] phases 31-34 in {time.perf_counter() - t0:.1f} s')
+
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B on the grid2mesh
   # receiver plan from bf16 edges (float32 out), E in bf16 at the largest
@@ -2976,7 +3552,17 @@ def main() -> int:
                                           torch.float32)][1]['kernel'],
            **{f'0.25deg_chunk_{side}': quarter_deg_row(
                q_results[('B', bf16, side)], q_results[('B shape', side)],
-               bf16) for side in ('recv', 'send')}),
+               bf16) for side in ('recv', 'send')},
+           **{f'graphcast_multimesh_{side}': quarter_deg_row(
+               gc_segment[(f'multimesh {name}', bf16)],
+               [gc_statics.multimesh_edges.num_edges, spec.d_model], bf16)
+              for side, name in (('recv', 'receivers'),
+                                 ('send', 'senders'))},
+           **{f'graphcast_0.25deg_multimesh_{side}': quarter_deg_row(
+               gcq_segment[(f'0.25deg multimesh {name}', bf16)],
+               [gcq_segment['edges'], spec.d_model], bf16)
+              for side, name in (('recv', 'receivers'),
+                                 ('send', 'senders'))}),
       row(banded_attention.KERNEL, err_c, ms_c['kernel'], ms_c['plain'],
           ms_c['library'], *cost_c, bf16),
       row(banded_attention.KERNEL_DQ, errs_d['dq'][1], ms_d['dq'],
@@ -3025,7 +3611,9 @@ def main() -> int:
                'nano_cli_graphed': cli_launches[k['name']],
                '0.25deg': q_launches[k['name']],
                'nano_era5': nano_era5_launches[k['name']],
-               '1deg_era5': one_deg_era5_launches[k['name']]}
+               '1deg_era5': one_deg_era5_launches[k['name']],
+               'graphcast_1deg': gc_launches[k['name']],
+               'graphcast_0.25deg': gcq_launches[k['name']]}
     k['launches'] = sum(by_path.values())
     if sum(1 for n in by_path.values() if n) > 1:
       k['launches_by_path'] = by_path
@@ -3042,7 +3630,20 @@ def main() -> int:
       f'step {[round(x, 4) for x in q_step_s]} s, fused '
       f'{[round(x, 4) for x in q_fused_s]} s, peak '
       f'{q_train_peak / 2**30:.2f} GiB; evaluate (1 member, 2 steps) '
-      f'{q_eval_wall:.1f} s, peak {q_eval_peak / 2**30:.2f} GiB; the run '
+      f'{q_eval_wall:.1f} s, peak {q_eval_peak / 2**30:.2f} GiB; {card}')
+  log(f'[summary] GraphCast_small at 1 degree: a forecast step graphed '
+      f'{gc_serve["graphed"]:.2f} ms (the replay alone '
+      f'{gc_serve["replay"]:.2f}), eager {gc_serve["eager"]:.2f} ms; a '
+      f'training step eager {[round(x, 4) for x in gc_seconds["eager"]]} s, '
+      f'graphed {[round(x, 4) for x in gc_seconds["graphed"]]} s, AR 2 eager '
+      f'{[round(x, 4) for x in gc_seconds["ar_eager"]]} s, graphed '
+      f'{[round(x, 4) for x in gc_seconds["ar_graphed"]]} s, peak '
+      f'{gc_peak / 2**30:.2f} GiB; graphcast_37 at 0.25 degrees: a forecast '
+      f'step {gcq_serve_s["graphed, replay"]:.3f} s replayed, '
+      f'{gcq_serve_s["eager"]:.3f} s eager, peak '
+      f'{gcq_serve_peak / 2**30:.2f} GiB; a training step '
+      f'{[round(x, 4) for x in gcq_step_s]} s, peak '
+      f'{gcq_train_peak / 2**30:.2f} GiB; the run '
       f'{time.perf_counter() - t_start:.1f} s; {card}')
   shutil.rmtree(cache_root, ignore_errors=True)
   print(json.dumps({'kernels': kernels}))

@@ -7,6 +7,7 @@ keys are its state paths joined by '/', e.g.
 imports jax). The port's modules mirror those paths, so the mapping is:
 
 * `kernel` [in, out] -> `weight` [out, in] (transposed); `bias` -> `bias`;
+* a LayerNorm's `scale` -> `weight` (as it is: a vector);
 * the transformer's stacked layer axis (`processor/blocks/...`, leading axis
   L) -> one `processor.blocks.{i}....` parameter per layer.
 
@@ -23,7 +24,7 @@ import torch
 from torch import nn
 
 _STACKED = 'processor/blocks/'
-_LEAVES = {'kernel': 'weight', 'bias': 'bias'}
+_LEAVES = {'kernel': 'weight', 'bias': 'bias', 'scale': 'weight'}
 
 
 def _port_entries(key: str, value: np.ndarray
@@ -70,14 +71,23 @@ def load_reference_params(model: nn.Module,
                    f'{" ..." if len(missing) > 5 else ""}')
 
 
-def _export(named: Iterator[Tuple[str, torch.Tensor]]
+def _scales(model: nn.Module) -> set:
+  """The port names of the LayerNorm scales in `model` (the `weight`
+  leaves that are the reference's `scale`, not a `kernel`)."""
+  from gencast_tpu_torch.nn.mlp import LayerNorm
+  return {f'{name}.weight' if name else 'weight'
+          for name, m in model.named_modules() if isinstance(m, LayerNorm)}
+
+
+def _export(named: Iterator[Tuple[str, torch.Tensor]], scales: set
             ) -> Dict[str, np.ndarray]:
   flat: Dict[str, np.ndarray] = {}
   stacked: Dict[str, Dict[int, np.ndarray]] = {}
   for name, p in named:
     path = name.replace('.', '/')
     prefix, leaf = path.rsplit('/', 1)
-    key_leaf = {v: k for k, v in _LEAVES.items()}[leaf]
+    key_leaf = ('scale' if name in scales
+                else {'weight': 'kernel', 'bias': 'bias'}[leaf])
     a = p.detach().float().cpu().numpy().copy()  # not a view of p
     if key_leaf == 'kernel':
       a = np.swapaxes(a, -1, -2)
@@ -96,21 +106,23 @@ def _export(named: Iterator[Tuple[str, torch.Tensor]]
 def export_reference_params(model: nn.Module) -> Dict[str, np.ndarray]:
   """The inverse of load_reference_params: the port's parameters as a flat
   dict in the reference's keys and layouts (float32 numpy)."""
-  return _export(model.named_parameters())
+  return _export(model.named_parameters(), _scales(model))
 
 
 def export_reference_grads(model: nn.Module) -> Dict[str, np.ndarray]:
   """The port's parameter gradients (`.grad`, zeros where None) in the
   reference's keys and layouts, to hold them against the reference's
   gradients of the same loss."""
-  return _export((name, p.grad if p.grad is not None else torch.zeros_like(p))
-                 for name, p in model.named_parameters())
+  return _export(((name, p.grad if p.grad is not None
+                   else torch.zeros_like(p))
+                  for name, p in model.named_parameters()), _scales(model))
 
 
 def perturbed(flat: Mapping[str, np.ndarray], seed: int
               ) -> Dict[str, np.ndarray]:
   """Every parameter plus seeded normal noise scaled by 1/sqrt(fan_in) of
-  its layer (keys in the reference's layout).
+  its layer, or of its width for a LayerNorm's scale and bias (keys in the
+  reference's layout).
 
   A freshly initialized GenCast has zero attention and feed-forward output
   projections and FiLM weights of ~1e-8, which would hide any error in the
@@ -120,7 +132,8 @@ def perturbed(flat: Mapping[str, np.ndarray], seed: int
   out = {}
   for key in sorted(flat):
     a = np.asarray(flat[key])
-    fan_in = flat[key.rsplit('/', 1)[0] + '/kernel'].shape[-2]
+    kernel = key.rsplit('/', 1)[0] + '/kernel'
+    fan_in = flat[kernel].shape[-2] if kernel in flat else a.shape[-1]
     out[key] = (a + rng.standard_normal(a.shape) / np.sqrt(fan_in)
                 ).astype(a.dtype)
   return out

@@ -4,8 +4,10 @@ Counterpart of `gencast_tpu.configs` for the configurations the port runs:
 the CPU-sized TINY (block-sparse attention) and its tri-block variant
 TINY_TRIBLOCK, the reference's demo model NANO (tri-block attention), the
 1-degree GenCast ONE_DEG and the paper-scale 0.25-degree GenCast
-QUARTER_DEG (both block-sparse attention). Graph statics are cached on
-disk (`build_statics`), keyed by what they are built from.
+QUARTER_DEG (both block-sparse attention). `build_gencast` builds GenCast
+from a preset, `build_graphcast` GraphCast (at ONE_DEG: GraphCast_small).
+Graph statics are cached on disk (`build_statics`), keyed by what they are
+built from.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from gencast_tpu_torch.data import registry
 from gencast_tpu_torch.graph import compiler
 from gencast_tpu_torch.models.denoiser import DenoiserConfig
 from gencast_tpu_torch.models.gencast import GenCast, SamplerConfig
+from gencast_tpu_torch.models.graphcast import GraphCast, GraphCastConfig
 from gencast_tpu_torch.nn.transformer import TransformerConfig
 
 # Where `build_statics` keeps its pickled GraphStatics: under
@@ -193,4 +196,57 @@ def build_gencast(spec: ModelSpec, *, seed: int = 0,
       use_kernels=use_kernels,
       noise_basis_dtype=getattr(torch, spec.noise_basis_dtype),
       basis_device=device)
+  return model.to(device), statics
+
+
+def build_graphcast(spec: ModelSpec, *, seed: int = 0,
+                    statics: Optional[compiler.GraphStatics] = None,
+                    device: torch.device | str = 'cuda',
+                    cache_dir: Optional[str] = DEFAULT_CACHE_DIR,
+                    use_kernels: bool = True,
+                    **config_overrides
+                    ) -> Tuple[GraphCast, compiler.GraphStatics]:
+  """Builds a GraphCast from a ModelSpec on `device` (the CUDA card unless
+  the caller names another), plus its graph statics (the multimesh, no
+  attention mask; from `cache_dir` when built there before).
+
+  As the reference's: a GenCast task of the spec (the presets carry them)
+  becomes GRAPHCAST_TASK_13's variables at the spec's pressure levels, and
+  any other task (graphcast_13, graphcast_37, ...) is used as given;
+  num_layers is the number of processor steps (gnn_msg_steps). Keyword
+  arguments override GraphCastConfig fields; remat_group > 1 implies
+  remat=True unless remat is given. At ONE_DEG this is DeepMind's
+  GraphCast_small: 1 degree, 13 levels, mesh levels up to splits 5, latent
+  512, 16 steps, precipitation in and out. Parameters come from a
+  torch.Generator seeded with `seed`; use_kernels=False sends the planned
+  sums through their plain versions on every device.
+  """
+  if (config_overrides.get('remat_group', 1) > 1
+      and 'remat' not in config_overrides and not spec.remat_gnns):
+    config_overrides = dict(config_overrides, remat=True)
+  gencast_families = {
+      dataclasses.replace(t, pressure_levels=())
+      for t in (registry.GENCAST_TASK, registry.GENCAST_TASK_FULL)}
+  if dataclasses.replace(spec.task, pressure_levels=()) in gencast_families:
+    task = dataclasses.replace(registry.GRAPHCAST_TASK_13,
+                               pressure_levels=spec.task.pressure_levels)
+  else:
+    task = spec.task
+  if statics is None:
+    lat, lon = grid_for_resolution(spec.resolution_deg)
+    statics = compiler.build_graph_statics(
+        spec.mesh_splits, lat, lon,
+        radius_query_fraction_edge_length=(
+            spec.radius_query_fraction_edge_length),
+        build_multimesh=True, cache_dir=cache_dir)
+  config = dataclasses.replace(
+      GraphCastConfig(latent_size=spec.d_model,
+                      gnn_msg_steps=spec.num_layers,
+                      hidden_layers=spec.hidden_layers,
+                      edge_chunk_size=spec.edge_chunk_size,
+                      remat=spec.remat_gnns),
+      **config_overrides)
+  model = GraphCast(task, statics, config,
+                    rng=torch.Generator().manual_seed(seed),
+                    use_kernels=use_kernels)
   return model.to(device), statics

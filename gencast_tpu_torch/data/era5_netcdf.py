@@ -314,7 +314,7 @@ class Era5NetCDFSource(sources.WindowedSource):
     if registry.is_static(name):
       return self._statics[name]
     if name in registry.FORCING_VARS and name not in self._data:
-      return forcings_lib.all_forcings(times, self.lat, self.lon,
-                                       (name,))[name]
+      return forcings_lib.all_forcings(times, self.lat, self.lon, (name,),
+                                       device=self.forcing_device)[name]
     idx = np.searchsorted(self._times, times)
     return self._data[name][idx]

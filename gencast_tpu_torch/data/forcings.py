@@ -1,16 +1,19 @@
-"""Derived forcing fields: year and day progress.
+"""Derived forcing fields: year and day progress, and TISR.
 
-Counterpart of `gencast_tpu.data.forcings` for the four generated forcings
+Counterpart of `gencast_tpu.data.forcings`: the four generated forcings
 GenCast uses (`registry.GENERATED_FORCING_VARS`), as numpy builders keyed on
-seconds-since-epoch timestamps. The top-of-atmosphere solar radiation
-(GraphCast's forcing) is not carried over yet.
+seconds-since-epoch timestamps, and GraphCast's top-of-atmosphere incident
+solar radiation (`ops.solar`), computed on the device the caller names and
+returned as numpy.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence
 
 import numpy as np
+import torch
 
 SEC_PER_DAY = 86400
 AVG_DAY_PER_YEAR = 365.24219
@@ -60,18 +63,50 @@ def generated_forcings(seconds_since_epoch: np.ndarray,
 
 def all_forcings(seconds_since_epoch: np.ndarray,
                  lat_deg: np.ndarray, lon_deg: np.ndarray,
-                 variables: Sequence[str]) -> Dict[str, np.ndarray]:
-  """Builds the requested generated forcing variables, each [T, lat, lon]."""
+                 variables: Sequence[str],
+                 tisr_integration_period_s: int = 3600,
+                 device: torch.device | str = 'cpu'
+                 ) -> Dict[str, np.ndarray]:
+  """Builds the requested forcing variables, each [T, lat, lon] numpy:
+  GENERATED_FORCING_VARS, and toa_incident_solar_radiation computed on
+  `device` (a 1-degree frame is 23.5 M flux evaluations)."""
   out = {}
   generated = None
   for name in variables:
     if name == 'toa_incident_solar_radiation':
-      raise NotImplementedError(
-          'toa_incident_solar_radiation (ops/solar.py) is not ported: it '
-          'comes with GraphCast (ROADMAP.md, "Still to port": GraphCast)')
+      out[name] = _tisr_numpy(seconds_since_epoch, lat_deg, lon_deg,
+                              tisr_integration_period_s, torch.device(device))
+      continue
     if generated is None:
       generated = generated_forcings(seconds_since_epoch, lat_deg, lon_deg)
     if name not in generated:
       raise ValueError(f'unknown forcing variable {name}')
     out[name] = generated[name]
   return out
+
+
+@functools.lru_cache(maxsize=None)
+def _tisr_stream(device: torch.device) -> torch.cuda.Stream:
+  return torch.cuda.Stream(device)
+
+
+def _tisr_numpy(seconds_since_epoch, lat_deg, lon_deg, period_s: int,
+                device: torch.device) -> np.ndarray:
+  """TISR computed on `device`, as numpy. On the card it runs on a stream
+  of its own (one per device, so the allocator's cached blocks are reused):
+  a packing thread (--prefetch) neither queues behind the training step on
+  the default stream nor waits for it when it copies the field back, which
+  synchronizes this stream only."""
+  from gencast_tpu_torch.ops import solar
+
+  def tisr():
+    return solar.tisr_for_grid(seconds_since_epoch, lat_deg, lon_deg,
+                               integration_period_s=period_s,
+                               device=device).cpu().numpy()
+
+  if device.type != 'cuda':
+    return tisr()
+  if device.index is None:
+    device = torch.device('cuda', torch.cuda.current_device())
+  with torch.cuda.stream(_tisr_stream(device)):
+    return tisr()

@@ -48,6 +48,9 @@ class WindowedSource:
     self.lat = np.asarray(lat, np.float32)
     self.lon = np.asarray(lon, np.float32)
     self.step_seconds = step_seconds
+    # Where the computed forcings (TISR) are computed; a run on the card
+    # sets its device here, packing processes keep the CPU.
+    self.forcing_device = 'cpu'
     self.input_layout = layout_lib.build_layout(
         task.input_variables, task.pressure_levels, task.num_input_frames)
     self.target_layout = layout_lib.build_layout(
@@ -168,7 +171,8 @@ class SyntheticSource(WindowedSource):
   def field(self, name: str, times: np.ndarray) -> np.ndarray:
     nlat, nlon = self.lat.size, self.lon.size
     if name in self._forcing_names:
-      vals = forcings_lib.all_forcings(times, self.lat, self.lon, (name,))
+      vals = forcings_lib.all_forcings(times, self.lat, self.lon, (name,),
+                                       device=self.forcing_device)
       return vals[name]
     if name == 'land_sea_mask':
       rng = np.random.default_rng(self._seed + 7)
@@ -266,8 +270,8 @@ class Era5NpzSource(WindowedSource):
     if registry.is_static(name):
       return self._statics[name]
     if name in registry.FORCING_VARS and name not in self._data:
-      return forcings_lib.all_forcings(times, self.lat, self.lon,
-                                       (name,))[name]
+      return forcings_lib.all_forcings(times, self.lat, self.lon, (name,),
+                                       device=self.forcing_device)[name]
     idx = np.searchsorted(self._times, times)
     return self._data[name][idx]
 

@@ -4,9 +4,9 @@ Counterpart of `gencast_tpu.graph.compiler`: the RCM-permuted icosahedral
 mesh, the grid2mesh / mesh / mesh2grid edge sets (sorted by receiver) with
 their spatial features, and the k-hop attention mask, as a tri-block
 `BandedMask` (the tri-block backend) and/or a block-sparse `TilePlan` (the
-block-sparse backend). The GraphCast multimesh is not built here. As in
-the reference, a build can be cached on disk, keyed by what it is built
-from (`cache_dir`).
+block-sparse backend), and for GraphCast the multimesh: the edges of every
+refinement level over the finest level's vertices. As in the reference, a
+build can be cached on disk, keyed by what it is built from (`cache_dir`).
 """
 
 from __future__ import annotations
@@ -76,6 +76,10 @@ class GraphStatics:
   attention_mask: Optional[BandedMask] = None
   # Block-sparse attention tile plan; None unless attention_tile_size > 0.
   attention_tile_plan: Optional[TilePlan] = None
+  # GraphCast's multimesh: the edges of every refinement level (vertices
+  # of the finest mesh, RCM-permuted as it); None unless built with
+  # build_multimesh.
+  multimesh_edges: Optional[EdgeSet] = None
 
   @property
   def num_mesh_nodes(self) -> int:
@@ -188,6 +192,7 @@ def build_graph_statics(
     attention_k_hop: int = 16,
     attention_tile_size: int = 0,
     build_triblock_mask: bool = False,
+    build_multimesh: bool = False,
     cache_dir: Optional[str] = None,
 ) -> GraphStatics:
   """Compiles all static graph structure for a (mesh, grid) pair.
@@ -203,6 +208,7 @@ def build_graph_statics(
       the plan.
     build_triblock_mask: build the tri-block mask (`BandedMask`) that the
       'triblock_pallas' attention backend reads.
+    build_multimesh: build GraphCast's multimesh (`multimesh_edges`).
     cache_dir: directory of the on-disk cache; None builds without it. A
       build is stored under a key of every argument above, written to a
       temporary file and renamed into place, so a reader never sees a
@@ -217,13 +223,16 @@ def build_graph_statics(
                      lon=grid_lon.tobytes(),
                      frac=radius_query_fraction_edge_length,
                      k_hop=attention_k_hop, tile=attention_tile_size,
-                     triblock=build_triblock_mask, v=CACHE_VERSION)
+                     triblock=build_triblock_mask, multimesh=build_multimesh,
+                     v=CACHE_VERSION)
     cache_path = os.path.join(cache_dir, f'graph_{key}.pkl')
     if os.path.exists(cache_path):
       with open(cache_path, 'rb') as f:
         return pickle.load(f)
 
-  mesh, _ = rcm_permute(icosahedron.finest_mesh(mesh_splits))
+  hierarchy = icosahedron.mesh_hierarchy(mesh_splits)
+  # One permutation for the finest mesh and the multimesh's merged faces.
+  mesh, inv_perm = rcm_permute(hierarchy[-1])
   mesh_phi, mesh_theta = features.xyz_to_spherical(mesh.vertices)
   mesh_lat, mesh_lon = features.spherical_to_lat_lon(mesh_phi, mesh_theta)
   mesh_lat = mesh_lat.astype(np.float32)
@@ -265,6 +274,15 @@ def build_graph_statics(
     if attention_tile_size:
       tile_plan = build_tile_plan(csr, tile=attention_tile_size)
 
+  multimesh = None
+  if build_multimesh:
+    merged = icosahedron.merge_hierarchy(hierarchy)
+    mm_s, mm_r = icosahedron.faces_to_edges(
+        inv_perm[merged.faces].astype(np.int32))
+    mm_feats = features.edge_features(
+        mesh_lat, mesh_lon, mm_s, mesh_lat, mesh_lon, mm_r).features
+    multimesh = _sorted_edge_set(mm_s, mm_r, mm_feats)
+
   statics = GraphStatics(
       mesh_vertices=mesh.vertices.astype(np.float32),
       mesh_faces=mesh.faces,
@@ -281,6 +299,7 @@ def build_graph_statics(
       attention_k_hop=attention_k_hop,
       attention_mask=mask,
       attention_tile_plan=tile_plan,
+      multimesh_edges=multimesh,
   )
   if cache_path is not None:
     os.makedirs(cache_dir, exist_ok=True)

@@ -13,7 +13,7 @@ transfer. The construction itself is standard Loop-style 4-way subdivision.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -129,6 +129,18 @@ def mesh_hierarchy(splits: int) -> List[TriMesh]:
 
 def finest_mesh(splits: int) -> TriMesh:
   return mesh_hierarchy(splits)[-1]
+
+
+def merge_hierarchy(meshes: Sequence[TriMesh]) -> TriMesh:
+  """GraphCast's multimesh: the finest level's vertices and the faces of
+  every level together. Each level's vertices must be a prefix of the
+  next's (as `mesh_hierarchy` builds them)."""
+  for lo, hi in zip(meshes[:-1], meshes[1:]):
+    if not np.allclose(lo.vertices, hi.vertices[:lo.num_vertices]):
+      raise ValueError('a level\'s vertices are not a prefix of the next '
+                       'level\'s')
+  return TriMesh(vertices=meshes[-1].vertices,
+                 faces=np.concatenate([m.faces for m in meshes], axis=0))
 
 
 def faces_to_edges(faces: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -6,8 +6,8 @@ come back as float32. LayerNorm statistics, softmax and the planned
 grid2mesh aggregation still run in float32 inside (ops/ln_film.py, the
 attention kernels, ops/segment.py f32_accumulate).
 
-* Serving (`forward`, `sample`) runs a cached bf16 copy of the predictor,
-  made once (`refresh()`), so no call pays for the cast.
+* Serving (`forward`, `sample`, `predict`) runs a cached bf16 copy of the
+  predictor, made once (`refresh()`), so no call pays for the cast.
 * Training (`loss`, `loss_and_predictions`) runs the predictor itself under
   `torch.func.functional_call` with its parameters cast per call, so the
   cast is part of the autograd graph and gradients reach the float32
@@ -91,6 +91,11 @@ class Bfloat16Cast(nn.Module):
     i, f = self._in(inputs, forcings)
     kwargs.setdefault('dtype', torch.bfloat16)
     return self._bf16.sample(i, f, generator, **kwargs).float()
+
+  def predict(self, inputs, forcings, generator=None, **kwargs):
+    """The deterministic forward (GraphCast) of the bf16 copy, float32 out."""
+    i, f = self._in(inputs, forcings)
+    return self._bf16.predict(i, f, generator, **kwargs).float()
 
 
 def refresh_all(model: nn.Module) -> None:

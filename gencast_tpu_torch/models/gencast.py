@@ -58,79 +58,6 @@ LOSS_WEIGHTS_SURFACE = {
 }
 
 
-class DenoiserGraph:
-  """One preconditioned denoiser call of the sampler, captured in a CUDA
-  graph over static buffers: the window `inputs` and `forcings` (loaded once
-  per sample), the state `x` and the [B] noise level `sigma` (filled before
-  each call). The first call runs eagerly on the graph's side stream (its
-  warm-up) and is then captured; every later call replays. The output of a
-  replay is the graph's static buffer, overwritten by the next replay."""
-
-  def __init__(self, inputs: torch.Tensor, forcings: torch.Tensor,
-               x_channels: int, dtype: torch.dtype):
-    self.graph = cuda_lib.Graph(inputs.device)
-    self.inputs = torch.empty_like(inputs)
-    self.forcings = torch.empty_like(forcings)
-    self.x = torch.empty(inputs.shape[:-1] + (x_channels,), dtype=dtype,
-                         device=inputs.device)
-    self.sigma = torch.empty(inputs.shape[0], dtype=torch.float32,
-                             device=inputs.device)
-    self.out: Optional[torch.Tensor] = None
-
-  def load(self, inputs: torch.Tensor, forcings: torch.Tensor) -> None:
-    self.inputs.copy_(inputs)
-    self.forcings.copy_(forcings)
-
-  def __call__(self, model: 'GenCast', x: torch.Tensor,
-               sigma: float) -> torch.Tensor:
-    # `model` is passed per call, not kept: the graph lives on the model
-    # (`DenoiserGraphs`) and must not keep it alive.
-    self.x.copy_(x)
-    self.sigma.fill_(sigma)
-
-    def call():
-      return model._precond_denoise(self.inputs, self.forcings, self.x,
-                                    self.sigma)
-
-    if self.out is None:
-      out = self.graph.warm_up(call)
-      self.out = self.graph.capture(call)
-      return out
-    self.graph.replay()
-    return self.out
-
-
-class DenoiserGraphs:
-  """A model's sampler graphs, one per (shapes, dtype, device) of a call.
-
-  They hold the addresses of the model's parameters, so they live on the
-  model and die with it: the serving copy that `Bfloat16Cast.refresh()`
-  replaces takes its graphs along, and a replay never reads weights a
-  refresh has replaced. A deep copy of the model (how that copy is made)
-  starts with none, since a CUDA graph cannot be copied; so does a model
-  moved by `.to()` (`GenCast._apply`).
-  """
-
-  def __init__(self):
-    self.graphs: Dict[tuple, DenoiserGraph] = {}
-
-  def __deepcopy__(self, memo):
-    return DenoiserGraphs()
-
-  def get(self, inputs: torch.Tensor, forcings: torch.Tensor,
-          x_channels: int, dtype: torch.dtype) -> DenoiserGraph:
-    """The graph of calls on these inputs and forcings (their shapes,
-    dtypes and device) and a state of `x_channels` in `dtype`, loaded with
-    their values."""
-    key = tuple((tuple(t.shape), t.dtype, t.device)
-                for t in (inputs, forcings)) + (x_channels, dtype)
-    if key not in self.graphs:
-      self.graphs[key] = DenoiserGraph(inputs, forcings, x_channels, dtype)
-    graph = self.graphs[key]
-    graph.load(inputs, forcings)
-    return graph
-
-
 def rounded(value, dtype) -> float:
   """`value` rounded to `dtype`, as a Python float.
 
@@ -174,7 +101,8 @@ class GenCast(nn.Module):
                                     device=basis_device)
     self.register_buffer('sh_legendre', basis.legendre, persistent=False)
     self.register_buffer('sh_fourier', basis.fourier, persistent=False)
-    self.denoiser_graphs = DenoiserGraphs()
+    # The sampler's graphs of a denoiser call, one per shapes and dtype.
+    self.denoiser_graphs = cuda_lib.GraphedCalls()
     chan_w, diag_w = layout_lib.loss_channel_weights(self.target_layout,
                                                      LOSS_WEIGHTS_SURFACE)
     for name, array in (
@@ -185,7 +113,7 @@ class GenCast(nn.Module):
   def _apply(self, fn, recurse=True):
     # Moving the parameters (.to(), .cuda()) gives them new storage, which
     # the sampler's graphs would not see.
-    self.denoiser_graphs = DenoiserGraphs()
+    self.denoiser_graphs = cuda_lib.GraphedCalls()
     return super()._apply(fn, recurse)
 
   # --- EDM preconditioning (sigma_data = 1) ---
@@ -319,15 +247,24 @@ class GenCast(nn.Module):
         return noise[i].to(inputs.device, dtype)
       return self.sphere_noise(generator, batch, dtype)
 
+    # On the card each denoiser call replays one graph over static buffers:
+    # the window (loaded once per sample), the state x and the [B] noise
+    # level (loaded before each call).
     graph = None
     if graphed and inputs.is_cuda:
+      x_shape = inputs.shape[:-1] + (self.target_layout.num_channels,)
       graph = self.denoiser_graphs.get(
-          inputs, forcings, self.target_layout.num_channels, dtype)
+          cuda_lib.signature(inputs, forcings) + (x_shape, dtype),
+          lambda: (torch.empty_like(inputs), torch.empty_like(forcings),
+                   inputs.new_empty(x_shape, dtype=dtype),
+                   inputs.new_empty(batch, dtype=torch.float32)))
+      graph.load(inputs, forcings)
 
     def denoise(x, sigma):
       level = max(float(sigma), 1e-6)
       if graph is not None:
-        return graph(self, x, level)
+        graph.load(x, level, first=2)
+        return graph(self._precond_denoise)
       sigma_b = torch.full((batch,), level, dtype=torch.float32,
                            device=x.device)
       return self._precond_denoise(inputs, forcings, x, sigma_b)

@@ -1,10 +1,11 @@
 """Predictor wrappers: normalization/residuals and NaN cleaning.
 
-Counterpart of `gencast_tpu.models.wrappers`: `__call__`, `sample`, `loss`
-and `loss_and_predictions`. A ChannelLayout fixes channel <-> (variable,
-level, frame), so each wrapper is a handful of precomputed per-channel
-vectors applied elementwise. Loss calls pass `generator` and any keyword
-arguments (the injected `sigma` / `noise`) through to GenCast.
+Counterpart of `gencast_tpu.models.wrappers`: `__call__`, `sample`,
+`predict` (GraphCast), `loss` and `loss_and_predictions`. A ChannelLayout
+fixes channel <-> (variable, level, frame), so each wrapper is a handful
+of precomputed per-channel vectors applied elementwise. Loss calls pass
+`generator` and any keyword arguments (the injected `sigma` / `noise`)
+through to GenCast.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from gencast_tpu_torch.data import layout as layout_lib
 
 def find_layout_provider(model: nn.Module) -> nn.Module:
   """Walks wrapper nesting (wrappers hold .predictor, GenCast holds
-  .denoiser) to the module exposing input/target/forcing layouts."""
+  .denoiser) to the module exposing input/target/forcing layouts (the
+  denoiser, or a GraphCast itself)."""
   d = model
   while not hasattr(d, 'input_layout'):
     d = d.denoiser if hasattr(d, 'denoiser') else d.predictor
@@ -101,6 +103,13 @@ class InputsAndResiduals(nn.Module):
         **kwargs)
     return self._unnorm_predictions(inputs, norm_preds)
 
+  def predict(self, inputs, forcings, generator=None, **kwargs):
+    """The deterministic forward (GraphCast), normalized and mapped back."""
+    norm_preds = self.predictor.predict(
+        self._norm_inputs(inputs), self._norm_forcings(forcings), generator,
+        **kwargs)
+    return self._unnorm_predictions(inputs, norm_preds)
+
 
 class NaNCleaner(nn.Module):
   """Replaces NaNs of one variable (e.g. sea_surface_temperature) with a
@@ -169,6 +178,12 @@ class NaNCleaner(nn.Module):
     preds = self.predictor.sample(self._clean(inputs, 'inputs'),
                                   self._clean(forcings, 'forcings'),
                                   generator, **kwargs)
+    return self._reintroduce(inputs, preds)
+
+  def predict(self, inputs, forcings, generator=None, **kwargs):
+    preds = self.predictor.predict(self._clean(inputs, 'inputs'),
+                                   self._clean(forcings, 'forcings'),
+                                   generator, **kwargs)
     return self._reintroduce(inputs, preds)
 
 

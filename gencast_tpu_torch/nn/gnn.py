@@ -11,6 +11,12 @@ non-uniform degree carries a plan too and takes the same two paths: there
 in an order that changes from run to run, where the reference is bitwise
 reproducible.
 
+The MLPs are GenCast's LayerNorm+FiLM ones under a conditioning vector, or
+with `use_norm_conditioning=False` (GraphCast) a LayerNorm with a learned
+scale and bias and no conditioning. A deep processor can recompute its
+steps in the backward pass (`remat_steps`, nested in groups of steps with
+`remat_group`), as the reference's checkpoints of its steps.
+
 Two paths, as the reference's: the dense one, and for single-step nets with
 `edge_chunk_size` the streamed one (`TypedGraphNet._streaming_call`, the
 0.25-degree memory machinery), which takes the edges a chunk at a time
@@ -92,6 +98,8 @@ class InteractionNetwork(nn.Module):
                f32_aggregation: bool,
                aggregate_normalization: Optional[float],
                rng: torch.Generator,
+               use_layer_norm: bool = True,
+               use_norm_conditioning: bool = True,
                use_kernels: bool = True):
     super().__init__()
     self.topologies = topologies
@@ -132,7 +140,9 @@ class InteractionNetwork(nn.Module):
                  + node_sizes[topo.receiver_set])
       self.edge_mlps[topo.name] = CondMLP(
           in_size, mlp_hidden_size, mlp_num_hidden_layers,
-          edge_sizes[topo.name], activation, rng=rng)
+          edge_sizes[topo.name], activation, rng=rng,
+          use_layer_norm=use_layer_norm,
+          use_norm_conditioning=use_norm_conditioning)
 
     self.node_mlps = nn.ModuleDict()
     for name, size in node_sizes.items():
@@ -140,7 +150,8 @@ class InteractionNetwork(nn.Module):
           edge_sizes[t.name] for t in topologies if t.receiver_set == name)
       self.node_mlps[name] = CondMLP(
           in_size, mlp_hidden_size, mlp_num_hidden_layers, size, activation,
-          rng=rng)
+          rng=rng, use_layer_norm=use_layer_norm,
+          use_norm_conditioning=use_norm_conditioning)
 
   def _buffer(self, name: str, array: Optional[np.ndarray], dtype) -> None:
     tensor = None if array is None else torch.as_tensor(array, dtype=dtype)
@@ -169,7 +180,8 @@ class InteractionNetwork(nn.Module):
     return segment.gather(x, indices, uniform_k)
 
   def forward(self, nodes: NodeFeats, edges: EdgeFeats,
-              cond: torch.Tensor) -> Tuple[NodeFeats, EdgeFeats]:
+              cond: Optional[torch.Tensor] = None
+              ) -> Tuple[NodeFeats, EdgeFeats]:
     new_edges = {}
     for topo in self.topologies:
       send_k, recv_k = self._uniform[topo.name]
@@ -229,13 +241,26 @@ class TypedGraphNet(nn.Module):
                embed_edges: bool = True,
                node_output_sizes: Optional[Mapping[str, int]] = None,
                activation: str = 'swish',
+               use_layer_norm: bool = True,
+               use_norm_conditioning: bool = True,
                f32_aggregation: bool = False,
                aggregate_normalization: Optional[float] = None,
                edge_chunk_size: Optional[int] = None,
+               remat_steps: bool = False,
+               remat_group: int = 1,
                rng: torch.Generator,
                use_kernels: bool = True):
     super().__init__()
     act = _activation(activation)
+    norm = dict(use_layer_norm=use_layer_norm,
+                use_norm_conditioning=use_norm_conditioning)
+    # Recompute each processor step in the backward pass (the dense path;
+    # the streamed one recomputes per chunk), and with remat_group > 1 nest
+    # those checkpoints in checkpoints of groups of steps: the forward then
+    # keeps num_steps / group + group step boundaries instead of num_steps,
+    # for one more forward of each step in the backward.
+    self.remat_steps = remat_steps
+    self.remat_group = remat_group
     self.topologies = topologies
     self.num_nodes = dict(num_nodes)
     self.f32_aggregation = f32_aggregation
@@ -258,13 +283,13 @@ class TypedGraphNet(nn.Module):
       for name, latent in node_latent_size.items():
         self.node_embedders[name] = CondMLP(
             node_input_sizes[name], mlp_hidden_size, mlp_num_hidden_layers,
-            latent, act, rng=rng)
+            latent, act, rng=rng, **norm)
     self.edge_embedders = nn.ModuleDict()
     if embed_edges:
       for name, latent in edge_latent_size.items():
         self.edge_embedders[name] = CondMLP(
             edge_input_sizes[name], mlp_hidden_size, mlp_num_hidden_layers,
-            latent, act, rng=rng)
+            latent, act, rng=rng, **norm)
     self.processors = nn.ModuleList(
         InteractionNetwork(
             topologies=topologies,
@@ -276,8 +301,7 @@ class TypedGraphNet(nn.Module):
             activation=act,
             f32_aggregation=f32_aggregation,
             aggregate_normalization=aggregate_normalization,
-            rng=rng,
-            use_kernels=use_kernels)
+            rng=rng, use_kernels=use_kernels, **norm)
         for _ in range(num_message_passing_steps))
     self.node_decoders = nn.ModuleDict()
     for name, out in (node_output_sizes or {}).items():
@@ -285,7 +309,8 @@ class TypedGraphNet(nn.Module):
           node_latent_size[name], mlp_hidden_size, mlp_num_hidden_layers,
           out, act, rng=rng)
 
-  def forward(self, nodes: NodeFeats, edges: EdgeFeats, cond: torch.Tensor
+  def forward(self, nodes: NodeFeats, edges: EdgeFeats,
+              cond: Optional[torch.Tensor] = None
               ) -> Tuple[NodeFeats, EdgeFeats]:
     if self.edge_chunk_size is not None:
       return self._streaming_call(nodes, edges, cond)
@@ -295,14 +320,63 @@ class TypedGraphNet(nn.Module):
     edges = {k: (self.edge_embedders[k](v, cond)
                  if k in self.edge_embedders else v)
              for k, v in edges.items()}
-    for processor in self.processors:
-      upd_nodes, upd_edges = processor(nodes, edges, cond)
-      nodes = {k: nodes[k] + upd_nodes[k] for k in nodes}
-      edges = {k: edges[k] + upd_edges[k] for k in edges}
+    remat_on = self.remat_steps and torch.is_grad_enabled()
+    group = self.remat_group if remat_on else 1
+    for lo in range(0, len(self.processors), group):
+      steps = list(self.processors[lo:lo + group])
+      if group > 1:
+        nodes, edges = self._checkpointed(
+            nn.ModuleList(steps), self._run_steps(steps, remat_on),
+            nodes, edges, cond)
+      else:
+        nodes, edges = self._run_steps(steps, remat_on)(nodes, edges, cond)
     out_nodes = {k: (self.node_decoders[k](v)
                      if k in self.node_decoders else v)
                  for k, v in nodes.items()}
     return out_nodes, edges
+
+  def _run_steps(self, steps: List['InteractionNetwork'], remat_on: bool
+                 ) -> Callable:
+    """fn(nodes, edges, cond) running `steps` with their residuals, each
+    step recomputed in the backward pass when remat_on."""
+
+    def step(p, nodes, edges, cond):
+      upd_nodes, upd_edges = p(nodes, edges, cond)
+      return ({k: nodes[k] + upd_nodes[k] for k in nodes},
+              {k: edges[k] + upd_edges[k] for k in edges})
+
+    def run(nodes, edges, cond):
+      for p in steps:
+        if remat_on:
+          nodes, edges = self._checkpointed(
+              p, lambda n, e, c, p=p: step(p, n, e, c), nodes, edges, cond)
+        else:
+          nodes, edges = step(p, nodes, edges, cond)
+      return nodes, edges
+    return run
+
+  @staticmethod
+  def _checkpointed(module: nn.Module, fn: Callable, nodes: NodeFeats,
+                    edges: EdgeFeats, cond: Optional[torch.Tensor]
+                    ) -> Tuple[NodeFeats, EdgeFeats]:
+    """fn(nodes, edges, cond) -> (nodes, edges), recomputed in the backward
+    pass with the parameters of `module` this call saw (nn/remat.py): the
+    reference's jax.checkpoint of a step or group of steps."""
+    n_keys, e_keys = list(nodes), list(edges)
+    args = [nodes[k] for k in n_keys] + [edges[k] for k in e_keys]
+    if cond is not None:
+      args.append(cond)
+
+    def flat(*xs):
+      c = xs[len(n_keys) + len(e_keys)] if cond is not None else None
+      out_n, out_e = fn(dict(zip(n_keys, xs[:len(n_keys)])),
+                        dict(zip(e_keys, xs[len(n_keys):])), c)
+      return tuple(out_n[k] for k in n_keys) + tuple(out_e[k]
+                                                     for k in e_keys)
+
+    out = remat.checkpoint(module, flat, *args)
+    return (dict(zip(n_keys, out[:len(n_keys)])),
+            dict(zip(e_keys, out[len(n_keys):])))
 
   # --- The streamed path ---
 
@@ -333,7 +407,8 @@ class TypedGraphNet(nn.Module):
     return torch.cat([self._remat(fn, *xs) for xs in zip(*pieces)])
 
   def _streaming_call(self, nodes: NodeFeats, edges: EdgeFeats,
-                      cond: torch.Tensor) -> Tuple[NodeFeats, EdgeFeats]:
+                      cond: Optional[torch.Tensor]
+                      ) -> Tuple[NodeFeats, EdgeFeats]:
     """The single-step forward with the edges taken a chunk at a time
     (the reference's _streaming_call). The same numbers as the dense path
     but for summation order across chunks, and the output edges are the
@@ -366,7 +441,8 @@ class TypedGraphNet(nn.Module):
 
   def _stream_edges(self, topo: EdgeTopology,
                     processor: InteractionNetwork, raw_e: torch.Tensor,
-                    node_lat: NodeFeats, cond: torch.Tensor) -> torch.Tensor:
+                    node_lat: NodeFeats, cond: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
     """The receiver aggregation [N_recv, B, latent] (in the edges' dtype) of
     `topo`'s edge-MLP messages, edges a chunk at a time."""
     stream = self.streams[topo.name]

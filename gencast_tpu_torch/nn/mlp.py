@@ -1,16 +1,18 @@
 """MLPs with conditional layer normalization (FiLM), as torch.nn modules.
 
 Counterpart of `gencast_tpu.nn.mlp`. Parameter names mirror the reference's
-state paths (e.g. `network.layers.0.weight` for `network/layers/0/kernel`),
-so `bridge.py` can carry weights across. Initializers follow the reference:
-xavier-uniform kernels and zero biases for MLPs, truncated-normal(1e-8) for
-the FiLM projection; every draw comes from an explicit torch.Generator.
+state paths (e.g. `network.layers.0.weight` for `network/layers/0/kernel`,
+`layer_norm.weight` for `layer_norm/scale`), so `bridge.py` can carry
+weights across. Initializers follow the reference: xavier-uniform kernels
+and zero biases for MLPs, truncated-normal(1e-8) for the FiLM projection,
+ones and zeros for a LayerNorm's scale and bias; every draw comes from an
+explicit torch.Generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -126,20 +128,64 @@ def ln_film(x: torch.Tensor, film: FiLM, cond: torch.Tensor) -> torch.Tensor:
   return ln_film_op.ln_film(x, scale_minus_one + 1.0, offset, batch_axis)
 
 
+class LayerNorm(nn.Module):
+  """flax's nnx.LayerNorm over the last axis, with a learned scale
+  (`weight`) and bias: epsilon 1e-6, the one-pass variance
+  max(E[x^2] - E[x]^2, 0), all in float32 (x, scale and bias promoted), and
+  the result cast to the common dtype of x, scale and bias. (torch's
+  layer_norm takes the two-pass variance and eps 1e-5.)"""
+
+  def __init__(self, size: int, epsilon: float = 1e-6):
+    super().__init__()
+    self.epsilon = epsilon
+    self.weight = nn.Parameter(torch.ones(size))
+    self.bias = nn.Parameter(torch.zeros(size))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    mul = torch.rsqrt(var + self.epsilon) * self.weight.float()
+    y = (xf - mean) * mul + self.bias.float()
+    dtype = torch.promote_types(
+        x.dtype, torch.promote_types(self.weight.dtype, self.bias.dtype))
+    return y.to(dtype)
+
+
 class CondMLP(nn.Module):
-  """MLP -> LayerNorm(no scale/bias) -> FiLM, the GNN update function (the
-  reference's CondMLP with use_layer_norm and use_norm_conditioning, the
-  only setting GenCast uses)."""
+  """MLP -> LayerNorm -> FiLM, the GNN update function (the reference's
+  CondMLP). With use_norm_conditioning (GenCast) the LayerNorm has no scale
+  or bias and FiLM from the [B, D] conditioning supplies them, through
+  `ln_film` (kernel E in its backward on the card); without it (GraphCast)
+  the LayerNorm has a learned scale and bias and there is no conditioning;
+  without use_layer_norm the MLP alone."""
 
   def __init__(self, in_size: int, hidden_size: int, num_hidden_layers: int,
-               out_size: int, activation: Callable, *, rng: torch.Generator):
+               out_size: int, activation: Callable, *, rng: torch.Generator,
+               use_layer_norm: bool = True,
+               use_norm_conditioning: bool = True):
     super().__init__()
+    if use_norm_conditioning and not use_layer_norm:
+      raise ValueError('norm conditioning requires layer norm')
     self.network = MLP(in_size, hidden_size, num_hidden_layers, out_size,
                        activation, rng=rng)
-    self.film = FiLM(out_size, rng=rng)
+    self.use_norm_conditioning = use_norm_conditioning
+    if use_norm_conditioning:
+      self.film = FiLM(out_size, rng=rng)
+    elif use_layer_norm:
+      self.layer_norm = LayerNorm(out_size)
 
-  def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-    return ln_film(self.network(x), self.film, cond)
+  def forward(self, x: torch.Tensor,
+              cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    x = self.network(x)
+    if self.use_norm_conditioning:
+      if cond is None:
+        raise ValueError('conditioning vector required but not provided')
+      return ln_film(x, self.film, cond)
+    if hasattr(self, 'layer_norm'):
+      x = self.layer_norm(x)
+    return x
 
 
 def fourier_features(values: torch.Tensor, base_period: float,

@@ -20,7 +20,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
@@ -176,7 +176,11 @@ class Graph:
     reserved = torch.cuda.memory_reserved(self.device)
     graph = torch.cuda.CUDAGraph()
     with self.counts.recording():
-      with torch.cuda.graph(graph, stream=self.stream):
+      # Thread-local: the packing thread (--prefetch) goes on copying
+      # batches to the card and computing TISR on streams of its own
+      # while the step thread captures.
+      with torch.cuda.graph(graph, stream=self.stream,
+                            capture_error_mode='thread_local'):
         out = fn()
     torch.cuda.current_stream(self.device).wait_stream(self.stream)
     self.graph = graph
@@ -187,6 +191,71 @@ class Graph:
   def replay(self) -> None:
     self.graph.replay()
     self.counts.replayed()
+
+
+class GraphedCall:
+  """One call captured in a `Graph` over static input buffers. The caller
+  loads the buffers (`load`); the first call of `fn(*buffers)` runs eagerly
+  on the graph's side stream (its warm-up) and is then captured; every
+  later call replays. A replay's output is the graph's own buffer, which
+  the next replay overwrites."""
+
+  def __init__(self, buffers: Sequence[torch.Tensor]):
+    self.graph = Graph(buffers[0].device)
+    self.buffers = tuple(buffers)
+    self.out = None
+
+  def load(self, *values, first: int = 0) -> None:
+    """Copies `values` into the buffers from `first` on (a number fills)."""
+    for buf, value in zip(self.buffers[first:], values):
+      if isinstance(value, torch.Tensor):
+        buf.copy_(value)
+      else:
+        buf.fill_(value)
+
+  def __call__(self, fn: Callable):
+    # `fn` is passed per call, not kept: a graph lives on its model
+    # (`GraphedCalls`) and must not keep it alive.
+    def call():
+      return fn(*self.buffers)
+
+    if self.out is None:
+      out = self.graph.warm_up(call)
+      self.out = self.graph.capture(call)
+      return out
+    self.graph.replay()
+    return self.out
+
+
+def signature(*tensors: torch.Tensor) -> tuple:
+  """The shapes, dtypes and devices of `tensors`: a `GraphedCalls` key."""
+  return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+
+
+class GraphedCalls:
+  """A model's graphed calls, one per key (the shapes, dtypes and devices
+  of a call's inputs).
+
+  They hold the addresses of the model's parameters, so they live on the
+  model and die with it: the serving copy that `Bfloat16Cast.refresh()`
+  replaces takes its graphs along, and a replay never reads weights a
+  refresh has replaced. A deep copy of the model (how that copy is made)
+  starts with none, since a CUDA graph cannot be copied; a model moved by
+  `.to()` must start with none too (its `_apply`).
+  """
+
+  def __init__(self):
+    self.graphs: Dict[tuple, GraphedCall] = {}
+
+  def __deepcopy__(self, memo):
+    return GraphedCalls()
+
+  def get(self, key: tuple,
+          buffers: Callable[[], Sequence[torch.Tensor]]) -> GraphedCall:
+    """The call of `key`, made over `buffers()` the first time."""
+    if key not in self.graphs:
+      self.graphs[key] = GraphedCall(buffers())
+    return self.graphs[key]
 
 
 class _Library:

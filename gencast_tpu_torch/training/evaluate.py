@@ -1,4 +1,4 @@
-"""Evaluation CLI: restore a checkpoint, sample an ensemble rollout, score it.
+"""Evaluation CLI: restore a checkpoint, roll a forecast out, score it.
 
 Counterpart of `gencast_tpu.training.evaluate`: rebuilds the model and
 wrapper stack from the same flags as the training CLI, restores the newest
@@ -9,7 +9,10 @@ state and its frames as the truth, samples a `--num_members` ensemble over
 `--max_rollout_steps` 12-hour steps (free-running, or teacher-forced; each
 `--member_chunk` members, default 1, move to the host as they end; with
 `--chunk_size N` each member's steps run N at a time through
-`rollout.chunked_rollout`, as the 0.25-degree model needs), and writes
+`rollout.chunked_rollout`, as the 0.25-degree model needs), or with
+`--model graphcast` predicts one deterministic forecast
+(`rollout.predict_rollout`, or `chunked_rollout(mode='predict')` under
+`--chunk_size`), and writes
 `metrics.json` (per-variable RMSE of the ensemble mean; CRPS and spread
 with more than one member, the reference's keys) and `rollout.npz`
 (predictions [M, K, lat, lon, C], truth, lat, lon), with `--save_netcdf`
@@ -27,6 +30,11 @@ Example (1-degree, two members, two steps, from a training checkpoint):
   python -m gencast_tpu_torch.training.evaluate --preset nano \
       --data /path/to/era5 --ckpt_dir /path/to/ckpt --num_members 2 \
       --max_rollout_steps 2 --save_netcdf --out_dir /path/to/eval
+
+  # GraphCast_small (1 degree) from a GraphCast training checkpoint:
+  python -m gencast_tpu_torch.training.evaluate --model graphcast \
+      --preset 1deg --ckpt_dir /path/to/ckpt --max_rollout_steps 2 \
+      --out_dir /path/to/eval
 
   # 0.25 degree (the paper's model), one member, steps one at a time:
   python -m gencast_tpu_torch.training.evaluate --preset 0.25deg \
@@ -59,7 +67,8 @@ class EvalRun:
 
 def parse_args(argv=None):
   p = argparse.ArgumentParser(
-      description='Evaluate GenCast (PyTorch port, CUDA kernels on the card).')
+      description='Evaluate GenCast or GraphCast (PyTorch port, CUDA '
+                  'kernels on the card).')
   train.add_model_flags(p)
   p.add_argument('--ckpt_dir', default=None)
   p.add_argument('--out_dir',
@@ -105,9 +114,10 @@ def per_variable_rmse(preds: np.ndarray, truth: np.ndarray,
 
 def main(argv=None) -> EvalRun:
   args = parse_args(argv)
-  from gencast_tpu_torch import configs
+  from gencast_tpu_torch import rollout
   from gencast_tpu_torch.data import layout as layout_lib
   from gencast_tpu_torch.data import sources
+  from gencast_tpu_torch.models import wrappers
   from gencast_tpu_torch.ops import metrics as metrics_lib
   from gencast_tpu_torch.parallel import ensemble as ensemble_lib
   from gencast_tpu_torch.training import checkpoint as ckpt_lib
@@ -115,7 +125,7 @@ def main(argv=None) -> EvalRun:
 
   device = train.select_device(args.device)
   spec = train.build_spec(args)
-  model, statics = configs.build_gencast(spec, seed=args.seed, device=device)
+  model, statics = train.build_model(args, spec, device)
   task = model.task
   lat, lon = np.asarray(statics.grid_lat), np.asarray(statics.grid_lon)
   if args.data == 'synthetic':
@@ -131,6 +141,7 @@ def main(argv=None) -> EvalRun:
         f'a {args.max_rollout_steps}-step rollout '
         f'({task.num_input_frames} input frames and '
         f'{args.max_rollout_steps} targets)')
+  source.forcing_device = device  # TISR, where the task has it
   stats = train.load_or_compute_stats(args, source, task, 'eval',
                                       save=False)
 
@@ -152,17 +163,30 @@ def main(argv=None) -> EvalRun:
   truth = np.asarray(w_targets)                              # [K, lat, lon, C]
   teacher = (torch.as_tensor(w_targets)[:, None].to(device)
              if args.teacher_forcing else None)
-  preds = ensemble_lib.ensemble_rollout(
-      wrapped, inputs, forcings, seed=args.seed,
-      num_members=args.num_members, teacher_targets=teacher,
-      member_chunk=args.member_chunk, chunk_size=args.chunk_size,
-      overlap_offload=not args.no_overlap_offload)
+  if args.model == 'graphcast':
+    if args.chunk_size:
+      preds = rollout.chunked_rollout(
+          wrapped, inputs, forcings, chunk_size=args.chunk_size,
+          mode='predict', teacher_targets=teacher,
+          overlap_offload=not args.no_overlap_offload)
+    else:
+      preds = rollout.predict_rollout(wrapped, inputs, forcings,
+                                      teacher_targets=teacher).cpu()
+    preds = preds[None]                                # one member
+    members = 1
+  else:
+    preds = ensemble_lib.ensemble_rollout(
+        wrapped, inputs, forcings, seed=args.seed,
+        num_members=args.num_members, teacher_targets=teacher,
+        member_chunk=args.member_chunk, chunk_size=args.chunk_size,
+        overlap_offload=not args.no_overlap_offload)
+    members = args.num_members
   preds = preds[:, :, 0].numpy()                       # [M, K, lat, lon, C]
   ens_mean = preds.mean(axis=0)
 
-  d = model.denoiser
+  d = wrappers.find_layout_provider(model)
   rmse = per_variable_rmse(ens_mean, truth, d.target_layout)
-  results = {'rmse': rmse, 'steps': k, 'members': args.num_members}
+  results = {'rmse': rmse, 'steps': k, 'members': members}
   if preds.shape[0] > 1:
     # The probabilistic scores, a band of latitudes at a time.
     scores = metrics_lib.score_ensemble_chunked(
@@ -192,7 +216,7 @@ def main(argv=None) -> EvalRun:
       nc_path = os.path.join(args.out_dir, 'rollout.nc')
       netcdf_writer.write_forecast(
           nc_path, ens_mean, d.target_layout, lat, lon, truth=truth,
-          global_attrs={'members': args.num_members, 'steps': k,
+          global_attrs={'members': members, 'steps': k,
                         'rmse_mean': float(np.mean(list(rmse.values())))})
       print(f'[eval] NetCDF rollout written to {nc_path}', flush=True)
     except ImportError as e:

@@ -2,8 +2,8 @@
 one card.
 
     python -m gencast_tpu_torch.training.profile_step [--preset 0.25deg] \
-        [--mode train|denoise|sample] [--steps 3] [--steps_per_call K] \
-        [--trace PATH]
+        [--model gencast|graphcast] [--mode train|denoise|sample|predict] \
+        [--steps 3] [--steps_per_call K] [--eager] [--trace PATH]
 
 Sets up the preset's run as the training CLI does (`--data synthetic
 --clean_sst_nans`, seed 0) and packs the batches. `--mode train` takes one
@@ -16,12 +16,16 @@ of the wrapped denoiser (the serving stack, bf16 where the preset is) at
 noise level 1; `--mode sample` with forecast steps of the serving stack,
 one `sample` each: its 2N - 1 denoiser calls replay the model's CUDA graph,
 with the sampler's eager ops between them (per-call figures are the step's
-over its calls). Prints seconds per step or call (host clock, unprofiled
-and profiled), device time per step, the device's busy share of the
-profiled window (device activity over wall time; the work runs on one
-stream) and of the unprofiled wall, the device time of each of the port's
-kernels and of the other kernel families, and the ten costliest
-kernels, and the peak of allocated device memory. `--trace` writes the
+over its calls). `--model graphcast` profiles GraphCast (the preset's grid,
+mesh and widths with GraphCast's variables: at 1deg GraphCast_small) in
+`--mode train` (per-step or fused, as above) or `--mode predict`: forward
+steps of the serving stack, each a replay of the model's CUDA graph, or
+with `--eager` eager forwards. Prints seconds per step or call (host
+clock, unprofiled and profiled), device time per step, the device's busy
+share of the profiled window (device activity over wall time; the work
+runs on one stream) and of the unprofiled wall, the device time of each
+of the port's kernels and of the other kernel families, and the ten
+costliest kernels, and the peak of allocated device memory. `--trace` writes the
 profiler's Chrome trace. With
 GENCAST_SPARSE_FUSED_BWD=1 in the environment the 1-degree step runs the
 fused attention backward (kernel G and its dq reduce) instead of kernel F.
@@ -66,8 +70,12 @@ def main(argv=None) -> None:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument('--preset', default='1deg',
                  help='tiny, nano, 1deg or 0.25deg')
+  p.add_argument('--model', default='gencast',
+                 choices=('gencast', 'graphcast'))
   p.add_argument('--mode', default='train',
-                 choices=('train', 'denoise', 'sample'))
+                 choices=('train', 'denoise', 'sample', 'predict'))
+  p.add_argument('--eager', action='store_true',
+                 help='predict mode: eager forwards instead of replays')
   p.add_argument('--steps', type=int, default=3)
   p.add_argument('--steps_per_call', type=int, default=1,
                  help='train mode: K > 1 profiles fused steps, K per call')
@@ -78,14 +86,18 @@ def main(argv=None) -> None:
                       'normalization stats, loaded when it exists, else '
                       'computed from the data and written there')
   args = p.parse_args(argv)
+  modes = (('train', 'predict') if args.model == 'graphcast'
+           else ('train', 'denoise', 'sample'))
+  if args.mode not in modes:
+    p.error(f'--model {args.model} takes --mode {" or ".join(modes)}')
   if not torch.cuda.is_available():
     raise SystemExit('profile_step: needs a CUDA card')
   from gencast_tpu_torch.training import steps as steps_lib
   from gencast_tpu_torch.training import train
 
   targs = train.parse_args(
-      ['--preset', args.preset, '--data', 'synthetic', '--clean_sst_nans',
-       '--steps', str(args.steps + 1)]
+      ['--model', args.model, '--preset', args.preset, '--data',
+       'synthetic', '--clean_sst_nans', '--steps', str(args.steps + 1)]
       + (['--stats_path', args.stats_path] if args.stats_path else []))
   run = train.setup(targs)
   wrapped, optimizer, device = run.wrapped, run.optimizer, run.device
@@ -117,6 +129,11 @@ def main(argv=None) -> None:
       return
     if args.mode == 'sample':
       wrapped.sample(batch['inputs'], batch['forcings'], generator)
+      return
+    if args.mode == 'predict':
+      with torch.no_grad():
+        wrapped.predict(batch['inputs'], batch['forcings'],
+                        graphed=not args.eager)
       return
     sigma = torch.ones(batch['inputs'].shape[0], device=device)
     with torch.no_grad():
@@ -164,15 +181,16 @@ def main(argv=None) -> None:
       ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
       capture_output=True, text=True, check=True, timeout=60).stdout.strip()
   what = {'train': 'training step', 'denoise': 'denoiser call',
-          'sample': 'denoiser call'}[args.mode]
+          'sample': 'denoiser call', 'predict': 'forward step'}[args.mode]
   how = {'train': (f', fused, {k_call} per call (CUDA-graph replays)'
                    if k_call > 1 else ', eager'),
          'denoise': ', eager', 'sample': (
-             f' in forecast steps of {calls} (CUDA-graph replays)')}[
-                 args.mode]
-  print(f'[profile] {card}; {args.preset} {what}{how}, {n} profiled: '
-        f'{unprofiled / n:.4f} s each unprofiled, {wall / n:.4f} s profiled '
-        f'(host clock), {device_ms / n:.2f} ms of device time each, device '
+             f' in forecast steps of {calls} (CUDA-graph replays)'),
+         'predict': (', eager' if args.eager
+                     else ' (CUDA-graph replays)')}[args.mode]
+  print(f'[profile] {card}; {args.model} {args.preset} {what}{how}, {n} '
+        f'profiled: {unprofiled / n:.4f} s each unprofiled, '
+        f'{wall / n:.4f} s profiled (host clock), {device_ms / n:.2f} ms of device time each, device '
         f'busy {100 * device_ms / (1e3 * wall):.1f}% of the profiled window, '
         f'{100 * device_ms / (1e3 * unprofiled):.1f}% of the unprofiled wall')
   print(f'[profile] peak allocated device memory '

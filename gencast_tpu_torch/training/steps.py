@@ -5,9 +5,12 @@ Counterpart of `gencast_tpu.training.steps` (`OptimizerConfig`,
 1.0 and AdamW (b1 0.9, b2 0.999, eps 1e-8, weight decay 0.1 on every
 parameter: the reference passes no mask) under a linear-warmup / cosine
 schedule, with the reference's warmup clamp. As in optax, the first update
-uses the schedule's value at step 0, which is 0. `scanned_train_steps` is
-the counterpart of the reference's fused multi-step training: on the card
-K steps per host call replay one CUDA graph of the step.
+uses the schedule's value at step 0, which is 0. `ar_train_step` trains
+GraphCast's autoregressive loss over a K-frame window.
+`scanned_train_steps` is the counterpart of the reference's fused
+multi-step training: on the card K steps per host call replay one CUDA
+graph of the step (the one-frame loss, or with `ar=True` the
+autoregressive one).
 """
 
 from __future__ import annotations
@@ -178,11 +181,32 @@ def train_step(model: nn.Module, optimizer: Optimizer,
   return loss.detach(), {k: v.detach() for k, v in diags.items()}
 
 
-def _draws_owner(model: nn.Module) -> nn.Module:
-  """The GenCast inside a wrapper stack: the module whose
-  `training_draws` the loss calls."""
+def ar_train_step(model: nn.Module, optimizer: Optimizer,
+                  inputs: torch.Tensor, targets: torch.Tensor,
+                  forcings: torch.Tensor, keys=None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+  """One optimization step on the mean multi-step loss
+  (`rollout.autoregressive_loss`) over targets and forcings of K frames
+  ([K, B, lat, lon, C]); returns (mean loss, per-variable diagnostics),
+  detached, on the device. Step k of the rollout draws from the generator
+  of (*keys, k) where the model draws at all (GraphCast does not)."""
+  from gencast_tpu_torch import rollout
+  optimizer.zero_grad()
+  loss, diags = rollout.autoregressive_loss(model, inputs, targets,
+                                            forcings, keys=keys)
+  loss = loss.mean()
+  loss.backward()
+  optimizer.update()
+  return loss.detach(), {k: v.detach() for k, v in diags.items()}
+
+
+def _draws_owner(model: nn.Module) -> Optional[nn.Module]:
+  """The GenCast inside a wrapper stack, whose `training_draws` the loss
+  calls; None for a model that draws nothing (GraphCast)."""
   m = model
   while not hasattr(m, 'training_draws'):
+    if not hasattr(m, 'predictor'):
+      return None
     m = m.predictor
   return m
 
@@ -193,25 +217,34 @@ class FusedTrainSteps:
 
   Per step it stages, on the host and outside any graph, the step's pool
   row, its rate (`Optimizer.set_rate`) and its draws (the noise level and
-  noise of the generator of (seed, step), `GenCast.training_draws`) into
-  static buffers, then runs `_step`: the row's gather by a device index,
-  the mean loss, its backward (with the remat recomputation), the clip and
-  the AdamW update. On the card `_step` is one CUDA graph: the first step
-  runs it eagerly on the graph's side stream (the warm-up), the graph is
-  captured after it, and every later step replays it. The graph holds the
-  addresses of the pool, the parameters and the optimizer's tensors, so it
-  is captured anew when a call finds any of them changed (a checkpoint
-  restore gives the moments new tensors). On the CPU `_step` runs eagerly.
+  noise of the generator of (seed, step), `GenCast.training_draws`; a
+  GraphCast draws nothing) into static buffers, then runs `_step`: the
+  row's gather by a device index, the mean loss (with `ar`, the
+  autoregressive loss over the row's K-frame window), its backward (with
+  the remat recomputation), the clip and the AdamW update. On the card
+  `_step` is one CUDA graph: the first step runs it eagerly on the graph's
+  side stream (the warm-up), the graph is captured after it, and every
+  later step replays it. The graph holds the addresses of the pool, the
+  parameters and the optimizer's tensors, so it is captured anew when a
+  call finds any of them changed (a checkpoint restore gives the moments
+  new tensors). On the CPU `_step` runs eagerly.
   """
 
-  def __init__(self, model: nn.Module, optimizer: Optimizer):
+  def __init__(self, model: nn.Module, optimizer: Optimizer,
+               ar: bool = False):
     self.model = model
     self.optimizer = optimizer
+    self.ar = ar
     self.draws = _draws_owner(model)
+    if ar and self.draws is not None:
+      # A step's draws would be made inside its graph, frozen at capture.
+      raise ValueError('fused autoregressive training takes a deterministic '
+                       'model (GraphCast)')
     self.graph = None        # cuda_lib.Graph, on the card
     self.captured = None     # the addresses the graph holds
     self.loss = None         # the graph's output
     self.row = self.sigma = self.noise = None
+    self.index = None        # the AR window advance's gather (rollout)
 
   def _addresses(self, pool) -> tuple:
     opt = self.optimizer
@@ -222,22 +255,37 @@ class FusedTrainSteps:
 
   def _stage(self, pool, row: int, step: int, seed: int) -> None:
     device = pool['inputs'].device
-    generator = diffusion_utils.keyed_generator(seed, step, device=device)
-    sigma, noise = self.draws.training_draws(generator,
-                                             pool['targets'].shape[1])
     if self.row is None:
       self.row = torch.zeros(1, dtype=torch.long, device=device)
-      self.sigma, self.noise = torch.empty_like(sigma), torch.empty_like(noise)
     self.row.fill_(row)
-    self.sigma.copy_(sigma)
-    self.noise.copy_(noise)
+    if self.ar and self.index is None:
+      from gencast_tpu_torch import rollout
+      self.index = rollout.advance_index(
+          self.model, pool['inputs'].shape[-1], pool['targets'].shape[-1],
+          device)
+    if self.draws is not None:
+      generator = diffusion_utils.keyed_generator(seed, step, device=device)
+      sigma, noise = self.draws.training_draws(generator,
+                                               pool['targets'].shape[1])
+      if self.sigma is None:
+        self.sigma, self.noise = (torch.empty_like(sigma),
+                                  torch.empty_like(noise))
+      self.sigma.copy_(sigma)
+      self.noise.copy_(noise)
     self.optimizer.set_rate()
 
   def _step(self, pool) -> torch.Tensor:
     batch = [pool[k].index_select(0, self.row)[0]
              for k in ('inputs', 'targets', 'forcings')]
     self.optimizer.zero_grad()
-    loss, _ = self.model.loss(*batch, sigma=self.sigma, noise=self.noise)
+    if self.ar:
+      from gencast_tpu_torch import rollout
+      loss, _ = rollout.autoregressive_loss(self.model, *batch,
+                                            index=self.index)
+    elif self.draws is None:
+      loss, _ = self.model.loss(*batch)
+    else:
+      loss, _ = self.model.loss(*batch, sigma=self.sigma, noise=self.noise)
     loss = loss.mean()
     loss.backward()
     self.optimizer.apply()
@@ -289,11 +337,9 @@ def scanned_train_steps(model: nn.Module, optimizer: Optimizer,
   from the generator of (seed, s), as the per-step loop's
   `train.step_generator`, so both give the same bits.
 
-  The reference's `ar=True` trains GraphCast's autoregressive loss; it
-  comes with GraphCast.
+  With ar=True each step trains the autoregressive loss
+  (`rollout.autoregressive_loss`, gradients through the whole rollout) of
+  a deterministic model (GraphCast); the pool's 'targets' and 'forcings'
+  then hold [M, K_ar, B, lat, lon, C] windows, as the reference's.
   """
-  if ar:
-    raise NotImplementedError(
-        'fused autoregressive training (ar=True) is not ported yet: '
-        'ROADMAP.md, "Still to port": GraphCast')
-  return FusedTrainSteps(model, optimizer)
+  return FusedTrainSteps(model, optimizer, ar=ar)

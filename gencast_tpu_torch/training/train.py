@@ -1,7 +1,11 @@
-"""Training CLI (GenCast on synthetic or ERA5 data).
+"""Training CLI (GenCast or GraphCast on synthetic or ERA5 data).
 
 Counterpart of `gencast_tpu.training.train` for the paths the port runs:
-the TINY, nano, 1-degree and 0.25-degree presets on the synthetic source
+GenCast (`--model gencast`, the default) or GraphCast (`--model graphcast`:
+the preset's grid, mesh and widths with GraphCast's variables, or the
+`--task` given; `--remat_group`; `--ar_steps K` trains the K-step
+autoregressive loss) at the TINY, nano, 1-degree and 0.25-degree presets
+on the synthetic source
 or an ERA5 directory (`--data <dir>`: the monthly NetCDF files when
 `era5_pressure_levels_*.nc` are there, else the npz shards of
 `tools.convert_era5`), one training step per batch or, with
@@ -20,7 +24,9 @@ batches are bitwise the same either way) and `--profile_dir` (a
 torch.profiler trace of steps 10-15). Every flag of the reference's CLI
 parses; those of paths not ported yet are refused with the ROADMAP.md item
 that brings them, and the TPU-only ones (`--functional_step`, `--cpu`) as
-such. `--ar_steps K` on a GenCast run is the reference's no-op.
+such. `--ar_steps K` on a GenCast run is the reference's no-op; on a
+GraphCast run its windows of K target frames come from the same source
+and pool (`--data_workers` is ignored there, as in the reference).
 
 Randomness: step `s` draws its noise level and noise from a generator
 seeded from (`--seed`, s) alone, as the reference folds the step into its
@@ -40,6 +46,12 @@ Examples:
       --resolution 2.5 --steps_per_month 20 --layout npz
   python -m gencast_tpu_torch.training.train --preset nano --steps 16 \
       --data /path/to/era5_npz --data_workers 2 --profile_dir /path/to/trace
+
+  # GraphCast_small (1 degree, 13 levels, splits 5, latent 512, 16 steps)
+  # on one H100, two-step autoregressive loss, 2 steps per host call:
+  python -m gencast_tpu_torch.training.train --model graphcast \
+      --preset 1deg --data synthetic --steps 4 --ar_steps 2 \
+      --steps_per_call 2
 
   # Three full-width nano steps on one H100 (the default preset):
   python -m gencast_tpu_torch.training.train --steps 3 --data synthetic
@@ -75,9 +87,9 @@ import numpy as np
 import torch
 
 _PRESETS = ('tiny', 'nano', '1deg', '0.25deg')
+_MODELS = ('gencast', 'graphcast')
 # Options the reference's CLIs take and the port does not yet, with the
 # ROADMAP.md item ("Still to port") that brings them.
-_LATER_GRAPHCAST = 'GraphCast'
 _LATER_PARALLEL = 'Parallelism'
 _LATER_ATTENTION = {'triblock': "The reference's other attention backends",
                     'dense': "The reference's other attention backends"}
@@ -104,7 +116,7 @@ class TrainRun:
 @dataclasses.dataclass
 class Setup:
   """Everything a run needs, on its device."""
-  model: torch.nn.Module      # the unwrapped GenCast
+  model: torch.nn.Module      # the unwrapped GenCast or GraphCast
   statics: object             # its graph statics
   source: object              # the data source
   source_factory: object      # picklable; builds the source (--data_workers)
@@ -112,13 +124,18 @@ class Setup:
   optimizer: object           # steps.Optimizer
   batches: object             # iterator of numpy batches
   device: torch.device
+  ar_steps: int = 1           # target frames per window (GraphCast AR)
 
 
 def add_model_flags(p: argparse.ArgumentParser) -> None:
   """The flags both CLIs share: preset, data, wrappers, the architecture
   overrides of `build_spec` and the device."""
   p.add_argument('--model', default='gencast',
-                 help="'gencast' (graphcast is not ported yet)")
+                 help="'gencast' or 'graphcast'")
+  p.add_argument('--task', default=None,
+                 help='registry task name overriding the preset task '
+                      '(e.g. graphcast_37 for the full published '
+                      '37-level GraphCast configuration)')
   p.add_argument('--preset', default='nano',
                  help='tiny, nano, 1deg or 0.25deg')
   p.add_argument('--data', default='synthetic',
@@ -161,8 +178,11 @@ def later(p: argparse.ArgumentParser, what: str, item: str) -> None:
 
 def check_model_flags(p: argparse.ArgumentParser, args) -> None:
   """Refuses what is not ported, naming the ROADMAP.md item."""
-  if args.model != 'gencast':
-    later(p, f'--model {args.model}', _LATER_GRAPHCAST)
+  from gencast_tpu_torch.data import registry
+  if args.model not in _MODELS:
+    p.error(f'unknown --model {args.model!r}: {", ".join(_MODELS)}')
+  if args.task is not None and args.task not in registry.TASKS:
+    p.error(f'unknown --task {args.task!r}: {", ".join(registry.TASKS)}')
   if args.preset not in _PRESETS:
     p.error(f'unknown --preset {args.preset!r}: {", ".join(_PRESETS)}')
   if args.attention_type in _LATER_ATTENTION:
@@ -174,7 +194,8 @@ def check_model_flags(p: argparse.ArgumentParser, args) -> None:
 
 def parse_args(argv=None):
   p = argparse.ArgumentParser(
-      description='Train GenCast (PyTorch port, CUDA kernels on the card).')
+      description='Train GenCast or GraphCast (PyTorch port, CUDA kernels '
+                  'on the card).')
   add_model_flags(p)
   p.add_argument('--steps', type=int, default=30000)
   p.add_argument('--batch_size', type=int, default=1)
@@ -184,11 +205,10 @@ def parse_args(argv=None):
   p.add_argument('--ar_steps', type=int, default=1,
                  help='autoregressive training steps (graphcast only; '
                       'ignored on a GenCast run)')
-  p.add_argument('--task', default=None,
-                 help='registry task name overriding the preset task (not '
-                      'ported yet: GraphCast)')
   p.add_argument('--remat_group', type=int, default=1,
-                 help='graphcast only (not ported yet)')
+                 help='graphcast only: nested-checkpoint group size for '
+                      'the processor steps (hierarchical remat; implies '
+                      'remat when > 1)')
   p.add_argument('--functional_step', action='store_true', default=None,
                  help='not ported: the donated-state step is TPU-only')
   p.add_argument('--steps_per_call', type=int, default=1,
@@ -246,15 +266,15 @@ def parse_args(argv=None):
   check_model_flags(p, args)
   if args.pool_size < 1:
     p.error(f'--pool_size must be positive, got {args.pool_size}')
-  # --ar_steps is not looked at: AR training is a GraphCast mode, and a
-  # stray --ar_steps K on a GenCast run is the reference's no-op.
+  # AR training is a GraphCast mode: a stray --ar_steps K on a GenCast run
+  # is the reference's no-op (`ar_steps`).
+  if args.ar_steps < 1:
+    p.error(f'--ar_steps must be positive, got {args.ar_steps}')
   for flag in ('functional_step', 'cpu'):
     if getattr(args, flag):
       p.error(f'--{flag} is not ported: TPU-only')
   # (flag, its value, the values that ask for nothing, the ROADMAP.md item)
   for flag, value, off, item in (
-      ('task', args.task, (None,), _LATER_GRAPHCAST),
-      ('remat_group', args.remat_group, (1,), _LATER_GRAPHCAST),
       ('dp', args.dp, (1,), _LATER_PARALLEL),
       ('mp', args.mp, (1,), _LATER_PARALLEL),
       ('multihost', args.multihost, (False,), _LATER_PARALLEL),
@@ -269,8 +289,11 @@ def parse_args(argv=None):
 def build_spec(args):
   """The preset's ModelSpec with the architecture overrides applied."""
   from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import registry
   spec = configs.SPECS[args.preset]
   overrides = {}
+  if args.task:
+    overrides['task'] = registry.TASKS[args.task]
   if args.mesh_size is not None:
     overrides['mesh_splits'] = args.mesh_size
   for field in ('d_model', 'num_layers', 'num_heads', 'attention_k_hop',
@@ -344,20 +367,51 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
   return diffusion_utils.keyed_generator(seed, step, device=device)
 
 
+def build_model(args, spec, device):
+  """The unwrapped model `--model` names and its graph statics."""
+  from gencast_tpu_torch import configs
+  if args.model == 'graphcast':
+    return configs.build_graphcast(
+        spec, seed=args.seed, device=device,
+        remat_group=getattr(args, 'remat_group', 1))
+  return configs.build_gencast(spec, seed=args.seed, device=device)
+
+
+def ar_steps(args) -> int:
+  """Target frames per training window: --ar_steps on a GraphCast run, 1
+  on a GenCast run (where --ar_steps is the reference's no-op)."""
+  return args.ar_steps if args.model == 'graphcast' else 1
+
+
+def ar_batches(source, k: int, seed: int):
+  """The reference's AR iterator: windows of k target frames, in
+  permutations (from one numpy generator of `seed`) of the
+  len(source) - k + 1 starts that hold them; batch 1, targets and forcings
+  [k, 1, lat, lon, C]."""
+  rng = np.random.default_rng(seed)
+  n = len(source) - k + 1
+  while True:
+    for i in rng.permutation(n):
+      w = source.sample(int(i), num_target_frames=k)
+      yield {'inputs': w.inputs[None],
+             'targets': np.swapaxes(w.targets[None], 0, 1),
+             'forcings': np.swapaxes(w.forcings[None], 0, 1)}
+
+
 def setup(args) -> Setup:
   """Builds the model, data, stats, wrapper stack and optimizer of a run of
   `args` on the device `args.device` names."""
-  from gencast_tpu_torch import configs
   from gencast_tpu_torch.data import sources
   from gencast_tpu_torch.training import steps as steps_lib
 
   device = select_device(args.device)
   spec = build_spec(args)
-  print(f'[train] spec={spec.name} mesh_splits={spec.mesh_splits} '
-        f'd_model={spec.d_model} layers={spec.num_layers} '
-        f'attention={spec.attention_type} device={device}', flush=True)
-  model, statics = configs.build_gencast(spec, seed=args.seed, device=device)
-  task = model.task
+  print(f'[train] model={args.model} spec={spec.name} '
+        f'mesh_splits={spec.mesh_splits} d_model={spec.d_model} '
+        f'layers={spec.num_layers} attention={spec.attention_type} '
+        f'device={device}', flush=True)
+  model, statics = build_model(args, spec, device)
+  task = model.task  # GraphCast's variables where --model graphcast
 
   # source_factory is the picklable recipe --data_workers ships to its
   # packing processes (each builds its own source).
@@ -369,9 +423,18 @@ def setup(args) -> Setup:
   else:
     source_factory = era5_source_factory(args.data, task, spec.resolution_deg)
   source = source_factory()
+  # Computed forcings (TISR) on the run's device; packing processes
+  # (--data_workers) build their own sources and compute them on the CPU.
+  source.forcing_device = device
+  k = ar_steps(args)
   require_frames(source, task.num_input_frames + 1, args.data,
                  f'a training window ({task.num_input_frames} input frames '
                  'and a target)')
+  if len(source) - k + 1 <= 0:
+    raise SystemExit(f'--data {args.data}: the source holds '
+                     f'{len(source)} windows, too short for --ar_steps {k} '
+                     f'({task.num_input_frames} input frames and {k} '
+                     'targets)')
   print(f'[train] data source: {type(source).__name__}, {len(source)} '
         f'samples', flush=True)
   stats = load_or_compute_stats(args, source, task, 'train', save=True)
@@ -380,10 +443,12 @@ def setup(args) -> Setup:
       wrapped, steps_lib.OptimizerConfig(
           learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
           total_steps=args.steps, weight_decay=args.weight_decay))
-  batches = sources.batch_iterator(source, args.batch_size, seed=args.seed)
+  batches = (ar_batches(source, k, args.seed) if k > 1 else
+             sources.batch_iterator(source, args.batch_size, seed=args.seed))
   return Setup(model=model, statics=statics, source=source,
                source_factory=source_factory, wrapped=wrapped,
-               optimizer=optimizer, batches=batches, device=device)
+               optimizer=optimizer, batches=batches, device=device,
+               ar_steps=k)
 
 
 def main(argv=None) -> TrainRun:
@@ -417,10 +482,12 @@ def main(argv=None) -> TrainRun:
   if args.steps_per_call > 1 and not fused:
     print('[train] fused steps_per_call requires batch_size=1 and no '
           'mesh; falling back to per-step dispatch', flush=True)
-  if args.data_workers > 0 and fused:
-    # The fused loop packs its device pool in-process, as the reference's.
-    print('[train] --data_workers is ignored in fused steps_per_call mode; '
-          'batches are packed in-process', flush=True)
+  if args.data_workers > 0 and (fused or s.ar_steps > 1):
+    # Neither the fused loop's device pool nor the AR windows go through
+    # the packing workers, as in the reference.
+    mode = 'fused steps_per_call' if fused else 'AR (ar_steps > 1)'
+    print(f'[train] --data_workers is ignored in {mode} mode; batches are '
+          'packed in-process', flush=True)
   try:
     if fused:
       _run_fused(args, s, manager, sink, run)
@@ -460,7 +527,7 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
   losses: List[torch.Tensor] = []
   try:
     started = time.perf_counter()
-    if args.data_workers > 0:
+    if args.data_workers > 0 and s.ar_steps == 1:
       from gencast_tpu_torch.data import workers as workers_lib
       it = packer = workers_lib.ParallelBatchIterator(
           s.source_factory, args.batch_size, num_workers=args.data_workers,
@@ -490,9 +557,14 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
       _synchronize(device)
       t0 = time.perf_counter()
       run.batch_seconds.append(t0 - t_wait)
-      loss, _ = steps_lib.train_step(
-          wrapped, optimizer, batch['inputs'], batch['targets'],
-          batch['forcings'], step_generator(args.seed, step, device))
+      if s.ar_steps > 1:
+        loss, _ = steps_lib.ar_train_step(
+            wrapped, optimizer, batch['inputs'], batch['targets'],
+            batch['forcings'], keys=(args.seed, step))
+      else:
+        loss, _ = steps_lib.train_step(
+            wrapped, optimizer, batch['inputs'], batch['targets'],
+            batch['forcings'], step_generator(args.seed, step, device))
       _synchronize(device)
       run.step_seconds.append(time.perf_counter() - t0)
       losses.append(loss)
@@ -560,19 +632,24 @@ def _stop_profiler(prof, profile_dir: str) -> None:
   print(f'[train] profiler trace written to {path}', flush=True)
 
 
-def device_pool(source, size: int, device) -> dict:
+def device_pool(source, size: int, device, ar_steps: int = 1) -> dict:
   """The first `size` samples of `source` as [M, B=1, lat, lon, C] float32
   tensors on `device` ('inputs', 'targets', 'forcings'), copied one sample
-  at a time."""
+  at a time; with ar_steps K > 1, windows of K target frames, whose
+  targets and forcings are [M, K, B=1, lat, lon, C]."""
   pool = {}
   for i in range(size):
-    w = source.sample(i)
+    w = source.sample(i, num_target_frames=ar_steps)
     for name in ('inputs', 'targets', 'forcings'):
       x = torch.as_tensor(np.asarray(getattr(w, name), np.float32))
+      if ar_steps > 1 and name != 'inputs':
+        x = x[:, None]  # [K, B=1, ...]
+      else:
+        x = x[None]
       if name not in pool:
-        pool[name] = torch.empty((size, 1) + tuple(x.shape),
+        pool[name] = torch.empty((size,) + tuple(x.shape),
                                  dtype=torch.float32, device=device)
-      pool[name][i, 0].copy_(x)
+      pool[name][i].copy_(x)
   return pool
 
 
@@ -582,18 +659,22 @@ def _run_fused(args, s: Setup, manager, sink, run: TrainRun) -> None:
   `_run_fused`. Its pool rows come from the reference's stream (one
   numpy generator of --seed, extended by a permutation of the pool at a
   time) and step s draws from the generator of (--seed, s), as the
-  per-step loop. Logs and checkpoints where --log_every / --save_every
-  are crossed (saving the last step taken); --do_sampling_eval is not run
-  here, as in the reference. Fills `run` (each call's seconds shared out
-  over its steps)."""
+  per-step loop. With --ar_steps K on a GraphCast run the pool holds
+  windows of K target frames (the len(source) - K + 1 starts that hold
+  them) and each step trains the autoregressive loss. Logs and
+  checkpoints where --log_every / --save_every are crossed (saving the last
+  step taken); --do_sampling_eval is not run here, as in the reference.
+  Fills `run` (each call's seconds shared out over its steps)."""
   from gencast_tpu_torch.training import checkpoint as ckpt_lib
   from gencast_tpu_torch.training import steps as steps_lib
   k_call = args.steps_per_call
-  m_pool = min(len(s.source), args.pool_size)
-  pool = device_pool(s.source, m_pool, s.device)
-  fused_fn = steps_lib.scanned_train_steps(s.wrapped, s.optimizer)
+  ar = s.ar_steps > 1
+  m_pool = min(len(s.source) - s.ar_steps + 1, args.pool_size)
+  pool = device_pool(s.source, m_pool, s.device, s.ar_steps)
+  fused_fn = steps_lib.scanned_train_steps(s.wrapped, s.optimizer, ar=ar)
   print(f'[train] fused mode: {k_call} steps/call, device pool of {m_pool} '
-        'samples', flush=True)
+        'samples' + (f', AR loss over {s.ar_steps} steps' if ar else ''),
+        flush=True)
 
   rng = np.random.default_rng(args.seed)
   perm: List[int] = []
@@ -633,18 +714,22 @@ def _run_fused(args, s: Setup, manager, sink, run: TrainRun) -> None:
 
 
 def _sampling_eval(args, s: Setup, sink, step: int) -> None:
-  """One sampled forecast of the source's first window: its RMSE against
-  the target (NaNs skipped), and with a sink on, the triptych image of the
-  first target channel."""
+  """One forecast of the source's first window (sampled by GenCast,
+  predicted by GraphCast): its RMSE against the target (NaNs skipped), and
+  with a sink on, the triptych image of the first target channel."""
   from gencast_tpu_torch import rollout
-  from gencast_tpu_torch.models import casting, diffusion_utils
+  from gencast_tpu_torch.models import casting, diffusion_utils, wrappers
   casting.refresh_all(s.wrapped)  # serve the weights trained so far
   w = s.source.sample(0)
   frc = torch.as_tensor(w.forcings)[None][None].to(s.device)  # [K=1, B=1]
-  preds = rollout.sample_rollout(
-      s.wrapped, torch.as_tensor(w.inputs)[None].to(s.device), frc,
-      diffusion_utils.keyed_generator(args.seed, 10**9 + step,
-                                      device=s.device))
+  inputs = torch.as_tensor(w.inputs)[None].to(s.device)
+  if args.model == 'graphcast':
+    preds = rollout.predict_rollout(s.wrapped, inputs, frc)
+  else:
+    preds = rollout.sample_rollout(
+        s.wrapped, inputs, frc,
+        diffusion_utils.keyed_generator(args.seed, 10**9 + step,
+                                        device=s.device))
   pred = preds[0, 0].cpu().numpy()
   rmse = float(np.sqrt(np.nanmean((pred - w.targets) ** 2)))
   print(f'[train] sampling eval rmse={rmse:.4f}', flush=True)
@@ -652,7 +737,7 @@ def _sampling_eval(args, s: Setup, sink, step: int) -> None:
   if args.metrics_jsonl or args.wandb:
     # The training-time triptych image, as the reference's.
     from gencast_tpu_torch.training import plotting
-    d = s.model.denoiser
+    d = wrappers.find_layout_provider(s.model)
     var = d.target_layout.var_names[0]
     ch = d.target_layout.var_channels(var)[0]
     img_dir = (os.path.dirname(args.metrics_jsonl) if args.metrics_jsonl

@@ -249,10 +249,14 @@ def test_train_cli_takes_the_input_pipeline_flags(argv, dest, value):
 
 
 @pytest.mark.parametrize('argv,match', [
-    (['--model', 'graphcast'], 'GraphCast'),
+    # GraphCast, refused until it was ported, parses (match None).
+    pytest.param(['--model', 'graphcast'], None, id='argv0-GraphCast'),
     (['--attention_type', 'dense'], 'other attention backends'),
 ])
 def test_train_cli_refuses_what_is_not_ported(argv, match, capsys):
+  if match is None:
+    assert train.parse_args(['--preset', 'tiny'] + argv).model == 'graphcast'
+    return
   with pytest.raises(SystemExit):
     train.parse_args(['--preset', 'tiny'] + argv)
   assert match in capsys.readouterr().err

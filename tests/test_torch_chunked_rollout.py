@@ -115,13 +115,38 @@ def test_chunked_members_equal_the_ensemble(models):
 
 
 def test_chunked_rollout_takes_only_the_sampled_mode(models):
+  """Mode 'predict', refused until GraphCast was ported, rolls a GraphCast
+  out deterministically, bitwise the unchunked `predict_rollout`; any other
+  mode than 'sample' and 'predict', and a chunk size below 1, are
+  refused."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import layout
+  from gencast_tpu_torch.models import wrappers
   _, _, tstack, data = models
   inputs = torch.as_tensor(data['inputs'])
   forcings = torch.as_tensor(_forcings(data))
-  with pytest.raises(ValueError, match='GraphCast'):
+  gc, _ = configs.build_graphcast(configs.TINY, device='cpu', cache_dir=None)
+  task = gc.task
+  gc_stack = wrappers.build_stack(gc, layout.Stats.unit(
+      sorted(set(task.input_variables + task.target_variables)),
+      task.pressure_levels), bf16=False)
+  rng = np.random.default_rng(8)
+  gc_inputs = torch.as_tensor(rng.standard_normal(
+      (1,) + inputs.shape[1:3] + (gc.input_layout.num_channels,)),
+      dtype=torch.float32)
+  gc_forcings = torch.as_tensor(rng.standard_normal(
+      (STEPS, 1) + inputs.shape[1:3] + (gc.forcing_layout.num_channels,)),
+      dtype=torch.float32)
+  want = rollout.predict_rollout(gc_stack, gc_inputs, gc_forcings)
+  got = rollout.chunked_rollout(gc_stack, gc_inputs, gc_forcings,
+                                chunk_size=3, mode='predict')
+  assert got.shape == (STEPS, 1) + inputs.shape[1:3] + (
+      gc.target_layout.num_channels,)
+  assert torch.equal(got, want)
+  with pytest.raises(ValueError, match='mode'):
     rollout.chunked_rollout(tstack, inputs, forcings,
                             torch.Generator().manual_seed(0), chunk_size=2,
-                            mode='predict')
+                            mode='ensemble')
   with pytest.raises(ValueError, match='positive'):
     rollout.chunked_rollout(tstack, inputs, forcings,
                             torch.Generator().manual_seed(0), chunk_size=0)

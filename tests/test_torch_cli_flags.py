@@ -1,7 +1,8 @@
 """The training CLI knows every flag of the reference's
 (`gencast_tpu.training.train.parse_args`): each parses with the reference's
-default and, where it is ported, with the reference's meaning of a value;
-`--ar_steps K` on a GenCast run is the reference's no-op, and the flags of
+default and, where it is ported, with the reference's meaning of a value
+(GraphCast's `--task` and `--remat_group` among them); `--ar_steps K` on a
+GenCast run is the reference's no-op, and the flags of
 paths not ported are refused by name, with the ROADMAP.md item
 that brings them or as TPU-only, never as "unrecognized arguments".
 """
@@ -16,8 +17,8 @@ from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 # where the flag is accepted).
 FLAGS = {
     'ar_steps': (['2'], None),
-    'task': (['graphcast_37'], 'GraphCast'),
-    'remat_group': (['4'], 'GraphCast'),
+    'task': (['graphcast_37'], None),
+    'remat_group': (['4'], None),
     'functional_step': ([], 'not ported: TPU-only'),
     'steps_per_call': (['4'], None),
     'pool_size': (['8'], None),

@@ -66,9 +66,14 @@ def test_evaluate_restores_the_checkpoint(evaluated):
 
 @pytest.mark.parametrize('argv,match', [
     (['--attention_type', 'dense'], 'other attention backends'),
-    (['--model', 'graphcast'], 'GraphCast'),
+    # GraphCast, refused until it was ported, parses (match None).
+    pytest.param(['--model', 'graphcast'], None, id='argv1-GraphCast'),
 ])
 def test_evaluate_refuses_what_is_not_ported(argv, match, capsys):
+  if match is None:
+    args = evaluate.parse_args(['--preset', 'tiny'] + argv)
+    assert args.model == 'graphcast'
+    return
   with pytest.raises(SystemExit):
     evaluate.parse_args(['--preset', 'tiny'] + argv)
   assert match in capsys.readouterr().err

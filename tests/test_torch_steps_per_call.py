@@ -25,7 +25,6 @@ from gencast_tpu.training import train as jax_train
 from gencast_tpu_torch import configs, rollout
 from gencast_tpu_torch.data import layout
 from gencast_tpu_torch.models import casting, wrappers
-from gencast_tpu_torch.models.gencast import DenoiserGraphs
 from gencast_tpu_torch.ops import cuda_lib
 from gencast_tpu_torch.parallel import ensemble
 from gencast_tpu_torch.training import checkpoint, steps, train
@@ -100,9 +99,40 @@ def test_scanned_steps_continue_across_calls():
 
 
 def test_scanned_steps_refuse_ar_and_mismatched_rows():
+  """ar=True, refused until GraphCast was ported, trains a GraphCast's
+  autoregressive loss over pool windows of K frames: three fused steps
+  equal three `ar_train_step`s bit for bit. It still refuses a model that
+  draws (GenCast: its draws would be frozen into the step's graph), and
+  every fused call refuses rows that do not match its steps."""
   _, stack = _stack()
-  with pytest.raises(NotImplementedError, match='GraphCast'):
+  with pytest.raises(ValueError, match='deterministic'):
     steps.scanned_train_steps(stack, _optimizer(stack), ar=True)
+  twins = []
+  for _ in range(2):
+    model, _ = configs.build_graphcast(configs.TINY, device='cpu',
+                                       cache_dir=None)
+    twins.append(wrappers.build_stack(model, layout.Stats.unit(
+        sorted(set(model.task.input_variables
+                   + model.task.target_variables)),
+        model.task.pressure_levels), bf16=False))
+  model = twins[0].predictor
+  rng = np.random.default_rng(2)
+  k_ar, grid = 2, (model.num_lat, model.num_lon)
+  pool = {name: torch.as_tensor(rng.standard_normal(
+      (3,) + lead + grid + (lay.num_channels,)), dtype=torch.float32)
+          for name, lead, lay in (('inputs', (1,), model.input_layout),
+                                  ('targets', (k_ar, 1), model.target_layout),
+                                  ('forcings', (k_ar, 1),
+                                   model.forcing_layout))}
+  fused = steps.scanned_train_steps(twins[0], _optimizer(twins[0]), ar=True)
+  got = fused(pool, [2, 0, 2], range(3), 0)
+  opt = _optimizer(twins[1])
+  want = [steps.ar_train_step(twins[1], opt, pool['inputs'][r],
+                              pool['targets'][r], pool['forcings'][r])[0]
+          for r in (2, 0, 2)]
+  assert torch.equal(got, torch.stack(want))
+  assert all(torch.equal(a, b) for a, b in zip(twins[0].parameters(),
+                                               twins[1].parameters()))
   fused = steps.scanned_train_steps(stack, _optimizer(stack))
   with pytest.raises(ValueError, match='pool rows'):
     fused(_pool(stack.predictor), [0, 1], [0], 0)
@@ -206,7 +236,7 @@ def test_fused_calls_get_the_reference_rows_and_steps(config, monkeypatch):
 
   monkeypatch.setattr(steps, 'scanned_train_steps', port_stand_in)
   setup = types.SimpleNamespace(source=source, wrapped=None, optimizer=None,
-                                device=torch.device('cpu'))
+                                device=torch.device('cpu'), ar_steps=1)
   run = train.TrainRun(model=None, losses=[], step_seconds=[],
                        start_step=start)
   train._run_fused(args, setup, None, _Sink(), run)
@@ -328,7 +358,7 @@ def test_denoiser_graphs_are_never_copied_or_moved():
   assert model.denoiser_graphs.graphs  # the original keeps its own
   model.to('cpu')
   assert model.denoiser_graphs.graphs == {}
-  assert isinstance(model.denoiser_graphs, DenoiserGraphs)
+  assert isinstance(model.denoiser_graphs, cuda_lib.GraphedCalls)
 
 
 def test_captured_launches_are_added_per_replay():
