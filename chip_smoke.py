@@ -6,7 +6,9 @@ paper-scale 0.25-degree GenCast (QUARTER_DEG: streamed-edge GNNs, GNN
 remat, a bf16 noise basis) served, trained and evaluated, nano and
 1-degree GenCast trained and evaluated from ERA5-format directories, and
 GraphCast (GraphCast_small at 1 degree, the 37-level paper configuration
-at 0.25 degrees) served, trained (autoregressively too) and evaluated.
+at 0.25 degrees) served, trained (autoregressively too) and evaluated, the
+reference's einsum attention backends, data-parallel training over ranks
+and the member-sharded ensemble.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -91,13 +93,15 @@ Phases (any failure raises and exits non-zero):
      plain fused backward and against kernel F (bf16 dk and dv bitwise
      F's), and twice for equal bits; timings of G alone, the reduce alone,
      G with the reduce, F and the library's backward;
- 17. the 1-degree path under GENCAST_SPARSE_FUSED_BWD=1: `train.main` for 3
-     steps with checkpoints every 2 steps and a metrics file, then a run to
+ 17. the 1-degree path under GENCAST_SPARSE_FUSED_BWD=1, at CUT_LAYERS
+     layers: `train.main` for 3 steps with checkpoints every 2 steps and
+     a metrics file, then a run to
      step 5 that resumes at step 3 from the newest checkpoint (G and its
-     reduce 16 times per step each, F never, launches checked per step),
+     reduce once per layer and step each, F never, launches checked per
+     step),
      seconds per step and peak memory beside phase 10's; then
      `evaluate.main` on the checkpoint:
-     a 2-member, 2-step 1-degree ensemble (A 2,496 and B 156 launches) from
+     a 2-member, 2-step 1-degree ensemble (A 624 and B 156 launches) from
      the parameters saved, with finite scores and predictions
      [2, 2, 181, 360, C];
  18. reproducibility: two full-width nano training steps through
@@ -137,10 +141,11 @@ Phases (any failure raises and exits non-zero):
  24. serving: one 0.25-degree 12-hour forecast step graphed, then eagerly
      from the same generator seed: bitwise equal, A 624 and B 507 launches
      each, seconds both ways, the capture, its pool, the peak memory;
- 25. training: `train.main --preset 0.25deg` for 2 steps (checkpoint at
+ 25. training (phases 25 and 26 at CUT_LAYERS layers): `train.main
+     --preset 0.25deg` for 2 steps (checkpoint at
      the end; kernel E sees exactly phase 22's shapes), the same 2 steps
-     again from the seed (bitwise equal), the CLI's --steps_per_call 2, and
-     2 graphed steps against 2 eager steps of a twin (bitwise equal),
+     again from the seed (bitwise equal), and 2 graphed steps against 2
+     eager steps of a twin (bitwise equal),
      launches per step as derived in each, seconds per step, peak memory;
  26. `evaluate.main --preset 0.25deg --chunk_size 1` on phase 25's
      checkpoint: 1 member, 2 steps, launches as derived, finite where the
@@ -153,12 +158,12 @@ Phases (any failure raises and exits non-zero):
      2.5-degree corpus as NetCDF files (its source gives the npz source's
      windows) and a published-structure stats directory, else one line
      says they did not run;
- 29. nano from the 2.5-degree directory through `python3 -m
-     gencast_tpu_torch.training.train`, each run a fresh process: 16 steps
+ 29. nano (at CUT_LAYERS layers) from the 2.5-degree directory through
+     `python3 -m gencast_tpu_torch.training.train`, each run a fresh
+     process: 16 steps
      with --prefetch 2 --data_workers 2 --profile_dir and checkpoints, the
      same 16 steps with --prefetch 0 --data_workers 0 (bitwise equal losses
-     and checkpoints) and with --prefetch 2 alone (equal losses), a resume
-     to step 20 (its losses equal the same steps
+     and checkpoints), a resume to step 20 (its losses equal the same steps
      taken in this process from the checkpoint); the trace holds B, C, D
      and E for steps 10-15 in the derived counts, and each run's launches
      (and the 4 steps' taken here) are the derived counts per step; the
@@ -166,7 +171,8 @@ Phases (any failure raises and exits non-zero):
      packing ms per batch, worker
      start-up, batch wait and step ms with and without prefetch and
      workers;
- 30. full-width 1 degree from the 1-degree directory in this process:
+ 30. full-width 1 degree (at CUT_LAYERS layers) from the 1-degree
+     directory in this process:
      `train.main` for 3 steps (A, B, E and F launches per step as derived)
      and `evaluate.main` on its checkpoint, 1 member x 2 steps (finite
      where the truth is; --save_netcdf where h5py imports), walls and peak
@@ -185,12 +191,12 @@ Phases (any failure raises and exits non-zero):
      model's CUDA graph against the eager rollout (bitwise equal) and
      `chunked_rollout(mode='predict', chunk_size=2)` (bitwise equal); ms
      per step graphed, eager, plain, and of the graph's replay alone;
- 33. GraphCast_small trained through `train.main --model graphcast
-     --preset 1deg`: 4 eager steps, each followed by a sampling eval
-     (a predict graph captured, then replayed, while --prefetch's
-     thread packs windows, TISR on the card; batch waits logged); 4 with
-     --steps_per_call 2 (graph
-     replays), bitwise the eager ones, and again from the seed; --ar_steps
+ 33. GraphCast_small (at CUT_LAYERS processor steps) trained through
+     `train.main --model graphcast --preset 1deg`: 4 eager steps, each
+     followed by a sampling eval (a predict graph captured, then
+     replayed, while --prefetch's thread packs windows, TISR on the card;
+     batch waits logged); 4 with --steps_per_call 2 (graph replays),
+     bitwise the eager ones, and again from the seed; --ar_steps
      2 for 4 steps with a checkpoint, resumed to step 5; --ar_steps 2
      --steps_per_call 2, bitwise the eager AR steps; B launches per step as
      derived (52, 138 with the AR loss), no other kernel; then
@@ -203,8 +209,32 @@ Phases (any failure raises and exits non-zero):
      graphed and eagerly (bitwise equal), and through the plain path
      within the bf16 tolerance; then 2 training steps through the CLI, B
      launches as derived, peak memory;
-then one JSON line of kernel results (launches from the training runs of
-each kernel's paths, eager and graphed), the card's name and power limit, and a last JSON line
+ 35. the reference's einsum attention backends (plain PyTorch) against the
+     kernels' on the same bridged weights, bf16, one denoiser call each:
+     nano 'triblock' against 'triblock_pallas' (kernel C), 1 degree
+     'dense' against 'pallas' (kernel A; the dense k-hop mask first held to
+     the tile plan's allowed entries on the host), with times and peak
+     memory; then `--preset tiny` (the reference's TINY: einsum
+     'triblock') trained 2 steps and evaluated through the CLIs on the
+     card, B and E launches as derived;
+ 36. data parallel at 1 degree, full width and depth, batch 2, through
+     `python3 -m gencast_tpu_torch.training.train`: `--dp 2` (two ranks on
+     cuda:0, gloo) against one process, bf16 losses within DP_LOSS_RTOL;
+     `--multihost --num_processes 1` (one NCCL rank) bitwise the one
+     process; the float32 pair's losses and parameter changes within the
+     TINY training tolerances; A, F, B and E launches per rank-step as
+     derived at batch 1; then `--dp 2 --profile_dir` for 16 steps: the
+     all-reduce's share of a step and the kernels of steps 10-15 in each
+     rank's trace;
+ 37. the member-sharded ensemble: `python3 -m
+     gencast_tpu_torch.scripts.ensemble_forecast_pod --preset 1deg
+     --members 2 --steps 2 --score` on two ranks on cuda:0: the members
+     bitwise the one-device `parallel.ensemble.ensemble_rollout`, the scores
+     reduced on the devices within POD_SCORE_RTOL of `ops.metrics`, A and B
+     launches per rank as derived, seconds per member-step;
+then a [time] line (the seconds of each phase), one JSON line of kernel
+results (launches from the training runs of each kernel's paths, eager and
+graphed), the card's name and power limit, and a last JSON line
 {"ok": true, "device": {...}}.
 
 Each kernel's row also gives its bound (the least time the card could take
@@ -215,7 +245,7 @@ in turns with the kernel (scaled_dot_product_attention with the dense mask
 and its backward, segment_reduce, native_layer_norm_backward; none for
 G's dq reduce, whose row says so); the port never calls those. TF32 is off
 for matmuls and cuDNN: float32 products run in full float32. Phases 17,
-20, 25, 26, 28-30, 33 and 34 write under build/ (git-ignored) and remove
+20, 25, 26, 28-30 and 33-37 write under build/ (git-ignored) and remove
 what they wrote;
 the graph statics are cached under build/chip_smoke_cache for the run and
 removed at its end. About eleven minutes on an H100, build included.
@@ -292,6 +322,23 @@ TRAIN_BF16_GRAD_RTOL = 0.25
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# The depth of the CLI phases whose full-width, full-depth path another
+# phase covers (17: phases 10 and 19; 25-26: phases 22-24; 29: phases 13,
+# 15 and 18-20; 30: phase 10; 33, GraphCast's processor steps: phases 32
+# and 34; 36's float32 pair: its bf16 runs): the same width, grid and
+# mesh, 4 of the 16 layers.
+CUT_LAYERS = 4
+# Phase 36: 1-degree steps of each data-parallel run, and its per-step
+# bf16 losses against one process of the same global batch, max relative:
+# a rank's batch-1 GEMMs and the rank average round otherwise than one
+# batch-2 step (the float32 pair is held to TRAIN_LOSS_RTOL and, for the
+# parameters, TRAIN_STEP_RTOL).
+DP_STEPS = 3
+DP_LOSS_RTOL = 1e-3
+# Phase 37: the pod forecast's scores on the devices (latitude bands, sums
+# across ranks) against ops.metrics on the gathered members, max relative:
+# float32 sums in another order.
+POD_SCORE_RTOL = 1e-5
 # Forecast steps of phase 13's requests: 10 x 12 hours, 5 days.
 ROLLOUT_STEPS = 10
 # The 1-degree denoiser with streamed edges against the dense one (phase
@@ -330,6 +377,28 @@ TRACE_KERNELS = {
 
 def log(*args):
   print(*args, flush=True)
+
+
+def cut_depth(spec):
+  """`spec` at CUT_LAYERS layers: the same width, grid and mesh."""
+  return dataclasses.replace(spec, num_layers=CUT_LAYERS)
+
+
+class PhaseClock:
+  """The seconds each phase took, by its number, for the [time] line."""
+
+  def __init__(self):
+    self.seconds = {}
+    self.last = time.perf_counter()
+
+  def done(self, phase: int) -> None:
+    now = time.perf_counter()
+    self.seconds[phase] = round(now - self.last, 1)
+    self.last = now
+
+  def line(self, card: str) -> str:
+    return (f'[time] seconds by phase {json.dumps(self.seconds)}; total '
+            f'{sum(self.seconds.values()):.1f}; {card}')
 
 
 def card_line() -> str:
@@ -1095,7 +1164,8 @@ def expected_step_launches(gencast) -> dict:
   'save_attention' (the attention half is not recomputed) and twice under
   'full'; its backward (F or D: dq and dk/dv; G and its dq reduce when the
   transformer holds the fused backward's gather map) once per layer; the other
-  backend's kernels never. B once per receiver aggregation over a side of
+  backend's kernels never, and the einsum backends ('triblock', 'dense')
+  none. B once per receiver aggregation over a side of
   non-uniform degree each time it runs (the forward; with remat_gnns also
   its recomputation; in a streamed net per chunk, and again in the chunk's
   own recomputation) and once per gather over such a side (its backward;
@@ -1140,16 +1210,17 @@ def expected_step_launches(gencast) -> dict:
   elif cfg.attention_type == 'pallas':
     attn = (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
             sparse_attention.KERNEL_DKV)
-  else:
+  elif cfg.attention_type == 'triblock_pallas':
     attn = (banded_attention.KERNEL, banded_attention.KERNEL_DQ,
             banded_attention.KERNEL_DKV)
+  else:  # the einsum 'triblock' and 'dense': plain PyTorch, no kernel
+    attn = ()
   launches = {c.name: 0 for c in counters()}
   launches.update({c.name: layers for c in attn[1:]})
-  launches.update({
-      attn[0].name: layers * (2 if recompute else 1),
-      segment.KERNEL.name: planned,
-      ln_film.KERNEL.name: 2 * layers + 1 + gnn_e,
-  })
+  if attn:
+    launches[attn[0].name] = layers * (2 if recompute else 1)
+  launches.update({segment.KERNEL.name: planned,
+                   ln_film.KERNEL.name: 2 * layers + 1 + gnn_e})
   return launches
 
 
@@ -1701,13 +1772,14 @@ def check_graphed_equals_eager(what, graphed, eager) -> None:
   log(f'[graphs] {what}: graph replays bitwise equal to the eager path')
 
 
-def fused_path(spec, statics, dev, card, f_seconds, f_peak):
+def fused_path(spec, statics, dev, card, f_seconds, f_peak, stats):
   """Phase 17: the 1-degree training path with the fused attention backward
   (GENCAST_SPARSE_FUSED_BWD=1, set around the calls and restored after): 3
   steps through `train.main` with checkpoints every 2 steps, then a run to
   step 5 that resumes from the newest checkpoint, then `evaluate.main` on
-  it (2 members, 2 steps). Returns each kernel's launches in the two
-  training runs together."""
+  it (2 members, 2 steps). The training runs load the statistics file
+  `stats`. Returns each kernel's launches in the two training runs
+  together."""
   from gencast_tpu_torch.nn import transformer
   from gencast_tpu_torch.ops import segment, sparse_attention
   from gencast_tpu_torch.training import checkpoint, evaluate
@@ -1716,7 +1788,8 @@ def fused_path(spec, statics, dev, card, f_seconds, f_peak):
   shutil.rmtree(work, ignore_errors=True)
   ckpt, out = os.path.join(work, 'ckpt'), os.path.join(work, 'eval')
   jsonl = os.path.join(work, 'metrics.jsonl')
-  argv = ['--preset', '1deg', '--clean_sst_nans', '--save_every', '2',
+  argv = ['--preset', '1deg', '--num_layers', str(spec.num_layers),
+          '--clean_sst_nans', '--stats_path', stats, '--save_every', '2',
           '--ckpt_dir', ckpt, '--metrics_jsonl', jsonl]
   before = os.environ.get(transformer.FUSED_BWD_ENV)
   os.environ[transformer.FUSED_BWD_ENV] = '1'
@@ -1750,7 +1823,8 @@ def fused_path(spec, statics, dev, card, f_seconds, f_peak):
   for c in counters():
     c.reset()
   t0 = time.perf_counter()
-  run = evaluate.main(['--preset', '1deg', '--ckpt_dir', ckpt,
+  run = evaluate.main(['--preset', '1deg', '--num_layers',
+                       str(spec.num_layers), '--ckpt_dir', ckpt,
                        '--num_members', str(members), '--max_rollout_steps',
                        str(rollout_steps), '--clean_sst_nans', '--out_dir',
                        out, '--plot_vars'])
@@ -2095,16 +2169,18 @@ def quarter_deg_stats(spec, path):
 def train_quarter_deg(spec, statics, e_shapes, dev, card, work):
   """Phase 25: `train.main` for 2 steps at --preset 0.25deg (checkpoint at
   the end), the kernel E shapes it gives exactly phase 22's; the same 2
-  steps again from the seed, bitwise equal (phase 18's determinism); the
-  CLI's --steps_per_call 2; then 2 graphed steps against 2 eager steps of a
-  twin (phase 19): launches per step as derived in each. Returns (launches
-  of all runs, seconds per step, seconds per fused step, peak bytes,
-  the checkpoint directory, the stats path)."""
+  steps again from the seed, bitwise equal (phase 18's determinism); then
+  2 graphed steps against 2 eager steps of a twin (phase 19; the CLI's
+  --steps_per_call loop is phase 20's, at nano): launches per step as
+  derived in each. Returns (launches of all runs, seconds per step,
+  seconds per graphed step, peak bytes, the checkpoint directory, the
+  stats path)."""
   t_phase = time.perf_counter()
   stats = os.path.join(work, 'stats.npz')
   quarter_deg_stats(spec, stats)
   ckpt = os.path.join(work, 'ckpt')
-  argv = ['--preset', '0.25deg', '--clean_sst_nans', '--stats_path', stats]
+  argv = ['--preset', '0.25deg', '--num_layers', str(spec.num_layers),
+          '--clean_sst_nans', '--stats_path', stats]
   runs, seen = [], set()
   with recording_ln_film_shapes(seen):
     first, seconds, peak = train_preset(
@@ -2127,18 +2203,14 @@ def train_quarter_deg(spec, statics, e_shapes, dev, card, work):
   log(f'[reproducible] 0.25deg: 2 training steps twice from one seed: '
       f'losses {losses_a} and all {len(params_a)} parameters bitwise equal')
   del runs, params_a, params_b
-  fused_cli_run, fused_seconds, fused_peak = train_preset(
-      spec, statics, dev, card, argv + ['--steps_per_call', '2',
-                                        '--pool_size', '2'],
-      steps_run=2, tag='0.25deg --steps_per_call 2')
   torch.cuda.empty_cache()
   twin = fused_training(argv, dev, card, k=2, rounds=1, pool_rows=2,
                         tag='0.25deg')
-  launches = {k: first[k] + again[k] + fused_cli_run[k] + twin[0][k]
-              for k in first}
+  launches = {k: first[k] + again[k] + twin[0][k] for k in first}
+  fused_seconds, fused_peak = twin[1], twin[5]
   log(f'[train 0.25deg] seconds per step {[round(x, 4) for x in seconds]} '
-      f'(per-step loop), {[round(x, 4) for x in fused_seconds]} '
-      f'(--steps_per_call 2, the first call with its capture); peak memory '
+      f'(per-step loop), {[round(x, 4) for x in fused_seconds]} (graph '
+      f'replays, the first with its capture); peak memory '
       f'{max(peak, fused_peak) / 2**30:.2f} GiB; phase '
       f'{time.perf_counter() - t_phase:.1f} s; {card}')
   return launches, seconds, fused_seconds, max(peak, fused_peak), ckpt, stats
@@ -2157,7 +2229,8 @@ def evaluate_quarter_deg(spec, dev, card, ckpt, stats, work):
     c.reset()
   out = os.path.join(work, 'eval')
   t0 = time.perf_counter()
-  run = evaluate.main(['--preset', '0.25deg', '--clean_sst_nans',
+  run = evaluate.main(['--preset', '0.25deg', '--num_layers',
+                       str(spec.num_layers), '--clean_sst_nans',
                        '--stats_path', stats, '--ckpt_dir', ckpt,
                        '--num_members', '1', '--max_rollout_steps',
                        str(rollout_steps), '--chunk_size', '1', '--out_dir',
@@ -2344,7 +2417,6 @@ def nano_era5_cli(spec, statics, dev, card, data, work) -> dict:
   --data_workers 2, --profile_dir (the process's only profiler session)
   and checkpoints; the same 16 steps with --prefetch 0 --data_workers 0:
   bitwise equal losses and checkpoint (parameters and optimizer state);
-  and with --prefetch 2 alone: bitwise equal losses;
   a resume of the first to step 20, whose losses equal 4 steps taken here
   from the second's checkpoint on the stream's first 4 batches (the
   reference restarts the stream on resume) with steps 16-19's draws. The
@@ -2373,8 +2445,9 @@ def nano_era5_cli(spec, statics, dev, card, data, work) -> dict:
   del gencast
   trace_dir = os.path.join(work, 'trace')
   ckpt = {k: os.path.join(work, f'ckpt_{k}') for k in ('piped', 'plain')}
-  base = ['--preset', spec.name, '--device', dev.type, '--data', data,
-          '--log_every', '1', '--save_every', '8']
+  base = ['--preset', spec.name, '--num_layers', str(spec.num_layers),
+          '--device', dev.type, '--data', data, '--log_every', '1',
+          '--save_every', '8']
   piped = ['--prefetch', '2', '--data_workers', '2']
   runs = {
       'piped': run_train_cli(
@@ -2385,16 +2458,11 @@ def nano_era5_cli(spec, statics, dev, card, data, work) -> dict:
           base + ['--prefetch', '0', '--data_workers', '0', '--steps',
                   str(ERA5_NANO_STEPS), '--ckpt_dir', ckpt['plain']],
           os.path.join(work, 'plain.jsonl'), 'nano ERA5, plain'),
-      'prefetch only': run_train_cli(
-          base + ['--prefetch', '2', '--data_workers', '0', '--steps',
-                  str(ERA5_NANO_STEPS)],
-          os.path.join(work, 'prefetch.jsonl'), 'nano ERA5, prefetch only'),
       'resumed': run_train_cli(
           base + piped + ['--steps', str(ERA5_RESUME_STEPS), '--ckpt_dir',
                           ckpt['piped']],
           os.path.join(work, 'resumed.jsonl'), 'nano ERA5, resumed')}
   taken = {'piped': ERA5_NANO_STEPS, 'plain': ERA5_NANO_STEPS,
-           'prefetch only': ERA5_NANO_STEPS,
            'resumed': ERA5_RESUME_STEPS - ERA5_NANO_STEPS}
   for name, run in runs.items():
     want = {k: v * taken[name] for k, v in per_step.items()}
@@ -2413,7 +2481,6 @@ def nano_era5_cli(spec, statics, dev, card, data, work) -> dict:
   states = [torch.load(os.path.join(ckpt[k], last), map_location='cpu',
                        weights_only=True) for k in ('piped', 'plain')]
   if (runs['piped']['losses'] != runs['plain']['losses']
-      or runs['prefetch only']['losses'] != runs['plain']['losses']
       or not np.isfinite(runs['piped']['losses']).all()
       or not same_state(*states)):
     raise AssertionError(
@@ -2425,7 +2492,7 @@ def nano_era5_cli(spec, statics, dev, card, data, work) -> dict:
   if f'resumed from step {ERA5_NANO_STEPS - 1}' not in runs['resumed'][
       'stdout']:
     raise AssertionError('nano ERA5: the run did not resume')
-  args = train.parse_args(base[:6] + ['--steps', str(ERA5_RESUME_STEPS)])
+  args = train.parse_args(base[:8] + ['--steps', str(ERA5_RESUME_STEPS)])
   here = train.setup(args)
   checkpoint.restore(checkpoint.create_manager(ckpt['plain']), here.wrapped,
                      here.optimizer)
@@ -2461,9 +2528,7 @@ def nano_era5_cli(spec, statics, dev, card, data, work) -> dict:
   log(f'[era5 nano CLI] packing {pack_ms:.2f} ms per batch in-process '
       f'(Era5NpzSource, 2.5 degrees, batch 1; the source loads in '
       f'{load_s:.2f} s); 16 steps {pipeline(runs["piped"])}; 16 steps '
-      f'{pipeline(runs["prefetch only"])}; 16 steps '
-      f'{pipeline(runs["plain"])}; losses (and the first and last run\'s '
-      f'checkpoints) bitwise equal; '
+      f'{pipeline(runs["plain"])}; losses and checkpoints bitwise equal; '
       f'resumed at step {ERA5_NANO_STEPS}: {pipeline(runs["resumed"])}, '
       f'losses equal to the same steps here; trace of steps '
       f'{first}-{last_step}: {in_trace}, as derived; '
@@ -2484,7 +2549,8 @@ def one_deg_era5(spec, statics, dev, card, data, work, has_h5py) -> dict:
   ckpt = os.path.join(work, 'ckpt_1deg')
   t0 = time.perf_counter()
   trained, seconds, train_peak = train_preset(
-      spec, statics, dev, card, ['--preset', '1deg', '--clean_sst_nans',
+      spec, statics, dev, card, ['--preset', '1deg', '--num_layers',
+                                 str(spec.num_layers), '--clean_sst_nans',
                                  '--ckpt_dir', ckpt],
       tag='1deg from ERA5', data=data)
   train_wall = time.perf_counter() - t0
@@ -2494,7 +2560,8 @@ def one_deg_era5(spec, statics, dev, card, data, work, has_h5py) -> dict:
     c.reset()
   out = os.path.join(work, 'eval_1deg')
   t0 = time.perf_counter()
-  evaluate.main(['--preset', '1deg', '--clean_sst_nans', '--data', data,
+  evaluate.main(['--preset', '1deg', '--num_layers', str(spec.num_layers),
+                 '--clean_sst_nans', '--data', data,
                  '--ckpt_dir', ckpt, '--num_members', '1',
                  '--max_rollout_steps', str(rollout_steps), '--out_dir', out,
                  '--plot_vars'] + (['--save_netcdf'] if has_h5py else []))
@@ -2897,8 +2964,8 @@ def train_graphcast(spec, statics, dev, card, work):
   os.makedirs(work, exist_ok=True)
   stats = os.path.join(work, 'stats.npz')
   ckpt = os.path.join(work, 'ckpt')
-  base = ['--model', 'graphcast', '--preset', spec.name, '--data',
-          'synthetic', '--stats_path', stats]
+  base = ['--model', 'graphcast', '--preset', spec.name, '--num_layers',
+          str(spec.num_layers), '--data', 'synthetic', '--stats_path', stats]
   eager, l_eager = graphcast_cli(
       base + ['--do_sampling_eval', '--eval_every', '1'], 4,
       'eager, sampling evals', card)
@@ -2929,7 +2996,8 @@ def train_graphcast(spec, statics, dev, card, work):
     c.reset()
   t0 = time.perf_counter()
   ev = evaluate.main(['--model', 'graphcast', '--preset', spec.name,
-                      '--stats_path', stats, '--ckpt_dir', ckpt,
+                      '--num_layers', str(spec.num_layers), '--stats_path',
+                      stats, '--ckpt_dir', ckpt,
                       '--max_rollout_steps', '2', '--plot_vars',
                       '--out_dir', os.path.join(work, 'eval')])
   ev_wall = time.perf_counter() - t0
@@ -3063,6 +3131,411 @@ def quarter_deg_graphcast(dev, g, card, work):
           b_results)
 
 
+def attention_backends(nano_statics, statics, dev, g, card, work) -> dict:
+  """Phase 35: the reference's einsum backends (plain PyTorch) against the
+  kernels' backends on the same bridged weights, bf16, one denoiser call
+  each within DENOISER_BF16_RTOL: nano's 'triblock' against
+  'triblock_pallas' (kernel C, 16 launches), and at 1 degree 'dense'
+  against 'pallas' (kernel A, 16 launches), after checking on the host
+  that the dense k-hop mask and the tile plan's allowed entries are one
+  set; the peak memory of the dense call. Then `--preset tiny` (the
+  reference's TINY, einsum 'triblock') trains 2 steps with a checkpoint
+  and evaluates 2 members x 2 steps through the CLIs on the card: B and E
+  launches per step as derived, no attention kernel. Returns each
+  kernel's launches in those CLI runs."""
+  from gencast_tpu_torch import bridge, configs
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.models.gencast import GenCast
+  from gencast_tpu_torch.ops import banded_attention, sparse_attention
+  from gencast_tpu_torch.training import evaluate, train
+  t_phase = time.perf_counter()
+  plan = statics.attention_tile_plan
+  n = statics.num_mesh_nodes
+  dense_mask = configs.dense_attention_mask(statics,
+                                            configs.ONE_DEG.attention_k_hop)
+  from_plan = dense_from_plan(plan, 'cpu').numpy()
+  if not (np.array_equal(dense_mask, from_plan[:n, :n])
+          and not from_plan[n:].any() and not from_plan[:, n:].any()):
+    raise AssertionError('the dense k-hop mask and the tile plan\'s allowed '
+                         'entries are not the same set')
+  log(f'[backends] 1-degree dense k-hop mask {dense_mask.shape}: '
+      f'{int(dense_mask.sum())} allowed entries, the tile plan\'s set '
+      f'exactly ({plan.num_pairs} mask tiles of {plan.tile} x {plan.tile})')
+  for spec, einsum, st, kernel in (
+      (configs.NANO, 'triblock', nano_statics, banded_attention.KERNEL),
+      (configs.ONE_DEG, 'dense', statics, sparse_attention.KERNEL)):
+    stats = unit_stats(spec.task)
+    stacks = {}
+    flat = None
+    for kind in (spec.attention_type, einsum):
+      model, _ = configs.build_gencast(
+          dataclasses.replace(spec, attention_type=kind), seed=0, statics=st,
+          device=dev)
+      if flat is None:
+        flat = bridge.perturbed(bridge.export_reference_params(model), seed=1)
+      bridge.load_reference_params(model, flat)
+      stacks[kind] = wrappers.build_stack(model, stats,
+                                          bf16=spec.cast_bf16).to(dev)
+    den = model.denoiser
+    grid = (1, st.grid_lat.shape[0], st.grid_lon.shape[0])
+    inputs, forcings, noisy = (
+        torch.randn(grid + (lay.num_channels,), generator=g, device=dev)
+        for lay in (den.input_layout, den.forcing_layout, den.target_layout))
+    sigma = torch.full((1,), 3.0, device=dev)
+    outs, launched, peaks = {}, {}, {}
+    with torch.no_grad():
+      for kind, stack in stacks.items():
+        for c in counters():
+          c.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs[kind] = stack(inputs, 3.0 * noisy, sigma, forcings)
+        torch.cuda.synchronize()
+        peaks[kind] = torch.cuda.max_memory_allocated()
+        launched[kind] = {c.name: c.launches for c in counters()
+                          if c.launches}
+      ms = time_in_turns({kind: (lambda s=stack: s(inputs, 3.0 * noisy,
+                                                   sigma, forcings))
+                          for kind, stack in stacks.items()}, reps=2)
+    got, want = outs[einsum], outs[spec.attention_type]
+    rel = float((got - want).abs().max() / want.abs().max())
+    if not (torch.isfinite(got).all() and rel <= DENOISER_BF16_RTOL
+            and launched[spec.attention_type].get(kernel.name)
+            == spec.num_layers and kernel.name not in launched[einsum]):
+      raise AssertionError(f'{spec.name} {einsum} against '
+                           f'{spec.attention_type}: rel {rel}, launches '
+                           f'{launched}')
+    log(f'[backends] {spec.name} bf16 denoiser call, {einsum} (einsum) '
+        f'against {spec.attention_type} ({kernel.name}): max rel err '
+        f'{rel:.3e} (tol {DENOISER_BF16_RTOL}); {ms[einsum]:.2f} ms against '
+        f'{ms[spec.attention_type]:.2f} ms per call; peak memory '
+        f'{peaks[einsum] / 2**30:.2f} GiB against '
+        f'{peaks[spec.attention_type] / 2**30:.2f} GiB; launches {launched}; '
+        f'{card}')
+    del stacks, model, outs, got, want
+    torch.cuda.empty_cache()
+
+  ckpt = os.path.join(work, 'tiny_ckpt')
+  for c in counters():
+    c.reset()
+  run = train.main(['--preset', 'tiny', '--data', 'synthetic', '--steps', '2',
+                    '--log_every', '1', '--ckpt_dir', ckpt])
+  launches = {c.name: c.launches for c in counters()}
+  gencast = next(m for m in run.model.modules() if isinstance(m, GenCast))
+  attn = type(gencast.denoiser.architecture.processor.blocks[0].attn).__name__
+  want = {k: 2 * v for k, v in expected_step_launches(gencast).items()}
+  if (attn != 'TriblockAttention' or launches != want
+      or not np.isfinite(run.losses).all()):
+    raise AssertionError(f'--preset tiny on the card: {attn}, launches '
+                         f'{launches} (expected {want}), losses {run.losses}')
+  ev = evaluate.main(['--preset', 'tiny', '--ckpt_dir', ckpt, '--num_members',
+                      '2', '--max_rollout_steps', '2', '--out_dir',
+                      os.path.join(work, 'tiny_eval'), '--plot_vars'])
+  if not (ev.predictions.shape[:2] == (2, 2)
+          and np.isfinite(ev.predictions).all()):
+    raise AssertionError(f'--preset tiny evaluate: {ev.predictions.shape}')
+  log(f'[backends] --preset tiny (the reference\'s TINY, einsum triblock) on '
+      f'the card: 2 steps, losses {run.losses}, launches {launches} as '
+      f'derived; evaluate 2 members x 2 steps finite; phase '
+      f'{time.perf_counter() - t_phase:.1f} s; {card}')
+  return launches
+
+
+RANK_LINE = re.compile(r'\[(?:train|forecast)\] (pipeline|kernel launches in '
+                       r'this process) \(rank (\d+) of (\d+)\) (\{.*\})')
+
+
+def run_ranks(module, argv, tag, timeout=600):
+  """`python3 -m module argv` in a fresh process from the repository root
+  (it may start ranks of its own): its wall seconds, stdout, and by rank
+  its 'pipeline' and 'kernel launches' lines. Raises if it fails."""
+  repo = os.path.dirname(os.path.abspath(__file__))
+  t0 = time.perf_counter()
+  done = subprocess.run([sys.executable, '-m', module] + argv, cwd=repo,
+                        capture_output=True, text=True, timeout=timeout)
+  wall = time.perf_counter() - t0
+  if done.returncode:
+    raise AssertionError(f'{tag}: exit {done.returncode}\n'
+                         f'{done.stdout[-3000:]}\n{done.stderr[-5000:]}')
+  ranks = {}
+  for m in RANK_LINE.finditer(done.stdout):
+    ranks.setdefault(int(m.group(2)), {})[m.group(1)] = json.loads(
+        m.group(4))
+  return {'wall': wall, 'stdout': done.stdout, 'ranks': ranks}
+
+
+def checkpoint_params(directory, steps_run):
+  return list(torch.load(os.path.join(directory, f'step_{steps_run - 1}.pt'),
+                         map_location='cpu',
+                         weights_only=True)['params'].values())
+
+
+def allreduce_ms(path) -> float:
+  """The host milliseconds of the all-reduces in a torch.profiler Chrome
+  trace: the largest total over the event names that hold 'allreduce'
+  (the outermost span encloses the others)."""
+  with open(path) as f:
+    events = json.load(f)['traceEvents']
+  totals = {}
+  for e in events:
+    name = e.get('name', '')
+    if e.get('ph') == 'X' and re.search(r'(?i)all_?reduce', name):
+      totals[name] = totals.get(name, 0.0) + e.get('dur', 0) / 1e3
+  return max(totals.values(), default=0.0)
+
+
+def data_parallel_1deg(spec, statics, dev, card, work, stats) -> dict:
+  """Phase 36: full-width, full-depth 1-degree training, batch 2, on the
+  synthetic source (statistics from the file `stats`), through the
+  training CLI: `python3 -m gencast_tpu_torch.training.train --preset 1deg
+  --batch_size 2 --dp 2` (two ranks on cuda:0, gloo, one row each) for 16
+  steps with --profile_dir, against one process at batch 2 (`train.main`
+  here): the first DP_STEPS losses within DP_LOSS_RTOL (bf16, the
+  preset's); `--multihost --num_processes 1` (one NCCL rank, here) bitwise
+  the one process; the float32 pair at CUT_LAYERS layers (--no-bf16,
+  --dp 2 started from here) for DP_STEPS steps: losses within
+  TRAIN_LOSS_RTOL and each parameter's change within TRAIN_STEP_RTOL of
+  the one process's (in bf16 a rank's
+  weight gradient is rounded before the average, and Adam turns the
+  rounding of a near-zero entry into a full-size update: that figure is
+  logged, not held). Launches of A, F, B and E per step as
+  expected_step_launches in every run, per rank at batch 1; each rank's
+  trace of steps 10-15 (its only profiler session) holds them too, and
+  gives the all-reduce's share of a step. Returns each kernel's launches
+  over the --dp 2 run's ranks."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.models.gencast import GenCast
+  from gencast_tpu_torch.parallel import meshes
+  from gencast_tpu_torch.training import train
+  t_phase = time.perf_counter()
+  long_steps = train.PROFILE_STEPS[1] + 1
+  base = ['--preset', '1deg', '--clean_sst_nans', '--data', 'synthetic',
+          '--batch_size', '2', '--log_every', '1', '--stats_path', stats]
+  nccl = ['--multihost', '--num_processes', '1', '--process_id', '0',
+          '--coordinator', f'localhost:{meshes.free_port()}']
+  f32 = ['--no-bf16', '--num_layers', str(CUT_LAYERS), '--steps',
+         str(DP_STEPS)]
+  runs = {}
+  for name, argv, steps_run in (
+      ('one', ['--steps', str(long_steps)], long_steps),
+      ('nccl', ['--steps', str(long_steps)] + nccl, long_steps),
+      ('one_f32', f32, DP_STEPS),
+      ('dp_f32', f32 + ['--dp', '2'], DP_STEPS)):
+    torch.cuda.empty_cache()
+    for c in counters():
+      c.reset()
+    t0 = time.perf_counter()
+    run = train.main(base + argv + ['--ckpt_dir', os.path.join(work, name)])
+    launches = {c.name: c.launches for c in counters()}
+    if run.model is not None:  # the --dp 2 parent holds no model
+      per_run = expected_step_launches(next(
+          m for m in run.model.modules() if isinstance(m, GenCast)))
+      if launches != {k: v * steps_run for k, v in per_run.items()}:
+        raise AssertionError(f'1deg {name}: launches {launches}, '
+                             f'{per_run} per step expected')
+      if name == 'one':
+        per_step = per_run
+    runs[name] = {'run': run, 'wall': time.perf_counter() - t0,
+                  'params': checkpoint_params(os.path.join(work, name),
+                                              steps_run)}
+    run.model = None
+  torch.cuda.empty_cache()
+  trace_dir = os.path.join(work, 'trace')
+  metrics = os.path.join(work, 'dp.jsonl')
+  dp = run_ranks('gencast_tpu_torch.training.train', base + [
+      '--steps', str(long_steps), '--dp', '2', '--profile_dir', trace_dir,
+      '--metrics_jsonl', metrics], '1deg --dp 2')
+  with open(metrics) as f:
+    dp['losses'] = [r['loss'] for r in map(json.loads, f)
+                    if r['event'] == 'train']
+  first, last_step = train.PROFILE_STEPS
+  profiled = last_step - first + 1
+  got = {r: v.get('kernel launches in this process')
+         for r, v in dp['ranks'].items()}
+  backends = re.findall(r'backend (\w+)', dp['stdout'])
+  want = {k: v * long_steps for k, v in per_step.items()}
+  if (sorted(got) != [0, 1] or any(v != want for v in got.values())
+      or backends != ['gloo', 'gloo']):
+    raise AssertionError(f'1deg --dp 2: backends {backends}, launches by '
+                         f'rank {got}, expected {want} each')
+  shares = {}
+  for rank, lines in sorted(dp['ranks'].items()):
+    path = os.path.join(trace_dir, f'train_steps_{first}-{last_step}.rank'
+                                   f'{rank}.pt.trace.json')
+    in_trace = trace_kernel_counts(path)
+    if in_trace != {k: v * profiled for k, v in per_step.items()}:
+      raise AssertionError(f'1deg --dp 2 rank {rank} trace of steps '
+                           f'{first}-{last_step}: {in_trace}, {per_step} per '
+                           f'step expected')
+    shares[rank] = (allreduce_ms(path) / profiled,
+                    1e3 * lines['pipeline']['step_s']['mean'])
+
+  initial, _ = configs.build_gencast(cut_depth(spec), seed=0,
+                                     statics=statics, device=dev)
+  start = [p.detach().cpu() for p in initial.parameters()]
+  del initial
+
+  def change_rel(a_params, b_params):
+    return max(float(((b - p0) - (a - p0)).abs().max()
+                     / (a - p0).abs().max())
+               for a, b, p0 in zip(a_params, b_params, start)
+               if (a - p0).abs().max() > 0)
+
+  def loss_rel(a, b):
+    if len(a) != len(b):
+      return float('inf')
+    return max(abs(x - y) / abs(x) for x, y in zip(a, b))
+
+  one = runs['one']['run'].losses
+  bf16 = loss_rel(one[:DP_STEPS], dp['losses'][:DP_STEPS])
+  bf16_all = loss_rel(one, dp['losses'])
+  f32 = (loss_rel(runs['one_f32']['run'].losses, runs['dp_f32']['run'].losses),
+         change_rel(runs['one_f32']['params'], runs['dp_f32']['params']))
+  nccl_equal = (runs['nccl']['run'].losses == one and all(
+      torch.equal(a, b) for a, b in zip(runs['one']['params'],
+                                        runs['nccl']['params'])))
+  if not (bf16 <= DP_LOSS_RTOL and f32[0] <= TRAIN_LOSS_RTOL
+          and f32[1] <= TRAIN_STEP_RTOL and nccl_equal):
+    raise AssertionError(
+        f'1deg data parallel: --dp 2 against one process: bf16 losses of the '
+        f'first {DP_STEPS} steps rel {bf16} (tol {DP_LOSS_RTOL}); float32 '
+        f'losses rel {f32[0]} (tol {TRAIN_LOSS_RTOL}), worst parameter change '
+        f'rel {f32[1]} (tol {TRAIN_STEP_RTOL}); one NCCL rank bitwise '
+        f'{nccl_equal}')
+
+  def steps_of(seconds):
+    rest = seconds[1:]
+    return (f'first {seconds[0]:.4f}, mean {np.mean(rest):.4f}, max '
+            f'{max(rest):.4f}')
+
+  dp_steps = {r: {k: round(v, 4) for k, v in lines['pipeline']['step_s']
+                  .items()} for r, lines in sorted(dp['ranks'].items())}
+  log(f'[data parallel 1deg] batch 2, bf16, {long_steps} steps: one process '
+      f'step s {steps_of(runs["one"]["run"].step_seconds)} (wall '
+      f'{runs["one"]["wall"]:.1f} s); --dp 2 (two ranks on cuda:0, gloo, '
+      f'profiled steps {first}-{last_step}) step s by rank {dp_steps} (wall '
+      f'{dp["wall"]:.1f} s with start-up); one NCCL rank step s '
+      f'{steps_of(runs["nccl"]["run"].step_seconds)} (wall '
+      f'{runs["nccl"]["wall"]:.1f} s); float32 at {CUT_LAYERS} layers, '
+      f'{DP_STEPS} steps: one process '
+      f'step s {steps_of(runs["one_f32"]["run"].step_seconds)}, --dp 2 '
+      f'{steps_of(runs["dp_f32"]["run"].step_seconds)} (rank 0; wall '
+      f'{runs["dp_f32"]["wall"]:.1f} s); {card}')
+  log(f'[data parallel 1deg] --dp 2 against one process: bf16 losses of the '
+      f'first {DP_STEPS} steps max rel {bf16:.3e} (tol {DP_LOSS_RTOL}; all '
+      f'{long_steps}: {bf16_all:.3e}); float32 losses max rel {f32[0]:.3e} '
+      f'(tol {TRAIN_LOSS_RTOL}), worst parameter change rel {f32[1]:.3e} (tol '
+      f'{TRAIN_STEP_RTOL}); one NCCL rank bitwise the one process; launches '
+      f'per rank-step {per_step}, as derived, in every run and in each '
+      f'rank\'s trace of steps {first}-{last_step}; all-reduce ms per step '
+      f'and mean step ms by rank '
+      f'{ {r: (round(a, 2), round(b, 2)) for r, (a, b) in shares.items()} }'
+      f', share {[round(a / b, 3) for a, b in shares.values()]}; phase '
+      f'{time.perf_counter() - t_phase:.1f} s; {card}')
+  return {k: sum(v[k] for v in got.values()) for k in per_step}
+
+
+def pod_ensemble_1deg(dev, card, work) -> dict:
+  """Phase 37: `python3 -m gencast_tpu_torch.scripts.ensemble_forecast_pod
+  --preset 1deg --members 2 --steps 2 --score` on two ranks on cuda:0
+  (gloo; one member each): its members bitwise the one-device
+  `parallel.ensemble.ensemble_rollout` of the same model and seed (here),
+  its on-device scores within POD_SCORE_RTOL of ops.metrics on those
+  members, A and B launches per rank as derived; seconds per member-step
+  both ways. Returns each kernel's launches over the ranks."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import layout as layout_lib
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.ops import metrics, segment, sparse_attention
+  from gencast_tpu_torch.parallel import ensemble
+  from gencast_tpu_torch.scripts import ensemble_forecast_pod as pod
+  t_phase = time.perf_counter()
+  members, steps = 2, 2
+  out = os.path.join(work, 'forecast.npz')
+  argv = ['--preset', '1deg', '--members', str(members), '--steps',
+          str(steps), '--score', '--clean_sst_nans', '--out', out]
+  run = run_ranks('gencast_tpu_torch.scripts.ensemble_forecast_pod',
+                  argv + ['--num_processes', '2'], 'pod forecast, 2 ranks')
+  args = pod.parse_args(argv)
+  wrapped, statics, (inputs, forcings, targets) = pod.build_forecast(args,
+                                                                      dev)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  want = ensemble.ensemble_rollout(wrapped, inputs, forcings, seed=0,
+                                   num_members=members)
+  here_s = (time.perf_counter() - t0) / (members * steps)
+  got = np.zeros(want.shape, np.float32)
+  for rank in range(2):
+    z = np.load(f'{os.path.splitext(out)[0]}.p{rank}.npz')
+    got[z['members']] = z['predictions']
+  bitwise = np.array_equal(got.view(np.uint32), want.numpy().view(np.uint32))
+  lat_w = torch.as_tensor(layout_lib.latitude_weights(
+      np.asarray(statics.grid_lat)), device=dev)
+  mem = want.to(dev)
+  layout = wrappers.find_layout_provider(wrapped).target_layout
+  reference = {
+      'crps': metrics.crps_ensemble(mem, targets, lat_w),
+      'rmse': metrics.ensemble_mean_rmse(mem, targets, lat_w),
+      'spread': metrics.ensemble_spread(mem, lat_w)}
+  with open(f'{os.path.splitext(out)[0]}.scores.json') as f:
+    scores = json.load(f)['scores']
+  worst = 0.0
+  for name, arr in reference.items():
+    for var, v in metrics.per_variable(arr, layout).items():
+      w, s = np.asarray(v)[:, 0], np.asarray(scores[name][var])
+      if not np.array_equal(np.isnan(w), np.isnan(s)):
+        raise AssertionError(f'pod {name} {var}: {s} against {w}')
+      ok = ~np.isnan(w)
+      if ok.any():
+        worst = max(worst, float(np.abs(s[ok] - w[ok]).max()
+                                 / np.abs(w[ok]).max()))
+  spec = configs.ONE_DEG
+  calls = steps * (2 * spec.num_noise_levels - 1)
+  per_rank = {sparse_attention.KERNEL.name: calls * spec.num_layers,
+              segment.KERNEL.name: calls}
+  launched = {r: {k: v for k, v in lines['kernel launches in this process']
+                  .items() if v} for r, lines in run['ranks'].items()}
+  if not (bitwise and worst <= POD_SCORE_RTOL and sorted(launched) == [0, 1]
+          and all(v == per_rank for v in launched.values())):
+    raise AssertionError(f'pod forecast: members bitwise {bitwise}, scores '
+                         f'worst rel {worst} (tol {POD_SCORE_RTOL}), launches '
+                         f'{launched} (expected {per_rank} each)')
+  member_step = [float(x) for x in re.findall(
+      r'\(([0-9.]+) s per member-step', run['stdout'])]
+  log(f'[pod 1deg] 2 ranks on cuda:0, {members} members x {steps} steps, '
+      f'--score: members bitwise the one-device ensemble_rollout; scores on '
+      f'the devices against ops.metrics: worst rel {worst:.3e} (tol '
+      f'{POD_SCORE_RTOL}); launches per rank {per_rank}, as derived; seconds '
+      f'per member-step by rank {member_step} (first calls and capture '
+      f'included), one device here {here_s:.3f}; wall {run["wall"]:.1f} s; '
+      f'phase {time.perf_counter() - t_phase:.1f} s; {card}')
+  return {k: sum(v[k] for v in launched.values()) for k in per_rank}
+
+
+def parallel_phases(spec, statics, nano_statics, dev, g, card, stats,
+                    clock) -> dict:
+  """Phases 35-37 (their work under build/, removed after; `stats` is
+  phase 10's 1-degree statistics file); returns each
+  path's kernel launches: 'tiny_einsum' (phase 35's CLI runs), 'dp_1deg'
+  and 'pod_1deg' (the ranks of phases 36 and 37)."""
+  work = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                      'chip_smoke_parallel')
+  shutil.rmtree(work, ignore_errors=True)
+  os.makedirs(work)
+  out = {}
+  for phase, name, run in (
+      (35, 'tiny_einsum', lambda: attention_backends(
+          nano_statics, statics, dev, g, card, work)),
+      (36, 'dp_1deg', lambda: data_parallel_1deg(spec, statics, dev, card,
+                                                 work, stats)),
+      (37, 'pod_1deg', lambda: pod_ensemble_1deg(dev, card, work))):
+    out[name] = run()
+    torch.cuda.empty_cache()
+    clock.done(phase)
+  shutil.rmtree(work, ignore_errors=True)
+  return out
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this check runs on the card only',
@@ -3075,6 +3548,10 @@ def main() -> int:
   cache_root = os.path.join(repo, 'build', 'chip_smoke_cache')
   shutil.rmtree(cache_root, ignore_errors=True)
   os.environ['GENCAST_TPU_TORCH_CACHE'] = cache_root
+  # The 1-degree synthetic source's statistics: computed and saved by phase
+  # 10's training run, loaded by the later 1-degree runs on that source
+  # (phases 17, 19 and 36), which each took 7-10 s to compute them.
+  one_deg_stats = os.path.join(cache_root, 'stats_1deg.npz')
   from gencast_tpu_torch import bridge, configs
   from gencast_tpu_torch.graph import plans
   from gencast_tpu_torch.nn import transformer
@@ -3085,6 +3562,7 @@ def main() -> int:
   torch.backends.cudnn.allow_tf32 = False
   dev = torch.device('cuda', 0)
   t_start = time.perf_counter()
+  clock = PhaseClock()
   card = card_line()
   results = {}
 
@@ -3111,6 +3589,7 @@ def main() -> int:
   log(f'[setup] bf16 dk/dv shared memory, bytes: {smem}, plus 8 per list '
       'slot')
 
+  clock.done(1)
   # --- 2. statics ---
   spec = configs.ONE_DEG
   t0 = time.perf_counter()
@@ -3129,6 +3608,7 @@ def main() -> int:
       f' max degree {g2m_plan.max_degree}, perm '
       f'{"yes" if g2m_plan.perm is not None else "no"}')
 
+  clock.done(2)
   # --- 3. kernel A vs plain ---
   # At the mesh's n, and at the plan's padded_n, the shape the transformer
   # gives the kernel (its padded rows carry values after the first layer,
@@ -3143,7 +3623,7 @@ def main() -> int:
   allowed = int(plan.mask_tiles.sum(dtype=np.int64))  # per batch x head
   # And at head dim 32 on TINY's plan (162 nodes: 34 rows in the last tile):
   # every (dtype, head dim) the kernel is compiled for.
-  tiny = dataclasses.replace(configs.TINY, attention_tile_size=64,
+  tiny = dataclasses.replace(configs.TINY_PALLAS, attention_tile_size=64,
                              use_agg_plans=True, agg_plan_min_degree=2,
                              stochastic_churn_rate=2.5, num_noise_levels=2)
   tiny_statics = configs.build_statics(tiny)
@@ -3164,9 +3644,11 @@ def main() -> int:
     check_attention(tiny_shape, dtype, atol, *tiny_t[:3], tiny_plan.tile, g,
                     tiny_dense, tiny_allowed)
 
+  clock.done(3)
   # --- 4. kernel B vs plain: the 1-degree training step's plans ---
   segment_results = check_segment_sums(spec, statics, g, card)
 
+  clock.done(4)
   # --- 5. denoiser: kernel path vs plain path; small forecast vs CPU ---
   model, stack, plain_stack = kernel_and_plain_stacks(spec, statics, dev,
                                                      'denoiser')
@@ -3233,6 +3715,7 @@ def main() -> int:
   log(f'[denoiser] tiny f32 forecast ({calls} calls), card kernels vs CPU '
       f'plain path: max rel err {rel:.3e} (tol {TINY_SAMPLE_RTOL})')
 
+  clock.done(5)
   # --- 6. serving: two forecast requests, then the first again eagerly ---
   calls = 2 * spec.num_noise_levels - 1
   for counter in (sparse_attention.KERNEL, segment.KERNEL):
@@ -3277,6 +3760,7 @@ def main() -> int:
     raise AssertionError(f'a kernel was not launched: {serve_launches}')
   del forecasts
 
+  clock.done(6)
   # --- 7. kernel F vs plain ---
   plan_t = tuple(torch.as_tensor(a, device=dev) for a in (
       plan.fwd_kv_ids, plan.fwd_pair_ids, plan.bwd_q_ids, plan.bwd_pair_ids))
@@ -3293,6 +3777,7 @@ def main() -> int:
                         tiny_plan.tile, g, tiny_dense, tiny_allowed)
   del dense
 
+  clock.done(7)
   # --- 8. kernel E vs plain at every shape of the training steps ---
   nano = configs.NANO
   nano_statics = configs.build_statics(nano)
@@ -3300,16 +3785,20 @@ def main() -> int:
   e_results = check_ln_film_shapes(e_shapes, g, card)
   e_seen = set()
 
+  clock.done(8)
   # --- 9. TINY training step: card kernels vs CPU plain path ---
   for remat_policy in ('full', 'save_attention'):
-    train_tiny_against_cpu(dev, remat_policy, configs.TINY)
+    train_tiny_against_cpu(dev, remat_policy, configs.TINY_PALLAS)
 
+  clock.done(9)
   # --- 10. training: three full-width 1-degree steps through the CLI ---
   del model, stack
   with recording_ln_film_shapes(e_seen):
     one_deg_launches, one_deg_seconds, one_deg_peak = train_preset(
-        spec, statics, dev, card, ['--preset', '1deg', '--clean_sst_nans'])
+        spec, statics, dev, card, ['--preset', '1deg', '--clean_sst_nans',
+                                   '--stats_path', one_deg_stats])
 
+  clock.done(10)
   # --- 11. kernel C vs plain: nano's shape and TINY's tri-block shape ---
   t0 = time.perf_counter()
   banded = {}
@@ -3337,6 +3826,7 @@ def main() -> int:
       results[('C', name, dtype)] = check_banded(
           shape, dtype, atol, mask_t, bs, g, dense_b, allowed_b)
 
+  clock.done(11)
   # --- 12. kernel D vs plain, from kernel C's lse ---
   for name, (shape, mask_t, bs, dense_b, allowed_b) in banded.items():
     for dtype, rtol in ((torch.float32, BWD_F32_RTOL),
@@ -3345,12 +3835,15 @@ def main() -> int:
           shape, dtype, rtol, mask_t, bs, g, dense_b, allowed_b)
   del banded
 
+  clock.done(12)
   # --- 13. nano serving: the denoiser, then two 10-step forecasts ---
   nano_call_ms = serve_nano(dev, g)
 
+  clock.done(13)
   # --- 14. TINY tri-block training step: card kernels vs CPU plain path ---
   train_tiny_against_cpu(dev, 'full', configs.TINY_TRIBLOCK)
 
+  clock.done(14)
   # --- 15. training: three full-width nano steps through the CLI ---
   with recording_ln_film_shapes(e_seen):
     nano_launches, _, _ = train_preset(nano, nano_statics, dev, card,
@@ -3362,6 +3855,7 @@ def main() -> int:
   log(f'[kernel E] the 1-degree and nano training steps gave it '
       f'{len(e_seen)} shapes, all checked in phase 8: {sorted(e_seen)}')
 
+  clock.done(15)
   # --- 16. kernel G and its dq reduce vs plain and vs kernel F, from
   # kernel A's lse: the shapes of phase 7 ---
   gather_t = tuple(torch.as_tensor(a, device=dev)
@@ -3381,11 +3875,13 @@ def main() -> int:
                     tiny_allowed)
   del dense, gather_t, tiny_t, tiny_dense, tiny_gather_t
 
+  clock.done(16)
   # --- 17. the 1-degree path with the fused backward: train, resume,
   # evaluate ---
-  fused_launches = fused_path(spec, statics, dev, card, one_deg_seconds,
-                              one_deg_peak)
+  fused_launches = fused_path(cut_depth(spec), statics, dev, card,
+                              one_deg_seconds, one_deg_peak, one_deg_stats)
 
+  clock.done(17)
   # --- 18. nano training twice from one seed: equal bits; no float32 copy
   # of an edge array before kernel B ---
   casts, b_launches = count_edge_casts(['--preset', 'nano'], nano_statics,
@@ -3400,15 +3896,18 @@ def main() -> int:
       f'of kernel B, which reads the bf16 edges itself')
   check_reproducible(['--preset', 'nano'], steps_run=2)
 
+  clock.done(18)
   # --- 19. fused training: CUDA-graph replays against eager steps ---
   fused_nano = fused_training(['--preset', 'nano'], dev, card, k=4,
                               rounds=2, tag='nano')
-  fused_1deg = fused_training(['--preset', '1deg', '--clean_sst_nans'], dev,
+  fused_1deg = fused_training(['--preset', '1deg', '--clean_sst_nans',
+                               '--stats_path', one_deg_stats], dev,
                               card, k=4, rounds=2, tag='1deg')
   before = os.environ.get(transformer.FUSED_BWD_ENV)
   os.environ[transformer.FUSED_BWD_ENV] = '1'
   try:
-    fused_1deg_g = fused_training(['--preset', '1deg', '--clean_sst_nans'],
+    fused_1deg_g = fused_training(['--preset', '1deg', '--clean_sst_nans',
+                                   '--stats_path', one_deg_stats],
                                   dev, card, k=2, rounds=1,
                                   tag='1deg, GENCAST_SPARSE_FUSED_BWD=1')
   finally:
@@ -3417,20 +3916,24 @@ def main() -> int:
     else:
       os.environ[transformer.FUSED_BWD_ENV] = before
 
+  clock.done(19)
   # --- 20. the training CLI's fused path: checkpoints and a resume ---
   cli_launches = fused_cli(nano, nano_statics, dev, card)
   log(f'[timing] phases 1-20 in {time.perf_counter() - t_start:.1f} s')
 
+  clock.done(20)
   # --- 21. the 0.25-degree statics, built then loaded from the cache ---
   qdeg = configs.QUARTER_DEG
   q_statics = quarter_deg_statics(qdeg, card)
 
+  clock.done(21)
   # --- 22. kernels A, F, B and E at the 0.25-degree shapes ---
   q_model, q_stack, q_plain_stack = kernel_and_plain_stacks(
       qdeg, q_statics, dev, '0.25deg denoiser')
   q_results, q_e_results, q_e_shapes = check_quarter_deg_kernels(
       qdeg, q_statics, q_model, g, card)
 
+  clock.done(22)
   # --- 23. the 0.25-degree denoiser, kernels vs plain; the 1-degree
   # denoiser, streamed vs dense ---
   q_inputs, q_forcings, q_call_ms = quarter_deg_denoiser(
@@ -3439,6 +3942,7 @@ def main() -> int:
   torch.cuda.empty_cache()
   streamed_against_dense(statics, dev, g, card)
 
+  clock.done(23)
   # --- 24. serving: one 0.25-degree forecast step, graphed and eager ---
   t0 = time.perf_counter()
   q_graphed_s, q_eager_s, q_serve_peak, q_serve_launches = serve_quarter_deg(
@@ -3447,38 +3951,45 @@ def main() -> int:
   del q_model, q_stack, q_inputs, q_forcings
   torch.cuda.empty_cache()
 
+  clock.done(24)
   # --- 25. 0.25-degree training: CLI steps, twice from one seed, fused ---
   q_work = os.path.join(repo, 'build', 'chip_smoke_0.25deg')
   shutil.rmtree(q_work, ignore_errors=True)
   (q_launches, q_step_s, q_fused_s, q_train_peak, q_ckpt,
-   q_stats) = train_quarter_deg(qdeg, q_statics, q_e_shapes, dev, card,
-                                q_work)
+   q_stats) = train_quarter_deg(cut_depth(qdeg), q_statics, q_e_shapes, dev,
+                                card, q_work)
 
+  clock.done(25)
   # --- 26. 0.25-degree evaluate with --chunk_size 1 ---
-  q_eval_wall, q_eval_peak = evaluate_quarter_deg(qdeg, dev, card, q_ckpt,
-                                                  q_stats, q_work)
+  q_eval_wall, q_eval_peak = evaluate_quarter_deg(
+      cut_depth(qdeg), dev, card, q_ckpt, q_stats, q_work)
   shutil.rmtree(q_work, ignore_errors=True)
 
+  clock.done(26)
   # --- 27. chunked rollout at nano, the host copies overlapped or not ---
   offload_nano(dev, card)
 
+  clock.done(27)
   # --- 28. ERA5-format corpora ---
   t0 = time.perf_counter()
   era5_work = os.path.join(repo, 'build', 'chip_smoke_era5')
   shutil.rmtree(era5_work, ignore_errors=True)
   era5_dirs, _, has_h5py = era5_corpora(era5_work, card)
 
+  clock.done(28)
   # --- 29. nano from ERA5 through the CLI's module entry point ---
-  nano_era5_launches = nano_era5_cli(nano, nano_statics, dev, card,
-                                     era5_dirs['nano'], era5_work)
+  nano_era5_launches = nano_era5_cli(cut_depth(nano), nano_statics, dev,
+                                     card, era5_dirs['nano'], era5_work)
 
+  clock.done(29)
   # --- 30. 1 degree from ERA5 in this process: train, then evaluate ---
-  one_deg_era5_launches = one_deg_era5(spec, statics, dev, card,
+  one_deg_era5_launches = one_deg_era5(cut_depth(spec), statics, dev, card,
                                        era5_dirs['1deg'], era5_work,
                                        has_h5py)
   shutil.rmtree(era5_work, ignore_errors=True)
   log(f'[timing] phases 28-30 in {time.perf_counter() - t0:.1f} s')
 
+  clock.done(30)
   # --- 31. GraphCast_small's 1-degree statics; TISR; B on its plans ---
   t0 = t_phase = time.perf_counter()
   torch.cuda.reset_peak_memory_stats()
@@ -3488,19 +3999,23 @@ def main() -> int:
   log(f'[timing] phase 31 in {time.perf_counter() - t_phase:.1f} s, peak '
       f'memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}')
 
+  clock.done(31)
   # --- 32. serving GraphCast_small: a step, rollouts graphed and eager ---
   t_phase = time.perf_counter()
   gc_serve = serve_graphcast(spec, gc_statics, dev, g, card)
   log(f'[timing] phase 32 in {time.perf_counter() - t_phase:.1f} s; {card}')
 
+  clock.done(32)
   # --- 33. training GraphCast_small through the CLI, AR, graphed;
   # evaluate ---
   gc_work = os.path.join(repo, 'build', 'chip_smoke_graphcast')
   shutil.rmtree(gc_work, ignore_errors=True)
-  gc_launches, gc_seconds, gc_peak = train_graphcast(spec, gc_statics, dev,
+  gc_launches, gc_seconds, gc_peak = train_graphcast(cut_depth(spec),
+                                                     gc_statics, dev,
                                                      card, gc_work)
   shutil.rmtree(gc_work, ignore_errors=True)
 
+  clock.done(33)
   # --- 34. the paper's GraphCast at 0.25 degrees: serve, train ---
   gc_work = os.path.join(repo, 'build', 'chip_smoke_graphcast_0.25deg')
   shutil.rmtree(gc_work, ignore_errors=True)
@@ -3508,6 +4023,12 @@ def main() -> int:
    gcq_train_peak, gcq_segment) = quarter_deg_graphcast(dev, g, card, gc_work)
   shutil.rmtree(gc_work, ignore_errors=True)
   log(f'[timing] phases 31-34 in {time.perf_counter() - t0:.1f} s')
+  clock.done(34)
+
+  # --- 35-37. the einsum attention backends; data parallel and the
+  # member-sharded ensemble across ranks ---
+  new_launches = parallel_phases(spec, statics, nano_statics, dev, g, card,
+                                 one_deg_stats, clock)
 
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B on the grid2mesh
@@ -3613,7 +4134,9 @@ def main() -> int:
                'nano_era5': nano_era5_launches[k['name']],
                '1deg_era5': one_deg_era5_launches[k['name']],
                'graphcast_1deg': gc_launches[k['name']],
-               'graphcast_0.25deg': gcq_launches[k['name']]}
+               'graphcast_0.25deg': gcq_launches[k['name']],
+               **{path: counts.get(k['name'], 0)
+                  for path, counts in new_launches.items()}}
     k['launches'] = sum(by_path.values())
     if sum(1 for n in by_path.values() if n) > 1:
       k['launches_by_path'] = by_path
@@ -3633,8 +4156,9 @@ def main() -> int:
       f'{q_eval_wall:.1f} s, peak {q_eval_peak / 2**30:.2f} GiB; {card}')
   log(f'[summary] GraphCast_small at 1 degree: a forecast step graphed '
       f'{gc_serve["graphed"]:.2f} ms (the replay alone '
-      f'{gc_serve["replay"]:.2f}), eager {gc_serve["eager"]:.2f} ms; a '
-      f'training step eager {[round(x, 4) for x in gc_seconds["eager"]]} s, '
+      f'{gc_serve["replay"]:.2f}), eager {gc_serve["eager"]:.2f} ms; at '
+      f'{CUT_LAYERS} processor steps a training step eager '
+      f'{[round(x, 4) for x in gc_seconds["eager"]]} s, '
       f'graphed {[round(x, 4) for x in gc_seconds["graphed"]]} s, AR 2 eager '
       f'{[round(x, 4) for x in gc_seconds["ar_eager"]]} s, graphed '
       f'{[round(x, 4) for x in gc_seconds["ar_graphed"]]} s, peak '
@@ -3646,6 +4170,7 @@ def main() -> int:
       f'{gcq_train_peak / 2**30:.2f} GiB; the run '
       f'{time.perf_counter() - t_start:.1f} s; {card}')
   shutil.rmtree(cache_root, ignore_errors=True)
+  log(clock.line(card))
   print(json.dumps({'kernels': kernels}))
   print(card_line())
   print(json.dumps({'ok': True, 'device': {

@@ -1,10 +1,11 @@
 """Model configurations and factories for the port.
 
 Counterpart of `gencast_tpu.configs` for the configurations the port runs:
-the CPU-sized TINY (block-sparse attention) and its tri-block variant
-TINY_TRIBLOCK, the reference's demo model NANO (tri-block attention), the
-1-degree GenCast ONE_DEG and the paper-scale 0.25-degree GenCast
-QUARTER_DEG (both block-sparse attention). `build_gencast` builds GenCast
+the reference's CPU-sized TINY (einsum tri-block attention) and its
+variants on the kernels' backends, TINY_PALLAS (block-sparse) and
+TINY_TRIBLOCK (fused tri-block), the reference's demo model NANO (tri-block
+attention), the 1-degree GenCast ONE_DEG and the paper-scale 0.25-degree
+GenCast QUARTER_DEG (both block-sparse attention). `build_gencast` builds GenCast
 from a preset, `build_graphcast` GraphCast (at ONE_DEG: GraphCast_small).
 Graph statics are cached on disk (`build_statics`), keyed by what they are
 built from.
@@ -49,9 +50,10 @@ class ModelSpec:
   num_heads: int
   attention_k_hop: int
   # The mesh transformer's attention backend, by the reference's names:
-  # 'pallas' (block-sparse over a tile plan, kernels A and F on the card) or
-  # 'triblock_pallas' (tri-block over the banded mask, kernels C and D). The
-  # reference's default, the einsum 'triblock', is not ported.
+  # 'pallas' (block-sparse over a tile plan, kernels A and F on the card),
+  # 'triblock_pallas' (tri-block over the banded mask, kernels C and D), or
+  # the reference's plain einsum math: 'triblock' (the banded mask; its
+  # default) and 'dense' (the [N, N] k-hop mask).
   attention_type: str = 'pallas'
   # Tile of the block-sparse attention plan. The attention kernel is built
   # for tile 64; the plain version takes any tile.
@@ -81,14 +83,23 @@ class ModelSpec:
   remat_gnns: bool = False
 
 
-# CPU-sized configuration for tests; not a reference preset.
+# The reference's CPU-sized configuration (`--preset tiny`), field for
+# field: 10-degree grid, mesh splits 2 (162 nodes), d_model 64, 2 layers,
+# 2 heads, k-hop 4, the einsum tri-block attention (plain PyTorch) over a
+# [3, 2, 88, 88] mask, float32. Not one of DeepMind's presets.
 TINY = ModelSpec(
     name='tiny', task=registry.GENCAST_TASK, resolution_deg=10.0,
     mesh_splits=2, d_model=64, num_layers=2, num_heads=2,
-    attention_k_hop=4, ffw_hidden=128, attention_tile_size=32)
+    attention_k_hop=4, ffw_hidden=128, attention_type='triblock',
+    attention_tile_size=512)
 
-# TINY on the tri-block backend: a [3, 2, 88, 88] mask (block 88, 14
-# padding nodes), so kernels C and D see a ragged 24-row sub-tile.
+# TINY on the kernels' backends, for tests and card checks: block-sparse at
+# tile 32 (6 query tiles, the last ragged), and the fused tri-block over the
+# same [3, 2, 88, 88] mask (block 88, 14 padding nodes), so kernels C and D
+# see a ragged 24-row sub-tile.
+TINY_PALLAS = dataclasses.replace(TINY, name='tiny_pallas',
+                                  attention_type='pallas',
+                                  attention_tile_size=32)
 TINY_TRIBLOCK = dataclasses.replace(TINY, name='tiny_triblock',
                                     attention_type='triblock_pallas')
 
@@ -139,15 +150,16 @@ def grid_for_resolution(deg: float) -> Tuple[np.ndarray, np.ndarray]:
   return lat, lon
 
 
-SPECS = {s.name: s for s in (TINY, TINY_TRIBLOCK, NANO, ONE_DEG,
-                              QUARTER_DEG)}
+SPECS = {s.name: s for s in (TINY, TINY_PALLAS, TINY_TRIBLOCK, NANO,
+                              ONE_DEG, QUARTER_DEG)}
 
 
 def build_statics(spec: ModelSpec,
                   cache_dir: Optional[str] = DEFAULT_CACHE_DIR
                   ) -> compiler.GraphStatics:
   """The spec's graph statics, with what its attention backend reads: the
-  tile plan for 'pallas', the tri-block mask for 'triblock_pallas'. Loaded
+  tile plan for 'pallas', the tri-block mask for 'triblock_pallas' and
+  'triblock' ('dense' reads the mesh edges: `dense_attention_mask`). Loaded
   from `cache_dir` when built there before (None: no cache)."""
   lat, lon = grid_for_resolution(spec.resolution_deg)
   return compiler.build_graph_statics(
@@ -157,8 +169,19 @@ def build_statics(spec: ModelSpec,
       attention_k_hop=spec.attention_k_hop,
       attention_tile_size=(spec.attention_tile_size
                            if spec.attention_type == 'pallas' else 0),
-      build_triblock_mask=spec.attention_type == 'triblock_pallas',
+      build_triblock_mask=spec.attention_type in ('triblock_pallas',
+                                                  'triblock'),
       cache_dir=cache_dir)
+
+
+def dense_attention_mask(statics: compiler.GraphStatics,
+                         k_hop: int) -> np.ndarray:
+  """The [N, N] bool k-hop mask of the mesh that 'dense' attention reads:
+  the set the tile plan and the tri-block mask are built from
+  (`compiler.khop_mask_csr`), as the reference's build_gencast makes it."""
+  edges = statics.mesh_edges
+  return compiler.khop_mask_csr(edges.senders, edges.receivers,
+                                statics.num_mesh_nodes, k_hop).toarray()
 
 
 def build_gencast(spec: ModelSpec, *, seed: int = 0,
@@ -173,10 +196,13 @@ def build_gencast(spec: ModelSpec, *, seed: int = 0,
   Parameters are initialized from torch.Generator seeded with `seed`.
   use_kernels=False routes the attention and planned-sum forwards through
   their plain PyTorch versions on every device (for comparing the two
-  serving paths on the card).
+  serving paths on the card). A 'dense' spec gets the [N, N] k-hop mask
+  (`dense_attention_mask`).
   """
   if statics is None:
     statics = build_statics(spec)
+  dense_mask = (dense_attention_mask(statics, spec.attention_k_hop)
+                if spec.attention_type == 'dense' else None)
   transformer = TransformerConfig(
       d_model=spec.d_model, num_layers=spec.num_layers,
       num_heads=spec.num_heads, ffw_hidden=spec.ffw_hidden,
@@ -195,7 +221,7 @@ def build_gencast(spec: ModelSpec, *, seed: int = 0,
       rng=torch.Generator().manual_seed(seed),
       use_kernels=use_kernels,
       noise_basis_dtype=getattr(torch, spec.noise_basis_dtype),
-      basis_device=device)
+      basis_device=device, dense_attention_mask=dense_mask)
   return model.to(device), statics
 
 

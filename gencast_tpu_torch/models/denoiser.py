@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -62,7 +63,8 @@ class DenoiserArchitecture(nn.Module):
   def __init__(self, statics: GraphStatics, transformer: TransformerConfig,
                num_data_channels: int, node_output_size: int,
                config: DenoiserConfig, *, rng: torch.Generator,
-               use_kernels: bool = True):
+               use_kernels: bool = True,
+               dense_attention_mask: Optional[np.ndarray] = None):
     super().__init__()
     cfg = config
     latent = cfg.latent_size
@@ -109,10 +111,12 @@ class DenoiserArchitecture(nn.Module):
         rng=rng, use_kernels=use_kernels)
 
     # The backend takes the tile plan ('pallas') or the tri-block mask
-    # ('triblock_pallas') from the statics.
+    # ('triblock_pallas', 'triblock') from the statics, or the [N, N] mask
+    # ('dense') from the caller.
     self.processor = MeshTransformer(
         transformer, tile_plan=statics.attention_tile_plan,
-        mask=statics.attention_mask, rng=rng, use_kernels=use_kernels)
+        mask=statics.attention_mask, dense_mask=dense_attention_mask,
+        rng=rng, use_kernels=use_kernels)
 
     self.mesh2grid = TypedGraphNet(
         topologies=[m2g_topo],
@@ -179,7 +183,8 @@ class Denoiser(nn.Module):
   def __init__(self, task: TaskSpec, statics: GraphStatics,
                transformer: TransformerConfig,
                config: DenoiserConfig = DenoiserConfig(), *,
-               rng: torch.Generator, use_kernels: bool = True):
+               rng: torch.Generator, use_kernels: bool = True,
+               dense_attention_mask: Optional[np.ndarray] = None):
     super().__init__()
     self.task = task
     self.num_lat = statics.grid_lat.shape[0]
@@ -205,7 +210,8 @@ class Denoiser(nn.Module):
     self.architecture = DenoiserArchitecture(
         statics, transformer, num_data_channels=num_data_channels,
         node_output_size=self.target_layout.num_channels, config=config,
-        rng=rng, use_kernels=use_kernels)
+        rng=rng, use_kernels=use_kernels,
+        dense_attention_mask=dense_attention_mask)
 
   def forward(self,
               inputs: torch.Tensor,        # [B, lat, lon, C_in]

@@ -85,13 +85,15 @@ class GenCast(nn.Module):
                noise_config: NoiseConfig = NoiseConfig(), *,
                rng: torch.Generator, use_kernels: bool = True,
                noise_basis_dtype: torch.dtype = torch.float32,
-               basis_device: torch.device | str = 'cpu'):
+               basis_device: torch.device | str = 'cpu',
+               dense_attention_mask: Optional[np.ndarray] = None):
     super().__init__()
     self.task = task
     self.sampler_config = sampler_config
     self.noise_config = noise_config
     self.denoiser = Denoiser(task, statics, transformer, denoiser_config,
-                             rng=rng, use_kernels=use_kernels)
+                             rng=rng, use_kernels=use_kernels,
+                             dense_attention_mask=dense_attention_mask)
     self.target_layout = self.denoiser.target_layout
     # The noise basis in its storage dtype (the reference's
     # noise_basis_dtype), made on `basis_device`: a bf16 0.25-degree table

@@ -1,15 +1,17 @@
 """Sparse mesh transformer over RCM-permuted mesh nodes.
 
-Counterpart of `gencast_tpu.nn.transformer.MeshTransformer` with two of its
+Counterpart of `gencast_tpu.nn.transformer.MeshTransformer` with its four
 attention backends, by the reference's names: 'pallas' (block-sparse
 attention over a `TilePlan`, kernels A and F on the card, or A and G under
-GENCAST_SPARSE_FUSED_BWD=1) and 'triblock_pallas' (tri-block attention over
-the banded mask, kernels C and D). Pre-LN blocks with FiLM noise
+GENCAST_SPARSE_FUSED_BWD=1), 'triblock_pallas' (tri-block attention over
+the banded mask, kernels C and D), and the reference's plain einsum math,
+plain PyTorch on every device: 'triblock' (the same tri-block attention
+with one joint softmax over the three key blocks) and 'dense' (masked
+attention over an [N, N] k-hop mask). Pre-LN blocks with FiLM noise
 conditioning on both sublayers. The reference's vmapped layer stack and
 lax.scan become an nn.ModuleList walked by a Python loop, and its remat
 policies `torch.utils.checkpoint` (nn/remat.py) around each block ('full')
-or around its feed-forward half only ('save_attention'). The reference's
-einsum 'triblock' and 'dense' backends are not ported.
+or around its feed-forward half only ('save_attention').
 """
 
 from __future__ import annotations
@@ -24,13 +26,13 @@ from torch import nn
 
 from gencast_tpu_torch.graph.compiler import BandedMask
 from gencast_tpu_torch.graph import plans
-from gencast_tpu_torch.nn import remat
+from gencast_tpu_torch.nn import precision, remat
 from gencast_tpu_torch.nn.mlp import FiLM, Linear, gelu, ln_film, \
     variance_scaling
 from gencast_tpu_torch.ops import banded_attention, sparse_attention
 
 REMAT_POLICIES = ('full', 'save_attention')
-ATTENTION_TYPES = ('pallas', 'triblock_pallas')
+ATTENTION_TYPES = ('pallas', 'triblock_pallas', 'triblock', 'dense')
 # The reference's switch to its fused block-sparse attention backward
 # (`gencast_tpu.ops.sparse_attention._FUSED_BWD`): same name, values and
 # default (off).
@@ -45,8 +47,9 @@ class TransformerConfig:
   num_layers: int = 16
   num_heads: int = 4
   ffw_hidden: int = 2048
-  # 'pallas' (block-sparse over a tile plan) or 'triblock_pallas' (tri-block
-  # over the banded mask).
+  # 'pallas' (block-sparse over a tile plan), 'triblock_pallas' (tri-block
+  # over the banded mask), or the reference's einsum 'triblock' (the banded
+  # mask) and 'dense' (an [N, N] mask).
   attention_type: str = 'pallas'
   ffw_winit_mult: float = 2.0
   ffw_winit_final_mult: float = 0.0
@@ -152,6 +155,83 @@ class TriblockPallasAttention(nn.Module):
     return self.proj.out(o.reshape(o.shape[:2] + (-1,)))
 
 
+def _joint_softmax3(logits):
+  """Softmax over the union of the diagonal, upper and lower key blocks,
+  sharing one maximum (DeepMind's gencast/sparse_transformer.py)."""
+  d, u, l = logits
+  m = torch.stack([t.detach().amax(-1, keepdim=True) for t in (d, u, l)]
+                  ).amax(0)
+  ed, eu, el = torch.exp(d - m), torch.exp(u - m), torch.exp(l - m)
+  denom = (ed.sum(-1, keepdim=True) + eu.sum(-1, keepdim=True)
+           + el.sum(-1, keepdim=True))
+  return ed / denom, eu / denom, el / denom
+
+
+class TriblockAttention(nn.Module):
+  """Tri-block attention as the reference's einsum math: each block of
+  queries against its diagonal, upper and lower key blocks, one softmax
+  over the three in float32 (`precision.with_f32`). Plain PyTorch on every
+  device. Its input is already padded to num_blocks * block_size nodes. A
+  query row without a key (the padding) gets a finite masked-softmax
+  value where the kernels write 0; nothing reads it."""
+
+  def __init__(self, cfg: TransformerConfig, block_size: int, *,
+               rng: torch.Generator):
+    super().__init__()
+    self.cfg = cfg
+    self.proj = _QKVProjections(cfg, rng=rng)
+    self.block_size = block_size
+
+  def forward(self, x: torch.Tensor, operands: Tuple[torch.Tensor, ...]
+              ) -> torch.Tensor:
+    (mask,) = operands  # [3, nb, bs, bs] bool: diagonal, upper, lower
+    b, n, _ = x.shape
+    bs = self.block_size
+    nb = n // bs
+    q, k, v = self.proj.split_heads(x.reshape(b, nb, bs, -1))
+    # [B, nb, bs, H, hd]; one zero block either side of the keys and values.
+    def ring(t):
+      zero = torch.zeros_like(t[:, :1])
+      return torch.cat([zero, t, zero], dim=1)
+    k, v = ring(k), ring(v)
+    scale = self.cfg.head_dim ** -0.5
+    # The key blocks of each query block: diagonal, upper (next), lower
+    # (previous); masked logits -1e30 in the logits' dtype, as the
+    # reference's.
+    blocks = ((0, slice(1, -1)), (1, slice(2, None)), (2, slice(None, -2)))
+    logits = tuple(
+        (torch.einsum('bnqhd,bnkhd->bnhqk', q, k[:, kb]) * scale).masked_fill(
+            ~mask[i][None, :, None], -1e30)
+        for i, kb in blocks)
+    weights = precision.with_f32(_joint_softmax3, logits)
+    o = None
+    for w, (_, kb) in zip(weights, blocks):
+      term = torch.einsum('bnhqk,bnkhd->bnqhd', w, v[:, kb])
+      o = term if o is None else o + term
+    return self.proj.out(o.reshape(b, n, -1))
+
+
+class DenseAttention(nn.Module):
+  """Masked attention over all mesh nodes, as the reference's einsum math
+  (DeepMind's multi-head attention path): [N, N] logits, a float32 softmax
+  (`precision.with_f32`). Plain PyTorch on every device."""
+
+  def __init__(self, cfg: TransformerConfig, *, rng: torch.Generator):
+    super().__init__()
+    self.cfg = cfg
+    self.proj = _QKVProjections(cfg, rng=rng)
+
+  def forward(self, x: torch.Tensor, operands: Tuple[torch.Tensor, ...]
+              ) -> torch.Tensor:
+    (mask,) = operands  # [N, N] bool
+    q, k, v = self.proj.split_heads(x)  # [B, N, H, hd]
+    logits = torch.einsum('bthd,bThd->bhtT', q, k) * self.cfg.head_dim ** -0.5
+    logits = logits.masked_fill(~mask[None, None], -1e30)
+    weights = precision.with_f32(lambda t: torch.softmax(t, dim=-1), logits)
+    o = torch.einsum('bhtT,bThd->bthd', weights, v)
+    return self.proj.out(o.reshape(o.shape[:2] + (-1,)))
+
+
 class FeedForward(nn.Module):
 
   def __init__(self, cfg: TransformerConfig, *, rng: torch.Generator):
@@ -197,8 +277,9 @@ class MeshTransformer(nn.Module):
   Input/output layout [N, B, C] (nodes leading, as the GNNs); batch-first
   inside. The node axis is padded once before the stack (to the plan's
   padded_n, or to num_blocks * block_size of the tri-block mask) and sliced
-  once after it; padded rows are masked as keys, give 0 as queries, and
-  stay finite through LN/FiLM/FFW.
+  once after it; padded rows are masked as keys, give 0 as queries (the
+  kernels) or a finite masked-softmax value (the einsum 'triblock'), and
+  stay finite through LN/FiLM/FFW. 'dense' runs unpadded.
 
   With the 'pallas' backend, GENCAST_SPARSE_FUSED_BWD=1 selects the fused
   attention backward (kernel G) as in the reference: the plan's gather map
@@ -211,10 +292,12 @@ class MeshTransformer(nn.Module):
   def __init__(self, cfg: TransformerConfig, *,
                tile_plan: Optional[plans.TilePlan] = None,
                mask: Optional[BandedMask] = None,
+               dense_mask: Optional[np.ndarray] = None,
                rng: torch.Generator, use_kernels: bool = True):
     super().__init__()
     self.cfg = cfg
-    if cfg.attention_type == 'pallas':
+    kind = cfg.attention_type
+    if kind == 'pallas':
       if tile_plan is None:
         raise ValueError('pallas attention needs statics built with an '
                          'attention tile plan (attention_tile_size > 0)')
@@ -231,15 +314,29 @@ class MeshTransformer(nn.Module):
       def make_attn():
         return PallasSparseAttention(cfg, tile_plan.tile, rng=rng,
                                      use_kernels=use_kernels)
+    elif kind == 'dense':
+      if dense_mask is None:
+        raise ValueError('dense attention needs the [N, N] k-hop mask '
+                         '(configs.build_gencast builds it)')
+      self.operand_names = ('dense_mask',)
+      operands = {'dense_mask': np.asarray(dense_mask, dtype=bool)}
+      self.padded_n = 0
+
+      def make_attn():
+        return DenseAttention(cfg, rng=rng)
     else:
       if mask is None:
-        raise ValueError('triblock_pallas attention needs statics built with '
-                         'the tri-block mask (build_triblock_mask)')
+        raise ValueError(f'{kind} attention needs statics built with the '
+                         'tri-block mask (build_triblock_mask)')
+      # The kernels read a uint8 mask, the einsum path a bool one.
       self.operand_names = ('mask_blocks',)
-      operands = {'mask_blocks': mask.blocks.astype(np.uint8)}
+      operands = {'mask_blocks': mask.blocks.astype(
+          np.uint8 if kind == 'triblock_pallas' else bool)}
       self.padded_n = mask.num_blocks * mask.block_size
 
       def make_attn():
+        if kind == 'triblock':
+          return TriblockAttention(cfg, mask.block_size, rng=rng)
         return TriblockPallasAttention(cfg, mask.block_size, rng=rng,
                                        use_kernels=use_kernels)
     for name, array in operands.items():

@@ -9,7 +9,7 @@ as the reference.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +64,20 @@ def _variance(members: torch.Tensor) -> torch.Tensor:
   return torch.zeros_like(members[0])
 
 
+def weighted_sums(members: torch.Tensor, truth: torch.Tensor,
+                  lat_weights: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """The latitude-weighted sums over (lat, lon) of the pointwise CRPS, the
+  squared error of the ensemble mean and the ensemble variance: [..., C]
+  each. Over all latitudes, divided by lat x lon, they are crps_ensemble,
+  ensemble_mean_rmse ** 2 and ensemble_spread ** 2; over a band of them,
+  its share."""
+  w = torch.as_tensor(lat_weights)
+  return (_latw(_crps_pointwise(members, truth, 'sorted'), w).sum(dim=(-3, -2)),
+          _latw((members.mean(dim=0) - truth) ** 2, w).sum(dim=(-3, -2)),
+          _latw(_variance(members), w).sum(dim=(-3, -2)))
+
+
 def score_ensemble_chunked(members, truth, lat_weights, lat_chunk: int = 16,
                            device: Optional[torch.device] = None
                            ) -> Dict[str, np.ndarray]:
@@ -87,10 +101,8 @@ def score_ensemble_chunked(members, truth, lat_weights, lat_chunk: int = 16,
   sums = None
   for lo in range(0, nlat, lat_chunk):
     hi = min(lo + lat_chunk, nlat)
-    mem, tru, w = band(members, lo, hi), band(truth, lo, hi), w_all[lo:hi]
-    out = (_latw(_crps_pointwise(mem, tru, 'sorted'), w).sum(dim=(-3, -2)),
-           _latw((mem.mean(dim=0) - tru) ** 2, w).sum(dim=(-3, -2)),
-           _latw(_variance(mem), w).sum(dim=(-3, -2)))
+    out = weighted_sums(band(members, lo, hi), band(truth, lo, hi),
+                        w_all[lo:hi])
     out = [o.cpu().numpy().astype(np.float64) for o in out]
     sums = out if sums is None else [a + b for a, b in zip(sums, out)]
   area = nlat * nlon

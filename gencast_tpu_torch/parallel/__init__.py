@@ -1,1 +1,3 @@
-"""Multi-member (ensemble) execution for the port."""
+"""Ranks and ensembles for the port: process groups over (ensemble, data,
+model) (`meshes`), and ensemble forecasts on one device or sharded over
+ranks (`ensemble`)."""

@@ -1,0 +1,254 @@
+"""Pod-scale ensemble forecast: members sharded over ranks.
+
+Counterpart of the reference's `scripts/ensemble_forecast_pod.py` (one
+process per host, members over the 'ensemble' mesh axis), as
+`python -m gencast_tpu_torch.scripts.ensemble_forecast_pod`. The ranks are
+processes (`torch.distributed`, parallel/meshes.py): `--multihost` makes
+this process one rank of `--num_processes` (`--process_id`, the TCP store
+at `--coordinator`, or torchrun's environment); without it, `--num_processes
+N` starts N local ranks itself, as the reference runs on a host of N
+devices. The ensemble axis gets the largest divisor of the number of ranks
+that the member count fills, as the reference's rule; a model factor left
+over would be tensor parallelism, which is not ported (refused by its
+ROADMAP.md item). Rank e runs members [e·M/E, (e+1)·M/E), member m from
+the generator of (0, m), so a member does not depend on the rank count;
+its members stay on its device.
+
+--score computes CRPS, ensemble-mean RMSE and spread against the source's
+targets on the devices (parallel.ensemble.ensemble_scores: members
+resharded to latitude bands) and rank 0 writes per-variable scores JSON;
+with --no-save_members only those scores reach the host. Otherwise each
+rank saves its members (`--out`, with `.p<rank>` before the extension when
+there is more than one rank). Runs on the card unless `--device cpu`.
+
+  # 50 members x 30 steps of 1-degree GenCast over the ranks of 4 hosts:
+  python -m gencast_tpu_torch.scripts.ensemble_forecast_pod --preset 1deg \
+      --ckpt_dir /ckpt/1deg --data /data/era5 --members 50 --steps 30 \
+      --multihost --coordinator host0:29500 --num_processes 4 \
+      --process_id <r> --clean_sst_nans
+
+  # Two local ranks on the CPU, scores only:
+  python -m gencast_tpu_torch.scripts.ensemble_forecast_pod --preset tiny \
+      --device cpu --members 2 --steps 2 --num_processes 2 --score \
+      --no-save_members
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+import types
+from typing import List
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+  p = argparse.ArgumentParser(
+      description='Member-sharded ensemble forecast (PyTorch port).')
+  p.add_argument('--preset', default='1deg')
+  p.add_argument('--data', default='synthetic',
+                 help="'synthetic' or a directory of the npz shards of "
+                      'tools.convert_era5')
+  p.add_argument('--ckpt_dir', default=None)
+  p.add_argument('--members', type=int, default=50)
+  p.add_argument('--steps', type=int, default=30)
+  p.add_argument('--out',
+                 default=os.path.join(tempfile.gettempdir(), 'forecast.npz'))
+  p.add_argument('--score', action='store_true',
+                 help="compute CRPS/RMSE/spread vs the data source's "
+                      'targets on the devices (parallel.ensemble.'
+                      'ensemble_scores) and save per-variable scores JSON; '
+                      'only the scores reach the host')
+  p.add_argument('--save_members', action=argparse.BooleanOptionalAction,
+                 default=True,
+                 help='move the member forecast fields to the host and save '
+                      'them (--no-save_members for score-only runs)')
+  p.add_argument('--multihost', action='store_true',
+                 help='this process is one rank of --num_processes '
+                      '(torch.distributed over a TCP store at --coordinator, '
+                      "or torchrun's environment)")
+  p.add_argument('--bf16', action=argparse.BooleanOptionalAction,
+                 default=None,
+                 help='bf16 compute (default: the preset decides); must '
+                      'match how the checkpoint was trained')
+  p.add_argument('--clean_sst_nans', action='store_true',
+                 help='wrap with NaNCleaner, as in train.py; must match '
+                      'how the checkpoint was trained')
+  p.add_argument('--coordinator', default=None,
+                 help="the TCP store's address under --multihost (default: "
+                      "torchrun's environment)")
+  p.add_argument('--process_id', type=int, default=None)
+  p.add_argument('--num_processes', type=int, default=None,
+                 help='under --multihost the number of ranks; without it, N '
+                      '> 1 starts N local ranks')
+  p.add_argument('--device', default='cuda',
+                 help="'cuda' (the card, through the kernels) or 'cpu'")
+  args = p.parse_args(argv)
+  if not args.save_members and not args.score:
+    p.error('--no-save_members without --score produces no output; '
+            'add --score (or drop --no-save_members)')
+  return args
+
+
+def ensemble_axis(world: int, members: int) -> int:
+  """The reference's rule: the largest divisor of the rank count that the
+  member count fills (the rest would be the model axis)."""
+  return max(d for d in range(1, world + 1)
+             if world % d == 0 and d <= max(1, members))
+
+
+def build_forecast(args, device):
+  """The wrapped model (seed 0, stats from the source, restored from
+  --ckpt_dir when given), its statics, and the source's first window of
+  --steps targets as (inputs [1, ...], forcings [K, 1, ...], targets
+  [K, 1, ...]) tensors on `device`."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import sources
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.training import checkpoint as ckpt_lib
+  from gencast_tpu_torch.training import train
+  spec = train.build_spec(types.SimpleNamespace(
+      preset=args.preset, task=None, mesh_size=None, d_model=None,
+      num_layers=None, num_heads=None, attention_k_hop=None,
+      attention_type=None))
+  model, statics = configs.build_gencast(spec, seed=0, device=device)
+  task = model.task
+  source = (sources.SyntheticSource(task, np.asarray(statics.grid_lat),
+                                    np.asarray(statics.grid_lon),
+                                    num_times=args.steps + 4)
+            if args.data == 'synthetic'
+            else sources.Era5NpzSource(args.data, task))
+  stats = sources.compute_stats(source)
+  wrapped = wrappers.build_stack(
+      model, stats, bf16=args.bf16 or (args.bf16 is None and spec.cast_bf16),
+      clean_sst_nans=args.clean_sst_nans).to(device)
+  if args.ckpt_dir:
+    manager = ckpt_lib.create_manager(args.ckpt_dir)
+    step = ckpt_lib.restore(manager, wrapped)
+    print(f'[forecast] restored step {step}', flush=True)
+  w = source.sample(0, num_target_frames=args.steps)
+  window = tuple(torch.as_tensor(np.asarray(x, np.float32)).to(device)
+                 for x in (w.inputs[None], w.forcings[:, None],
+                           w.targets[:, None]))
+  return wrapped, statics, window
+
+
+def _local_rank(rank: int, world: int, coordinator: str,
+                argv: List[str]) -> None:
+  main(argv + ['--multihost', '--coordinator', coordinator, '--process_id',
+               str(rank), '--num_processes', str(world)])
+
+
+def check_axes(args) -> None:
+  """Exits naming the ROADMAP.md item when the reference's rule leaves a
+  model factor above 1 for the run's ranks (--num_processes, or torchrun's
+  WORLD_SIZE under --multihost)."""
+  from gencast_tpu_torch.parallel import meshes
+  world = args.num_processes or int(os.environ.get('WORLD_SIZE', 1))
+  ens = ensemble_axis(world, args.members)
+  if world // ens > 1:
+    raise SystemExit(f'[forecast] {world} ranks for {args.members} members '
+                     f'leave a model factor of {world // ens}: not ported yet '
+                     f'(ROADMAP.md, "Still to port": {meshes.MODEL_AXIS_ITEM})')
+
+
+def main(argv=None) -> dict:
+  argv = list(sys.argv[1:] if argv is None else argv)
+  args = parse_args(argv)
+  check_axes(args)
+  if not args.multihost and (args.num_processes or 1) > 1:
+    from gencast_tpu_torch.parallel import meshes
+    print(f'[forecast] starting {args.num_processes} local ranks', flush=True)
+    meshes.spawn(_local_rank, args.num_processes, (argv,))
+    return {}
+  try:
+    return _forecast(args)
+  finally:
+    if args.multihost:
+      from gencast_tpu_torch.parallel import meshes
+      meshes.shutdown()
+
+
+def _forecast(args) -> dict:
+  """This rank's part of the forecast; returns its numbers (seconds, member
+  ids, scores) for the caller."""
+  from gencast_tpu_torch.data import layout as layout_lib
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.ops import metrics as metrics_lib
+  from gencast_tpu_torch.parallel import ensemble, meshes
+  from gencast_tpu_torch.training import train
+  backend = None
+  if args.multihost:
+    backend, device = meshes.initialize(args.coordinator, args.num_processes,
+                                        args.process_id, device=args.device)
+  else:
+    device = train.select_device(args.device)
+  world = torch.distributed.get_world_size() if args.multihost else 1
+  mesh = meshes.make_mesh(ensemble=ensemble_axis(world, args.members))
+  print(f'[forecast] rank {mesh.rank} of {world}, backend {backend}, device '
+        f'{device}, mesh ensemble={mesh.axis_size("ensemble")} model=1',
+        flush=True)
+
+  wrapped, statics, (inputs, forcings, targets) = build_forecast(args, device)
+  lo, hi = ensemble.member_range(args.members, mesh)
+  run = ensemble.make_ensemble_rollout(wrapped, mesh)
+  train._synchronize(device)
+  t0 = time.perf_counter()
+  local = run(inputs, forcings, 0, range(args.members))  # [m, K, B, ...]
+  train._synchronize(device)
+  dt = time.perf_counter() - t0
+  out = {'rank': mesh.rank, 'members': [lo, hi], 'seconds': dt,
+         'member_step_seconds': dt / ((hi - lo) * args.steps)}
+  print(f'[forecast] rank {mesh.rank}: members {lo}-{hi - 1} x {args.steps} '
+        f'steps in {dt:.2f} s ({out["member_step_seconds"]:.3f} s per '
+        'member-step, first calls included)\n', end='', flush=True)
+
+  if args.score:
+    t0 = time.perf_counter()
+    lat_w = torch.as_tensor(layout_lib.latitude_weights(
+        np.asarray(statics.grid_lat)), device=device)
+    scores = ensemble.ensemble_scores(local, targets, lat_w, mesh)
+    tgt_layout = wrappers.find_layout_provider(wrapped).target_layout
+    out['scores'] = {
+        name: {var: np.asarray(v)[:, 0].tolist()  # [K] per forecast step
+               for var, v in metrics_lib.per_variable(arr,
+                                                      tgt_layout).items()}
+        for name, arr in scores.items()}
+    print(f'[forecast] scores on the devices in '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    if mesh.rank == 0:
+      scores_path = f'{os.path.splitext(args.out)[0]}.scores.json'
+      with open(scores_path, 'w') as f:
+        json.dump({'members': args.members, 'steps': args.steps,
+                   'scores': out['scores']}, f, indent=1)
+      print(f'[forecast] saved scores to {scores_path}', flush=True)
+
+  if args.save_members:
+    path = args.out
+    if world > 1:
+      base, ext = os.path.splitext(args.out)
+      path = f'{base}.p{mesh.rank}{ext}'
+    np.savez(path, predictions=local.cpu().numpy(),
+             members=np.arange(lo, hi, dtype=np.int32),
+             lat=np.asarray(statics.grid_lat),
+             lon=np.asarray(statics.grid_lon))
+    print(f'[forecast] saved members {list(range(lo, hi))} to {path}',
+          flush=True)
+  if device.type == 'cuda':
+    from gencast_tpu_torch.ops import cuda_lib
+    # One write per line: ranks may share a stdout.
+    print(f'[forecast] kernel launches in this process (rank {mesh.rank} of '
+          f'{world}) ' + json.dumps({c.name: c.launches
+                                     for c in cuda_lib.COUNTERS}) + '\n',
+          end='', flush=True)
+  return out
+
+
+if __name__ == '__main__':
+  main()

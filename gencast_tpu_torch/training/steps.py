@@ -11,6 +11,14 @@ GraphCast's autoregressive loss over a K-frame window.
 multi-step training: on the card K steps per host call replay one CUDA
 graph of the step (the one-frame loss, or with `ar=True` the
 autoregressive one).
+
+Data parallelism (`Optimizer(data_group=...)`): after the backward and
+before the clip, the gradients and the step's loss are averaged over the
+data ranks with one `all_reduce` of one flat float32 buffer, in the
+parameters' order (no DDP: the step runs through Bfloat16Cast's
+functional_call and torch.utils.checkpoint, and one ordered buffer keeps
+the sum deterministic). With equal rows per rank that is the gradient of
+the global-batch mean loss, which the reference's sharded jit computes.
 """
 
 from __future__ import annotations
@@ -89,9 +97,13 @@ class Optimizer:
   the CPU the rate is a float, as before.
   """
 
-  def __init__(self, params: Iterable[nn.Parameter], config: OptimizerConfig):
+  def __init__(self, params: Iterable[nn.Parameter], config: OptimizerConfig,
+               data_group=None):
     self.params = [p for p in params if p.requires_grad]
     self.config = config
+    # The process group of the data axis (parallel.meshes), whose ranks
+    # average their gradients; None: this process's batch is the batch.
+    self.data_group = data_group
     self.schedule = warmup_cosine_schedule(config)
     self.step_count = 0  # on the host: the schedule's and checkpoints' step
     capturable = bool(self.params) and self.params[0].is_cuda
@@ -111,6 +123,26 @@ class Optimizer:
   def zero_grad(self) -> None:
     for p in self.params:
       p.grad = None
+
+  def average_over_ranks(self, loss: torch.Tensor) -> torch.Tensor:
+    """Under a data group: every parameter's gradient and `loss` (0-d)
+    replaced by their means over the group's ranks, with one all_reduce of
+    one flat float32 buffer (gloo has no other collective on CUDA
+    tensors). Returns the mean loss; without a group, `loss`."""
+    if self.data_group is None:
+      return loss
+    import torch.distributed as dist
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in self.params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [loss.detach().reshape(1).float()])
+    dist.all_reduce(flat, group=self.data_group)
+    flat.div_(dist.get_world_size(self.data_group))
+    offset = 0
+    for p, g in zip(self.params, grads):
+      p.grad = flat[offset:offset + g.numel()].view_as(g).to(g.dtype)
+      offset += g.numel()
+    return flat[-1]
 
   def set_rate(self) -> None:
     """Sets the rate of step `step_count` (on the card, into the rate
@@ -158,10 +190,12 @@ class Optimizer:
     self.step_count = state['step_count']
 
 
-def create_optimizer(model: nn.Module, config: OptimizerConfig) -> Optimizer:
+def create_optimizer(model: nn.Module, config: OptimizerConfig,
+                     data_group=None) -> Optimizer:
   """The reference's AdamW + warmup/cosine recipe over model's parameters
-  (the float32 masters under a Bfloat16Cast)."""
-  return Optimizer(model.parameters(), config)
+  (the float32 masters under a Bfloat16Cast); with `data_group`, the
+  gradients are averaged over its ranks before the clip."""
+  return Optimizer(model.parameters(), config, data_group=data_group)
 
 
 def train_step(model: nn.Module, optimizer: Optimizer,
@@ -169,16 +203,18 @@ def train_step(model: nn.Module, optimizer: Optimizer,
                forcings: torch.Tensor,
                generator: Optional[torch.Generator] = None, **kwargs
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-  """One optimization step on the mean loss over the batch; returns (mean
-  loss, per-variable diagnostics), both detached and on the device.
-  `generator` draws sigma and the noise; keyword arguments (sigma=,
-  noise=) inject them instead."""
+  """One optimization step on the mean loss over the batch (with the
+  optimizer's data group, over the ranks' batches); returns (mean loss,
+  per-variable diagnostics of this process's batch), both detached and on
+  the device. `generator` draws sigma and the noise; keyword arguments
+  (sigma=, noise=) inject them instead."""
   optimizer.zero_grad()
   loss, diags = model.loss(inputs, targets, forcings, generator, **kwargs)
   loss = loss.mean()
   loss.backward()
+  loss = optimizer.average_over_ranks(loss.detach())
   optimizer.update()
-  return loss.detach(), {k: v.detach() for k, v in diags.items()}
+  return loss, {k: v.detach() for k, v in diags.items()}
 
 
 def ar_train_step(model: nn.Module, optimizer: Optimizer,
@@ -200,7 +236,7 @@ def ar_train_step(model: nn.Module, optimizer: Optimizer,
   return loss.detach(), {k: v.detach() for k, v in diags.items()}
 
 
-def _draws_owner(model: nn.Module) -> Optional[nn.Module]:
+def draws_owner(model: nn.Module) -> Optional[nn.Module]:
   """The GenCast inside a wrapper stack, whose `training_draws` the loss
   calls; None for a model that draws nothing (GraphCast)."""
   m = model
@@ -235,7 +271,7 @@ class FusedTrainSteps:
     self.model = model
     self.optimizer = optimizer
     self.ar = ar
-    self.draws = _draws_owner(model)
+    self.draws = draws_owner(model)
     if ar and self.draws is not None:
       # A step's draws would be made inside its graph, frozen at capture.
       raise ValueError('fused autoregressive training takes a deterministic '

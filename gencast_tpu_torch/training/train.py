@@ -23,10 +23,23 @@ pinned memory; `--data_workers`: windows packed in spawned processes; the
 batches are bitwise the same either way) and `--profile_dir` (a
 torch.profiler trace of steps 10-15). Every flag of the reference's CLI
 parses; those of paths not ported yet are refused with the ROADMAP.md item
-that brings them, and the TPU-only ones (`--functional_step`, `--cpu`) as
-such. `--ar_steps K` on a GenCast run is the reference's no-op; on a
-GraphCast run its windows of K target frames come from the same source
-and pool (`--data_workers` is ignored there, as in the reference).
+that brings them (`--mp`), and the TPU-only ones (`--functional_step`,
+`--cpu`) as such. `--ar_steps K` on a GenCast run is the reference's no-op;
+on a GraphCast run its windows of K target frames come from the same
+source and pool (`--data_workers` is ignored there, as in the reference).
+
+Data parallelism, with the reference's rules: `--multihost` makes this
+process one rank of `--num_processes` (`--process_id`, the TCP store at
+`--coordinator`, or torchrun's environment; parallel/meshes.py), `--dp`
+defaulting to their number; `--dp N` without `--multihost` starts N local
+ranks itself (spawned processes, rank r on cuda:(r mod cards), or the CPU
+under `--device cpu`), as the reference's CLI runs on a host of N devices.
+Each rank packs only its rows of the global batch ([r·B/dp, (r+1)·B/dp)
+of the same permutation), draws the step's noise level and noise for the
+global batch and keeps its rows, and averages the gradient and the loss
+over the ranks (training/steps.py) before the clip: the step of the
+global-batch mean loss. Parameters are replicated; only rank 0 writes
+metrics, stats and checkpoints, and every rank restores on resume.
 
 Randomness: step `s` draws its noise level and noise from a generator
 seeded from (`--seed`, s) alone, as the reference folds the step into its
@@ -52,6 +65,15 @@ Examples:
   python -m gencast_tpu_torch.training.train --model graphcast \
       --preset 1deg --data synthetic --steps 4 --ar_steps 2 \
       --steps_per_call 2
+
+  # Two data-parallel ranks on the CPU (gloo), batch 2, one row each:
+  python -m gencast_tpu_torch.training.train --preset tiny --device cpu \
+      --data synthetic --steps 3 --batch_size 2 --dp 2
+
+  # One rank of a multi-process run (start one command per process):
+  python -m gencast_tpu_torch.training.train --preset 1deg --data synthetic \
+      --clean_sst_nans --batch_size 2 --multihost --coordinator host:29500 \
+      --num_processes 2 --process_id 0
 
   # Three full-width nano steps on one H100 (the default preset):
   python -m gencast_tpu_torch.training.train --steps 3 --data synthetic
@@ -79,21 +101,21 @@ import functools
 import glob
 import json
 import os
+import sys
 import tempfile
 import time
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-_PRESETS = ('tiny', 'nano', '1deg', '0.25deg')
+# The reference's presets, and TINY on the block-sparse kernels' backend
+# (configs.TINY_PALLAS), which the CPU tests run the CLIs on.
+_PRESETS = ('tiny', 'tiny_pallas', 'nano', '1deg', '0.25deg')
 _MODELS = ('gencast', 'graphcast')
-# Options the reference's CLIs take and the port does not yet, with the
-# ROADMAP.md item ("Still to port") that brings them.
-_LATER_PARALLEL = 'Parallelism'
-_LATER_ATTENTION = {'triblock': "The reference's other attention backends",
-                    'dense': "The reference's other attention backends"}
-_ATTENTION_TYPES = ('pallas', 'triblock_pallas')
+# What the reference's CLI takes and the port does not yet: the ROADMAP.md
+# item ("Still to port") that brings it.
+_LATER_MODEL_AXIS = 'Parallelism (model axis, --mp)'
 # --profile_dir traces these steps, as the reference's.
 PROFILE_STEPS = (10, 15)
 PROFILE_TRACE = 'train_steps_10-15.pt.trace.json'
@@ -113,6 +135,11 @@ class TrainRun:
   batch_seconds: List[float] = dataclasses.field(default_factory=list)
 
 
+# What the parent of spawned ranks gets back from rank 0 (its TrainRun but
+# the model, which stays in the rank's process).
+_RUN_FIELDS = ('losses', 'step_seconds', 'start_step', 'batch_seconds')
+
+
 @dataclasses.dataclass
 class Setup:
   """Everything a run needs, on its device."""
@@ -125,6 +152,20 @@ class Setup:
   batches: object             # iterator of numpy batches
   device: torch.device
   ar_steps: int = 1           # target frames per window (GraphCast AR)
+  mesh: object = None         # parallel.meshes.Mesh of a multi-rank run
+  rows: Optional[Tuple[int, int]] = None  # [lo, hi): this rank's batch rows
+
+  @property
+  def is_main(self) -> bool:
+    """Rank 0 (or the only process): writes metrics and checkpoints."""
+    return self.mesh is None or self.mesh.rank == 0
+
+  @property
+  def rank_note(self) -> str:
+    """' (rank r of n)' on a rank of a multi-process run, for its
+    per-process lines; '' otherwise."""
+    return ('' if self.mesh is None else
+            f' (rank {self.mesh.rank} of {self.mesh.size})')
 
 
 def add_model_flags(p: argparse.ArgumentParser) -> None:
@@ -137,7 +178,8 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
                       '(e.g. graphcast_37 for the full published '
                       '37-level GraphCast configuration)')
   p.add_argument('--preset', default='nano',
-                 help='tiny, nano, 1deg or 0.25deg')
+                 help='tiny, nano, 1deg or 0.25deg (or tiny_pallas: TINY on '
+                      'the block-sparse backend)')
   p.add_argument('--data', default='synthetic',
                  help="'synthetic' or a directory of ERA5 data: monthly "
                       'NetCDF files (era5_pressure_levels_*.nc; h5py) or '
@@ -150,8 +192,10 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
   p.add_argument('--num_heads', type=int, default=None)
   p.add_argument('--attention_k_hop', type=int, default=None)
   p.add_argument('--attention_type', default=None,
-                 help=f'{" or ".join(_ATTENTION_TYPES)} (the reference\'s '
-                      'triblock and dense are not ported yet)')
+                 help='pallas (block-sparse, kernels A and F), '
+                      'triblock_pallas (tri-block, kernels C and D), or the '
+                      'reference\'s einsum triblock and dense (plain '
+                      'PyTorch)')
   # Wrappers.
   p.add_argument('--no_normalization', action='store_true',
                  help='skip the InputsAndResiduals wrapper')
@@ -185,11 +229,10 @@ def check_model_flags(p: argparse.ArgumentParser, args) -> None:
     p.error(f'unknown --task {args.task!r}: {", ".join(registry.TASKS)}')
   if args.preset not in _PRESETS:
     p.error(f'unknown --preset {args.preset!r}: {", ".join(_PRESETS)}')
-  if args.attention_type in _LATER_ATTENTION:
-    later(p, f'--attention_type {args.attention_type}',
-          _LATER_ATTENTION[args.attention_type])
-  if args.attention_type not in (None,) + _ATTENTION_TYPES:
-    p.error(f'unknown --attention_type {args.attention_type!r}')
+  from gencast_tpu_torch.nn.transformer import ATTENTION_TYPES
+  if args.attention_type not in (None,) + ATTENTION_TYPES:
+    p.error(f'unknown --attention_type {args.attention_type!r}: '
+            f'{", ".join(ATTENTION_TYPES)}')
 
 
 def parse_args(argv=None):
@@ -252,10 +295,15 @@ def parse_args(argv=None):
                       'in-process. The batches are bitwise the same '
                       'either way (per-step mode)')
   # Parallelism and multi-host, the reference's names and defaults.
-  p.add_argument('--dp', type=int, default=1)
+  p.add_argument('--dp', type=int, default=1,
+                 help='data-parallel ranks; without --multihost, N > 1 '
+                      'starts N local ranks')
   p.add_argument('--mp', type=int, default=1)
   p.add_argument('--multihost', action='store_true',
-                 help='one process per host (not ported yet)')
+                 help='this process is one rank of --num_processes '
+                      '(torch.distributed over a TCP store at --coordinator, '
+                      "or torchrun's environment); --dp defaults to their "
+                      'number')
   p.add_argument('--coordinator', default=None)
   p.add_argument('--process_id', type=int, default=None)
   p.add_argument('--num_processes', type=int, default=None)
@@ -273,16 +321,10 @@ def parse_args(argv=None):
   for flag in ('functional_step', 'cpu'):
     if getattr(args, flag):
       p.error(f'--{flag} is not ported: TPU-only')
-  # (flag, its value, the values that ask for nothing, the ROADMAP.md item)
-  for flag, value, off, item in (
-      ('dp', args.dp, (1,), _LATER_PARALLEL),
-      ('mp', args.mp, (1,), _LATER_PARALLEL),
-      ('multihost', args.multihost, (False,), _LATER_PARALLEL),
-      ('coordinator', args.coordinator, (None,), _LATER_PARALLEL),
-      ('process_id', args.process_id, (None,), _LATER_PARALLEL),
-      ('num_processes', args.num_processes, (None,), _LATER_PARALLEL)):
-    if value not in off:
-      later(p, f'--{flag} {value}', item)
+  if args.mp != 1:
+    later(p, f'--mp {args.mp}', _LATER_MODEL_AXIS)
+  if args.dp < 1:
+    p.error(f'--dp must be positive, got {args.dp}')
   return args
 
 
@@ -398,9 +440,11 @@ def ar_batches(source, k: int, seed: int):
              'forcings': np.swapaxes(w.forcings[None], 0, 1)}
 
 
-def setup(args) -> Setup:
+def setup(args, mesh=None) -> Setup:
   """Builds the model, data, stats, wrapper stack and optimizer of a run of
-  `args` on the device `args.device` names."""
+  `args` on the device `args.device` names; on a `mesh` of more than one
+  data rank, the batches hold this rank's rows and the optimizer averages
+  the gradients over the data axis."""
   from gencast_tpu_torch.data import sources
   from gencast_tpu_torch.training import steps as steps_lib
 
@@ -437,26 +481,120 @@ def setup(args) -> Setup:
                      'targets)')
   print(f'[train] data source: {type(source).__name__}, {len(source)} '
         f'samples', flush=True)
-  stats = load_or_compute_stats(args, source, task, 'train', save=True)
+  main_rank = mesh is None or mesh.rank == 0
+  stats = load_or_compute_stats(args, source, task, 'train', save=main_rank)
   wrapped = build_wrapped(args, spec, model, stats, device, 'train')
+  rows = None
+  if mesh is not None and mesh.axis_size('data') > 1:
+    from gencast_tpu_torch.parallel import meshes
+    rows = meshes.data_rows(mesh, args.batch_size)
+    print(f'[train] multihost input sharding: this process packs '
+          f'{rows[1] - rows[0]}/{args.batch_size} batch rows', flush=True)
   optimizer = steps_lib.create_optimizer(
       wrapped, steps_lib.OptimizerConfig(
           learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
-          total_steps=args.steps, weight_decay=args.weight_decay))
+          total_steps=args.steps, weight_decay=args.weight_decay),
+      data_group=mesh.group('data') if rows is not None else None)
   batches = (ar_batches(source, k, args.seed) if k > 1 else
-             sources.batch_iterator(source, args.batch_size, seed=args.seed))
+             sources.batch_iterator(source, args.batch_size, seed=args.seed,
+                                    rows=None if rows is None
+                                    else np.arange(*rows)))
   return Setup(model=model, statics=statics, source=source,
                source_factory=source_factory, wrapped=wrapped,
                optimizer=optimizer, batches=batches, device=device,
-               ar_steps=k)
+               ar_steps=k, mesh=mesh, rows=rows)
+
+
+def start_rank(args):
+  """Under --multihost: joins the process group (parallel/meshes.py;
+  args.device becomes this rank's device) and applies the reference's
+  rules: --dp defaults to the number of ranks and dp * mp must equal it,
+  then `check_ranks`; no sampling eval.
+  Returns the rank's Mesh over (1, dp, mp); None without --multihost."""
+  if not args.multihost:
+    return None
+  import torch.distributed as dist
+  from gencast_tpu_torch.parallel import meshes
+  backend, device = meshes.initialize(args.coordinator, args.num_processes,
+                                      args.process_id, device=args.device)
+  world, rank = dist.get_world_size(), dist.get_rank()
+  args.device = str(device)
+  print(f'[train] multihost: process {rank}/{world}, backend {backend}, '
+        f'device {device}', flush=True)
+  if args.dp * args.mp == 1:
+    args.dp = world
+    print(f'[train] multihost: defaulting --dp to {args.dp}', flush=True)
+  if args.dp * args.mp != world:
+    raise SystemExit(f'[train] --multihost needs dp*mp == the number of '
+                     f'ranks ({world}), got {args.dp}x{args.mp}')
+  check_ranks(args)
+  if args.do_sampling_eval:
+    print('[train] WARNING: --do_sampling_eval is disabled under '
+          '--multihost', flush=True)
+    args.do_sampling_eval = False
+  mesh = meshes.make_mesh(1, args.dp, args.mp)
+  print(f'[train] mesh: data={args.dp} model={args.mp}', flush=True)
+  return mesh
+
+
+def check_ranks(args) -> None:
+  """The reference's rules for a run of several ranks: the batch splits
+  evenly over dp, and no --ar_steps > 1."""
+  if args.batch_size % args.dp:
+    raise SystemExit(f'[train] batch_size ({args.batch_size}) must be '
+                     f'divisible by dp ({args.dp})')
+  if ar_steps(args) > 1:
+    raise SystemExit('[train] --ar_steps > 1 is not supported under '
+                     '--multihost; train AR single-host or dp=1')
+
+
+def _local_rank(rank: int, world: int, coordinator: str, argv: List[str],
+                result: str) -> None:
+  """One of the ranks `--dp N` starts: this CLI under --multihost; rank 0
+  writes its run's numbers to `result` for the parent."""
+  run = main(argv + ['--multihost', '--coordinator', coordinator,
+                     '--process_id', str(rank), '--num_processes',
+                     str(world)])
+  if rank == 0:
+    with open(result, 'w') as f:
+      json.dump({k: getattr(run, k) for k in _RUN_FIELDS}, f)
+
+
+def spawn_local_ranks(args, argv: List[str]) -> TrainRun:
+  """`--dp N` without --multihost: N local ranks of this command (spawned
+  processes over a localhost store), waited for. Returns rank 0's TrainRun,
+  without the model (it stays in the rank's process; its checkpoints hold
+  the parameters)."""
+  from gencast_tpu_torch.parallel import meshes
+  check_ranks(args)
+  print(f'[train] --dp {args.dp}: starting {args.dp} local ranks', flush=True)
+  with tempfile.TemporaryDirectory() as tmp:
+    result = os.path.join(tmp, 'rank0.json')
+    meshes.spawn(_local_rank, args.dp, (argv, result))
+    with open(result) as f:
+      numbers = json.load(f)
+  print('[train] done', flush=True)
+  return TrainRun(model=None, **numbers)
 
 
 def main(argv=None) -> TrainRun:
+  argv = list(sys.argv[1:] if argv is None else argv)
   args = parse_args(argv)
+  if args.dp > 1 and not args.multihost:
+    return spawn_local_ranks(args, argv)
+  try:
+    return _train(args)
+  finally:
+    if args.multihost:
+      from gencast_tpu_torch.parallel import meshes
+      meshes.shutdown()
+
+
+def _train(args) -> TrainRun:
   from gencast_tpu_torch.models import casting
   from gencast_tpu_torch.training import checkpoint as ckpt_lib
   from gencast_tpu_torch.training.metrics_sink import MetricsSink
-  s = setup(args)
+  s = setup(args, start_rank(args))
   wrapped, optimizer = s.wrapped, s.optimizer
 
   start_step = 0
@@ -468,6 +606,10 @@ def main(argv=None) -> TrainRun:
       print(f'[train] resumed from step {start_step - 1}: continuing at '
             f'step {start_step}', flush=True)
 
+  # Host-side sinks write from rank 0 only (every rank has the same
+  # averaged loss).
+  if not s.is_main:
+    args.metrics_jsonl, args.wandb = None, False
   sink = MetricsSink(args.metrics_jsonl, use_wandb=args.wandb,
                      wandb_project=args.wandb_project,
                      run_config={'preset': args.preset, 'model': args.model,
@@ -478,7 +620,8 @@ def main(argv=None) -> TrainRun:
                  start_step=start_step)
   # Fused multi-step training: K steps per host call (see
   # steps_lib.scanned_train_steps), batch 1 only, as the reference's.
-  fused = args.steps_per_call > 1 and args.batch_size == 1
+  fused = (args.steps_per_call > 1 and args.batch_size == 1
+           and s.mesh is None)
   if args.steps_per_call > 1 and not fused:
     print('[train] fused steps_per_call requires batch_size=1 and no '
           'mesh; falling back to per-step dispatch', flush=True)
@@ -495,14 +638,16 @@ def main(argv=None) -> TrainRun:
       _run_per_step(args, s, manager, sink, run)
   finally:
     sink.close()
-  if manager is not None and args.steps > start_step:
+  if manager is not None and args.steps > start_step and s.is_main:
     ckpt_lib.save(manager, args.steps - 1, wrapped, optimizer)
     print(f'[train] final checkpoint at {args.ckpt_dir}', flush=True)
   casting.refresh_all(wrapped)
   if s.device.type == 'cuda':
     from gencast_tpu_torch.ops import cuda_lib
-    print('[train] kernel launches in this process ' + json.dumps(
-        {c.name: c.launches for c in cuda_lib.COUNTERS}), flush=True)
+    # One write per line: ranks may share a stdout.
+    print(f'[train] kernel launches in this process{s.rank_note} '
+          + json.dumps({c.name: c.launches for c in cuda_lib.COUNTERS})
+          + '\n', end='', flush=True)
   print('[train] done', flush=True)
   return run
 
@@ -513,6 +658,22 @@ def default_prefetch(prefetch) -> int:
   if prefetch is not None:
     return prefetch
   return 2 if (os.cpu_count() or 1) > 2 else 0
+
+
+def step_draws(args, s: Setup, step: int) -> dict:
+  """The random draws of training step `step`, as train_step's keyword
+  arguments: the generator of (--seed, step); on one of several data ranks,
+  the noise level and noise that generator draws for the global batch,
+  cut to this rank's rows, so the ranks together draw what one process of
+  the global batch draws."""
+  from gencast_tpu_torch.training import steps as steps_lib
+  generator = step_generator(args.seed, step, s.device)
+  owner = steps_lib.draws_owner(s.wrapped)
+  if s.rows is None or owner is None:
+    return {'generator': generator}
+  sigma, noise = owner.training_draws(generator, args.batch_size)
+  lo, hi = s.rows
+  return {'sigma': sigma[lo:hi], 'noise': noise[lo:hi]}
 
 
 def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
@@ -531,7 +692,7 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
       from gencast_tpu_torch.data import workers as workers_lib
       it = packer = workers_lib.ParallelBatchIterator(
           s.source_factory, args.batch_size, num_workers=args.data_workers,
-          seed=args.seed)
+          seed=args.seed, rows=None if s.rows is None else np.arange(*s.rows))
       print(f'[train] packing batches in {args.data_workers} worker '
             f'processes (started in {time.perf_counter() - started:.2f} s)',
             flush=True)
@@ -564,12 +725,12 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
       else:
         loss, _ = steps_lib.train_step(
             wrapped, optimizer, batch['inputs'], batch['targets'],
-            batch['forcings'], step_generator(args.seed, step, device))
+            batch['forcings'], **step_draws(args, s, step))
       _synchronize(device)
       run.step_seconds.append(time.perf_counter() - t0)
       losses.append(loss)
       if prof is not None and step == PROFILE_STEPS[1]:
-        _stop_profiler(prof, args.profile_dir)
+        _stop_profiler(prof, args.profile_dir, s.mesh)
         prof = None
       if (step + 1) % args.log_every == 0:
         dt = time.perf_counter() - t_log
@@ -580,21 +741,22 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
                  steps_per_sec=args.log_every / dt)
         t_log = time.perf_counter()
 
-      if manager is not None and (step + 1) % args.save_every == 0:
+      if (manager is not None and s.is_main
+          and (step + 1) % args.save_every == 0):
         ckpt_lib.save(manager, step, wrapped, optimizer)
 
       if args.do_sampling_eval and (step + 1) % args.eval_every == 0:
         _sampling_eval(args, s, sink, step)
   finally:
     if prof is not None:  # the run ended inside the profiled steps
-      _stop_profiler(prof, args.profile_dir)
+      _stop_profiler(prof, args.profile_dir, s.mesh)
     if prefetcher is not None:
       prefetcher.close()
     if packer is not None:
       packer.close()
   run.losses = [float(x) for x in losses]
-  print('[train] pipeline ' + json.dumps(pipeline_summary(
-      n_prefetch, args.data_workers, run)), flush=True)
+  print(f'[train] pipeline{s.rank_note} ' + json.dumps(pipeline_summary(
+      n_prefetch, args.data_workers, run)) + '\n', end='', flush=True)
 
 
 def pipeline_summary(prefetch: int, data_workers: int, run: TrainRun) -> dict:
@@ -623,11 +785,19 @@ def _start_profiler(device: torch.device):
   return prof
 
 
-def _stop_profiler(prof, profile_dir: str) -> None:
+def profile_trace_name(mesh=None) -> str:
+  """The trace file's name: PROFILE_TRACE, or on a rank of a multi-rank run
+  train_steps_10-15.rank<r>.pt.trace.json."""
+  if mesh is None:
+    return PROFILE_TRACE
+  return PROFILE_TRACE.replace('.pt.', f'.rank{mesh.rank}.pt.')
+
+
+def _stop_profiler(prof, profile_dir: str, mesh=None) -> None:
   """Stops `prof` and writes its Chrome trace under `profile_dir`."""
   prof.stop()
   os.makedirs(profile_dir, exist_ok=True)
-  path = os.path.join(profile_dir, PROFILE_TRACE)
+  path = os.path.join(profile_dir, profile_trace_name(mesh))
   prof.export_chrome_trace(path)
   print(f'[train] profiler trace written to {path}', flush=True)
 
@@ -709,7 +879,8 @@ def _run_fused(args, s: Setup, manager, sink, run: TrainRun) -> None:
       sink.log('train', step, loss=mean_loss, steps_per_sec=steps_acc / dt)
       losses_acc, steps_acc, t_log = [], 0, time.perf_counter()
 
-    if manager is not None and crossed(args.save_every, prev, step):
+    if manager is not None and s.is_main and crossed(args.save_every, prev,
+                                                     step):
       ckpt_lib.save(manager, step - 1, s.wrapped, s.optimizer)
 
 

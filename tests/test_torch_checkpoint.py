@@ -26,12 +26,12 @@ from gencast_tpu_torch.models import casting, wrappers
 from gencast_tpu_torch.training import checkpoint, steps, train
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-TINY_ARGV = ['--preset', 'tiny', '--data', 'synthetic', '--device', 'cpu',
-             '--log_every', '1']
+TINY_ARGV = ['--preset', 'tiny_pallas', '--data', 'synthetic', '--device',
+             'cpu', '--log_every', '1']
 
 
 def _stack(seed, bf16=False):
-  spec = configs.TINY
+  spec = configs.TINY_PALLAS
   model, statics = configs.build_gencast(spec, seed=seed, device='cpu')
   task = spec.task
   stats = layout.Stats.unit(
@@ -251,11 +251,23 @@ def test_train_cli_takes_the_input_pipeline_flags(argv, dest, value):
 @pytest.mark.parametrize('argv,match', [
     # GraphCast, refused until it was ported, parses (match None).
     pytest.param(['--model', 'graphcast'], None, id='argv0-GraphCast'),
-    (['--attention_type', 'dense'], 'other attention backends'),
+    # The reference's einsum 'dense' attention, refused until it was ported,
+    # trains (match None).
+    pytest.param(['--attention_type', 'dense'], None,
+                 id='argv1-other attention backends'),
 ])
-def test_train_cli_refuses_what_is_not_ported(argv, match, capsys):
-  if match is None:
+def test_train_cli_refuses_what_is_not_ported(argv, match, capsys, tmp_path):
+  if match is None and '--model' in argv:
     assert train.parse_args(['--preset', 'tiny'] + argv).model == 'graphcast'
+    return
+  if match is None:
+    run = train.main(['--preset', 'tiny', '--data', 'synthetic', '--device',
+                      'cpu', '--steps', '2', '--ckpt_dir',
+                      str(tmp_path)] + argv)
+    assert 'attention=dense' in capsys.readouterr().out
+    assert len(run.losses) == 2 and np.isfinite(run.losses).all()
+    processor = wrappers.find_layout_provider(run.model).architecture.processor
+    assert type(processor.blocks[0].attn).__name__ == 'DenseAttention'
     return
   with pytest.raises(SystemExit):
     train.parse_args(['--preset', 'tiny'] + argv)

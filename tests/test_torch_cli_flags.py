@@ -1,10 +1,12 @@
 """The training CLI knows every flag of the reference's
 (`gencast_tpu.training.train.parse_args`): each parses with the reference's
 default and, where it is ported, with the reference's meaning of a value
-(GraphCast's `--task` and `--remat_group` among them); `--ar_steps K` on a
-GenCast run is the reference's no-op, and the flags of
-paths not ported are refused by name, with the ROADMAP.md item
-that brings them or as TPU-only, never as "unrecognized arguments".
+(GraphCast's `--task` and `--remat_group`, and the data-parallel `--dp`,
+`--multihost`, `--coordinator`, `--process_id` and `--num_processes` among
+them); `--ar_steps K` on a GenCast run is the reference's no-op, and the
+flags of paths not ported are refused by name, with the ROADMAP.md item
+that brings them (`--mp`) or as TPU-only, never as "unrecognized
+arguments".
 """
 
 import pytest
@@ -25,12 +27,12 @@ FLAGS = {
     'profile_dir': (['traces'], None),
     'prefetch': (['2'], None),
     'data_workers': (['2'], None),
-    'dp': (['2'], 'Parallelism'),
-    'mp': (['2'], 'Parallelism'),
-    'multihost': ([], 'Parallelism'),
-    'coordinator': (['localhost:1234'], 'Parallelism'),
-    'process_id': (['0'], 'Parallelism'),
-    'num_processes': (['2'], 'Parallelism'),
+    'dp': (['2'], None),
+    'mp': (['2'], 'Parallelism (model axis, --mp)'),
+    'multihost': ([], None),
+    'coordinator': (['localhost:1234'], None),
+    'process_id': (['0'], None),
+    'num_processes': (['2'], None),
     'cpu': (['8'], 'not ported: TPU-only'),
 }
 

@@ -99,7 +99,7 @@ def test_step_launches_of_the_fused_backward(monkeypatch, fused):
   """chip_smoke's launches per training step: under the flag G and its
   reduce once per layer each and F never; without it F's two kernels once
   per layer each and the reduce never."""
-  spec = dataclasses.replace(configs.TINY, num_layers=2,
+  spec = dataclasses.replace(configs.TINY_PALLAS, num_layers=2,
                              remat_policy='save_attention')  # 1 degree's
   if fused:
     monkeypatch.setenv(transformer.FUSED_BWD_ENV, '1')

@@ -28,7 +28,7 @@ from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 FRAMES = 8
 MEMBERS, STEPS = 2, 2
-TINY = ['--preset', 'tiny', '--device', 'cpu', '--log_every', '1']
+TINY = ['--preset', 'tiny_pallas', '--device', 'cpu', '--log_every', '1']
 
 
 @pytest.fixture(scope='module')
@@ -56,9 +56,10 @@ def runs(corpus, tmp_path_factory):
     first = train.main(argv + ['--steps', '2'])
     resumed = train.main(argv + ['--steps', '3'])
     evaluated = evaluate.main([
-        '--preset', 'tiny', '--device', 'cpu', '--data', corpus[layout_name],
-        '--ckpt_dir', ckpt, '--num_members', str(MEMBERS),
-        '--max_rollout_steps', str(STEPS), '--out_dir', ev, '--save_netcdf',
+        '--preset', 'tiny_pallas', '--device', 'cpu',
+        '--data', corpus[layout_name], '--ckpt_dir', ckpt,
+        '--num_members', str(MEMBERS), '--max_rollout_steps', str(STEPS),
+        '--out_dir', ev, '--save_netcdf',
         '--plot_vars'])
     out[layout_name] = (first, resumed, evaluated, ev)
   return out
@@ -185,7 +186,7 @@ def test_a_directory_too_short_for_a_window_is_refused(corpus, tmp_path):
     train.main(TINY + ['--data', short, '--steps', '1'])
   with pytest.raises(SystemExit, match=f'{FRAMES} frames found; a 8-step '
                      r'rollout .* needs 10 consecutive'):
-    evaluate.main(['--preset', 'tiny', '--device', 'cpu', '--data',
+    evaluate.main(['--preset', 'tiny_pallas', '--device', 'cpu', '--data',
                    corpus['npz'], '--max_rollout_steps', '8',
                    '--out_dir', str(tmp_path / 'eval'), '--plot_vars'])
 

@@ -22,10 +22,10 @@ MEMBERS, STEPS = 2, 2
 def evaluated(tmp_path_factory):
   root = tmp_path_factory.mktemp('eval')
   ckpt, out = str(root / 'ckpt'), str(root / 'out')
-  train.main(['--preset', 'tiny', '--data', 'synthetic', '--device', 'cpu',
-              '--steps', '2', '--ckpt_dir', ckpt])
-  run = evaluate.main(['--preset', 'tiny', '--device', 'cpu', '--ckpt_dir',
-                       ckpt, '--num_members', str(MEMBERS),
+  train.main(['--preset', 'tiny_pallas', '--data', 'synthetic', '--device',
+              'cpu', '--steps', '2', '--ckpt_dir', ckpt])
+  run = evaluate.main(['--preset', 'tiny_pallas', '--device', 'cpu',
+                       '--ckpt_dir', ckpt, '--num_members', str(MEMBERS),
                        '--max_rollout_steps', str(STEPS), '--out_dir', out,
                        '--plot_vars'])
   return run, ckpt, out
@@ -65,14 +65,30 @@ def test_evaluate_restores_the_checkpoint(evaluated):
 
 
 @pytest.mark.parametrize('argv,match', [
-    (['--attention_type', 'dense'], 'other attention backends'),
+    # The reference's einsum 'dense' attention, refused until it was ported,
+    # evaluates a checkpoint of a dense model (match None).
+    pytest.param(['--attention_type', 'dense'], None,
+                 id='argv0-other attention backends'),
     # GraphCast, refused until it was ported, parses (match None).
     pytest.param(['--model', 'graphcast'], None, id='argv1-GraphCast'),
 ])
-def test_evaluate_refuses_what_is_not_ported(argv, match, capsys):
-  if match is None:
+def test_evaluate_refuses_what_is_not_ported(argv, match, capsys, tmp_path):
+  if match is None and '--model' in argv:
     args = evaluate.parse_args(['--preset', 'tiny'] + argv)
     assert args.model == 'graphcast'
+    return
+  if match is None:
+    ckpt = str(tmp_path / 'ckpt')
+    train.main(['--preset', 'tiny', '--data', 'synthetic', '--device', 'cpu',
+                '--steps', '2', '--ckpt_dir', ckpt] + argv)
+    run = evaluate.main(['--preset', 'tiny', '--device', 'cpu', '--ckpt_dir',
+                         ckpt, '--num_members', '2', '--max_rollout_steps',
+                         '1', '--out_dir', str(tmp_path / 'out'),
+                         '--plot_vars'] + argv)
+    out = capsys.readouterr().out
+    assert 'attention=dense' in out and 'restored checkpoint step 1' in out
+    assert np.isfinite(run.predictions).all()
+    assert np.isfinite(list(run.results['crps'].values())).all()
     return
   with pytest.raises(SystemExit):
     evaluate.parse_args(['--preset', 'tiny'] + argv)
@@ -91,8 +107,8 @@ def test_evaluate_save_netcdf(evaluated, h5py_present, tmp_path, monkeypatch,
   run, ckpt, _ = evaluated
   if not h5py_present:
     monkeypatch.setitem(sys.modules, 'h5py', None)
-  again = evaluate.main(['--preset', 'tiny', '--device', 'cpu', '--ckpt_dir',
-                         ckpt, '--num_members', str(MEMBERS),
+  again = evaluate.main(['--preset', 'tiny_pallas', '--device', 'cpu',
+                         '--ckpt_dir', ckpt, '--num_members', str(MEMBERS),
                          '--max_rollout_steps', str(STEPS), '--out_dir',
                          str(tmp_path), '--plot_vars', '--save_netcdf'])
   np.testing.assert_array_equal(again.predictions, run.predictions)
@@ -136,8 +152,8 @@ def test_evaluate_takes_the_chunked_rollout_options(evaluated, argv, overlap,
     return chunked(*a, **kwargs)
 
   monkeypatch.setattr(rollout, 'chunked_rollout', spy)
-  again = evaluate.main(['--preset', 'tiny', '--device', 'cpu', '--ckpt_dir',
-                         ckpt, '--num_members', str(MEMBERS),
+  again = evaluate.main(['--preset', 'tiny_pallas', '--device', 'cpu',
+                         '--ckpt_dir', ckpt, '--num_members', str(MEMBERS),
                          '--max_rollout_steps', str(STEPS), '--out_dir',
                          str(tmp_path), '--plot_vars'] + argv)
   assert seen == [(1, overlap)] * MEMBERS
@@ -154,8 +170,8 @@ def test_evaluate_member_chunk_gives_the_same_predictions(evaluated,
   """--member_chunk groups the members on their way to the host and changes
   nothing in what they forecast."""
   run, ckpt, _ = evaluated
-  chunked = evaluate.main(['--preset', 'tiny', '--device', 'cpu', '--ckpt_dir',
-                           ckpt, '--num_members', str(MEMBERS),
+  chunked = evaluate.main(['--preset', 'tiny_pallas', '--device', 'cpu',
+                           '--ckpt_dir', ckpt, '--num_members', str(MEMBERS),
                            '--max_rollout_steps', str(STEPS), '--out_dir',
                            str(tmp_path), '--plot_vars', '--member_chunk',
                            str(member_chunk)])
@@ -174,8 +190,8 @@ def test_train_cli_sampling_eval_logs_rmse_and_triptych(tmp_path):
   a metrics file it also writes the triptych image beside it, as the
   reference's CLI."""
   jsonl = tmp_path / 'metrics.jsonl'
-  train.main(['--preset', 'tiny', '--data', 'synthetic', '--device', 'cpu',
-              '--steps', '2', '--do_sampling_eval', '--eval_every', '2',
+  train.main(['--preset', 'tiny_pallas', '--data', 'synthetic', '--device',
+              'cpu', '--steps', '2', '--do_sampling_eval', '--eval_every', '2',
               '--metrics_jsonl', str(jsonl)])
   with open(jsonl) as f:
     events = [json.loads(line) for line in f]

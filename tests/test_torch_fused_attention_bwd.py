@@ -58,7 +58,7 @@ def _pad_slots(plan):
 @pytest.mark.parametrize('case', ['tile16', 'tile32', 'tiny_statics'])
 def test_build_bwd_gather_equals_jax(case):
   if case == 'tiny_statics':
-    spec = configs.TINY
+    spec = configs.TINY_PALLAS
     lat, lon = jax_configs.grid_for_resolution(spec.resolution_deg)
     jplan = jax_compiler.build_graph_statics(
         spec.mesh_splits, lat, lon, attention_k_hop=spec.attention_k_hop,
@@ -201,7 +201,7 @@ def test_fused_wrapper_rejects_cpu_tensors():
 
 
 def test_transformer_holds_the_gather_map_only_under_the_flag(monkeypatch):
-  spec = dataclasses.replace(configs.TINY, num_layers=1)
+  spec = dataclasses.replace(configs.TINY_PALLAS, num_layers=1)
   statics = configs.build_statics(spec)
   monkeypatch.delenv('GENCAST_SPARSE_FUSED_BWD', raising=False)
   plain, _ = configs.build_gencast(spec, statics=statics, device='cpu')

@@ -30,7 +30,7 @@ from gencast_tpu_torch.models import wrappers
 from gencast_tpu_torch.ops import banded_attention, segment, sparse_attention
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-SPEC = dataclasses.replace(configs.TINY, attention_tile_size=32,
+SPEC = dataclasses.replace(configs.TINY_PALLAS, attention_tile_size=32,
                            use_agg_plans=True, agg_plan_min_degree=2,
                            stochastic_churn_rate=2.5, num_noise_levels=2)
 

@@ -28,7 +28,7 @@ from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # max|port - jax| / max|jax|: float32 sums in another order.
 RTOL = 1e-5
-SPECS = {'tiny': configs.TINY, 'nano': configs.NANO}
+SPECS = {'tiny': configs.TINY_PALLAS, 'nano': configs.NANO}
 # The sides of the GenCast graphs whose degree is not uniform: grid2mesh's
 # receivers (mesh nodes) and senders (grid nodes), mesh2grid's senders (mesh
 # nodes). mesh2grid's receivers are 3 per grid node: the dense path.

@@ -44,9 +44,9 @@ from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 # 1,236 edges into 20 chunks (a receiver has up to 54 edges) and
 # mesh2grid's 2,052 (cut to 63, whole receivers) into 33.
 SPEC = dataclasses.replace(
-    configs.TINY, d_model=128, attention_tile_size=32, edge_chunk_size=64,
-    remat_gnns=True, noise_basis_dtype='bfloat16', remat_policy='full',
-    stochastic_churn_rate=2.5, num_noise_levels=2)
+    configs.TINY_PALLAS, d_model=128, attention_tile_size=32,
+    edge_chunk_size=64, remat_gnns=True, noise_basis_dtype='bfloat16',
+    remat_policy='full', stochastic_churn_rate=2.5, num_noise_levels=2)
 REMAT_POLICIES = ('full', 'save_attention')
 
 # Denoiser, max|port - jax| / max|jax|: float32 on both sides (the TINY
@@ -109,7 +109,7 @@ def test_statics_cache_reloads_and_keys(tmp_path):
   """A second build of the same spec loads the first's file, array for
   array; a different tile or k-hop is another key (a new build)."""
   cache = str(tmp_path)
-  spec = configs.TINY
+  spec = configs.TINY_PALLAS
   built = configs.build_statics(spec, cache_dir=cache)
   files = os.listdir(cache)
   assert len(files) == 1 and files[0].endswith('.pkl')
@@ -380,7 +380,7 @@ def test_card_launch_counts_of_a_streamed_step(monkeypatch, remat_gnns):
   import chip_smoke
   from gencast_tpu_torch.ops import ln_film, segment
   from gencast_tpu_torch.training import steps
-  spec = dataclasses.replace(configs.TINY, edge_chunk_size=64,
+  spec = dataclasses.replace(configs.TINY_PALLAS, edge_chunk_size=64,
                              remat_gnns=remat_gnns)
   model, statics = configs.build_gencast(spec, seed=0, device='cpu')
   task = spec.task

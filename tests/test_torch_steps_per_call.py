@@ -32,7 +32,7 @@ from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _stack(seed=0, bf16=False):
-  spec = configs.TINY
+  spec = configs.TINY_PALLAS
   model, _ = configs.build_gencast(spec, seed=seed, device='cpu')
   task = spec.task
   stats = layout.Stats.unit(
@@ -259,7 +259,7 @@ def test_cli_fused_smoke_and_resume(tmp_path, capsys):
   path."""
   metrics = str(tmp_path / 'metrics.jsonl')
   ckpt = str(tmp_path / 'ckpt')
-  argv = ['--preset', 'tiny', '--data', 'synthetic', '--device', 'cpu',
+  argv = ['--preset', 'tiny_pallas', '--data', 'synthetic', '--device', 'cpu',
           '--steps_per_call', '2', '--ckpt_dir', ckpt]
   run = train.main(argv + ['--steps', '4', '--log_every', '2',
                            '--save_every', '4', '--metrics_jsonl', metrics])
@@ -283,8 +283,8 @@ def test_cli_fused_smoke_and_resume(tmp_path, capsys):
 
 
 def test_cli_falls_back_to_per_step_above_batch_one(capsys):
-  run = train.main(['--preset', 'tiny', '--data', 'synthetic', '--device',
-                    'cpu', '--steps', '2', '--batch_size', '2',
+  run = train.main(['--preset', 'tiny_pallas', '--data', 'synthetic',
+                    '--device', 'cpu', '--steps', '2', '--batch_size', '2',
                     '--steps_per_call', '2'])
   out = capsys.readouterr().out
   assert ('fused steps_per_call requires batch_size=1 and no mesh; falling '

@@ -37,8 +37,9 @@ from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
 from gencast_tpu_torch.training import steps, train
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-SPEC = dataclasses.replace(configs.TINY, d_model=128, attention_tile_size=32,
-                           use_agg_plans=True, agg_plan_min_degree=2)
+SPEC = dataclasses.replace(configs.TINY_PALLAS, d_model=128,
+                           attention_tile_size=32, use_agg_plans=True,
+                           agg_plan_min_degree=2)
 # 'full' is TINY's remat policy; 'save_attention' is ONE_DEG's.
 REMAT_POLICIES = ('full', 'save_attention')
 # Every kernel's launch counter; on the CPU none may move.
@@ -287,7 +288,7 @@ def test_bf16_stack_gradients_reach_f32_masters(setup, remat_policy):
 
 
 def test_train_cli_tiny_on_cpu():
-  run = train.main(['--preset', 'tiny', '--steps', '3', '--data',
+  run = train.main(['--preset', 'tiny_pallas', '--steps', '3', '--data',
                     'synthetic', '--device', 'cpu'])
   assert len(run.losses) == 3 and np.isfinite(run.losses).all()
   assert len(run.step_seconds) == 3
