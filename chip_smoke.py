@@ -7,8 +7,9 @@ remat, a bf16 noise basis) served, trained and evaluated, nano and
 1-degree GenCast trained and evaluated from ERA5-format directories, and
 GraphCast (GraphCast_small at 1 degree, the 37-level paper configuration
 at 0.25 degrees) served, trained (autoregressively too) and evaluated, the
-reference's einsum attention backends, data-parallel training over ranks
-and the member-sharded ensemble.
+reference's einsum attention backends, data-parallel training over ranks,
+the member-sharded ensemble, a published-layout GenCast checkpoint
+translated and served, and the tracing tool and MFU accounting.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -232,6 +233,31 @@ Phases (any failure raises and exits non-zero):
      bitwise the one-device `parallel.ensemble.ensemble_rollout`, the scores
      reduced on the devices within POD_SCORE_RTOL of `ops.metrics`, A and B
      launches per rank as derived, seconds per member-step;
+ 38. a published GenCast checkpoint at 1 degree, full width and depth: a
+     seeded, perturbed ONE_DEG model written as a DeepMind CheckPoint npz
+     in the published layout (`published_checkpoint`: the reference's
+     module names, Haiku's flat module paths and w/b leaves, the mesh
+     embedder's dummy input rows, sampler, noise and architecture
+     configs); `python3 -m gencast_tpu_torch.tools.translate_checkpoint
+     --preset 1deg` in a fresh process; its step_0.pt restored into a
+     model of another seed, every parameter bitwise the source's; one
+     graphed denoiser call and one sampled 12-hour step from one generator
+     bitwise the source model's, A and B launches per call (16, 1) and
+     step as derived; `python3 -m gencast_tpu_torch.training.evaluate
+     --preset 1deg --ckpt_dir` in a fresh process (1 member x 1 step)
+     restores step 0 and writes finite scores; each stage's seconds and
+     the npz's size;
+ 39. `python3 -m gencast_tpu_torch.tools.trace_sampler
+     build/chip_smoke_trace_1deg 1deg` in a fresh process (`profile_step
+     --mode sample --steps 1`: the CLIs' serving stack): the trace file
+     exists and `trace_qdeg.parse` finds kernel A 16 times per denoiser
+     call and B once over the 39 calls of the traced step; then an [mfu]
+     line (model FLOPs from `training/flops.py`, TFLOP/s, MFU against the
+     H100 SXM's dense bf16 peak, the card's name and power limit) for the
+     1-degree denoiser call, forecast step and training step, the nano
+     training step, the 0.25-degree denoiser call and training step, and
+     GraphCast_small's forward and training step, each from times the
+     phases above measured (no run is added);
 then a [time] line (the seconds of each phase), one JSON line of kernel
 results (launches from the training runs of each kernel's paths, eager and
 graphed), the card's name and power limit, and a last JSON line
@@ -245,10 +271,10 @@ in turns with the kernel (scaled_dot_product_attention with the dense mask
 and its backward, segment_reduce, native_layer_norm_backward; none for
 G's dq reduce, whose row says so); the port never calls those. TF32 is off
 for matmuls and cuDNN: float32 products run in full float32. Phases 17,
-20, 25, 26, 28-30 and 33-37 write under build/ (git-ignored) and remove
+20, 25, 26, 28-30 and 33-39 write under build/ (git-ignored) and remove
 what they wrote;
 the graph statics are cached under build/chip_smoke_cache for the run and
-removed at its end. About eleven minutes on an H100, build included.
+removed at its end. About thirteen minutes on an H100, build included.
 """
 
 from __future__ import annotations
@@ -2830,7 +2856,8 @@ def serve_graphcast(spec, statics, dev, g, card):
   `chunked_rollout(mode='predict', chunk_size=2)` (bitwise equal); B
   launches per step as derived, ms per step graphed and eager, the
   graph's replay alone (the forward's device time), the peak memory.
-  Returns the timings."""
+  Returns the timings, with the model's task (GraphCast's variables) under
+  'task'."""
   from gencast_tpu_torch import rollout
   from gencast_tpu_torch.models import casting
   from gencast_tpu_torch.ops import segment
@@ -2893,7 +2920,7 @@ def serve_graphcast(spec, statics, dev, g, card):
       f'{pgraph.graph.pool_bytes / 2**30:.2f} GiB; peak memory '
       f'{peak / 2**30:.2f} GiB; {card}')
   return dict(ms, rollout_graphed_s=seconds['graphed'],
-              rollout_eager_s=seconds['eager'], peak=peak)
+              rollout_eager_s=seconds['eager'], peak=peak, task=model.task)
 
 
 def graphcast_cli(argv, steps_run, tag, card, start=0):
@@ -3512,6 +3539,348 @@ def pod_ensemble_1deg(dev, card, work) -> dict:
   return {k: sum(v[k] for v in launched.values()) for k in per_rank}
 
 
+# The reference's (published) names of the port's node and edge sets: the
+# inverse of training/translate.py's maps.
+PUBLISHED_NODES = {'grid': 'grid_nodes', 'mesh': 'mesh_nodes'}
+PUBLISHED_EDGES = {'g2m': 'grid2mesh', 'm2g': 'mesh2grid', 'mesh': 'mesh'}
+# Phase 38's seeds: the source model, its perturbation, the mesh embedder's
+# dummy rows, the translation tool's fresh model and the model restored
+# here.
+PUBLISHED_SEEDS = dict(source=21, perturb=22, dummy=23, tool=24, target=25)
+
+
+def _haiku_linear(linear: dict) -> dict:
+  return {{'kernel': 'w', 'bias': 'b'}[k]: v for k, v in linear.items()}
+
+
+def _published_mlp(layers: dict) -> dict:
+  """An MLP's dense layers {0, 1, ...} as the reference's Sequential, whose
+  activations take the odd slots: {0, 2, ...}."""
+  return {'network': {'network': {'layers': {
+      str(2 * int(i)): _haiku_linear(lin) for i, lin in layers.items()}}}}
+
+
+def _published_cond_mlp(mlp: dict, extra_rows=None) -> dict:
+  out = _published_mlp(mlp['network']['layers'])
+  if extra_rows is not None:
+    first = out['network']['network']['layers']['0']
+    first['w'] = np.concatenate([first['w'], extra_rows])
+  out['norm_conditioning_layer'] = {
+      'conditional_linear_layer': _haiku_linear(mlp['film']['linear'])}
+  return out
+
+
+def _published_gnn(net: dict, mesh_extra_rows) -> dict:
+  """A TypedGraphNet's state as the reference's DeepTypedGraphNet."""
+  out = {'processor_networks': {
+      i: {'graph_network': {
+          'update_edge_fns': {PUBLISHED_EDGES[e]: {
+              'edge_fn': _published_cond_mlp(m)}
+              for e, m in p['edge_mlps'].items()},
+          'update_node_fns': {PUBLISHED_NODES[n]: {
+              'node_fn': _published_cond_mlp(m)}
+              for n, m in p['node_mlps'].items()}}}
+      for i, p in net['processors'].items()}}
+  embedder = {}
+  if 'node_embedders' in net:
+    embedder['embed_node_fns'] = {
+        PUBLISHED_NODES[n]: _published_cond_mlp(
+            m, mesh_extra_rows if n == 'mesh' else None)
+        for n, m in net['node_embedders'].items()}
+  if 'edge_embedders' in net:
+    embedder['embed_edge_fns'] = {
+        PUBLISHED_EDGES[e]: _published_cond_mlp(m)
+        for e, m in net['edge_embedders'].items()}
+  if embedder:
+    out['embedder_network'] = embedder
+  if 'node_decoders' in net:
+    out['decoder_network'] = {'embed_node_fns': {
+        PUBLISHED_NODES[n]: _published_mlp(m['layers'])
+        for n, m in net['node_decoders'].items()}}
+  return out
+
+
+def _published_transformer(processor: dict) -> dict:
+  """The mesh transformer's state ([L]-stacked blocks) as the reference's
+  per-block modules."""
+  blocks = processor['blocks']
+  proj = blocks['attn']['proj']
+
+  def linear(tree, i):
+    return _haiku_linear({k: v[i] for k, v in tree.items()})
+
+  def block(i):
+    return {
+        'attn_module': {
+            'q_proj': {'linear': linear(proj['q'], i)},
+            'k_proj': {'linear': linear(proj['k'], i)},
+            'v_proj': {'linear': linear(proj['v'], i)},
+            'final_linear': linear(proj['out'], i)},
+        'ffw_module': {'mlp': {'layers': {
+            '0': linear(blocks['ffw']['lin1'], i),
+            '2': linear(blocks['ffw']['lin2'], i)}}},
+        'norm_cond_attn': {
+            'conditional_linear_layer': linear(blocks['film1']['linear'], i)},
+        'norm_cond_ffw': {
+            'conditional_linear_layer': linear(blocks['film2']['linear'], i)}}
+
+  return {'blocks': {str(i): block(i)
+                     for i in range(proj['q']['kernel'].shape[0])},
+          'final_norm_cond': {'conditional_linear_layer': _haiku_linear(
+              processor['final_film']['linear'])}}
+
+
+def _module_paths(tree: dict, prefix: str = ''):
+  """(module path 'a/b/c', its leaves) of every module of a nested tree."""
+  leaves = {k: v for k, v in tree.items() if not isinstance(v, dict)}
+  if leaves:
+    yield prefix, leaves
+  for k, v in tree.items():
+    if isinstance(v, dict):
+      yield from _module_paths(v, f'{prefix}/{k}' if prefix else k)
+
+
+def published_checkpoint(flat, configs: dict, dialect: str = 'flat',
+                         seed: int = 0) -> dict:
+  """A DeepMind `CheckPoint` tree (`deepmind_checkpoint.save` writes it) of
+  the GenCast denoiser whose parameters `flat` holds in the reference's
+  flat layout ('denoiser/architecture/...' keys: the port's
+  `bridge.export_reference_params`, or the JAX package's state flattened
+  with '/'), in the published layout: the reference's module names,
+  Haiku's leaf names (w, b), the mesh-node embedder's dummy input rows (one
+  per grid data channel, seeded normal values: the reference feeds that
+  embedder zeros there) and `configs` ({config name: dict}). The params are
+  nested under 'denoiser' (`dialect` 'nested') or keyed by Haiku's flat
+  module paths ('flat': 'denoiser/~/a/b/c': {w, b}). Harness code: what
+  phase 38 and the CPU tests translate."""
+  from gencast_tpu_torch.tools import translate_checkpoint
+  den = translate_checkpoint.nest(
+      {k: np.asarray(v) for k, v in flat.items()})['denoiser']
+  arch = den['architecture']
+  embedders = arch['grid2mesh']['node_embedders']
+  grid_rows = embedders['grid']['network']['layers']['0']['kernel'].shape[0]
+  mesh_first = embedders['mesh']['network']['layers']['0']['kernel']
+  extra = np.random.default_rng(seed).standard_normal(
+      (grid_rows - mesh_first.shape[0], mesh_first.shape[1])
+  ).astype(mesh_first.dtype)
+  published = {
+      'noise_level_encoder': {
+          f'linear_{i}': _haiku_linear(lin)
+          for i, lin in den['noise_encoder']['linears'].items()},
+      'predictor': {
+          'grid2mesh_gnn': _published_gnn(arch['grid2mesh'], extra),
+          'mesh_gnn': {'batch_first_transformer': _published_transformer(
+              arch['processor'])},
+          'mesh2grid_gnn': _published_gnn(arch['mesh2grid'], None)}}
+  if dialect == 'nested':
+    params = {'denoiser': published}
+  elif dialect == 'flat':
+    params = {f'denoiser/~/{path}': leaves
+              for path, leaves in _module_paths(published)}
+  else:
+    raise ValueError(f'unknown dialect {dialect!r}: nested or flat')
+  return {'description': 'GenCast denoiser, seeded weights, in the '
+                         'published layout',
+          'license': 'CC-BY-NC-SA-4.0', 'params': params, **configs}
+
+
+def graphed_denoiser_call(stack, inputs, forcings, noisy, sigma):
+  """One denoiser call of the bf16 serving copy in `stack`, replayed from a
+  CUDA graph (`cuda_lib.GraphedCall`, as `GenCast.sample` replays its
+  calls): the first call warms up and captures, the second replays. Returns
+  the replay's output (float32) and the (A, B) launches of the replay."""
+  from gencast_tpu_torch.models import casting
+  from gencast_tpu_torch.ops import cuda_lib, segment, sparse_attention
+  serving = next(m for m in stack.modules()
+                 if isinstance(m, casting.Bfloat16Cast))._bf16
+  call = cuda_lib.GraphedCall(
+      [t.to(torch.bfloat16) for t in (inputs, forcings, noisy)] + [sigma])
+  with torch.no_grad():
+    call(serving._precond_denoise)  # the warm-up, then the capture
+    for counter in (sparse_attention.KERNEL, segment.KERNEL):
+      counter.reset()
+    out = call(serving._precond_denoise).float()
+    torch.cuda.synchronize()
+  return out, (sparse_attention.KERNEL.launches, segment.KERNEL.launches)
+
+
+def published_1deg(spec, statics, dev, card, work, stats) -> dict:
+  """Phase 38: a published GenCast checkpoint at 1 degree, full width and
+  depth. A seeded, perturbed ONE_DEG model written as a DeepMind CheckPoint
+  npz in the published layout (Haiku's flat dialect,
+  `published_checkpoint`); `python3 -m
+  gencast_tpu_torch.tools.translate_checkpoint --preset 1deg` on it in a
+  fresh process; its step_0.pt restored into a model of another seed: every
+  parameter bitwise the source's, one graphed denoiser call and one sampled
+  12-hour step from one generator bitwise the source's, A and B launches
+  per call and step as derived; then `python3 -m
+  gencast_tpu_torch.training.evaluate --preset 1deg --ckpt_dir` in a fresh
+  process, 1 member x 1 step, restores step 0 and writes finite scores
+  (statistics: phase 10's file `stats`). Returns the launches of the
+  translated model's call and step."""
+  from gencast_tpu_torch import bridge, configs
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.ops import segment, sparse_attention
+  from gencast_tpu_torch.tools import translate_checkpoint as tool
+  from gencast_tpu_torch.training import checkpoint as ckpt_lib
+  from gencast_tpu_torch.training import deepmind_checkpoint as dm_ckpt
+  t_phase = t0 = time.perf_counter()
+  seconds = {}
+  source, _ = configs.build_gencast(spec, seed=PUBLISHED_SEEDS['source'],
+                                    statics=statics, device=dev)
+  bridge.load_reference_params(source, bridge.perturbed(
+      bridge.export_reference_params(source), PUBLISHED_SEEDS['perturb']))
+  tree = published_checkpoint(bridge.export_reference_params(source),
+                              tool.preset_configs(source, spec), 'flat',
+                              PUBLISHED_SEEDS['dummy'])
+  npz = os.path.join(work, 'gencast_1deg_published.npz')
+  dm_ckpt.save(npz, tree)
+  seconds['write npz'] = time.perf_counter() - t0
+  size = os.path.getsize(npz)
+  ckpt_dir = os.path.join(work, 'translated')
+  flags = ['--preset', '1deg', '--clean_sst_nans']
+  run = run_ranks('gencast_tpu_torch.tools.translate_checkpoint',
+                  ['--ref', npz, '--out', ckpt_dir, '--seed',
+                   str(PUBLISHED_SEEDS['tool'])] + flags,
+                  'translate_checkpoint')
+  seconds['translate (fresh process)'] = run['wall']
+  translated_line = re.search(r'\[translate\] (\d+) of (\d+) parameter '
+                              r'arrays translated', run['stdout'])
+
+  t0 = time.perf_counter()
+  unit = unit_stats(spec.task)
+  src_stack = wrappers.build_stack(source, unit, bf16=spec.cast_bf16,
+                                   clean_sst_nans=True).to(dev)
+  target, _ = configs.build_gencast(spec, seed=PUBLISHED_SEEDS['target'],
+                                    statics=statics, device=dev)
+  stack = wrappers.build_stack(target, unit, bf16=spec.cast_bf16,
+                               clean_sst_nans=True).to(dev)
+  step = ckpt_lib.restore(ckpt_lib.create_manager(ckpt_dir), stack)
+  pairs = list(zip(src_stack.named_parameters(), stack.named_parameters()))
+  differing = [a[0] for a, b in pairs if not torch.equal(a[1], b[1])]
+  if step != 0 or differing or not translated_line:
+    raise AssertionError(f'translated checkpoint: step {step}, parameters '
+                         f'differing from the source {differing[:5]} of '
+                         f'{len(pairs)}\n{run["stdout"][-2000:]}')
+  seconds['restore'] = time.perf_counter() - t0
+
+  t0 = time.perf_counter()
+  g = torch.Generator(device=dev).manual_seed(PUBLISHED_SEEDS['target'])
+  den = target.denoiser
+  grid = (1, statics.grid_lat.shape[0], statics.grid_lon.shape[0])
+  inputs, forcings, noisy = (
+      torch.randn(grid + (lay.num_channels,), generator=g, device=dev)
+      for lay in (den.input_layout, den.forcing_layout, den.target_layout))
+  sigma = torch.full((1,), 3.0, device=dev)
+  calls = 2 * spec.num_noise_levels - 1
+  per_call = (spec.num_layers, 1)
+  launches = {sparse_attention.KERNEL.name: 0, segment.KERNEL.name: 0}
+  outs, forecasts = {}, {}
+  for name, s in (('source', src_stack), ('translated', stack)):
+    outs[name], launched = graphed_denoiser_call(s, inputs, forcings,
+                                                 noisy * 3.0, sigma)
+    for counter in (sparse_attention.KERNEL, segment.KERNEL):
+      counter.reset()
+    forecasts[name] = s.sample(inputs, forcings, torch.Generator(
+        device=dev).manual_seed(PUBLISHED_SEEDS['tool']))
+    torch.cuda.synchronize()
+    step_launched = (sparse_attention.KERNEL.launches,
+                     segment.KERNEL.launches)
+    if (launched != per_call
+        or step_launched != tuple(calls * n for n in per_call)):
+      raise AssertionError(f'{name}: launches (A, B) per graphed call '
+                           f'{launched}, per forecast step {step_launched}; '
+                           f'expected {per_call} and {calls} times that')
+    if name == 'translated':
+      launches = {sparse_attention.KERNEL.name: launched[0] + step_launched[0],
+                  segment.KERNEL.name: launched[1] + step_launched[1]}
+  for what, got in (('graphed denoiser call', outs),
+                    ('forecast step', forecasts)):
+    if not (torch.equal(got['source'], got['translated'])
+            and torch.isfinite(got['translated']).all()):
+      raise AssertionError(f'translated {what} differs from the source '
+                           'model\'s or is not finite')
+  seconds['call and forecast step, both models'] = time.perf_counter() - t0
+  del src_stack, source, outs, forecasts
+
+  out_dir = os.path.join(work, 'eval')
+  ev = run_ranks('gencast_tpu_torch.training.evaluate',
+                 flags + ['--ckpt_dir', ckpt_dir, '--stats_path', stats,
+                          '--num_members', '1', '--max_rollout_steps', '1',
+                          '--plot_vars', '--out_dir', out_dir],
+                 'evaluate from the translated checkpoint')
+  seconds['evaluate (fresh process)'] = ev['wall']
+  with open(os.path.join(out_dir, 'metrics.json')) as f:
+    rmse = json.load(f)['rmse']
+  dummy_rows = sum(lay.num_channels for lay in (
+      den.input_layout, den.forcing_layout, den.target_layout))
+  if ('restored checkpoint step 0' not in ev['stdout']
+      or not all(np.isfinite(v) for v in rmse.values())):
+    raise AssertionError(f'evaluate from the translated checkpoint: rmse '
+                         f'{rmse}\n{ev["stdout"][-2000:]}')
+  log(f'[published 1deg] a seeded ONE_DEG model ({len(pairs)} parameter '
+      f'arrays, {sum(p.numel() for p in target.parameters())} values) as a '
+      f'DeepMind CheckPoint npz of {size / 2**20:.1f} MiB (Haiku flat module '
+      f'paths, w/b, {dummy_rows} dummy rows): translate_checkpoint '
+      f'({translated_line.group(1)} of {translated_line.group(2)} arrays '
+      f'translated) restored into a model of another seed bitwise the '
+      f'source; a graphed denoiser call and a 12-hour step bitwise the '
+      f'source\'s, launches (A, B) {per_call} per call as derived; evaluate '
+      f'restored step 0, 1 member x 1 step, finite RMSE; seconds '
+      f'{json.dumps({k: round(v, 1) for k, v in seconds.items()})}; phase '
+      f'{time.perf_counter() - t_phase:.1f} s; {card}')
+  return launches
+
+
+def mfu_line(what: str, seconds: float, model_flops: float, card: str) -> str:
+  from gencast_tpu_torch.training import flops
+  return (f'[mfu] {what}: {1e3 * seconds:.2f} ms, {model_flops:.4e} model '
+          f'FLOPs, {model_flops / seconds / 1e12:.1f} TFLOP/s, MFU '
+          f'{100 * flops.mfu(model_flops, seconds):.2f}% of '
+          f'{flops.H100_SXM_BF16_DENSE_PEAK_FLOPS / 1e12:.1f} TFLOP/s (H100 '
+          f'SXM dense bf16); {card}')
+
+
+def tools_and_accounting(spec, work, card, timed) -> None:
+  """Phase 39: `python3 -m gencast_tpu_torch.tools.trace_sampler <dir>
+  1deg` in a fresh process (`profile_step --mode sample --steps 1`): its
+  trace file exists and its breakdown
+  (`trace_qdeg.parse`) holds kernel A 16 times per denoiser call and B once,
+  over the 39 calls of the traced forecast step; then one [mfu] line per
+  entry of `timed` ((what, seconds an earlier phase measured, model
+  FLOPs): no run is added)."""
+  from gencast_tpu_torch import utils
+  from gencast_tpu_torch.tools import trace_qdeg
+  t_phase = time.perf_counter()
+  out = os.path.join(work, 'chip_smoke_trace_1deg')
+  run = run_ranks('gencast_tpu_torch.tools.trace_sampler', [out, '1deg'],
+                  'trace_sampler')
+  path = os.path.join(out, utils.TRACE_FILE)
+  if not os.path.exists(path):
+    raise AssertionError(f'trace_sampler wrote no trace at {path}')
+  breakdown = trace_qdeg.parse(out, top=8)
+  calls = 2 * spec.num_noise_levels - 1
+  found = {f: breakdown['families'].get(f, [0.0, 0]) for f in ('A', 'B')}
+  expected = {'A': calls * spec.num_layers, 'B': calls}
+  if {f: n for f, (_, n) in found.items()} != expected:
+    raise AssertionError(f'trace_sampler: kernels A, B {found} in the trace, '
+                         f'expected {expected} launches')
+  traced = [line for line in run['stdout'].splitlines()
+            if line.startswith('[profile]')
+            and ('profiled:' in line or 'model FLOPs per' in line)]
+  for line in traced or ['no wall line']:
+    log(f'[trace_sampler] {line}')
+  log(f'[trace_sampler] 1deg: trace of {os.path.getsize(path) / 2**20:.1f} '
+      f'MiB, {breakdown["total_ms"]:.1f} ms of device time, A '
+      f'{found["A"][1]} launches ({found["A"][0]:.2f} ms), B {found["B"][1]} '
+      f'({found["B"][0]:.2f} ms) over {calls} calls, as derived; wall '
+      f'{run["wall"]:.1f} s; {card}')
+  shutil.rmtree(out, ignore_errors=True)
+  for what, seconds, model_flops in timed:
+    log(mfu_line(what, seconds, model_flops, card))
+  log(f'[timing] phase 39 in {time.perf_counter() - t_phase:.1f} s; {card}')
+
+
 def parallel_phases(spec, statics, nano_statics, dev, g, card, stats,
                     clock) -> dict:
   """Phases 35-37 (their work under build/, removed after; `stats` is
@@ -4029,6 +4398,52 @@ def main() -> int:
   # member-sharded ensemble across ranks ---
   new_launches = parallel_phases(spec, statics, nano_statics, dev, g, card,
                                  one_deg_stats, clock)
+
+  # --- 38. a published GenCast checkpoint at 1 degree: translate in a
+  # fresh process, restore, serve bitwise, evaluate ---
+  work = os.path.join(repo, 'build', 'chip_smoke_published')
+  shutil.rmtree(work, ignore_errors=True)
+  os.makedirs(work)
+  new_launches['published_1deg'] = published_1deg(spec, statics, dev, card,
+                                                  work, one_deg_stats)
+  shutil.rmtree(work, ignore_errors=True)
+  torch.cuda.empty_cache()
+  clock.done(38)
+
+  # --- 39. trace_sampler on the card; model FLOPs and MFU of the times
+  # measured above ---
+  from gencast_tpu_torch.training import flops
+  fwd = flops.denoiser_forward_flops(spec, statics)
+  q_fwd = flops.denoiser_forward_flops(qdeg, q_statics)
+  gc_fwd, gc_cut_fwd = (
+      flops.graphcast_forward_flops(gc_spec, gc_statics,
+                                    task=gc_serve['task'])
+      for gc_spec in (spec, cut_depth(spec)))
+
+  def train_flops(forward):
+    return flops.train_step_flops(forward).total
+
+  calls = 2 * spec.num_noise_levels - 1
+  tools_and_accounting(spec, os.path.join(repo, 'build'), card, [
+      ('1deg denoiser call, in a graphed forecast step (phase 6)',
+       seconds[1] / calls, fwd.total),
+      ('1deg forecast step, graphed (phase 6)', seconds[1],
+       flops.sampler_step_flops(fwd, spec.num_noise_levels).total),
+      ('1deg training step, graphed (phase 19)', fused_1deg[1][-1],
+       train_flops(fwd)),
+      ('nano training step, graphed (phase 19)', fused_nano[1][-1],
+       train_flops(flops.denoiser_forward_flops(nano, nano_statics))),
+      ('0.25deg denoiser call, eager (phase 23)',
+       q_call_ms['kernel'] / 1e3, q_fwd.total),
+      (f'0.25deg training step at {CUT_LAYERS} layers, eager (phase 25)',
+       q_step_s[-1], train_flops(flops.denoiser_forward_flops(
+           cut_depth(qdeg), q_statics))),
+      ('GraphCast_small 1deg forward, graphed (phase 32)',
+       gc_serve['graphed'] / 1e3, gc_fwd.total),
+      (f'GraphCast_small 1deg training step at {CUT_LAYERS} processor '
+       'steps, graphed (phase 33)', gc_seconds['graphed'][-1],
+       train_flops(gc_cut_fwd))])
+  clock.done(39)
 
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B on the grid2mesh

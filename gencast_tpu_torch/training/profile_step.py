@@ -23,7 +23,10 @@ steps of the serving stack, each a replay of the model's CUDA graph, or
 with `--eager` eager forwards. Prints seconds per step or call (host
 clock, unprofiled and profiled), device time per step, the device's busy
 share of the profiled window (device activity over wall time; the work
-runs on one stream) and of the unprofiled wall, the device time of each
+runs on one stream) and of the unprofiled wall, the model FLOPs of a step
+or call (`training/flops.py`) with the model TFLOP/s and MFU they give
+over the unprofiled seconds (against the H100 SXM's dense bf16 peak, beside
+the card's name and power limit), the device time of each
 of the port's kernels and of the other kernel families, and the ten
 costliest kernels, and the peak of allocated device memory. `--trace` writes the
 profiler's Chrome trace. With
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import argparse
 import collections
-import subprocess
+import json
 import time
 
 import torch
@@ -62,8 +65,76 @@ _FAMILIES = (
 )
 
 
-def _family(name: str) -> str:
+def family(name: str) -> str:
+  """The family of kernel `name` (`_FAMILIES`; 'other' where none matches)."""
   return next((f for f, part in _FAMILIES if part in name), 'other')
+
+
+def session_kernels(prof) -> list:
+  """(name, ms) of each kernel and copy the torch.profiler session `prof`
+  recorded on the device. A user annotation (such as the optimizer's step)
+  also appears on the device timeline, as a span over kernels that are
+  counted themselves, and does not count."""
+  return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.is_user_annotation]
+
+
+def trace_kernels(path: str) -> list:
+  """(name, ms) of each kernel and copy in the Chrome trace at `path` (as
+  `utils.stop_profiler` writes it); host events and device-track
+  annotations do not count."""
+  with open(path) as f:
+    events = json.load(f)['traceEvents']
+  return [(e.get('name', '?'), e.get('dur', 0) / 1e3) for e in events
+          if e.get('ph') == 'X'
+          and e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
+
+
+def breakdown(kernels) -> dict:
+  """Device time of (name, ms) records by kernel family and by kernel name:
+  {'total_ms', 'families': {family: [ms, launches]}, 'kernels': {name:
+  [ms, launches]}}."""
+  by_name = collections.defaultdict(lambda: [0.0, 0])
+  for name, ms in kernels:
+    by_name[name][0] += ms
+    by_name[name][1] += 1
+  families = collections.defaultdict(lambda: [0.0, 0])
+  for name, (ms, count) in by_name.items():
+    families[family(name)][0] += ms
+    families[family(name)][1] += count
+  return {'total_ms': sum(ms for ms, _ in by_name.values()),
+          'families': dict(families), 'kernels': dict(by_name)}
+
+
+def print_breakdown(b: dict, label: str, n: int = 1, top: int = 10) -> None:
+  """Prints `breakdown` `b` over `n` units (label: 'per training step',
+  ...): each family's device ms, share and launches, then the `top`
+  costliest kernels."""
+  print(f'[profile] {label}: family, device ms, share, launches')
+  for fam, (ms, count) in sorted(b['families'].items(),
+                                 key=lambda kv: -kv[1][0]):
+    print(f'[profile]   {fam}: {ms / n:.3f} ms, '
+          f'{100 * ms / b["total_ms"]:.1f}%, {count / n:g}')
+  print(f'[profile] {top} costliest kernels {label}: device ms, launches, '
+        'name')
+  for name, (ms, count) in sorted(b['kernels'].items(),
+                                  key=lambda kv: -kv[1][0])[:top]:
+    print(f'[profile]   {ms / n:.3f} ms, {count / n:g}, {name[:120]}')
+
+
+def model_flops(model: str, mode: str, spec, run, batch: int) -> float:
+  """Model FLOPs (training/flops.py) of one unit `main` reports per: a
+  training step, a denoiser call (also in sample mode) or a forward step,
+  of the run `train.setup` built from `spec`."""
+  from gencast_tpu_torch.training import flops
+  if model == 'graphcast':
+    forward = flops.graphcast_forward_flops(spec, run.statics, batch,
+                                            task=run.model.task)
+  else:
+    forward = flops.denoiser_forward_flops(spec, run.statics, batch)
+  return (flops.train_step_flops(forward) if mode == 'train'
+          else forward).total
 
 
 def main(argv=None) -> None:
@@ -92,6 +163,8 @@ def main(argv=None) -> None:
     p.error(f'--model {args.model} takes --mode {" or ".join(modes)}')
   if not torch.cuda.is_available():
     raise SystemExit('profile_step: needs a CUDA card')
+  from gencast_tpu_torch import utils
+  from gencast_tpu_torch.training import flops
   from gencast_tpu_torch.training import steps as steps_lib
   from gencast_tpu_torch.training import train
 
@@ -149,37 +222,22 @@ def main(argv=None) -> None:
     step(batch)
   torch.cuda.synchronize()
   unprofiled = time.perf_counter() - t0
-  activities = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=activities) as prof:
-    t0 = time.perf_counter()
-    for batch in profiled:
-      step(batch)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-  # Kernels and copies only: a user annotation (such as the optimizer's
-  # step) also appears on the device timeline, as a span over kernels that
-  # are counted themselves.
-  device_events = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.is_user_annotation]
-  if not device_events:
+  prof = utils.start_profiler(cuda=True)
+  t0 = time.perf_counter()
+  for batch in profiled:
+    step(batch)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  utils.stop_profiler(prof, args.trace)
+  kernels = session_kernels(prof)
+  if not kernels:
     raise SystemExit('profile_step: the profiler recorded no device activity')
-  by_name = collections.defaultdict(lambda: [0.0, 0])
-  for e in device_events:
-    by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-    by_name[e.name][1] += 1
-  families = collections.defaultdict(lambda: [0.0, 0])
-  for name, (ms, count) in by_name.items():
-    families[_family(name)][0] += ms
-    families[_family(name)][1] += count
-  device_ms = sum(ms for ms, _ in by_name.values())
+  b = breakdown(kernels)
+  device_ms = b['total_ms']
   # Per training step (K per fused call) or forecast step, then per
   # denoiser call in sample mode.
   n = len(profiled) * k_call * calls
-  card = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+  card = utils.card_line()
   what = {'train': 'training step', 'denoise': 'denoiser call',
           'sample': 'denoiser call', 'predict': 'forward step'}[args.mode]
   how = {'train': (f', fused, {k_call} per call (CUDA-graph replays)'
@@ -193,20 +251,17 @@ def main(argv=None) -> None:
         f'{wall / n:.4f} s profiled (host clock), {device_ms / n:.2f} ms of device time each, device '
         f'busy {100 * device_ms / (1e3 * wall):.1f}% of the profiled window, '
         f'{100 * device_ms / (1e3 * unprofiled):.1f}% of the unprofiled wall')
+  per_unit = model_flops(args.model, args.mode, train.build_spec(targs), run,
+                         targs.batch_size)
+  print(f'[profile] {per_unit:.4e} model FLOPs per {what}: '
+        f'{per_unit * n / unprofiled / 1e12:.1f} TFLOP/s, MFU '
+        f'{100 * flops.mfu(per_unit * n, unprofiled):.2f}% of the H100 SXM '
+        f'dense bf16 peak over the unprofiled seconds; {card}')
   print(f'[profile] peak allocated device memory '
         f'{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB (the '
         f'model, its optimizer state, {len(batches)} batches and the steps)')
-  print(f'[profile] per {what}: family, device ms, share, launches')
-  for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
-    print(f'[profile]   {fam}: {ms / n:.3f} ms, {100 * ms / device_ms:.1f}%, '
-          f'{count / n:g}')
-  print(f'[profile] ten costliest kernels per {what}: device ms, launches, '
-        'name')
-  for name, (ms, count) in sorted(by_name.items(),
-                                  key=lambda kv: -kv[1][0])[:10]:
-    print(f'[profile]   {ms / n:.3f} ms, {count / n:g}, {name[:120]}')
+  print_breakdown(b, f'per {what}', n)
   if args.trace:
-    prof.export_chrome_trace(args.trace)
     print(f'[profile] trace written to {args.trace}')
 
 

@@ -680,6 +680,7 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
   """One training step per host call from the batch stream (in-process or
   --data_workers processes, through --prefetch's thread), with the logs,
   checkpoints, sampling evals and profile `args` asks for; fills `run`."""
+  from gencast_tpu_torch import utils
   from gencast_tpu_torch.data import prefetch as prefetch_lib
   from gencast_tpu_torch.training import checkpoint as ckpt_lib
   from gencast_tpu_torch.training import steps as steps_lib
@@ -712,7 +713,7 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
     t_log = time.perf_counter()
     for step in range(run.start_step, args.steps):
       if args.profile_dir and step == PROFILE_STEPS[0]:
-        prof = _start_profiler(device)
+        prof = utils.start_profiler(device.type == 'cuda')
       t_wait = time.perf_counter()
       batch = get_batch()
       _synchronize(device)
@@ -774,17 +775,6 @@ def pipeline_summary(prefetch: int, data_workers: int, run: TrainRun) -> dict:
   return summary
 
 
-def _start_profiler(device: torch.device):
-  """A started torch.profiler session: host ops, and the card's kernels
-  when `device` is the card."""
-  activities = [torch.profiler.ProfilerActivity.CPU]
-  if device.type == 'cuda':
-    activities.append(torch.profiler.ProfilerActivity.CUDA)
-  prof = torch.profiler.profile(activities=activities)
-  prof.start()
-  return prof
-
-
 def profile_trace_name(mesh=None) -> str:
   """The trace file's name: PROFILE_TRACE, or on a rank of a multi-rank run
   train_steps_10-15.rank<r>.pt.trace.json."""
@@ -795,10 +785,9 @@ def profile_trace_name(mesh=None) -> str:
 
 def _stop_profiler(prof, profile_dir: str, mesh=None) -> None:
   """Stops `prof` and writes its Chrome trace under `profile_dir`."""
-  prof.stop()
-  os.makedirs(profile_dir, exist_ok=True)
+  from gencast_tpu_torch import utils
   path = os.path.join(profile_dir, profile_trace_name(mesh))
-  prof.export_chrome_trace(path)
+  utils.stop_profiler(prof, path)
   print(f'[train] profiler trace written to {path}', flush=True)
 
 

@@ -224,16 +224,28 @@ def test_noise_basis_equal():
 
 
 def test_port_imports_without_jax():
-  """The port and its card-side check never import jax, flax or the JAX
-  package."""
+  """The port and its card-side check never import jax, flax, orbax or the
+  JAX package: the published-weights recipe (npz and DeepMind checkpoints,
+  the translation and its tool), the FLOP accounting, the utilities and
+  the tracing and ERA5-check tools included."""
   code = ('import sys\n'
-          'for m in ("jax", "flax", "gencast_tpu"): sys.modules[m] = None\n'
+          'for m in ("jax", "flax", "orbax", "gencast_tpu"):\n'
+          '  sys.modules[m] = None\n'
           'import gencast_tpu_torch.configs, gencast_tpu_torch.bridge\n'
           'import gencast_tpu_torch.models.wrappers\n'
           'import gencast_tpu_torch.models.casting\n'
           'import gencast_tpu_torch.rollout\n'
           'import gencast_tpu_torch.training.train\n'
           'import gencast_tpu_torch.training.profile_step\n'
+          'import gencast_tpu_torch.training.npz_checkpoint\n'
+          'import gencast_tpu_torch.training.deepmind_checkpoint\n'
+          'import gencast_tpu_torch.training.translate\n'
+          'import gencast_tpu_torch.training.flops\n'
+          'import gencast_tpu_torch.utils\n'
+          'import gencast_tpu_torch.tools.translate_checkpoint\n'
+          'import gencast_tpu_torch.tools.trace_qdeg\n'
+          'import gencast_tpu_torch.tools.trace_sampler\n'
+          'import gencast_tpu_torch.tools.check_era5\n'
           'import chip_smoke\n')
   root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
   done = subprocess.run([sys.executable, '-c', code], cwd=root,
