@@ -9,7 +9,9 @@ GraphCast (GraphCast_small at 1 degree, the 37-level paper configuration
 at 0.25 degrees) served, trained (autoregressively too) and evaluated, the
 reference's einsum attention backends, data-parallel training over ranks,
 the member-sharded ensemble, a published-layout GenCast checkpoint
-translated and served, and the tracing tool and MFU accounting.
+translated and served, the tracing tool and MFU accounting, and the model
+axis (tensor parallelism over heads and MLP hidden widths) in training,
+the pod forecast and dryrun_multichip.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -258,6 +260,31 @@ Phases (any failure raises and exits non-zero):
      training step, the 0.25-degree denoiser call and training step, and
      GraphCast_small's forward and training step, each from times the
      phases above measured (no run is added);
+ 40. the model axis at 1 degree, full width and depth, batch 1, through
+     `python3 -m gencast_tpu_torch.training.train --mp 2` (two ranks on
+     cuda:0, gloo, eager; each holds 2 of the 4 heads and half of every
+     MLP hidden width) against one process: bf16 losses within
+     DP_LOSS_RTOL; the float32 pair at CUT_LAYERS layers, both with
+     GENCAST_SPARSE_FUSED_BWD=1 (kernel G and its reduce), losses and
+     parameter changes within the TINY training tolerances; launches per
+     rank-step as derived (A 16, F 16 + 16, B 4, E 42 at full depth), in
+     each rank's trace of steps 1-2 too (`--profile_dir --profile_steps 1
+     2`); the --mp 2 checkpoint restored by a --mp 1 evaluate; seconds per
+     step, the model axis's all-reduces per step (calls and bytes; their
+     share of a step from the traces) and peak memory per rank;
+ 41. kernels A and F at [1, 10304, 2, 128] and [1, 10304, 1, 128], C and D
+     at [1, 2624, 2, 64] and [1, 2624, 1, 64] (one rank's heads under a
+     model axis of 2 and 4), float32 and bfloat16, against their plain
+     versions, with card ms, bound and library ms;
+ 42. `python3 -m gencast_tpu_torch.scripts.ensemble_forecast_pod --preset
+     nano --members 2 --steps 2 --score` on four ranks (ensemble 2 x model
+     2): each member saved once, within POD_MP_RTOL of the one-device
+     member, scores within POD_SCORE_RTOL of `ops.metrics`, C and B
+     launches per rank as derived; `python3 -m
+     gencast_tpu_torch.tools.dryrun_multichip 8` in a fresh process, mesh
+     (2, 2, 2), every kernel of its paths launched; GraphCast_small at
+     CUT_LAYERS processor steps trained 2 steps under --mp 2, B per
+     rank-step as derived;
 then a [time] line (the seconds of each phase), one JSON line of kernel
 results (launches from the training runs of each kernel's paths, eager and
 graphed), the card's name and power limit, and a last JSON line
@@ -271,10 +298,10 @@ in turns with the kernel (scaled_dot_product_attention with the dense mask
 and its backward, segment_reduce, native_layer_norm_backward; none for
 G's dq reduce, whose row says so); the port never calls those. TF32 is off
 for matmuls and cuDNN: float32 products run in full float32. Phases 17,
-20, 25, 26, 28-30 and 33-39 write under build/ (git-ignored) and remove
+20, 25, 26, 28-30 and 33-42 write under build/ (git-ignored) and remove
 what they wrote;
 the graph statics are cached under build/chip_smoke_cache for the run and
-removed at its end. About thirteen minutes on an H100, build included.
+removed at its end. About eighteen minutes on an H100, build included.
 """
 
 from __future__ import annotations
@@ -3272,14 +3299,16 @@ RANK_LINE = re.compile(r'\[(?:train|forecast)\] (pipeline|kernel launches in '
                        r'this process) \(rank (\d+) of (\d+)\) (\{.*\})')
 
 
-def run_ranks(module, argv, tag, timeout=600):
+def run_ranks(module, argv, tag, timeout=600, env=None):
   """`python3 -m module argv` in a fresh process from the repository root
-  (it may start ranks of its own): its wall seconds, stdout, and by rank
-  its 'pipeline' and 'kernel launches' lines. Raises if it fails."""
+  (it may start ranks of its own), with `env` added to the environment:
+  its wall seconds, stdout, and by rank its 'pipeline' and 'kernel
+  launches' lines. Raises if it fails."""
   repo = os.path.dirname(os.path.abspath(__file__))
   t0 = time.perf_counter()
   done = subprocess.run([sys.executable, '-m', module] + argv, cwd=repo,
-                        capture_output=True, text=True, timeout=timeout)
+                        capture_output=True, text=True, timeout=timeout,
+                        env=dict(os.environ, **(env or {})))
   wall = time.perf_counter() - t0
   if done.returncode:
     raise AssertionError(f'{tag}: exit {done.returncode}\n'
@@ -3881,6 +3910,392 @@ def tools_and_accounting(spec, work, card, timed) -> None:
   log(f'[timing] phase 39 in {time.perf_counter() - t_phase:.1f} s; {card}')
 
 
+# Phase 42: the pod forecast's members over a model axis of 2 (bf16 nano,
+# 2 steps of 39 denoiser calls, each row-parallel sum of two bf16 partials
+# in float32) against the one-device members, max relative.
+POD_MP_RTOL = 5e-2
+
+
+def rank_launches(run) -> dict:
+  """{rank: kernel launches} from run_ranks' stdout (kernels never launched
+  left out)."""
+  return {r: {k: v for k, v in lines['kernel launches in this process']
+              .items() if v} for r, lines in run['ranks'].items()}
+
+
+def model_axis_1deg(spec, statics, dev, card, work, stats) -> dict:
+  """Phase 40: full-width, full-depth 1-degree training at batch 1 under
+  `--mp 2` (`python3 -m gencast_tpu_torch.training.train --preset 1deg --mp
+  2`: two ranks on cuda:0, gloo, eager, each holding 2 of the 4 heads and
+  half of every MLP hidden width) for DP_STEPS steps with a checkpoint,
+  against one process (`train.main` here): bf16 losses within
+  DP_LOSS_RTOL. The float32 pair at CUT_LAYERS layers (--no-bf16, one
+  process here and --mp 2), both with GENCAST_SPARSE_FUSED_BWD=1 (kernel G
+  and its dq reduce in place of F): losses within TRAIN_LOSS_RTOL, each
+  parameter's change within TRAIN_STEP_RTOL of the one process's. In every
+  run the launches per rank-step are one process's
+  (expected_step_launches; at full depth A 16, F 16 + 16, B 4, E 42): the
+  kernels run on the rank's heads and on the full-width rows that the
+  replicated LayerNorm+FiLM and aggregations see. The --mp 2 checkpoint
+  (full tensors) is then restored by a --mp 1 evaluate (1 member x 1
+  step, every RMSE finite). The bf16 --mp 2 run traces steps 1-2
+  (`--profile_dir --profile_steps 1 2`, each rank's only profiler
+  session): each rank's trace holds the launches of 2 steps, and gives the
+  all-reduces' share of a step (allreduce_ms, as phase 36). Logs seconds
+  per step, the model axis's all-reduces per step (calls and float32
+  bytes from the CLI's pipeline line; the share from the traces) and peak
+  memory per rank. Returns each kernel's launches over the ranks of the
+  --mp 2 runs."""
+  from gencast_tpu_torch.models.gencast import GenCast
+  from gencast_tpu_torch.nn import transformer
+  from gencast_tpu_torch.training import evaluate, train
+  t_phase = time.perf_counter()
+  base = ['--preset', '1deg', '--clean_sst_nans', '--data', 'synthetic',
+          '--log_every', '1', '--stats_path', stats, '--prefetch', '0',
+          '--steps', str(DP_STEPS)]
+  f32 = ['--no-bf16', '--num_layers', str(CUT_LAYERS)]
+  fused = {transformer.FUSED_BWD_ENV: '1'}
+  runs, per_step = {}, {}
+  for name, argv, env in (('one', [], {}), ('one_f32', f32, fused)):
+    torch.cuda.empty_cache()
+    for c in counters():
+      c.reset()
+    before = os.environ.get(transformer.FUSED_BWD_ENV)
+    os.environ.update(env)
+    try:
+      run = train.main(base + argv + ['--ckpt_dir',
+                                      os.path.join(work, name)])
+    finally:
+      if before is None:
+        os.environ.pop(transformer.FUSED_BWD_ENV, None)
+      else:
+        os.environ[transformer.FUSED_BWD_ENV] = before
+    per_step[name] = expected_step_launches(next(
+        m for m in run.model.modules() if isinstance(m, GenCast)))
+    launches = {c.name: c.launches for c in counters()}
+    if launches != {k: v * DP_STEPS for k, v in per_step[name].items()}:
+      raise AssertionError(f'1deg {name}: launches {launches}, '
+                           f'{per_step[name]} per step expected')
+    runs[name] = {'run': run, 'params': checkpoint_params(
+        os.path.join(work, name), DP_STEPS)}
+    run.model = None
+  torch.cuda.empty_cache()
+  got = {}
+  trace_dir = os.path.join(work, 'trace')
+  traced = (1, 2)
+  profile = ['--profile_dir', trace_dir, '--profile_steps'] + [
+      str(x) for x in traced]
+  for name, argv, env, like in (('mp', profile, {}, 'one'),
+                                ('mp_f32', f32, fused, 'one_f32')):
+    ckpt = os.path.join(work, name)
+    metrics = os.path.join(work, f'{name}.jsonl')
+    mp = run_ranks('gencast_tpu_torch.training.train', base + argv + [
+        '--mp', '2', '--metrics_jsonl', metrics, '--ckpt_dir', ckpt],
+        f'1deg --mp 2 ({name})', env=env)
+    with open(metrics) as f:
+      losses = [r['loss'] for r in map(json.loads, f)
+                if r['event'] == 'train']
+    got[name] = rank_launches(mp)
+    want = {k: v * DP_STEPS for k, v in per_step[like].items() if v}
+    backends = re.findall(r'backend (\w+)', mp['stdout'])
+    if (sorted(got[name]) != [0, 1]
+        or any(v != want for v in got[name].values())
+        or backends != ['gloo', 'gloo']
+        or 'model axis 2: ' not in mp['stdout']):
+      raise AssertionError(f'1deg --mp 2 ({name}): backends {backends}, '
+                           f'launches by rank {got[name]}, expected {want} '
+                           'each')
+    runs[name] = {'losses': losses, 'ranks': mp['ranks'],
+                  'params': checkpoint_params(ckpt, DP_STEPS)}
+
+  # Each rank's trace of steps 1-2 of the bf16 run: the launches of those
+  # steps, and the all-reduces' host ms over the step's (steps 1-2 are the
+  # pipeline line's mean).
+  profiled = traced[1] - traced[0] + 1
+  shares = {}
+  for rank, lines in sorted(runs['mp']['ranks'].items()):
+    path = os.path.join(trace_dir, f'train_steps_{traced[0]}-{traced[1]}'
+                                   f'.rank{rank}.pt.trace.json')
+    in_trace = trace_kernel_counts(path)
+    if in_trace != {k: v * profiled for k, v in per_step['one'].items()}:
+      raise AssertionError(f'1deg --mp 2 rank {rank} trace of steps '
+                           f'{traced[0]}-{traced[1]}: {in_trace}, '
+                           f'{per_step["one"]} per step expected')
+    shares[rank] = (allreduce_ms(path) / profiled,
+                    1e3 * lines['pipeline']['step_s']['mean'])
+
+  # The --mp 2 checkpoint (full tensors) restored at --mp 1 by evaluate.
+  ev = evaluate.main(['--preset', '1deg', '--clean_sst_nans', '--stats_path',
+                      stats, '--ckpt_dir', os.path.join(work, 'mp'),
+                      '--num_members', '1', '--max_rollout_steps', '1',
+                      '--plot_vars', '--out_dir', os.path.join(work, 'eval')])
+  rmse = ev.results['rmse']
+  if not np.isfinite(list(rmse.values())).all():
+    raise AssertionError(f'evaluate of the --mp 2 checkpoint: rmse {rmse}')
+  del ev
+  torch.cuda.empty_cache()
+
+  from gencast_tpu_torch import configs
+  initial, _ = configs.build_gencast(cut_depth(spec), seed=0,
+                                     statics=statics, device=dev)
+  start = [p.detach().cpu() for p in initial.parameters()]
+  del initial
+
+  def change_rel(a_params, b_params):
+    return max(float(((b - p0) - (a - p0)).abs().max()
+                     / (a - p0).abs().max())
+               for a, b, p0 in zip(a_params, b_params, start)
+               if (a - p0).abs().max() > 0)
+
+  def loss_rel(a, b):
+    if len(a) != len(b):
+      return float('inf')
+    return max(abs(x - y) / abs(x) for x, y in zip(a, b))
+
+  bf16 = loss_rel(runs['one']['run'].losses, runs['mp']['losses'])
+  f32 = (loss_rel(runs['one_f32']['run'].losses, runs['mp_f32']['losses']),
+         change_rel(runs['one_f32']['params'], runs['mp_f32']['params']))
+  if not (bf16 <= DP_LOSS_RTOL and f32[0] <= TRAIN_LOSS_RTOL
+          and f32[1] <= TRAIN_STEP_RTOL):
+    raise AssertionError(
+        f'1deg --mp 2 against one process: bf16 losses rel {bf16} (tol '
+        f'{DP_LOSS_RTOL}); float32 losses rel {f32[0]} (tol '
+        f'{TRAIN_LOSS_RTOL}), worst parameter change rel {f32[1]} (tol '
+        f'{TRAIN_STEP_RTOL})')
+  ms_by_rank = {r: (round(a, 2), round(b, 2)) for r, (a, b) in shares.items()}
+  share_by_rank = [round(a / b, 3) for a, b in shares.values()]
+  for name in ('mp', 'mp_f32'):
+    lines = {r: v['pipeline'] for r, v in sorted(runs[name]['ranks'].items())}
+    step_s = {r: v['step_s'] for r, v in lines.items()}
+    reduce = {r: v['model_axis_all_reduce'] for r, v in lines.items()}
+    share = ('' if name != 'mp' else
+             f'; all-reduce ms per step and mean step ms by rank, traced '
+             f'steps {traced[0]}-{traced[1]}: {ms_by_rank}, share '
+             f'{share_by_rank}')
+    log(f'[model axis 1deg] {name}: --mp 2 (two ranks on cuda:0, gloo, '
+        f'eager), batch 1, {DP_STEPS} steps: step s by rank {step_s}; '
+        f'model-axis all-reduces of a step by rank {reduce} (float32 '
+        f'bytes){share}; peak memory GiB by rank '
+        f'{ {r: round(v["peak_memory_gib"], 2) for r, v in lines.items()} }'
+        f'; {card}')
+  one = {k: [round(x, 4) for x in runs[k]['run'].step_seconds]
+         for k in ('one', 'one_f32')}
+  log(f'[model axis 1deg] --mp 2 against one process: bf16 losses max rel '
+      f'{bf16:.3e} (tol {DP_LOSS_RTOL}); float32 at {CUT_LAYERS} layers '
+      f'with G: losses max rel {f32[0]:.3e} (tol {TRAIN_LOSS_RTOL}), worst '
+      f'parameter change rel {f32[1]:.3e} (tol {TRAIN_STEP_RTOL}); launches '
+      f'per rank-step as derived, {per_step["one"]} (bf16), '
+      f'{per_step["one_f32"]} (float32 with G); one process step s {one}; '
+      f'the --mp 2 checkpoint evaluated at --mp 1, RMSE finite; phase '
+      f'{time.perf_counter() - t_phase:.1f} s; {card}')
+  return {k: sum(v.get(k, 0) for run in got.values() for v in run.values())
+          for k in per_step['one']}
+
+
+def per_rank_heads(statics, nano_statics, g, card) -> dict:
+  """Phase 41: kernels A and F at the 1-degree transformer's padded shape,
+  and C and D at nano's, with the heads of one rank of a model axis of 2
+  and of 4 ([1, 10304, 2, 128], [1, 10304, 1, 128]; [1, 2624, 2, 64],
+  [1, 2624, 1, 64]), float32 and bf16, against their plain versions (the
+  tolerances of phases 3, 7, 11 and 12), with card ms, bound and library
+  ms. Returns the bf16 figures by kernel and head count."""
+  t_phase = time.perf_counter()
+  dev = g.device
+  plan = statics.attention_tile_plan
+  mt = torch.as_tensor(plan.mask_tiles, device=dev)
+  plan_t = tuple(torch.as_tensor(a, device=dev) for a in (
+      plan.fwd_kv_ids, plan.fwd_pair_ids, plan.bwd_q_ids, plan.bwd_pair_ids))
+  dense = dense_from_plan(plan, dev)
+  allowed = int(plan.mask_tiles.sum(dtype=np.int64))
+  mask = nano_statics.attention_mask
+  mask_t = torch.as_tensor(mask.blocks.astype(np.uint8), device=dev)
+  dense_b = dense_from_blocks(mask.blocks, dev)
+  allowed_b = int(mask.blocks.sum(dtype=np.int64))
+  nano_n = mask.num_blocks * mask.block_size
+  out = {}
+  for heads in (2, 1):
+    for dtype, atol, rtol in ((torch.float32, ATTN_F32_ATOL, BWD_F32_RTOL),
+                              (torch.bfloat16, ATTN_BF16_ATOL,
+                               BWD_BF16_RTOL)):
+      a_shape = (plan.padded_n, heads, 128)
+      c_shape = (nano_n, heads, 64)
+      res = {
+          'A': check_attention(a_shape, dtype, atol, mt, *plan_t[:2],
+                               plan.tile, g, dense, allowed),
+          'F': check_attention_bwd(a_shape, dtype, rtol, mt, plan_t,
+                                   plan.tile, g, dense, allowed),
+          'C': check_banded(c_shape, dtype, atol, mask_t, mask.block_size, g,
+                            dense_b, allowed_b),
+          'D': check_banded_bwd(c_shape, dtype, rtol, mask_t,
+                                mask.block_size, g, dense_b, allowed_b)}
+      if dtype == torch.bfloat16:
+        out[heads] = res
+      ms = {k: (round(v[1]['kernel'], 4) if 'kernel' in v[1] else
+                {p: round(v[1][p], 4) for p in ('dq', 'dkv')})
+            for k, v in res.items()}
+      log(f'[per-rank heads] H={heads} {dtype}: A, F at [1, {plan.padded_n}, '
+          f'{heads}, 128], C, D at [1, {nano_n}, {heads}, 64] against their '
+          f'plain versions, card ms {ms}')
+  del dense, dense_b
+  torch.cuda.empty_cache()
+  log(f'[timing] phase 41 in {time.perf_counter() - t_phase:.1f} s; {card}')
+  return out
+
+
+def per_rank_rows(res, shapes) -> dict:
+  """The JSON line's figures of kernels A, F-dq, F-dkv, C, D-dq and D-dkv
+  at one rank's heads (phase 41's bf16 results `res`; `shapes`, those of
+  A and F and of C and D): {kernel name: {...}}."""
+  from gencast_tpu_torch.ops import banded_attention, sparse_attention
+  bf16 = torch.bfloat16
+  err_a, ms_a, cost_a = res['A']
+  errs_f, ms_f, costs_f = res['F']
+  err_c, ms_c, cost_c = res['C']
+  errs_d, ms_d, costs_d = res['D']
+
+  def entry(shape, err, ms, plain_ms, library_ms, cost):
+    bound_ms, bound_by = bound(*cost, bf16)
+    return {'shape': shape, 'max_abs_err': err, 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
+            'library_ms': library_ms}
+
+  a, c = shapes
+  return {
+      sparse_attention.KERNEL.name: entry(
+          a, err_a, ms_a['kernel'], ms_a['plain'], ms_a['library'], cost_a),
+      sparse_attention.KERNEL_DQ.name: entry(
+          a, errs_f['dq'][1], ms_f['dq'], ms_f['dq_plain'], ms_f['library'],
+          costs_f['dq']),
+      sparse_attention.KERNEL_DKV.name: entry(
+          a, errs_f['dkv'][1], ms_f['dkv'], ms_f['dkv_plain'],
+          ms_f['library'], costs_f['dkv']),
+      banded_attention.KERNEL.name: entry(
+          c, err_c, ms_c['kernel'], ms_c['plain'], ms_c['library'], cost_c),
+      banded_attention.KERNEL_DQ.name: entry(
+          c, errs_d['dq'][1], ms_d['dq'], ms_d['dq_plain'], ms_d['library'],
+          costs_d['dq']),
+      banded_attention.KERNEL_DKV.name: entry(
+          c, errs_d['dkv'][1], ms_d['dkv'], ms_d['dkv_plain'],
+          ms_d['library'], costs_d['dkv'])}
+
+
+def pod_and_dryrun(spec, dev, card, work) -> dict:
+  """Phase 42: `python3 -m gencast_tpu_torch.scripts.ensemble_forecast_pod
+  --preset nano --members 2 --steps 2 --score --num_processes 4` (ensemble
+  2 x model 2 on cuda:0, gloo): each member saved once, within POD_MP_RTOL
+  of the one-device member, its scores within POD_SCORE_RTOL of
+  ops.metrics on the saved members, C 16 and B 1 launches per denoiser
+  call and rank; `python3 -m gencast_tpu_torch.tools.dryrun_multichip 8`
+  in a fresh process, mesh (2, 2, 2), every kernel of its paths launched;
+  GraphCast_small at CUT_LAYERS processor steps trained 2 steps under --mp
+  2, B per rank-step as derived. Returns each kernel's launches by path,
+  over the ranks."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import layout as layout_lib
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.ops import banded_attention, metrics, segment
+  from gencast_tpu_torch.parallel import ensemble
+  from gencast_tpu_torch.scripts import ensemble_forecast_pod as pod
+  t_phase = time.perf_counter()
+  nano = configs.NANO
+  members, steps = 2, 2
+  out = os.path.join(work, 'forecast_mp.npz')
+  argv = ['--preset', 'nano', '--members', str(members), '--steps',
+          str(steps), '--score', '--out', out]
+  run = run_ranks('gencast_tpu_torch.scripts.ensemble_forecast_pod',
+                  argv + ['--num_processes', '4'], 'pod forecast, 4 ranks')
+  wrapped, statics, (inputs, forcings, targets) = pod.build_forecast(
+      pod.parse_args(argv), dev)
+  want = ensemble.ensemble_rollout(wrapped, inputs, forcings, seed=0,
+                                   num_members=members).numpy()
+  got = np.zeros(want.shape, np.float32)
+  for e in range(2):
+    z = np.load(f'{os.path.splitext(out)[0]}.p{e}.npz')
+    got[z['members']] = z['predictions']
+  member_rel = float(np.abs(got - want).max() / np.abs(want).max())
+  mem = torch.as_tensor(got, device=dev)
+  lat_w = torch.as_tensor(layout_lib.latitude_weights(
+      np.asarray(statics.grid_lat)), device=dev)
+  layout = wrappers.find_layout_provider(wrapped).target_layout
+  reference = {
+      'crps': metrics.crps_ensemble(mem, targets, lat_w),
+      'rmse': metrics.ensemble_mean_rmse(mem, targets, lat_w),
+      'spread': metrics.ensemble_spread(mem, lat_w)}
+  with open(f'{os.path.splitext(out)[0]}.scores.json') as f:
+    scores = json.load(f)['scores']
+  worst = 0.0
+  for name, arr in reference.items():
+    for var, v in metrics.per_variable(arr, layout).items():
+      w, s = np.asarray(v)[:, 0], np.asarray(scores[name][var])
+      worst = max(worst, float(np.abs(s - w).max() / np.abs(w).max()))
+  del wrapped, mem
+  calls = steps * (2 * nano.num_noise_levels - 1)
+  pod_want = {banded_attention.KERNEL.name: calls * nano.num_layers,
+              segment.KERNEL.name: calls}
+  pod_got = rank_launches(run)
+  if not (member_rel <= POD_MP_RTOL and worst <= POD_SCORE_RTOL
+          and run['stdout'].count('mesh ensemble=2 model=2') == 4
+          and sorted(pod_got) == [0, 1, 2, 3]
+          and all(v == pod_want for v in pod_got.values())):
+    raise AssertionError(f'pod forecast, ensemble 2 x model 2: members rel '
+                         f'{member_rel} (tol {POD_MP_RTOL}), scores rel '
+                         f'{worst} (tol {POD_SCORE_RTOL}), launches '
+                         f'{pod_got} (expected {pod_want} each)')
+  member_step = [float(x) for x in re.findall(
+      r'\(([0-9.]+) s per member-step', run['stdout'])]
+  log(f'[pod nano] 4 ranks on cuda:0 (ensemble 2 x model 2, gloo, eager), '
+      f'{members} members x {steps} steps, --score: members against the '
+      f'one-device members max rel {member_rel:.3e} (tol {POD_MP_RTOL}); '
+      f'scores against ops.metrics worst rel {worst:.3e} (tol '
+      f'{POD_SCORE_RTOL}); launches per rank {pod_want}, as derived; '
+      f'seconds per member-step by rank {member_step}; wall '
+      f'{run["wall"]:.1f} s; {card}')
+
+  dry = run_ranks('gencast_tpu_torch.tools.dryrun_multichip', ['8'],
+                  'dryrun_multichip 8')
+  dry_got = {int(r): json.loads(j) for r, j in re.findall(
+      r'\[dryrun\] rank (\d+) launches (\{.*\})', dry['stdout'])}
+  path_kernels = {c.name for c in counters()[:8]}
+  seen = {k for v in dry_got.values() for k in v}
+  if ('dryrun_multichip ok: mesh=(2,2,2)' not in dry['stdout']
+      or dry['stdout'].count('dryrun kernels ok') != 2
+      or 'grid-node axis' not in dry['stdout'] or sorted(dry_got) != list(
+          range(8)) or seen != path_kernels):
+    raise AssertionError(f'dryrun_multichip 8: {dry["stdout"][-3000:]}')
+  log(f'[dryrun] {[ln for ln in dry["stdout"].splitlines() if "ok" in ln]}; '
+      f'kernels launched on every rank: {sorted(seen)}; wall '
+      f'{dry["wall"]:.1f} s; {card}')
+
+  gc_spec = cut_depth(spec)
+  gc, _ = configs.build_graphcast(gc_spec, device=dev)
+  gc_step = graphcast_launches(gc, train=True)
+  del gc
+  gc_run = run_ranks('gencast_tpu_torch.training.train', [
+      '--model', 'graphcast', '--preset', '1deg', '--num_layers',
+      str(CUT_LAYERS), '--data', 'synthetic', '--steps', '2', '--mp', '2',
+      '--log_every', '1', '--prefetch', '0'], 'GraphCast_small --mp 2')
+  gc_got = rank_launches(gc_run)
+  gc_want = {k: 2 * v for k, v in gc_step.items() if v}
+  gc_losses = [float(x) for x in re.findall(r'step \d+/2 loss=([-0-9.naif]+)',
+                                            gc_run['stdout'])]
+  if (sorted(gc_got) != [0, 1] or any(v != gc_want for v in gc_got.values())
+      or len(gc_losses) != 4 or not np.isfinite(gc_losses).all()):
+    raise AssertionError(f'GraphCast --mp 2: launches {gc_got} (expected '
+                         f'{gc_want} each), losses {gc_losses}')
+  gc_ms = {r: round(1e3 * v['pipeline']['step_s']['mean'], 2)
+           for r, v in gc_run['ranks'].items()}
+  log(f'[graphcast mp] GraphCast_small at {CUT_LAYERS} processor steps, '
+      f'--mp 2 (two ranks on cuda:0, gloo, eager), 2 steps: losses '
+      f'{gc_losses[:2]}, B {gc_want} per rank as derived; mean step ms by '
+      f'rank {gc_ms}; phase {time.perf_counter() - t_phase:.1f} s; {card}')
+  return {'pod_nano_mp': {k: sum(v.get(k, 0) for v in pod_got.values())
+                          for k in pod_want},
+          'dryrun': {k: sum(v.get(k, 0) for v in dry_got.values())
+                     for k in seen},
+          'graphcast_mp': {k: sum(v.get(k, 0) for v in gc_got.values())
+                           for k in gc_want}}
+
+
 def parallel_phases(spec, statics, nano_statics, dev, g, card, stats,
                     clock) -> dict:
   """Phases 35-37 (their work under build/, removed after; `stats` is
@@ -4445,6 +4860,23 @@ def main() -> int:
        train_flops(gc_cut_fwd))])
   clock.done(39)
 
+  # --- 40-42. the model axis (--mp): 1-degree training over two ranks;
+  # the attention kernels at a rank's heads; the pod forecast over
+  # ensemble x model, dryrun_multichip and GraphCast under --mp 2 ---
+  work = os.path.join(repo, 'build', 'chip_smoke_model_axis')
+  shutil.rmtree(work, ignore_errors=True)
+  os.makedirs(work)
+  new_launches['mp_1deg'] = model_axis_1deg(spec, statics, dev, card, work,
+                                            one_deg_stats)
+  torch.cuda.empty_cache()
+  clock.done(40)
+  heads = per_rank_heads(statics, nano_statics, g, card)
+  clock.done(41)
+  new_launches.update(pod_and_dryrun(spec, dev, card, work))
+  shutil.rmtree(work, ignore_errors=True)
+  torch.cuda.empty_cache()
+  clock.done(42)
+
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B on the grid2mesh
   # receiver plan from bf16 edges (float32 out), E in bf16 at the largest
@@ -4537,6 +4969,16 @@ def main() -> int:
            library_note='no single PyTorch call computes it; plain_ms is '
            'the PyTorch-ops version'),
   ]
+  # A, F, C and D at one rank's heads under a model axis of 2 and of 4
+  # (phase 41, bf16).
+  nano_rows = nano_statics.attention_mask.num_blocks * \
+      nano_statics.attention_mask.block_size
+  for h, key in ((2, 'mp2_rank'), (1, 'mp4_rank')):
+    rows = per_rank_rows(heads[h], ([1, plan.padded_n, h, 128],
+                                    [1, nano_rows, h, 64]))
+    for k in kernels:
+      if k['name'] in rows:
+        k[key] = rows[k['name']]
   for k in kernels:
     by_path = {'1deg': one_deg_launches[k['name']],
                'nano': nano_launches[k['name']],

@@ -23,6 +23,7 @@ from gencast_tpu_torch.models import diffusion_utils
 from gencast_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
 from gencast_tpu_torch.nn.transformer import TransformerConfig
 from gencast_tpu_torch.ops import cuda_lib, losses, sph_harm
+from gencast_tpu_torch.parallel import tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,7 +225,9 @@ class GenCast(nn.Module):
     counterpart of the reference's jitted sampler scan), captured at this
     model's first call of these shapes; the draws and the few elementwise
     ops between calls stay eager. `graphed=False` runs every call eagerly.
-    On the CPU the calls run eagerly either way.
+    On the CPU, and for a model sharded over a model axis (its
+    all_reduces are not captured, parallel/tensor.py), the calls run
+    eagerly either way.
     """
     sc = self.sampler_config
     batch = inputs.shape[0]
@@ -253,7 +256,7 @@ class GenCast(nn.Module):
     # the window (loaded once per sample), the state x and the [B] noise
     # level (loaded before each call).
     graph = None
-    if graphed and inputs.is_cuda:
+    if graphed and inputs.is_cuda and not tensor.is_sharded(self):
       x_shape = inputs.shape[:-1] + (self.target_layout.num_channels,)
       graph = self.denoiser_graphs.get(
           cuda_lib.signature(inputs, forcings) + (x_shape, dtype),

@@ -30,6 +30,7 @@ from gencast_tpu_torch.graph.compiler import GraphStatics
 from gencast_tpu_torch.nn import remat
 from gencast_tpu_torch.nn.gnn import EdgeTopology, TypedGraphNet
 from gencast_tpu_torch.ops import cuda_lib, losses
+from gencast_tpu_torch.parallel import tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,9 +250,11 @@ class GraphCast(nn.Module):
     """One forward step: [B, lat, lon, C_in] -> [B, lat, lon, C_tgt]
     (deterministic: `generator` is not drawn from). On the card, without
     gradients and with `graphed`, a replay of the model's CUDA graph of
-    these shapes."""
+    these shapes; eager for a model sharded over a model axis (its
+    all_reduces are not captured, parallel/tensor.py)."""
     del generator
-    if graphed and inputs.is_cuda and not torch.is_grad_enabled():
+    if (graphed and inputs.is_cuda and not torch.is_grad_enabled()
+        and not tensor.is_sharded(self)):
       graph = self.predict_graphs.get(
           cuda_lib.signature(inputs, forcings),
           lambda: (torch.empty_like(inputs), torch.empty_like(forcings)))

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gencast_tpu_torch.ops import ln_film as ln_film_op
+from gencast_tpu_torch.parallel import tensor
 
 CONDITIONING_DIM = 16  # norm-conditioning width used throughout GenCast.
 
@@ -65,7 +66,14 @@ def variance_scaling(scale: float, distribution: str) -> Init:
 class Linear(nn.Module):
   """y = x W^T + b with flax's dtype promotion: inputs, weight and bias are
   promoted to their common dtype (an f32 input meets bf16 weights in f32,
-  as the reference's noise encoder does under the bf16 cast)."""
+  as the reference's noise encoder does under the bf16 cast).
+
+  Under a model axis (parallel/tensor.py) `shard` is 'column' (this rank's
+  output features) or 'row' (its input features: the partial products
+  summed over `model_axis`, the bias added once after the sum)."""
+
+  shard: Optional[str] = None
+  model_axis: Optional[tensor.ModelAxis] = None
 
   def __init__(self, in_features: int, out_features: int, *,
                rng: torch.Generator, init: Init = xavier_uniform,
@@ -78,11 +86,18 @@ class Linear(nn.Module):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     dtype = torch.promote_types(x.dtype, self.weight.dtype)
     bias = None if self.bias is None else self.bias.to(dtype)
+    if self.shard == 'row':
+      return tensor.row_parallel_linear(x.to(dtype), self.weight.to(dtype),
+                                        bias, self.model_axis)
     return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class MLP(nn.Module):
-  """Plain MLP: [in -> hidden]*num_hidden -> out, activation between."""
+  """Plain MLP: [in -> hidden]*num_hidden -> out, activation between. Under
+  a model axis its last two Linears are a column/row pair
+  (parallel/tensor.py): the input of the column one is copied in."""
+
+  model_axis: Optional[tensor.ModelAxis] = None
 
   def __init__(self, in_size: int, hidden_size: int, num_hidden_layers: int,
                out_size: int, activation: Callable, *, rng: torch.Generator):
@@ -95,6 +110,8 @@ class MLP(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     for i, layer in enumerate(self.layers):
+      if i + 2 == len(self.layers):
+        x = tensor.copy_in(x, self.model_axis)
       x = layer(x)
       if i + 1 < len(self.layers):
         x = self.activation(x)

@@ -30,6 +30,7 @@ from gencast_tpu_torch.nn import precision, remat
 from gencast_tpu_torch.nn.mlp import FiLM, Linear, gelu, ln_film, \
     variance_scaling
 from gencast_tpu_torch.ops import banded_attention, sparse_attention
+from gencast_tpu_torch.parallel import tensor
 
 REMAT_POLICIES = ('full', 'save_attention')
 ATTENTION_TYPES = ('pallas', 'triblock_pallas', 'triblock', 'dense')
@@ -81,7 +82,11 @@ def _scaled_init(scale: float, num_layers: int):
 
 
 class _QKVProjections(nn.Module):
-  """q/k/v (no bias) and output projections."""
+  """q/k/v (no bias) and output projections. Under a model axis
+  (parallel/tensor.py) q, k and v hold this rank's heads and `out` sums
+  the ranks' partial products."""
+
+  model_axis: Optional[tensor.ModelAxis] = None
 
   def __init__(self, cfg: TransformerConfig, *, rng: torch.Generator):
     super().__init__()
@@ -96,7 +101,11 @@ class _QKVProjections(nn.Module):
         init=_scaled_init(cfg.attn_winit_final_mult, cfg.num_layers))
 
   def split_heads(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    h, hd = self.cfg.num_heads, self.cfg.head_dim
+    # This rank's heads: all of them without a model axis.
+    hd = self.cfg.head_dim
+    h = self.q.weight.shape[0] // hd
+    x = tensor.copy_in(x, self.model_axis)
+
     def s(y):
       return y.reshape(y.shape[:-1] + (h, hd))
     return s(self.q(x)), s(self.k(x)), s(self.v(x))
@@ -233,6 +242,10 @@ class DenseAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
+  """lin2(gelu(lin1(x))); under a model axis a column/row pair over the
+  hidden width (parallel/tensor.py)."""
+
+  model_axis: Optional[tensor.ModelAxis] = None
 
   def __init__(self, cfg: TransformerConfig, *, rng: torch.Generator):
     super().__init__()
@@ -243,7 +256,7 @@ class FeedForward(nn.Module):
         init=_scaled_init(cfg.ffw_winit_final_mult, cfg.num_layers))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return self.lin2(gelu(self.lin1(x)))
+    return self.lin2(gelu(self.lin1(tensor.copy_in(x, self.model_axis))))
 
 
 class TransformerBlock(nn.Module):

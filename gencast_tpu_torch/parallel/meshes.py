@@ -18,10 +18,13 @@ group per axis (the ranks that differ only along it).
 - `local_batch_plan` and `assemble_local_batch`: the rows rank r packs,
   [r·B/dp, (r+1)·B/dp) of its data coordinate, and its local batch.
 
-There is no `shard_model`: parameters are replicated and every rank holds a
-full copy. The model axis (tensor parallelism, --mp) is not ported
-(ROADMAP.md, "Still to port": Parallelism (model axis, --mp)); a mesh with
-model > 1 is refused.
+The model axis is tensor parallelism (--mp): the ranks of one model group
+(same ensemble and data coordinates) compute one model together, each
+holding its slices of the attention heads and MLP hidden widths
+(`parallel.tensor`: `axis_of(mesh)` is the group's `ModelAxis`,
+`shard_model` keeps a rank's slices, `gather_state_dict` and
+`shard_state_dict` move between them and the full tensors of a
+checkpoint). Along the data and ensemble axes parameters are replicated.
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ import torch
 import torch.distributed as dist
 
 AXES = ('ensemble', 'data', 'model')
-MODEL_AXIS_ITEM = 'Parallelism (model axis, --mp)'
 # How long a collective may wait for the other ranks.
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -165,9 +167,6 @@ def make_mesh(ensemble: int = 1, data: int = 1, model: int = 1) -> Mesh:
   world = dist.get_world_size() if dist.is_initialized() else 1
   rank = dist.get_rank() if dist.is_initialized() else 0
   shape = (ensemble, data, model)
-  if model > 1:
-    raise ValueError(f'a model axis of {model}: not ported yet (ROADMAP.md, '
-                     f'"Still to port": {MODEL_AXIS_ITEM})')
   if ensemble * data * model != world:
     raise ValueError(f'mesh {ensemble}x{data}x{model}='
                      f'{ensemble * data * model} != {world} ranks')

@@ -8,18 +8,23 @@ this process one rank of `--num_processes` (`--process_id`, the TCP store
 at `--coordinator`, or torchrun's environment); without it, `--num_processes
 N` starts N local ranks itself, as the reference runs on a host of N
 devices. The ensemble axis gets the largest divisor of the number of ranks
-that the member count fills, as the reference's rule; a model factor left
-over would be tensor parallelism, which is not ported (refused by its
-ROADMAP.md item). Rank e runs members [e·M/E, (e+1)·M/E), member m from
-the generator of (0, m), so a member does not depend on the rank count;
-its members stay on its device.
+that the member count fills, as the reference's rule, and the factor left
+over is the model axis (tensor parallelism, parallel/tensor.py): the ranks
+of one ensemble coordinate compute its members together, each holding its
+slices of the attention heads and MLP hidden widths, eagerly (their
+all_reduces are not captured into CUDA graphs). Ensemble coordinate e runs
+members [e·M/E, (e+1)·M/E), member m from the generator of (0, m), so a
+member does not depend on the rank count; its members stay on its
+devices.
 
 --score computes CRPS, ensemble-mean RMSE and spread against the source's
 targets on the devices (parallel.ensemble.ensemble_scores: members
-resharded to latitude bands) and rank 0 writes per-variable scores JSON;
-with --no-save_members only those scores reach the host. Otherwise each
-rank saves its members (`--out`, with `.p<rank>` before the extension when
-there is more than one rank). Runs on the card unless `--device cpu`.
+resharded to latitude bands, reduced over the ensemble axis) and rank 0
+writes per-variable scores JSON; with --no-save_members only those scores
+reach the host. Otherwise each member is saved once, by the rank at model
+coordinate 0 of its ensemble coordinate e (`--out`, with `.p<e>` before
+the extension when there is more than one rank), the model replicas
+deduplicated as in the reference. Runs on the card unless `--device cpu`.
 
   # 50 members x 30 steps of 1-degree GenCast over the ranks of 4 hosts:
   python -m gencast_tpu_torch.scripts.ensemble_forecast_pod --preset 1deg \
@@ -31,6 +36,10 @@ there is more than one rank). Runs on the card unless `--device cpu`.
   python -m gencast_tpu_torch.scripts.ensemble_forecast_pod --preset tiny \
       --device cpu --members 2 --steps 2 --num_processes 2 --score \
       --no-save_members
+
+  # Four local ranks for 2 members: ensemble 2 x model 2:
+  python -m gencast_tpu_torch.scripts.ensemble_forecast_pod --preset tiny \
+      --device cpu --members 2 --steps 2 --num_processes 4 --score
 """
 
 from __future__ import annotations
@@ -98,16 +107,17 @@ def parse_args(argv=None):
 
 def ensemble_axis(world: int, members: int) -> int:
   """The reference's rule: the largest divisor of the rank count that the
-  member count fills (the rest would be the model axis)."""
+  member count fills (the rest is the model axis)."""
   return max(d for d in range(1, world + 1)
              if world % d == 0 and d <= max(1, members))
 
 
-def build_forecast(args, device):
+def build_forecast(args, device, mesh=None):
   """The wrapped model (seed 0, stats from the source, restored from
-  --ckpt_dir when given), its statics, and the source's first window of
-  --steps targets as (inputs [1, ...], forcings [K, 1, ...], targets
-  [K, 1, ...]) tensors on `device`."""
+  --ckpt_dir when given; with a model axis in `mesh`, this rank's slices),
+  its statics, and the source's first window of --steps targets as
+  (inputs [1, ...], forcings [K, 1, ...], targets [K, 1, ...]) tensors on
+  `device`."""
   from gencast_tpu_torch import configs
   from gencast_tpu_torch.data import sources
   from gencast_tpu_torch.models import wrappers
@@ -132,10 +142,17 @@ def build_forecast(args, device):
     manager = ckpt_lib.create_manager(args.ckpt_dir)
     step = ckpt_lib.restore(manager, wrapped)
     print(f'[forecast] restored step {step}', flush=True)
+  train.shard(wrapped, mesh, 'forecast')
   w = source.sample(0, num_target_frames=args.steps)
-  window = tuple(torch.as_tensor(np.asarray(x, np.float32)).to(device)
-                 for x in (w.inputs[None], w.forcings[:, None],
-                           w.targets[:, None]))
+
+  def frames(x):
+    # [K, B=1, lat, lon, C]: a window of one target frame comes unstacked.
+    x = np.asarray(x, np.float32)
+    return x.reshape((args.steps, 1) + x.shape[-3:])
+
+  window = tuple(torch.as_tensor(x).to(device)
+                 for x in (np.asarray(w.inputs, np.float32)[None],
+                           frames(w.forcings), frames(w.targets)))
   return wrapped, statics, window
 
 
@@ -145,23 +162,9 @@ def _local_rank(rank: int, world: int, coordinator: str,
                str(rank), '--num_processes', str(world)])
 
 
-def check_axes(args) -> None:
-  """Exits naming the ROADMAP.md item when the reference's rule leaves a
-  model factor above 1 for the run's ranks (--num_processes, or torchrun's
-  WORLD_SIZE under --multihost)."""
-  from gencast_tpu_torch.parallel import meshes
-  world = args.num_processes or int(os.environ.get('WORLD_SIZE', 1))
-  ens = ensemble_axis(world, args.members)
-  if world // ens > 1:
-    raise SystemExit(f'[forecast] {world} ranks for {args.members} members '
-                     f'leave a model factor of {world // ens}: not ported yet '
-                     f'(ROADMAP.md, "Still to port": {meshes.MODEL_AXIS_ITEM})')
-
-
 def main(argv=None) -> dict:
   argv = list(sys.argv[1:] if argv is None else argv)
   args = parse_args(argv)
-  check_axes(args)
   if not args.multihost and (args.num_processes or 1) > 1:
     from gencast_tpu_torch.parallel import meshes
     print(f'[forecast] starting {args.num_processes} local ranks', flush=True)
@@ -190,12 +193,13 @@ def _forecast(args) -> dict:
   else:
     device = train.select_device(args.device)
   world = torch.distributed.get_world_size() if args.multihost else 1
-  mesh = meshes.make_mesh(ensemble=ensemble_axis(world, args.members))
+  ens = ensemble_axis(world, args.members)
+  mesh = meshes.make_mesh(ensemble=ens, model=world // ens)
   print(f'[forecast] rank {mesh.rank} of {world}, backend {backend}, device '
-        f'{device}, mesh ensemble={mesh.axis_size("ensemble")} model=1',
-        flush=True)
+        f'{device}, mesh ensemble={ens} model={world // ens}', flush=True)
 
-  wrapped, statics, (inputs, forcings, targets) = build_forecast(args, device)
+  wrapped, statics, (inputs, forcings, targets) = build_forecast(args, device,
+                                                                 mesh)
   lo, hi = ensemble.member_range(args.members, mesh)
   run = ensemble.make_ensemble_rollout(wrapped, mesh)
   train._synchronize(device)
@@ -229,11 +233,11 @@ def _forecast(args) -> dict:
                    'scores': out['scores']}, f, indent=1)
       print(f'[forecast] saved scores to {scores_path}', flush=True)
 
-  if args.save_members:
+  if args.save_members and mesh.coords['model'] == 0:
     path = args.out
     if world > 1:
       base, ext = os.path.splitext(args.out)
-      path = f'{base}.p{mesh.rank}{ext}'
+      path = f'{base}.p{mesh.coords["ensemble"]}{ext}'
     np.savez(path, predictions=local.cpu().numpy(),
              members=np.arange(lo, hi, dtype=np.int32),
              lat=np.asarray(statics.grid_lat),

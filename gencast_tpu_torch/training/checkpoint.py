@@ -16,6 +16,10 @@ Files are written to a temporary name and published with os.replace, the
 newest `max_to_keep` are kept, and they load with
 `torch.load(..., weights_only=True)`. A restore refreshes every
 Bfloat16Cast's serving copy, which lives outside `state_dict`.
+
+Under a model axis (`parallel.tensor`) a file holds the full tensors, the
+parameters and AdamW's moments gathered over the axis, so it restores at
+any --mp (a rank keeps its slices), as orbax's do in the reference.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from torch import nn
 
 from gencast_tpu_torch.models import casting
+from gencast_tpu_torch.parallel import tensor
 from gencast_tpu_torch.training import steps as steps_lib
 
 _FILE = re.compile(r'^step_(\d+)\.pt$')
@@ -64,12 +69,22 @@ def latest_step(manager: CheckpointManager) -> Optional[int]:
 
 
 def save(manager: CheckpointManager, step: int, model: nn.Module,
-         optimizer: Optional[steps_lib.Optimizer] = None) -> None:
-  state = {'step': step,
-           'params': {name: p.detach().cpu()
-                      for name, p in model.named_parameters()}}
+         optimizer: Optional[steps_lib.Optimizer] = None,
+         write: bool = True) -> None:
+  """Saves step `step`: the file is written where `write` (the rank that
+  writes). Under a model axis every rank of the axis must call it, since
+  the full tensors are gathered over it."""
+  axis = tensor.model_axis(model)
+  if axis is None and not write:
+    return
+  params = tensor.gather_state_dict(
+      {name: p.detach() for name, p in model.named_parameters()},
+      tensor.sharded_dims(model), axis)
+  state = {'step': step, 'params': {k: v.cpu() for k, v in params.items()}}
   if optimizer is not None:
     state['opt_state'] = optimizer.state_dict()
+  if not write:
+    return
   path = _path(manager, step)
   tmp = f'{path}.tmp{os.getpid()}'
   torch.save(state, tmp)
@@ -82,7 +97,8 @@ def restore(manager: CheckpointManager, model: nn.Module,
             optimizer: Optional[steps_lib.Optimizer] = None,
             step: Optional[int] = None) -> int:
   """Restores the parameters (and the optimizer's state) in place; returns
-  the step. The checkpoint must hold exactly the model's parameters."""
+  the step. The checkpoint must hold exactly the model's parameters (under
+  a model axis, the full tensors of this rank's slices)."""
   if step is None:
     step = latest_step(manager)
   if step is None:
@@ -90,7 +106,9 @@ def restore(manager: CheckpointManager, model: nn.Module,
   state = torch.load(_path(manager, step), map_location='cpu',
                      weights_only=True)
   params = dict(model.named_parameters())
-  saved = state['params']
+  saved = tensor.shard_state_dict(state['params'],
+                                  tensor.sharded_dims(model),
+                                  tensor.model_axis(model))
   if params.keys() != saved.keys():
     raise KeyError(f'checkpoint step {step} holds other parameters: missing '
                    f'{sorted(params.keys() - saved.keys())}, unexpected '

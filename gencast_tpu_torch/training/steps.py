@@ -19,6 +19,13 @@ parameters' order (no DDP: the step runs through Bfloat16Cast's
 functional_call and torch.utils.checkpoint, and one ordered buffer keeps
 the sum deterministic). With equal rows per rank that is the gradient of
 the global-batch mean loss, which the reference's sharded jit computes.
+
+Under a model axis (`parallel.tensor`) a rank's optimizer holds its slices
+of the sharded parameters and their moments: the data-axis average runs
+within the rank's data group (the ranks of its model coordinate), and the
+clip's global norm is the unsharded model's, the squared norms of the
+sharded gradients summed over the model axis and each replicated one
+counted once.
 """
 
 from __future__ import annotations
@@ -70,13 +77,29 @@ def warmup_cosine_schedule(config: OptimizerConfig) -> Callable[[int], float]:
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+                         max_norm: float,
+                         sharded: Optional[Sequence[bool]] = None,
+                         model_axis=None) -> torch.Tensor:
   """optax.clip_by_global_norm, in place: every gradient times
   max_norm / norm when the global norm is not below max_norm (no epsilon,
-  unlike torch's clip_grad_norm_). Returns the norm, on the device."""
+  unlike torch's clip_grad_norm_). Returns the norm, on the device.
+
+  Under a model axis (`parallel.tensor.ModelAxis`), `sharded[i]` says
+  whether grads[i] is this rank's slice of a sharded parameter: the norm
+  is the unsharded model's, the sharded gradients' squared norms summed
+  over the axis (one all_reduce) and every replicated gradient, the same
+  on each rank, counted once."""
   grads = list(grads)
-  norm = torch.linalg.vector_norm(
-      torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+  norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+  if model_axis is None:
+    norm = torch.linalg.vector_norm(norms)
+  else:
+    import torch.distributed as dist
+    mask = torch.as_tensor(list(sharded), device=norms.device)
+    squares = norms * norms
+    total = squares[mask].sum()
+    dist.all_reduce(total, group=model_axis.group)
+    norm = torch.sqrt(total + squares[~mask].sum())
   factor = torch.where(norm < max_norm, torch.ones_like(norm),
                        max_norm / norm)
   for g in grads:
@@ -98,12 +121,18 @@ class Optimizer:
   """
 
   def __init__(self, params: Iterable[nn.Parameter], config: OptimizerConfig,
-               data_group=None):
+               data_group=None, model_axis=None,
+               shard_dims: Optional[Sequence[Optional[int]]] = None):
     self.params = [p for p in params if p.requires_grad]
     self.config = config
     # The process group of the data axis (parallel.meshes), whose ranks
     # average their gradients; None: this process's batch is the batch.
     self.data_group = data_group
+    # The model axis (parallel.tensor.ModelAxis) and, per parameter, the
+    # dim it is sharded on (None: replicated, every rank the whole).
+    self.model_axis = model_axis
+    self.shard_dims = (list(shard_dims) if shard_dims is not None
+                       else [None] * len(self.params))
     self.schedule = warmup_cosine_schedule(config)
     self.step_count = 0  # on the host: the schedule's and checkpoints' step
     capturable = bool(self.params) and self.params[0].is_cuda
@@ -162,7 +191,9 @@ class Optimizer:
              for p in self.params]
     for p, g in zip(self.params, grads):
       p.grad = g
-    norm = clip_by_global_norm_(grads, self.config.clip_norm)
+    norm = clip_by_global_norm_(
+        grads, self.config.clip_norm,
+        [dim is not None for dim in self.shard_dims], self.model_axis)
     self.adamw.step()
     return norm
 
@@ -174,15 +205,37 @@ class Optimizer:
     self.step_count += 1
     return norm
 
+  def _moments(self, adamw: dict, fn) -> dict:
+    """`adamw` (an AdamW state dict) with fn(moment, dim) in place of each
+    moment of a sharded parameter, in parameter order."""
+    state = {i: {k: fn(v, self.shard_dims[i])
+                 if k != 'step' and self.shard_dims[i] is not None else v
+                 for k, v in sorted(entry.items())}
+             for i, entry in sorted(adamw['state'].items())}
+    return dict(adamw, state=state)
+
   def state_dict(self) -> dict:
-    """The AdamW state and the step count, as checkpoints keep them."""
-    return {'adamw': self.adamw.state_dict(), 'step_count': self.step_count}
+    """The AdamW state and the step count, as checkpoints keep them: under
+    a model axis with the moments of the sharded parameters gathered (every
+    rank of the axis must call it)."""
+    adamw = self.adamw.state_dict()
+    if self.model_axis is not None:
+      from gencast_tpu_torch.parallel import tensor
+      adamw = self._moments(adamw, lambda v, dim: tensor.gather(
+          v, dim, self.model_axis))
+    return {'adamw': adamw, 'step_count': self.step_count}
 
   def load_state_dict(self, state: dict) -> None:
-    """Restores the AdamW state and the step count. The moments are new
+    """Restores the AdamW state (full moments; under a model axis each
+    rank keeps its slices) and the step count. The moments are new
     tensors afterwards: a CUDA graph captured before reads the old ones
     (`scanned_train_steps` captures anew)."""
-    self.adamw.load_state_dict(state['adamw'])
+    adamw = state['adamw']
+    if self.model_axis is not None:
+      from gencast_tpu_torch.parallel import tensor
+      adamw = self._moments(adamw, lambda v, dim: tensor.local_slice(
+          v, dim, self.model_axis).clone())
+    self.adamw.load_state_dict(adamw)
     if self.lr is not None:
       # The saved rate (a tensor or a float) replaced the rate tensor.
       for group in self.adamw.param_groups:
@@ -194,8 +247,15 @@ def create_optimizer(model: nn.Module, config: OptimizerConfig,
                      data_group=None) -> Optimizer:
   """The reference's AdamW + warmup/cosine recipe over model's parameters
   (the float32 masters under a Bfloat16Cast); with `data_group`, the
-  gradients are averaged over its ranks before the clip."""
-  return Optimizer(model.parameters(), config, data_group=data_group)
+  gradients are averaged over its ranks before the clip. Under a model
+  axis (a model sharded by `parallel.tensor.shard_model`), the clip takes
+  the unsharded model's norm."""
+  from gencast_tpu_torch.parallel import tensor
+  dims = tensor.sharded_dims(model)
+  named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+  return Optimizer([p for _, p in named], config, data_group=data_group,
+                   model_axis=tensor.model_axis(model),
+                   shard_dims=[dims.get(n) for n, _ in named])
 
 
 def train_step(model: nn.Module, optimizer: Optimizer,

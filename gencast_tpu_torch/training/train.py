@@ -21,25 +21,29 @@ architecture overrides, and in the per-step loop the input pipeline
 (`--prefetch`: batches copied to the card by a background thread through
 pinned memory; `--data_workers`: windows packed in spawned processes; the
 batches are bitwise the same either way) and `--profile_dir` (a
-torch.profiler trace of steps 10-15). Every flag of the reference's CLI
-parses; those of paths not ported yet are refused with the ROADMAP.md item
-that brings them (`--mp`), and the TPU-only ones (`--functional_step`,
-`--cpu`) as such. `--ar_steps K` on a GenCast run is the reference's no-op;
-on a GraphCast run its windows of K target frames come from the same
+torch.profiler trace of steps 10-15, or of `--profile_steps`). Every flag
+of the reference's CLI parses; the TPU-only ones (`--functional_step`,
+`--cpu`) are refused as such. `--ar_steps K` on a GenCast run is the
+reference's no-op; on a GraphCast run its windows of K target frames come from the same
 source and pool (`--data_workers` is ignored there, as in the reference).
 
-Data parallelism, with the reference's rules: `--multihost` makes this
-process one rank of `--num_processes` (`--process_id`, the TCP store at
-`--coordinator`, or torchrun's environment; parallel/meshes.py), `--dp`
-defaulting to their number; `--dp N` without `--multihost` starts N local
-ranks itself (spawned processes, rank r on cuda:(r mod cards), or the CPU
-under `--device cpu`), as the reference's CLI runs on a host of N devices.
-Each rank packs only its rows of the global batch ([r·B/dp, (r+1)·B/dp)
-of the same permutation), draws the step's noise level and noise for the
-global batch and keeps its rows, and averages the gradient and the loss
-over the ranks (training/steps.py) before the clip: the step of the
-global-batch mean loss. Parameters are replicated; only rank 0 writes
-metrics, stats and checkpoints, and every rank restores on resume.
+Data and model parallelism, with the reference's rules: `--multihost`
+makes this process one rank of `--num_processes` (`--process_id`, the TCP
+store at `--coordinator`, or torchrun's environment; parallel/meshes.py),
+`--dp` defaulting to their number and dp * mp equal to it; `--dp N --mp M`
+without `--multihost` starts N·M local ranks itself (spawned processes,
+rank r on cuda:(r mod cards), or the CPU under `--device cpu`), as the
+reference's CLI runs on a host of N·M devices. Each data rank packs only
+its rows of the global batch ([r·B/dp, (r+1)·B/dp) of the same
+permutation), draws the step's noise level and noise for the global batch
+and keeps its rows, and averages the gradient and the loss over the data
+axis (training/steps.py) before the clip: the step of the global-batch
+mean loss. Along the model axis (`--mp`, parallel/tensor.py) the ranks of
+one data coordinate compute one model together, each holding its slices of
+the attention heads and MLP hidden widths, and their collectives run
+eagerly (the step is not captured into a CUDA graph). Only rank 0 writes
+metrics, stats and checkpoints (full tensors, gathered over the model
+axis), and every rank restores on resume.
 
 Randomness: step `s` draws its noise level and noise from a generator
 seeded from (`--seed`, s) alone, as the reference folds the step into its
@@ -69,6 +73,11 @@ Examples:
   # Two data-parallel ranks on the CPU (gloo), batch 2, one row each:
   python -m gencast_tpu_torch.training.train --preset tiny --device cpu \
       --data synthetic --steps 3 --batch_size 2 --dp 2
+
+  # Two model-parallel ranks (heads and MLP hidden widths split in two);
+  # on one H100 drop --device cpu: both ranks share cuda:0 over gloo:
+  python -m gencast_tpu_torch.training.train --preset tiny --device cpu \
+      --data synthetic --steps 2 --dp 1 --mp 2
 
   # One rank of a multi-process run (start one command per process):
   python -m gencast_tpu_torch.training.train --preset 1deg --data synthetic \
@@ -113,10 +122,7 @@ import torch
 # (configs.TINY_PALLAS), which the CPU tests run the CLIs on.
 _PRESETS = ('tiny', 'tiny_pallas', 'nano', '1deg', '0.25deg')
 _MODELS = ('gencast', 'graphcast')
-# What the reference's CLI takes and the port does not yet: the ROADMAP.md
-# item ("Still to port") that brings it.
-_LATER_MODEL_AXIS = 'Parallelism (model axis, --mp)'
-# --profile_dir traces these steps, as the reference's.
+# --profile_dir traces these steps by default, as the reference's.
 PROFILE_STEPS = (10, 15)
 PROFILE_TRACE = 'train_steps_10-15.pt.trace.json'
 
@@ -215,13 +221,8 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
                       "or 'cpu' (the kernels' plain versions)")
 
 
-def later(p: argparse.ArgumentParser, what: str, item: str) -> None:
-  """Refuses `what`, naming the ROADMAP.md item that brings it."""
-  p.error(f'{what} is not ported yet: ROADMAP.md, "Still to port": {item}')
-
-
 def check_model_flags(p: argparse.ArgumentParser, args) -> None:
-  """Refuses what is not ported, naming the ROADMAP.md item."""
+  """Refuses an unknown model, task, preset or attention backend."""
   from gencast_tpu_torch.data import registry
   if args.model not in _MODELS:
     p.error(f'unknown --model {args.model!r}: {", ".join(_MODELS)}')
@@ -283,6 +284,11 @@ def parse_args(argv=None):
   p.add_argument('--profile_dir', default=None,
                  help='write a torch.profiler trace of steps 10-15 here '
                       f'({PROFILE_TRACE}; per-step mode)')
+  p.add_argument('--profile_steps', type=int, nargs=2,
+                 default=list(PROFILE_STEPS), metavar=('FIRST', 'LAST'),
+                 help='the steps --profile_dir traces, first and last '
+                      '(0-based; the trace is train_steps_FIRST-LAST'
+                      '.pt.trace.json)')
   p.add_argument('--prefetch', type=int, default=None,
                  help='batches kept in flight by the background '
                       'host->device pipeline (data/prefetch.py: pinned '
@@ -298,7 +304,10 @@ def parse_args(argv=None):
   p.add_argument('--dp', type=int, default=1,
                  help='data-parallel ranks; without --multihost, N > 1 '
                       'starts N local ranks')
-  p.add_argument('--mp', type=int, default=1)
+  p.add_argument('--mp', type=int, default=1,
+                 help='model-parallel ranks (tensor parallelism over '
+                      'attention heads and MLP hidden widths); without '
+                      '--multihost, dp * mp > 1 starts dp * mp local ranks')
   p.add_argument('--multihost', action='store_true',
                  help='this process is one rank of --num_processes '
                       '(torch.distributed over a TCP store at --coordinator, '
@@ -321,10 +330,9 @@ def parse_args(argv=None):
   for flag in ('functional_step', 'cpu'):
     if getattr(args, flag):
       p.error(f'--{flag} is not ported: TPU-only')
-  if args.mp != 1:
-    later(p, f'--mp {args.mp}', _LATER_MODEL_AXIS)
-  if args.dp < 1:
-    p.error(f'--dp must be positive, got {args.dp}')
+  for flag in ('dp', 'mp'):
+    if getattr(args, flag) < 1:
+      p.error(f'--{flag} must be positive, got {getattr(args, flag)}')
   return args
 
 
@@ -444,7 +452,8 @@ def setup(args, mesh=None) -> Setup:
   """Builds the model, data, stats, wrapper stack and optimizer of a run of
   `args` on the device `args.device` names; on a `mesh` of more than one
   data rank, the batches hold this rank's rows and the optimizer averages
-  the gradients over the data axis."""
+  the gradients over the data axis; with a model axis, the model keeps
+  this rank's slices (`shard_model`)."""
   from gencast_tpu_torch.data import sources
   from gencast_tpu_torch.training import steps as steps_lib
 
@@ -484,6 +493,7 @@ def setup(args, mesh=None) -> Setup:
   main_rank = mesh is None or mesh.rank == 0
   stats = load_or_compute_stats(args, source, task, 'train', save=main_rank)
   wrapped = build_wrapped(args, spec, model, stats, device, 'train')
+  shard(wrapped, mesh, 'train')
   rows = None
   if mesh is not None and mesh.axis_size('data') > 1:
     from gencast_tpu_torch.parallel import meshes
@@ -503,6 +513,26 @@ def setup(args, mesh=None) -> Setup:
                source_factory=source_factory, wrapped=wrapped,
                optimizer=optimizer, batches=batches, device=device,
                ar_steps=k, mesh=mesh, rows=rows)
+
+
+def shard(wrapped, mesh, tag: str) -> None:
+  """Under a mesh with a model axis: keeps this rank's slices of `wrapped`
+  (parallel/tensor.py), remakes its bf16 serving copy, and says what was
+  sharded and that the collectives run eagerly."""
+  from gencast_tpu_torch.models import casting
+  from gencast_tpu_torch.parallel import tensor
+  axis = tensor.axis_of(mesh)
+  if axis is None:
+    return
+  sharded, whole = tensor.shard_model(wrapped, axis)
+  casting.refresh_all(wrapped)
+  if mesh.rank == 0:
+    print(f'[{tag}] model axis {axis.size}: {len(sharded)} modules sharded '
+          f'(attention heads, MLP hidden widths); stayed whole: '
+          f'{whole or "none"}', flush=True)
+    print(f'[{tag}] model axis: the training step and the sampler run '
+          'eagerly (their all_reduces are not captured into CUDA graphs)',
+          flush=True)
 
 
 def start_rank(args):
@@ -550,8 +580,8 @@ def check_ranks(args) -> None:
 
 def _local_rank(rank: int, world: int, coordinator: str, argv: List[str],
                 result: str) -> None:
-  """One of the ranks `--dp N` starts: this CLI under --multihost; rank 0
-  writes its run's numbers to `result` for the parent."""
+  """One of the ranks `--dp N --mp M` starts: this CLI under --multihost;
+  rank 0 writes its run's numbers to `result` for the parent."""
   run = main(argv + ['--multihost', '--coordinator', coordinator,
                      '--process_id', str(rank), '--num_processes',
                      str(world)])
@@ -561,16 +591,18 @@ def _local_rank(rank: int, world: int, coordinator: str, argv: List[str],
 
 
 def spawn_local_ranks(args, argv: List[str]) -> TrainRun:
-  """`--dp N` without --multihost: N local ranks of this command (spawned
-  processes over a localhost store), waited for. Returns rank 0's TrainRun,
-  without the model (it stays in the rank's process; its checkpoints hold
-  the parameters)."""
+  """`--dp N --mp M` without --multihost: N·M local ranks of this command
+  (spawned processes over a localhost store), waited for. Returns rank 0's
+  TrainRun, without the model (it stays in the rank's process; its
+  checkpoints hold the parameters)."""
   from gencast_tpu_torch.parallel import meshes
   check_ranks(args)
-  print(f'[train] --dp {args.dp}: starting {args.dp} local ranks', flush=True)
+  world = args.dp * args.mp
+  print(f'[train] --dp {args.dp} --mp {args.mp}: starting {world} local '
+        'ranks', flush=True)
   with tempfile.TemporaryDirectory() as tmp:
     result = os.path.join(tmp, 'rank0.json')
-    meshes.spawn(_local_rank, args.dp, (argv, result))
+    meshes.spawn(_local_rank, world, (argv, result))
     with open(result) as f:
       numbers = json.load(f)
   print('[train] done', flush=True)
@@ -580,7 +612,7 @@ def spawn_local_ranks(args, argv: List[str]) -> TrainRun:
 def main(argv=None) -> TrainRun:
   argv = list(sys.argv[1:] if argv is None else argv)
   args = parse_args(argv)
-  if args.dp > 1 and not args.multihost:
+  if args.dp * args.mp > 1 and not args.multihost:
     return spawn_local_ranks(args, argv)
   try:
     return _train(args)
@@ -638,9 +670,12 @@ def _train(args) -> TrainRun:
       _run_per_step(args, s, manager, sink, run)
   finally:
     sink.close()
-  if manager is not None and args.steps > start_step and s.is_main:
-    ckpt_lib.save(manager, args.steps - 1, wrapped, optimizer)
-    print(f'[train] final checkpoint at {args.ckpt_dir}', flush=True)
+  if manager is not None and args.steps > start_step:
+    # Every rank: a model axis gathers the full tensors; rank 0 writes.
+    ckpt_lib.save(manager, args.steps - 1, wrapped, optimizer,
+                  write=s.is_main)
+    if s.is_main:
+      print(f'[train] final checkpoint at {args.ckpt_dir}', flush=True)
   casting.refresh_all(wrapped)
   if s.device.type == 'cuda':
     from gencast_tpu_torch.ops import cuda_lib
@@ -682,11 +717,16 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
   checkpoints, sampling evals and profile `args` asks for; fills `run`."""
   from gencast_tpu_torch import utils
   from gencast_tpu_torch.data import prefetch as prefetch_lib
+  from gencast_tpu_torch.parallel import tensor
   from gencast_tpu_torch.training import checkpoint as ckpt_lib
   from gencast_tpu_torch.training import steps as steps_lib
   wrapped, optimizer, device = s.wrapped, s.optimizer, s.device
   packer = prefetcher = prof = None
   losses: List[torch.Tensor] = []
+  # The model axis's all_reduce counters (parallel/tensor.py) before the
+  # last step, when the model is sharded.
+  axis = tensor.model_axis(wrapped)
+  traffic = None
   try:
     started = time.perf_counter()
     if args.data_workers > 0 and s.ar_steps == 1:
@@ -712,13 +752,15 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
 
     t_log = time.perf_counter()
     for step in range(run.start_step, args.steps):
-      if args.profile_dir and step == PROFILE_STEPS[0]:
+      if args.profile_dir and step == args.profile_steps[0]:
         prof = utils.start_profiler(device.type == 'cuda')
       t_wait = time.perf_counter()
       batch = get_batch()
       _synchronize(device)
       t0 = time.perf_counter()
       run.batch_seconds.append(t0 - t_wait)
+      if axis is not None and step == args.steps - 1:
+        traffic = dict(axis.traffic)
       if s.ar_steps > 1:
         loss, _ = steps_lib.ar_train_step(
             wrapped, optimizer, batch['inputs'], batch['targets'],
@@ -730,8 +772,8 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
       _synchronize(device)
       run.step_seconds.append(time.perf_counter() - t0)
       losses.append(loss)
-      if prof is not None and step == PROFILE_STEPS[1]:
-        _stop_profiler(prof, args.profile_dir, s.mesh)
+      if prof is not None and step == args.profile_steps[1]:
+        _stop_profiler(prof, args, s.mesh)
         prof = None
       if (step + 1) % args.log_every == 0:
         dt = time.perf_counter() - t_log
@@ -742,22 +784,29 @@ def _run_per_step(args, s: Setup, manager, sink, run: TrainRun) -> None:
                  steps_per_sec=args.log_every / dt)
         t_log = time.perf_counter()
 
-      if (manager is not None and s.is_main
-          and (step + 1) % args.save_every == 0):
-        ckpt_lib.save(manager, step, wrapped, optimizer)
+      if manager is not None and (step + 1) % args.save_every == 0:
+        ckpt_lib.save(manager, step, wrapped, optimizer, write=s.is_main)
 
       if args.do_sampling_eval and (step + 1) % args.eval_every == 0:
         _sampling_eval(args, s, sink, step)
   finally:
     if prof is not None:  # the run ended inside the profiled steps
-      _stop_profiler(prof, args.profile_dir, s.mesh)
+      _stop_profiler(prof, args, s.mesh)
     if prefetcher is not None:
       prefetcher.close()
     if packer is not None:
       packer.close()
   run.losses = [float(x) for x in losses]
-  print(f'[train] pipeline{s.rank_note} ' + json.dumps(pipeline_summary(
-      n_prefetch, args.data_workers, run)) + '\n', end='', flush=True)
+  summary = pipeline_summary(n_prefetch, args.data_workers, run)
+  if device.type == 'cuda':
+    summary['peak_memory_gib'] = (torch.cuda.max_memory_allocated(device)
+                                  / 2**30)
+  if traffic is not None:
+    # The calls and float32 bytes of the last step's all_reduces.
+    summary['model_axis_all_reduce'] = {
+        k: axis.traffic[k] - traffic[k] for k in traffic}
+  print(f'[train] pipeline{s.rank_note} ' + json.dumps(summary) + '\n',
+        end='', flush=True)
 
 
 def pipeline_summary(prefetch: int, data_workers: int, run: TrainRun) -> dict:
@@ -775,18 +824,19 @@ def pipeline_summary(prefetch: int, data_workers: int, run: TrainRun) -> dict:
   return summary
 
 
-def profile_trace_name(mesh=None) -> str:
-  """The trace file's name: PROFILE_TRACE, or on a rank of a multi-rank run
-  train_steps_10-15.rank<r>.pt.trace.json."""
-  if mesh is None:
-    return PROFILE_TRACE
-  return PROFILE_TRACE.replace('.pt.', f'.rank{mesh.rank}.pt.')
+def profile_trace_name(mesh=None, steps=PROFILE_STEPS) -> str:
+  """The trace file's name for the profiled `steps` (first, last):
+  train_steps_<first>-<last>.pt.trace.json (PROFILE_TRACE by default), on a
+  rank of a multi-rank run with .rank<r> before .pt."""
+  rank = '' if mesh is None else f'.rank{mesh.rank}'
+  return f'train_steps_{steps[0]}-{steps[1]}{rank}.pt.trace.json'
 
 
-def _stop_profiler(prof, profile_dir: str, mesh=None) -> None:
-  """Stops `prof` and writes its Chrome trace under `profile_dir`."""
+def _stop_profiler(prof, args, mesh=None) -> None:
+  """Stops `prof` and writes its Chrome trace under args.profile_dir."""
   from gencast_tpu_torch import utils
-  path = os.path.join(profile_dir, profile_trace_name(mesh))
+  path = os.path.join(args.profile_dir,
+                      profile_trace_name(mesh, args.profile_steps))
   utils.stop_profiler(prof, path)
   print(f'[train] profiler trace written to {path}', flush=True)
 

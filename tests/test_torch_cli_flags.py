@@ -3,10 +3,9 @@
 default and, where it is ported, with the reference's meaning of a value
 (GraphCast's `--task` and `--remat_group`, and the data-parallel `--dp`,
 `--multihost`, `--coordinator`, `--process_id` and `--num_processes` among
-them); `--ar_steps K` on a GenCast run is the reference's no-op, and the
-flags of paths not ported are refused by name, with the ROADMAP.md item
-that brings them (`--mp`) or as TPU-only, never as "unrecognized
-arguments".
+them, and the model axis's `--mp`); `--ar_steps K` on a GenCast run is the
+reference's no-op, and the TPU-only flags are refused by name as such,
+never as "unrecognized arguments".
 """
 
 import pytest
@@ -28,7 +27,7 @@ FLAGS = {
     'prefetch': (['2'], None),
     'data_workers': (['2'], None),
     'dp': (['2'], None),
-    'mp': (['2'], 'Parallelism (model axis, --mp)'),
+    'mp': (['2'], None),
     'multihost': ([], None),
     'coordinator': (['localhost:1234'], None),
     'process_id': (['0'], None),
@@ -53,8 +52,6 @@ def test_reference_flag_parses_or_is_refused_by_name(flag, capsys):
   err = capsys.readouterr().err
   assert 'unrecognized arguments' not in err
   assert f'--{flag}' in err and refusal in err
-  if 'TPU-only' not in refusal:
-    assert 'ROADMAP.md, "Still to port"' in err
 
 
 def test_port_parser_knows_every_reference_flag():

@@ -4,8 +4,8 @@ One 10-degree corpus, written by the port's synthesizer in both layouts
 (NetCDF files and npz shards): training, a resume and evaluate with
 `--save_netcdf` from each; the two layouts are the same data, so the runs
 are equal bit for bit. Also: `--prefetch` and `--data_workers` leave the
-run's bits as they are, `--profile_dir` writes a trace of steps 10-15,
-published NetCDF stats feed `--stats_path`, and a directory too short for
+run's bits as they are, `--profile_dir` writes a trace of steps 10-15
+(or of `--profile_steps`), published NetCDF stats feed `--stats_path`, and a directory too short for
 one window is refused with the frames found and needed.
 """
 
@@ -149,6 +149,21 @@ def test_profile_dir_writes_a_trace_of_steps_10_to_15(corpus, tmp_path,
   with open(os.path.join(trace_dir, train.PROFILE_TRACE)) as f:
     events = json.load(f)['traceEvents']
   names = {e.get('name', '') for e in events}
+  assert any(n.startswith('aten::') for n in names)
+  assert 'profiler trace written to' in capsys.readouterr().out
+
+
+def test_profile_steps_moves_the_traced_steps(corpus, tmp_path, capsys):
+  """--profile_steps 1 2 traces steps 1-2 of a 3-step run, into a file
+  named for them."""
+  trace_dir = str(tmp_path / 'trace')
+  run = train.main(TINY + ['--data', corpus['npz'], '--steps', '3',
+                           '--profile_dir', trace_dir, '--profile_steps',
+                           '1', '2'])
+  assert len(run.losses) == 3
+  assert os.listdir(trace_dir) == ['train_steps_1-2.pt.trace.json']
+  with open(os.path.join(trace_dir, 'train_steps_1-2.pt.trace.json')) as f:
+    names = {e.get('name', '') for e in json.load(f)['traceEvents']}
   assert any(n.startswith('aten::') for n in names)
   assert 'profiler trace written to' in capsys.readouterr().out
 

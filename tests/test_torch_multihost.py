@@ -3,7 +3,8 @@ own timeout (tests/torch_ranks.py): the training CLI's `--dp 2` (two
 spawned gloo ranks, one row each) against one process at batch 2, with
 rank 0 alone writing metrics and checkpoints and both ranks resuming; the
 pod forecast module on two ranks against the one-device ensemble and the
-JAX package's `ensemble_scores`.
+JAX package's `ensemble_scores`, and on two ranks for one member (a model
+axis of 2).
 """
 
 import json
@@ -34,6 +35,9 @@ STEP_RTOL = 2e-2
 # The pod's scores (latitude bands, sums across ranks) against ops.metrics
 # and JAX's ensemble_scores on the gathered members, max relative.
 SCORES_RTOL = 1e-5
+# A member computed over a model axis of 2 ranks (partials summed in
+# another order) against the one-device member, max relative.
+POD_RTOL = 1e-4
 TRAIN = 'gencast_tpu_torch.training.train'
 ARGV = ['--preset', 'tiny', '--device', 'cpu', '--data', 'synthetic',
         '--batch_size', '2', '--log_every', '1', '--prefetch', '0']
@@ -156,10 +160,23 @@ def test_pod_forecast_on_two_ranks(tmp_path):
                                                                       var)
 
 
-def test_pod_refuses_a_model_factor():
-  """2 ranks for 1 member leave a model factor of 2: refused by the --mp
-  item's name before any rank starts."""
-  with pytest.raises(SystemExit, match=r'Parallelism \(model axis, --mp\)'):
-    pod.main(['--preset', 'tiny', '--device', 'cpu', '--members', '1',
-              '--num_processes', '2'])
+def test_pod_refuses_a_model_factor(tmp_path):
+  """2 ranks for 1 member leave a model factor of 2, once refused and now
+  the model axis: the two ranks compute the member together (heads and
+  MLP hidden widths split), one of them saves it, within POD_RTOL of the
+  one-device member."""
+  out = str(tmp_path / 'forecast.npz')
+  argv = ['--preset', 'tiny', '--device', 'cpu', '--members', '1',
+          '--steps', '1', '--out', out]
+  stdout = torch_ranks.run_cli('gencast_tpu_torch.scripts.'
+                               'ensemble_forecast_pod',
+                               argv + ['--num_processes', '2'])
+  assert stdout.count('mesh ensemble=1 model=2') == 2
+  assert sorted(os.listdir(tmp_path)) == ['forecast.p0.npz']
+  got = np.load(str(tmp_path / 'forecast.p0.npz'))['predictions']
+  wrapped, _, (inputs, forcings, _) = pod.build_forecast(
+      pod.parse_args(argv), torch.device('cpu'))
+  want = ensemble.ensemble_rollout(wrapped, inputs, forcings, seed=0,
+                                   num_members=1).numpy()
+  assert np.abs(got - want).max() <= POD_RTOL * np.abs(want).max()
   assert pod.ensemble_axis(64, 50) == 32 and pod.ensemble_axis(4, 50) == 4

@@ -4,7 +4,8 @@ package's on the CPU.
 - `local_batch_plan` and `assemble_local_batch`: the rows each rank packs
   and its shard, against `gencast_tpu.parallel.meshes` on the same mesh
   shapes over the 8 virtual devices of tests/conftest.py (a rank of the
-  port is a device there), and `make_mesh`'s refusals.
+  port is a device there), and `make_mesh`'s refusals of grids that are
+  not the number of ranks (a model axis among them).
 - Over 2 spawned gloo ranks on the CPU (tests/torch_ranks.py, each with its
   own timeout): `ensemble_scores` of 5 members (2 and 3 per rank, latitude
   bands of 9 and 10 rows) against `gencast_tpu.parallel.ensemble
@@ -69,13 +70,13 @@ def test_local_batch_plan_rows_are_jax(shape):
 
 def test_make_mesh_refuses_what_it_cannot_build():
   """One process without a process group is the (1, 1, 1) mesh; a grid of
-  another size is refused, and a model axis by its ROADMAP.md item."""
+  another size is refused, a model axis too: it is a grid of 2 ranks."""
   mesh = meshes.make_mesh()
   assert (mesh.shape, mesh.rank, mesh.groups) == ((1, 1, 1), 0, {})
   assert mesh.coords == {'ensemble': 0, 'data': 0, 'model': 0}
   with pytest.raises(ValueError, match='!= 1 ranks'):
     meshes.make_mesh(ensemble=2)
-  with pytest.raises(ValueError, match=r'Parallelism \(model axis, --mp\)'):
+  with pytest.raises(ValueError, match=r'1x1x2=2 != 1 ranks'):
     meshes.make_mesh(model=2)
   with pytest.raises(ValueError, match='divisible'):
     meshes.local_batch_plan(meshes.Mesh(shape=(1, 4, 1), rank=1), 6)

@@ -120,3 +120,204 @@ def sampling_inputs():
       (2, 1, lat.size, lon.size, d.forcing_layout.num_channels)).astype(
           np.float32))
   return wrapped, model, inputs, forcings
+
+
+def model_axis_rank(rank, world, coordinator, work):
+  """One rank of tests/test_torch_model_axis.py, over a model axis of
+  `world` ranks on the CPU: for each case of work/cases.json (its bridged
+  weights and data in work/<case>.npz), the forward, the loss and its
+  gradients, and the parameters and clip norm after one AdamW step, the
+  sharded tensors gathered; the bf16 stack's loss and gradients; the
+  draws of a step; clip_by_global_norm_ on a replicated and a sharded
+  gradient; and a checkpoint written under the axis, with this rank's
+  slices of the parameters and moments. Rank r writes work/rank<r>.npz."""
+  import json
+  import numpy as np
+  import torch
+  from gencast_tpu_torch.parallel import meshes, tensor
+  from gencast_tpu_torch.training import checkpoint, steps, train
+  torch.set_num_threads(1)  # the parent's summation order
+  meshes.initialize(coordinator, world, rank, device='cpu')
+  try:
+    axis = tensor.axis_of(meshes.make_mesh(model=world))
+    with open(os.path.join(work, 'cases.json')) as f:
+      cases = json.load(f)
+    out = {}
+    for name, case in cases.items():
+      data = dict(np.load(os.path.join(work, f'{name}.npz')))
+      flat = {k[len('param:'):]: v for k, v in data.items()
+              if k.startswith('param:')}
+      for bf16 in (False, True) if case.get('bf16') else (False,):
+        model, stack = model_axis_stack(case, flat, bf16)
+        if case['model'] == 'gencast':
+          gencast = model
+        tensor.shard_model(stack, axis)
+        tag = f'{name}_bf16' if bf16 else name
+        out.update(model_axis_step(tag, case, model, stack, data, axis,
+                                   with_step=not bf16))
+        if case.get('checkpoint') and not bf16:
+          manager = checkpoint.create_manager(os.path.join(work, 'ckpt'))
+          checkpoint.save(manager, 0, stack, stack.optimizer,
+                          write=rank == 0)
+          out.update({f'local:{k}': v.detach().numpy()
+                      for k, v in stack.named_parameters()})
+          for i, p in enumerate(stack.optimizer.params):
+            for k in ('exp_avg', 'exp_avg_sq'):
+              out[f'moment:{i}:{k}'] = stack.optimizer.adamw.state[p][
+                  k].numpy()
+    # Every rank of the model group draws a step's sigma and noise.
+    sigma, noise = gencast.training_draws(
+        train.step_generator(5, 3, 'cpu'), 1)
+    out.update(draw_sigma=sigma.numpy(), draw_noise=noise.numpy())
+    # The clip: a replicated gradient (the same on every rank) and this
+    # rank's slice of a sharded one.
+    full = torch.arange(1.0, 2.0 * world + 1.0)
+    grads = [torch.tensor([3.0, 4.0]), tensor.local_slice(full, 0,
+                                                          axis).clone()]
+    norm = steps.clip_by_global_norm_(grads, 1.0, [False, True], axis)
+    out.update(clip_norm=norm.numpy(), clip_replicated=grads[0].numpy(),
+               clip_sharded=tensor.gather(grads[1], 0, axis).numpy())
+    np.savez(os.path.join(work, f'rank{rank}.npz'), **out)
+  finally:
+    meshes.shutdown()
+
+
+def model_axis_stack(case, flat, bf16=False):
+  """The port model of a case of model_axis_rank (GenCast at a TINY preset,
+  or TINY GraphCast) holding the bridged weights `flat`, and its wrapper
+  stack (unit statistics; bf16 or float32)."""
+  import dataclasses
+  import numpy as np
+  import torch
+  from gencast_tpu_torch import bridge, configs
+  from gencast_tpu_torch.data import layout, registry
+  from gencast_tpu_torch.graph import compiler
+  from gencast_tpu_torch.models import graphcast, wrappers
+  lat, lon = (np.asarray(case[k], np.float32) for k in ('lat', 'lon'))
+  if case['model'] == 'graphcast':
+    task = registry.TaskSpec(**{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in case['task'].items()})
+    statics = compiler.build_graph_statics(case['splits'], lat, lon,
+                                           build_multimesh=True)
+    model = graphcast.GraphCast(
+        task, statics, graphcast.GraphCastConfig(
+            latent_size=case['latent'], gnn_msg_steps=case['steps']),
+        rng=torch.Generator().manual_seed(0))
+  else:
+    spec = dataclasses.replace(configs.SPECS[case['preset']],
+                               attention_tile_size=case['tile'])
+    statics = compiler.build_graph_statics(
+        spec.mesh_splits, lat, lon, attention_k_hop=spec.attention_k_hop,
+        attention_tile_size=case['tile'], build_triblock_mask=True)
+    model, _ = configs.build_gencast(spec, seed=1, statics=statics,
+                                     device='cpu')
+  bridge.load_reference_params(model, flat)
+  task = model.task
+  stats = layout.Stats.unit(
+      sorted(set(task.input_variables) | set(task.target_variables)),
+      task.pressure_levels)
+  return model, wrappers.build_stack(model, stats, bf16=bf16)
+
+
+def model_axis_step(tag, case, model, stack, data, axis, with_step=True):
+  """The forward (GenCast), loss, gathered gradients and, `with_step`, the
+  gathered parameters and clip norm after one AdamW step of the case's
+  optimizer, keyed `<tag>:...`; sets stack.optimizer."""
+  import torch
+  from gencast_tpu_torch.parallel import tensor
+  from gencast_tpu_torch.training import steps
+  batch = [torch.as_tensor(data[k]) for k in ('inputs', 'targets',
+                                              'forcings')]
+  draws = ({} if case['model'] == 'graphcast' else
+           {'sigma': torch.as_tensor(data['sigma']),
+            'noise': torch.as_tensor(data['noise'])})
+  out = {}
+  if case['model'] != 'graphcast':
+    with torch.no_grad():
+      out[f'{tag}:forward'] = stack(batch[0], torch.as_tensor(data['noisy']),
+                                    draws['sigma'], batch[2]).numpy()
+  stack.optimizer = steps.create_optimizer(
+      stack, steps.OptimizerConfig(**case['optimizer']))
+  stack.optimizer.zero_grad()
+  loss, _ = stack.loss(*batch, **draws)
+  loss.mean().backward()
+  dims = tensor.sharded_dims(model)
+  grads = tensor.gather_state_dict(
+      {n: p.grad if p.grad is not None else torch.zeros_like(p)
+       for n, p in model.named_parameters()}, dims, axis)
+  out[f'{tag}:loss'] = loss.detach().numpy()
+  out.update({f'{tag}:grad:{k}': v
+              for k, v in _reference_keys(model, grads).items()})
+  if with_step:
+    out[f'{tag}:norm'] = stack.optimizer.update().numpy()
+    params = tensor.gather_state_dict(
+        {n: p.detach() for n, p in model.named_parameters()}, dims, axis)
+    out.update({f'{tag}:param:{k}': v
+                for k, v in _reference_keys(model, params).items()})
+  return out
+
+
+def _reference_keys(model, named):
+  """Tensors named and shaped as `model`'s parameters would be unsharded
+  (gathered over the model axis) in the reference's keys and layouts."""
+  from gencast_tpu_torch import bridge
+  return bridge._export(iter(named.items()), bridge._scales(model))
+
+
+def model_axis_calls_rank(rank, world, coordinator, work):
+  """One rank of tests/test_torch_model_axis.py's count of the model
+  axis's all_reduces: a TINY_PALLAS training step (seeded weights, unit
+  statistics) under each remat policy, with the checkpoints' early stop
+  (PyTorch's default) and without it, sharded over `world` ranks. Rank 0
+  writes work/calls.json: the sharded modules, the layers, and for each
+  policy and early stop the calls of the loss's forward and of its
+  backward, and the sharded modules none of whose parameters got a
+  gradient."""
+  import dataclasses
+  import json
+  import numpy as np
+  import torch
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.data import layout
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.parallel import meshes, tensor
+  torch.set_num_threads(1)
+  meshes.initialize(coordinator, world, rank, device='cpu')
+  try:
+    axis = tensor.axis_of(meshes.make_mesh(model=world))
+    out = {'steps': {}}
+    for policy in ('full', 'save_attention'):
+      spec = dataclasses.replace(configs.TINY_PALLAS, remat_policy=policy)
+      model, statics = configs.build_gencast(spec, seed=0, device='cpu')
+      task = model.task
+      stack = wrappers.build_stack(model, layout.Stats.unit(
+          sorted(set(task.input_variables) | set(task.target_variables)),
+          task.pressure_levels), bf16=False)
+      sharded, _ = tensor.shard_model(stack, axis)
+      out.update(sharded=sharded, layers=spec.num_layers)
+      d = model.denoiser
+      rng = np.random.default_rng(0)
+      grid = (1, len(statics.grid_lat), len(statics.grid_lon))
+      batch = [torch.as_tensor(rng.standard_normal(
+          grid + (lay.num_channels,)).astype(np.float32))
+               for lay in (d.input_layout, d.target_layout,
+                           d.forcing_layout)]
+      for early in (True, False):
+        stack.zero_grad(set_to_none=True)
+        calls = [axis.traffic['calls']]
+        with torch.utils.checkpoint.set_checkpoint_early_stop(early):
+          loss, _ = stack.loss(*batch,
+                               generator=torch.Generator().manual_seed(1))
+          calls.append(axis.traffic['calls'])
+          loss.mean().backward()
+        calls.append(axis.traffic['calls'])
+        no_grad = [n for n in sharded if all(
+            p.grad is None for p in stack.get_submodule(n).parameters())]
+        out['steps'][f'{policy}:{early}'] = {
+            'forward': calls[1] - calls[0], 'backward': calls[2] - calls[1],
+            'no_grad': no_grad}
+    if rank == 0:
+      with open(os.path.join(work, 'calls.json'), 'w') as f:
+        json.dump(out, f)
+  finally:
+    meshes.shutdown()
