@@ -9,9 +9,10 @@ GraphCast (GraphCast_small at 1 degree, the 37-level paper configuration
 at 0.25 degrees) served, trained (autoregressively too) and evaluated, the
 reference's einsum attention backends, data-parallel training over ranks,
 the member-sharded ensemble, a published-layout GenCast checkpoint
-translated and served, the tracing tool and MFU accounting, and the model
+translated and served, the tracing tool and MFU accounting, the model
 axis (tensor parallelism over heads and MLP hidden widths) in training,
-the pod forecast and dryrun_multichip.
+the pod forecast and dryrun_multichip, and the grid-node axis (the grid
+nodes sharded over the model axis) at 1 degree and in dryrun_multichip.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -109,9 +110,11 @@ Phases (any failure raises and exits non-zero):
      [2, 2, 181, 360, C];
  18. reproducibility: two full-width nano training steps through
      `train.main`, run twice from the same seed, leave bitwise equal losses
-     and parameters (no aggregation adds atomically); before them, two
-     steps under torch.profiler cast no planned edge array (kernel B reads
-     the bf16 edges itself);
+     and parameters (no aggregation adds atomically), each step followed by
+     a sampling eval (`--do_sampling_eval --eval_every 1`) whose serving
+     copy is refreshed in place: one capture of the denoiser call over a
+     run's two evals; before them, two steps under torch.profiler cast no
+     planned edge array (kernel B reads the bf16 edges itself);
  19. fused training (`steps.scanned_train_steps`, the CLI's
      --steps_per_call): at nano and at 1 degree, two calls of 4 steps that
      replay one CUDA graph of the whole training step against 4 + 4 eager
@@ -127,7 +130,9 @@ Phases (any failure raises and exits non-zero):
      checked, checkpoints at steps 1, 3 and 5;
  21. the 0.25-degree statics: built (the run's statics cache under
      build/ is empty at its start), then loaded from the cache, the same
-     arrays; their counts;
+     arrays, by a process of its own that sees no card, started after
+     phase 1 so that it runs beside phases 2-20; loaded here; their
+     counts;
  22. kernels at the 0.25-degree shapes against their plain versions,
      float32 and bf16, with timings, bounds and library calls: A and F at
      [1, 41024, 4, 128] on the 0.25-degree plan and at the ragged 40,962;
@@ -225,10 +230,10 @@ Phases (any failure raises and exits non-zero):
      cuda:0, gloo) against one process, bf16 losses within DP_LOSS_RTOL;
      `--multihost --num_processes 1` (one NCCL rank) bitwise the one
      process; the float32 pair's losses and parameter changes within the
-     TINY training tolerances; A, F, B and E launches per rank-step as
-     derived at batch 1; then `--dp 2 --profile_dir` for 16 steps: the
-     all-reduce's share of a step and the kernels of steps 10-15 in each
-     rank's trace;
+     TINY training tolerances (its --dp 2 run beside the one-process
+     runs); A, F, B and E launches per rank-step as derived at batch 1;
+     then `--dp 2 --profile_dir` for 16 steps: the all-reduce's share of a
+     step and the kernels of steps 10-15 in each rank's trace;
  37. the member-sharded ensemble: `python3 -m
      gencast_tpu_torch.scripts.ensemble_forecast_pod --preset 1deg
      --members 2 --steps 2 --score` on two ranks on cuda:0: the members
@@ -266,7 +271,8 @@ Phases (any failure raises and exits non-zero):
      MLP hidden width) against one process: bf16 losses within
      DP_LOSS_RTOL; the float32 pair at CUT_LAYERS layers, both with
      GENCAST_SPARSE_FUSED_BWD=1 (kernel G and its reduce), losses and
-     parameter changes within the TINY training tolerances; launches per
+     parameter changes within the TINY training tolerances (its --mp 2 run
+     beside the one process's float32 run and the evaluate); launches per
      rank-step as derived (A 16, F 16 + 16, B 4, E 42 at full depth), in
      each rank's trace of steps 1-2 too (`--profile_dir --profile_steps 1
      2`); the --mp 2 checkpoint restored by a --mp 1 evaluate; seconds per
@@ -282,9 +288,26 @@ Phases (any failure raises and exits non-zero):
      member, scores within POD_SCORE_RTOL of `ops.metrics`, C and B
      launches per rank as derived; `python3 -m
      gencast_tpu_torch.tools.dryrun_multichip 8` in a fresh process, mesh
-     (2, 2, 2), every kernel of its paths launched; GraphCast_small at
-     CUT_LAYERS processor steps trained 2 steps under --mp 2, B per
-     rank-step as derived;
+     (2, 2, 2), the grid nodes sharded over the model axis, every kernel
+     of its paths launched, B on the TINY kernel path as derived from each
+     rank's grid rows; beside it GraphCast_small at one processor step
+     (GC_MP_LAYERS) trained 2 steps under --mp 2, B per rank-step as
+     derived;
+ 43. the grid-node axis at 1 degree, full width and depth
+     (`DenoiserConfig.node_sharding_axis='model'`), through the Python API:
+     kernel B on the plans of each rank's edges (float32 and bf16 against
+     its plain version, with card ms, bound and library ms); then in this
+     process and on two spawned ranks on cuda:0 (gloo, eager; each holds
+     half the grid's latitude rows, 2 of the 4 heads and half of each
+     transformer MLP's hidden width), all from perturbed weights: a
+     denoiser call in bf16 and float32, the ranks' within NODE_BF16_RTOL
+     and NODE_F32_RTOL of one process's; two float32 training steps, the
+     losses within TRAIN_LOSS_RTOL, every first gradient within
+     NODE_GRAD_RTOL and every parameter's change (root-sum-square) within
+     TRAIN_STEP_RTOL of one process's; two bf16 training steps whose losses agree within
+     DP_LOSS_RTOL; launches per rank-step as derived (A 16, F 16 + 16, B 4,
+     E 42) and the model axis's all-reduces per rank-step as derived (71);
+     seconds, all-reduce bytes and peak memory per rank-step;
 then a [time] line (the seconds of each phase), one JSON line of kernel
 results (launches from the training runs of each kernel's paths, eager and
 graphed), the card's name and power limit, and a last JSON line
@@ -298,7 +321,7 @@ in turns with the kernel (scaled_dot_product_attention with the dense mask
 and its backward, segment_reduce, native_layer_norm_backward; none for
 G's dq reduce, whose row says so); the port never calls those. TF32 is off
 for matmuls and cuDNN: float32 products run in full float32. Phases 17,
-20, 25, 26, 28-30 and 33-42 write under build/ (git-ignored) and remove
+20, 25, 26, 28-30 and 33-43 write under build/ (git-ignored) and remove
 what they wrote;
 the graph statics are cached under build/chip_smoke_cache for the run and
 removed at its end. About eighteen minutes on an H100, build included.
@@ -313,6 +336,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -378,14 +402,14 @@ PEAK_HBM_BYTES = 3.35e12
 # The depth of the CLI phases whose full-width, full-depth path another
 # phase covers (17: phases 10 and 19; 25-26: phases 22-24; 29: phases 13,
 # 15 and 18-20; 30: phase 10; 33, GraphCast's processor steps: phases 32
-# and 34; 36's float32 pair: its bf16 runs): the same width, grid and
-# mesh, 4 of the 16 layers.
+# and 34; the float32 pairs of 36 and 40: their bf16 runs): the same
+# width, grid and mesh, 4 of the 16 layers.
 CUT_LAYERS = 4
-# Phase 36: 1-degree steps of each data-parallel run, and its per-step
-# bf16 losses against one process of the same global batch, max relative:
-# a rank's batch-1 GEMMs and the rank average round otherwise than one
-# batch-2 step (the float32 pair is held to TRAIN_LOSS_RTOL and, for the
-# parameters, TRAIN_STEP_RTOL).
+# Phases 36 and 40: 1-degree steps of each run over ranks (phase 36's
+# bf16 runs take 16), and its per-step bf16 losses against one process of
+# the same global batch, max relative: a rank's batch-1 GEMMs and the rank
+# average round otherwise than one batch-2 step (the float32 pairs are
+# held to TRAIN_LOSS_RTOL and, for the parameters, TRAIN_STEP_RTOL).
 DP_STEPS = 3
 DP_LOSS_RTOL = 1e-3
 # Phase 37: the pod forecast's scores on the devices (latitude bands, sums
@@ -1080,7 +1104,7 @@ def check_segment_sums(spec, statics, g, card):
   return results
 
 
-def check_segment_plan(name, ids, n, f, g, card):
+def check_segment_plan(name, ids, n, f, g, card, variants=True):
   """Kernel B on the plan of segment ids `ids` over `n` segments, [E, f]
   edges, float32 and bf16 in: against the plain version, bf16 in bitwise
   equal to the kernel on the exact float32 upcast, and twice for equal
@@ -1088,7 +1112,8 @@ def check_segment_plan(name, ids, n, f, g, card):
   kernel), of the plain version and of segment_reduce, and on plans with
   rows over segment.SPLIT_DEGREE edges of the kernel without the split,
   with half and twice that threshold, and of the plan with its rows capped
-  at SPLIT_DEGREE (the kernel's paths as CUDA graph replays, graph_ms).
+  at SPLIT_DEGREE (the kernel's paths as CUDA graph replays, graph_ms);
+  without `variants`, the kernel, plain and library timings only.
   Returns {(name, dtype): (max abs err, ms, bound inputs)}."""
   from gencast_tpu_torch.graph import plans
   from gencast_tpu_torch.ops import segment
@@ -1124,10 +1149,10 @@ def check_segment_plan(name, ids, n, f, g, card):
                                                 lengths=lengths)}, reps=20)
     fns = {'kernel': lambda: segment.planned_segment_sum_cuda(data, row_ptr,
                                                               perm)}
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and variants:
       fns['cast_then_kernel'] = lambda: segment.planned_segment_sum_cuda(
           data.float(), row_ptr, perm)
-    if max_degree > segment.SPLIT_DEGREE:
+    if max_degree > segment.SPLIT_DEGREE and variants:
       capped = capped_plan(row_ptr, perm, segment.SPLIT_DEGREE)
       fns['unsplit'] = lambda: segment.planned_segment_sum_cuda(
           data, row_ptr, perm, split_degree=unsplit)
@@ -1445,14 +1470,38 @@ def train_preset(spec, statics, dev, card, argv, steps_run=3, start=0,
 def check_reproducible(argv, steps_run) -> None:
   """Phase 18: `steps_run` training steps through the CLI, twice from the
   same seed, must leave bitwise equal losses and parameters: every sum of
-  the step is taken in a fixed order (no aggregation adds atomically)."""
-  from gencast_tpu_torch.ops import segment
+  the step is taken in a fixed order (no aggregation adds atomically).
+  Each run takes a sampling eval after every step (`--do_sampling_eval
+  --eval_every 1`): the serving copy, refreshed in place before each eval,
+  keeps its sampler graph, so the denoiser call is captured once over the
+  run's evals (the captures counted at `cuda_lib.Graph.capture`, the graphs
+  on the serving copy)."""
+  from gencast_tpu_torch.ops import cuda_lib, segment
   from gencast_tpu_torch.training import train
   runs = []
+  capture = cuda_lib.Graph.capture
   for _ in range(2):
     segment.KERNEL.reset()
-    run = train.main(argv + ['--steps', str(steps_run), '--data', 'synthetic',
-                             '--log_every', '1'])
+    captures = []
+
+    def counted(graph, fn, captures=captures):
+      captures.append(graph)
+      return capture(graph, fn)
+
+    cuda_lib.Graph.capture = counted
+    try:
+      run = train.main(argv + ['--steps', str(steps_run), '--data',
+                               'synthetic', '--log_every', '1',
+                               '--do_sampling_eval', '--eval_every', '1'])
+    finally:
+      cuda_lib.Graph.capture = capture
+    graphs = sampler_graphs(run.model)
+    if (len(captures) != 1 or len(graphs) != 1
+        or graphs[0].graph is not captures[0]
+        or not graphs[0].graph.counts.launches):
+      raise AssertionError(f'{argv}: {len(captures)} captures and '
+                           f'{len(graphs)} sampler graphs over {steps_run} '
+                           'sampling evals (one of each expected)')
     runs.append((run.losses, [p.detach().clone()
                               for p in run.model.parameters()]))
     if segment.KERNEL.launches == 0:
@@ -1465,7 +1514,8 @@ def check_reproducible(argv, steps_run) -> None:
         f'{losses_b}, {differing} of {len(params_a)} parameters differ')
   log(f'[reproducible] {" ".join(argv)}: {steps_run} training steps twice '
       f'from one seed: losses {losses_a} and all {len(params_a)} parameters '
-      'bitwise equal')
+      f'bitwise equal; a sampling eval after each step, the denoiser call '
+      f'captured once in each run\'s {steps_run} evals')
 
 
 def fused_training(argv, dev, card, k, rounds, pool_rows=4, tag=None):
@@ -1963,11 +2013,14 @@ def kernel_and_plain_stacks(spec, statics, dev, tag):
   return model, stack, plain_stack
 
 
-def quarter_deg_statics(spec, card):
-  """Phase 21: the 0.25-degree graph statics, built (the cache is empty at
-  the start of the run), then loaded from the on-disk cache, array for
-  array the same; their counts."""
+def quarter_statics_job(report: str) -> int:
+  """Phase 21's build, in a process of its own (CPU only; started by
+  start_quarter_statics at phase 2, so that it runs beside the card's
+  phases 2-20): the 0.25-degree graph statics built (the run's cache is
+  empty at its start), then loaded from the on-disk cache, array for array
+  the same. Writes the seconds of each to `report` (JSON)."""
   from gencast_tpu_torch import configs
+  spec = configs.QUARTER_DEG
   t0 = time.perf_counter()
   statics = configs.build_statics(spec)
   built = time.perf_counter() - t0
@@ -1985,9 +2038,94 @@ def quarter_deg_statics(spec, card):
     if not np.array_equal(getattr(plan, field),
                           getattr(again.attention_tile_plan, field)):
       raise AssertionError(f'cached statics: tile plan {field} differs')
+  with open(report, 'w') as f:
+    json.dump({'built_s': built, 'loaded_s': loaded}, f)
+  return 0
+
+
+# Commands chip_smoke.py starts, each in a session of its own (a process
+# group led by the command); stop_processes stops each group at its exit.
+STARTED = []
+
+
+def _process_table():
+  """(pid, ppid, process group) of every process in /proc that has not
+  ended (zombies left out)."""
+  table = []
+  for entry in os.listdir('/proc'):
+    if not entry.isdigit():
+      continue
+    try:
+      with open(f'/proc/{entry}/stat') as f:
+        stat = f.read()
+    except OSError:
+      continue
+    # After the command's name in parentheses: state, ppid, pgrp, ...
+    fields = stat[stat.rindex(')') + 2:].split()
+    if fields[0] != 'Z':
+      table.append((int(entry), int(fields[1]), int(fields[2])))
+  return table
+
+
+def stop_processes():
+  """Stops every process chip_smoke.py started that still runs, and waits
+  for each: multiprocessing's resource tracker (which the 'spawn' of
+  phase 43's ranks starts, and which would otherwise end only after this
+  process), what is left in the process group of each command in STARTED,
+  and any other child. Returns the pids it had to kill."""
+  from multiprocessing import resource_tracker
+  stop_tracker = getattr(resource_tracker._resource_tracker, '_stop', None)
+  if stop_tracker is not None:
+    stop_tracker()
+  groups = {proc.pid for proc in STARTED}
+  killed = []
+  for pid, ppid, group in _process_table():
+    if pid != os.getpid() and (ppid == os.getpid() or group in groups):
+      with contextlib.suppress(ProcessLookupError):
+        os.kill(pid, signal.SIGKILL)
+        killed.append(pid)
+  for proc in STARTED:
+    if proc.returncode is None:
+      proc.communicate()
+  for pid in killed:
+    with contextlib.suppress(ChildProcessError):
+      os.waitpid(pid, 0)
+  return killed
+
+
+def start_quarter_statics(report: str) -> subprocess.Popen:
+  """quarter_statics_job in a new python3 process that sees no card."""
+  repo = os.path.dirname(os.path.abspath(__file__))
+  proc = subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), '--quarter-statics',
+       report], cwd=repo, text=True, stdout=subprocess.PIPE,
+      stderr=subprocess.PIPE, start_new_session=True,
+      env=dict(os.environ, CUDA_VISIBLE_DEVICES=''))
+  STARTED.append(proc)
+  return proc
+
+
+def quarter_deg_statics(spec, card, job, report):
+  """Phase 21: the 0.25-degree graph statics: built and then loaded from
+  the on-disk cache, array for array the same, by `job`
+  (quarter_statics_job, waited for here), then loaded here from the
+  cache; their counts."""
+  from gencast_tpu_torch import configs
+  stdout, stderr = job.communicate(timeout=900)
+  if job.returncode:
+    raise AssertionError(f'0.25deg statics build: exit {job.returncode}\n'
+                         f'{stdout[-3000:]}\n{stderr[-5000:]}')
+  with open(report) as f:
+    seconds = json.load(f)
+  t0 = time.perf_counter()
+  statics = configs.build_statics(spec)
+  loaded = time.perf_counter() - t0
+  plan = statics.attention_tile_plan
   degree = np.bincount(statics.grid2mesh.receivers).max()
-  log(f'[0.25deg statics] built in {built:.1f} s, loaded from the cache in '
-      f'{loaded:.2f} s (the same arrays); grid {statics.num_grid_nodes} '
+  log(f'[0.25deg statics] built in {seconds["built_s"]:.1f} s and loaded '
+      f'from the cache in {seconds["loaded_s"]:.2f} s (the same arrays) by '
+      f'a process of its own beside phases 2-20; loaded here in '
+      f'{loaded:.2f} s; grid {statics.num_grid_nodes} '
       f'nodes, mesh {statics.num_mesh_nodes} nodes, grid2mesh '
       f'{statics.grid2mesh.num_edges} edges (receiver degree up to '
       f'{degree}), mesh2grid {statics.mesh2grid.num_edges} edges, mesh '
@@ -3304,20 +3442,48 @@ def run_ranks(module, argv, tag, timeout=600, env=None):
   (it may start ranks of its own), with `env` added to the environment:
   its wall seconds, stdout, and by rank its 'pipeline' and 'kernel
   launches' lines. Raises if it fails."""
+  return finish_ranks(start_ranks(module, argv, env), tag, timeout)
+
+
+def start_ranks(module, argv, env=None):
+  """run_ranks' command started, not waited for: finish_ranks takes it."""
   repo = os.path.dirname(os.path.abspath(__file__))
   t0 = time.perf_counter()
-  done = subprocess.run([sys.executable, '-m', module] + argv, cwd=repo,
-                        capture_output=True, text=True, timeout=timeout,
-                        env=dict(os.environ, **(env or {})))
+  proc = subprocess.Popen(
+      [sys.executable, '-m', module] + argv, cwd=repo, text=True,
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, start_new_session=True,
+      env=dict(os.environ, **(env or {})))
+  STARTED.append(proc)
+  return t0, proc
+
+
+def stop_ranks(started) -> None:
+  """Kills a command start_ranks started, with the ranks it started."""
+  _, proc = started
+  if proc.poll() is None:
+    os.killpg(proc.pid, signal.SIGKILL)
+  proc.communicate()
+
+
+def finish_ranks(started, tag, timeout=600):
+  """run_ranks' result of a command start_ranks started (killed, and an
+  error, past `timeout` seconds from its start)."""
+  t0, proc = started
+  try:
+    stdout, stderr = proc.communicate(
+        timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+  except BaseException:
+    stop_ranks(started)
+    raise
   wall = time.perf_counter() - t0
-  if done.returncode:
-    raise AssertionError(f'{tag}: exit {done.returncode}\n'
-                         f'{done.stdout[-3000:]}\n{done.stderr[-5000:]}')
+  if proc.returncode:
+    raise AssertionError(f'{tag}: exit {proc.returncode}\n'
+                         f'{stdout[-3000:]}\n{stderr[-5000:]}')
   ranks = {}
-  for m in RANK_LINE.finditer(done.stdout):
+  for m in RANK_LINE.finditer(stdout):
     ranks.setdefault(int(m.group(2)), {})[m.group(1)] = json.loads(
         m.group(4))
-  return {'wall': wall, 'stdout': done.stdout, 'ranks': ranks}
+  return {'wall': wall, 'stdout': stdout, 'ranks': ranks}
 
 
 def checkpoint_params(directory, steps_run):
@@ -3348,13 +3514,15 @@ def data_parallel_1deg(spec, statics, dev, card, work, stats) -> dict:
   steps with --profile_dir, against one process at batch 2 (`train.main`
   here): the first DP_STEPS losses within DP_LOSS_RTOL (bf16, the
   preset's); `--multihost --num_processes 1` (one NCCL rank, here) bitwise
-  the one process; the float32 pair at CUT_LAYERS layers (--no-bf16,
-  --dp 2 started from here) for DP_STEPS steps: losses within
+  the one process; the float32 pair at CUT_LAYERS layers (--no-bf16)
+  for DP_STEPS steps: losses within
   TRAIN_LOSS_RTOL and each parameter's change within TRAIN_STEP_RTOL of
   the one process's (in bf16 a rank's
   weight gradient is rounded before the average, and Adam turns the
   rounding of a near-zero entry into a full-size update: that figure is
-  logged, not held). Launches of A, F, B and E per step as
+  logged, not held). The float32 --dp 2 run, started from here as a CLI
+  process, goes beside the one-process runs (it only checks; the traced
+  bf16 --dp 2 run goes alone). Launches of A, F, B and E per step as
   expected_step_launches in every run, per rank at batch 1; each rank's
   trace of steps 10-15 (its only profiler session) holds them too, and
   gives the all-reduce's share of a step. Returns each kernel's launches
@@ -3372,18 +3540,24 @@ def data_parallel_1deg(spec, statics, dev, card, work, stats) -> dict:
   f32 = ['--no-bf16', '--num_layers', str(CUT_LAYERS), '--steps',
          str(DP_STEPS)]
   runs = {}
-  for name, argv, steps_run in (
-      ('one', ['--steps', str(long_steps)], long_steps),
-      ('nccl', ['--steps', str(long_steps)] + nccl, long_steps),
-      ('one_f32', f32, DP_STEPS),
-      ('dp_f32', f32 + ['--dp', '2'], DP_STEPS)):
-    torch.cuda.empty_cache()
-    for c in counters():
-      c.reset()
-    t0 = time.perf_counter()
-    run = train.main(base + argv + ['--ckpt_dir', os.path.join(work, name)])
-    launches = {c.name: c.launches for c in counters()}
-    if run.model is not None:  # the --dp 2 parent holds no model
+  # The float32 --dp 2 run only checks (its times are not metrics): it runs
+  # beside this process's runs; the bf16 --dp 2 run, traced, runs alone.
+  f32_metrics = os.path.join(work, 'dp_f32.jsonl')
+  f32_started = start_ranks('gencast_tpu_torch.training.train', base + f32 + [
+      '--dp', '2', '--ckpt_dir', os.path.join(work, 'dp_f32'),
+      '--metrics_jsonl', f32_metrics])
+  try:
+    for name, argv, steps_run in (
+        ('one', ['--steps', str(long_steps)], long_steps),
+        ('nccl', ['--steps', str(long_steps)] + nccl, long_steps),
+        ('one_f32', f32, DP_STEPS)):
+      torch.cuda.empty_cache()
+      for c in counters():
+        c.reset()
+      t0 = time.perf_counter()
+      run = train.main(base + argv + ['--ckpt_dir',
+                                      os.path.join(work, name)])
+      launches = {c.name: c.launches for c in counters()}
       per_run = expected_step_launches(next(
           m for m in run.model.modules() if isinstance(m, GenCast)))
       if launches != {k: v * steps_run for k, v in per_run.items()}:
@@ -3391,10 +3565,21 @@ def data_parallel_1deg(spec, statics, dev, card, work, stats) -> dict:
                              f'{per_run} per step expected')
       if name == 'one':
         per_step = per_run
-    runs[name] = {'run': run, 'wall': time.perf_counter() - t0,
-                  'params': checkpoint_params(os.path.join(work, name),
-                                              steps_run)}
-    run.model = None
+      runs[name] = {'run': run, 'wall': time.perf_counter() - t0,
+                    'params': checkpoint_params(os.path.join(work, name),
+                                                steps_run)}
+      run.model = None
+  except BaseException:
+    stop_ranks(f32_started)
+    raise
+  dp_f32 = finish_ranks(f32_started, '1deg --dp 2 float32')
+  with open(f32_metrics) as f:
+    runs['dp_f32'] = {
+        'losses': [r['loss'] for r in map(json.loads, f)
+                   if r['event'] == 'train'],
+        'wall': dp_f32['wall'],
+        'step_s': dp_f32['ranks'][0]['pipeline']['step_s'],
+        'params': checkpoint_params(os.path.join(work, 'dp_f32'), DP_STEPS)}
   torch.cuda.empty_cache()
   trace_dir = os.path.join(work, 'trace')
   metrics = os.path.join(work, 'dp.jsonl')
@@ -3445,7 +3630,7 @@ def data_parallel_1deg(spec, statics, dev, card, work, stats) -> dict:
   one = runs['one']['run'].losses
   bf16 = loss_rel(one[:DP_STEPS], dp['losses'][:DP_STEPS])
   bf16_all = loss_rel(one, dp['losses'])
-  f32 = (loss_rel(runs['one_f32']['run'].losses, runs['dp_f32']['run'].losses),
+  f32 = (loss_rel(runs['one_f32']['run'].losses, runs['dp_f32']['losses']),
          change_rel(runs['one_f32']['params'], runs['dp_f32']['params']))
   nccl_equal = (runs['nccl']['run'].losses == one and all(
       torch.equal(a, b) for a, b in zip(runs['one']['params'],
@@ -3466,17 +3651,19 @@ def data_parallel_1deg(spec, statics, dev, card, work, stats) -> dict:
 
   dp_steps = {r: {k: round(v, 4) for k, v in lines['pipeline']['step_s']
                   .items()} for r, lines in sorted(dp['ranks'].items())}
+  f32_steps = {k: round(v, 4) for k, v in runs['dp_f32']['step_s'].items()}
   log(f'[data parallel 1deg] batch 2, bf16, {long_steps} steps: one process '
       f'step s {steps_of(runs["one"]["run"].step_seconds)} (wall '
       f'{runs["one"]["wall"]:.1f} s); --dp 2 (two ranks on cuda:0, gloo, '
       f'profiled steps {first}-{last_step}) step s by rank {dp_steps} (wall '
       f'{dp["wall"]:.1f} s with start-up); one NCCL rank step s '
       f'{steps_of(runs["nccl"]["run"].step_seconds)} (wall '
-      f'{runs["nccl"]["wall"]:.1f} s); float32 at {CUT_LAYERS} layers, '
+      f'{runs["nccl"]["wall"]:.1f} s); the one-process runs beside the '
+      f'float32 --dp 2 run; float32 at {CUT_LAYERS} layers, '
       f'{DP_STEPS} steps: one process '
       f'step s {steps_of(runs["one_f32"]["run"].step_seconds)}, --dp 2 '
-      f'{steps_of(runs["dp_f32"]["run"].step_seconds)} (rank 0; wall '
-      f'{runs["dp_f32"]["wall"]:.1f} s); {card}')
+      f'{f32_steps} (rank 0; wall {runs["dp_f32"]["wall"]:.1f} s with '
+      f'start-up); {card}')
   log(f'[data parallel 1deg] --dp 2 against one process: bf16 losses of the '
       f'first {DP_STEPS} steps max rel {bf16:.3e} (tol {DP_LOSS_RTOL}; all '
       f'{long_steps}: {bf16_all:.3e}); float32 losses max rel {f32[0]:.3e} '
@@ -3914,6 +4101,10 @@ def tools_and_accounting(spec, work, card, timed) -> None:
 # 2 steps of 39 denoiser calls, each row-parallel sum of two bf16 partials
 # in float32) against the one-device members, max relative.
 POD_MP_RTOL = 5e-2
+# Phase 42's GraphCast_small under --mp 2: one processor step (its full
+# depth runs in phases 32-34, and every step holds the same column/row
+# pairs); the run is bound by the host's all-reduces, a few per pair.
+GC_MP_LAYERS = 1
 
 
 def rank_launches(run) -> dict:
@@ -3944,8 +4135,10 @@ def model_axis_1deg(spec, statics, dev, card, work, stats) -> dict:
   all-reduces' share of a step (allreduce_ms, as phase 36). Logs seconds
   per step, the model axis's all-reduces per step (calls and float32
   bytes from the CLI's pipeline line; the share from the traces) and peak
-  memory per rank. Returns each kernel's launches over the ranks of the
-  --mp 2 runs."""
+  memory per rank. The float32 --mp 2 run goes beside the one process's
+  float32 run and the evaluate (it only checks; the bf16 runs, whose times
+  are logged, run alone). Returns each kernel's launches over the ranks of
+  the --mp 2 runs."""
   from gencast_tpu_torch.models.gencast import GenCast
   from gencast_tpu_torch.nn import transformer
   from gencast_tpu_torch.training import evaluate, train
@@ -3955,8 +4148,9 @@ def model_axis_1deg(spec, statics, dev, card, work, stats) -> dict:
           '--steps', str(DP_STEPS)]
   f32 = ['--no-bf16', '--num_layers', str(CUT_LAYERS)]
   fused = {transformer.FUSED_BWD_ENV: '1'}
-  runs, per_step = {}, {}
-  for name, argv, env in (('one', [], {}), ('one_f32', f32, fused)):
+  runs, per_step, got = {}, {}, {}
+
+  def one_process(name, argv, env):
     torch.cuda.empty_cache()
     for c in counters():
       c.reset()
@@ -3979,20 +4173,15 @@ def model_axis_1deg(spec, statics, dev, card, work, stats) -> dict:
     runs[name] = {'run': run, 'params': checkpoint_params(
         os.path.join(work, name), DP_STEPS)}
     run.model = None
-  torch.cuda.empty_cache()
-  got = {}
-  trace_dir = os.path.join(work, 'trace')
-  traced = (1, 2)
-  profile = ['--profile_dir', trace_dir, '--profile_steps'] + [
-      str(x) for x in traced]
-  for name, argv, env, like in (('mp', profile, {}, 'one'),
-                                ('mp_f32', f32, fused, 'one_f32')):
-    ckpt = os.path.join(work, name)
-    metrics = os.path.join(work, f'{name}.jsonl')
-    mp = run_ranks('gencast_tpu_torch.training.train', base + argv + [
-        '--mp', '2', '--metrics_jsonl', metrics, '--ckpt_dir', ckpt],
-        f'1deg --mp 2 ({name})', env=env)
-    with open(metrics) as f:
+    torch.cuda.empty_cache()
+
+  def mp_argv(name, argv):
+    return base + argv + ['--mp', '2', '--metrics_jsonl',
+                          os.path.join(work, f'{name}.jsonl'), '--ckpt_dir',
+                          os.path.join(work, name)]
+
+  def mp_result(name, mp, like):
+    with open(os.path.join(work, f'{name}.jsonl')) as f:
       losses = [r['loss'] for r in map(json.loads, f)
                 if r['event'] == 'train']
     got[name] = rank_launches(mp)
@@ -4006,7 +4195,16 @@ def model_axis_1deg(spec, statics, dev, card, work, stats) -> dict:
                            f'launches by rank {got[name]}, expected {want} '
                            'each')
     runs[name] = {'losses': losses, 'ranks': mp['ranks'],
-                  'params': checkpoint_params(ckpt, DP_STEPS)}
+                  'params': checkpoint_params(os.path.join(work, name),
+                                              DP_STEPS)}
+
+  one_process('one', [], {})
+  trace_dir = os.path.join(work, 'trace')
+  traced = (1, 2)
+  profile = ['--profile_dir', trace_dir, '--profile_steps'] + [
+      str(x) for x in traced]
+  mp_result('mp', run_ranks('gencast_tpu_torch.training.train',
+                            mp_argv('mp', profile), '1deg --mp 2 (mp)'), 'one')
 
   # Each rank's trace of steps 1-2 of the bf16 run: the launches of those
   # steps, and the all-reduces' host ms over the step's (steps 1-2 are the
@@ -4024,16 +4222,28 @@ def model_axis_1deg(spec, statics, dev, card, work, stats) -> dict:
     shares[rank] = (allreduce_ms(path) / profiled,
                     1e3 * lines['pipeline']['step_s']['mean'])
 
-  # The --mp 2 checkpoint (full tensors) restored at --mp 1 by evaluate.
-  ev = evaluate.main(['--preset', '1deg', '--clean_sst_nans', '--stats_path',
-                      stats, '--ckpt_dir', os.path.join(work, 'mp'),
-                      '--num_members', '1', '--max_rollout_steps', '1',
-                      '--plot_vars', '--out_dir', os.path.join(work, 'eval')])
-  rmse = ev.results['rmse']
-  if not np.isfinite(list(rmse.values())).all():
-    raise AssertionError(f'evaluate of the --mp 2 checkpoint: rmse {rmse}')
-  del ev
-  torch.cuda.empty_cache()
+  # The float32 --mp 2 run only checks (its times are not metrics): it runs
+  # beside this process's float32 run and the evaluate.
+  f32_started = start_ranks('gencast_tpu_torch.training.train',
+                            mp_argv('mp_f32', f32), env=fused)
+  try:
+    one_process('one_f32', f32, fused)
+    # The --mp 2 checkpoint (full tensors) restored at --mp 1 by evaluate.
+    ev = evaluate.main(['--preset', '1deg', '--clean_sst_nans',
+                        '--stats_path', stats, '--ckpt_dir',
+                        os.path.join(work, 'mp'), '--num_members', '1',
+                        '--max_rollout_steps', '1', '--plot_vars',
+                        '--out_dir', os.path.join(work, 'eval')])
+    rmse = ev.results['rmse']
+    if not np.isfinite(list(rmse.values())).all():
+      raise AssertionError(f'evaluate of the --mp 2 checkpoint: rmse {rmse}')
+    del ev
+    torch.cuda.empty_cache()
+  except BaseException:
+    stop_ranks(f32_started)
+    raise
+  mp_result('mp_f32', finish_ranks(f32_started, '1deg --mp 2 (mp_f32)'),
+            'one_f32')
 
   from gencast_tpu_torch import configs
   initial, _ = configs.build_gencast(cut_depth(spec), seed=0,
@@ -4068,7 +4278,8 @@ def model_axis_1deg(spec, statics, dev, card, work, stats) -> dict:
     lines = {r: v['pipeline'] for r, v in sorted(runs[name]['ranks'].items())}
     step_s = {r: v['step_s'] for r, v in lines.items()}
     reduce = {r: v['model_axis_all_reduce'] for r, v in lines.items()}
-    share = ('' if name != 'mp' else
+    share = ('; beside the one process\'s float32 run and the evaluate'
+             if name != 'mp' else
              f'; all-reduce ms per step and mean step ms by rank, traced '
              f'steps {traced[0]}-{traced[1]}: {ms_by_rank}, share '
              f'{share_by_rank}')
@@ -4186,10 +4397,12 @@ def pod_and_dryrun(spec, dev, card, work) -> dict:
   of the one-device member, its scores within POD_SCORE_RTOL of
   ops.metrics on the saved members, C 16 and B 1 launches per denoiser
   call and rank; `python3 -m gencast_tpu_torch.tools.dryrun_multichip 8`
-  in a fresh process, mesh (2, 2, 2), every kernel of its paths launched;
-  GraphCast_small at CUT_LAYERS processor steps trained 2 steps under --mp
-  2, B per rank-step as derived. Returns each kernel's launches by path,
-  over the ranks."""
+  in a fresh process, mesh (2, 2, 2), the grid nodes sharded over the
+  model axis, every kernel of its paths launched, B on the TINY kernel path
+  as derived from each rank's grid rows; GraphCast_small at GC_MP_LAYERS
+  processor step trained 2 steps under --mp 2, B per rank-step as derived,
+  beside the dryrun (neither's time is a metric; each only checks).
+  Returns each kernel's launches by path, over the ranks."""
   from gencast_tpu_torch import configs
   from gencast_tpu_torch.data import layout as layout_lib
   from gencast_tpu_torch.models import wrappers
@@ -4251,29 +4464,47 @@ def pod_and_dryrun(spec, dev, card, work) -> dict:
       f'seconds per member-step by rank {member_step}; wall '
       f'{run["wall"]:.1f} s; {card}')
 
-  dry = run_ranks('gencast_tpu_torch.tools.dryrun_multichip', ['8'],
-                  'dryrun_multichip 8')
-  dry_got = {int(r): json.loads(j) for r, j in re.findall(
-      r'\[dryrun\] rank (\d+) launches (\{.*\})', dry['stdout'])}
-  path_kernels = {c.name for c in counters()[:8]}
-  seen = {k for v in dry_got.values() for k in v}
-  if ('dryrun_multichip ok: mesh=(2,2,2)' not in dry['stdout']
-      or dry['stdout'].count('dryrun kernels ok') != 2
-      or 'grid-node axis' not in dry['stdout'] or sorted(dry_got) != list(
-          range(8)) or seen != path_kernels):
-    raise AssertionError(f'dryrun_multichip 8: {dry["stdout"][-3000:]}')
-  log(f'[dryrun] {[ln for ln in dry["stdout"].splitlines() if "ok" in ln]}; '
-      f'kernels launched on every rank: {sorted(seen)}; wall '
-      f'{dry["wall"]:.1f} s; {card}')
-
-  gc_spec = cut_depth(spec)
+  gc_spec = dataclasses.replace(spec, num_layers=GC_MP_LAYERS)
   gc, _ = configs.build_graphcast(gc_spec, device=dev)
   gc_step = graphcast_launches(gc, train=True)
   del gc
-  gc_run = run_ranks('gencast_tpu_torch.training.train', [
+  torch.cuda.empty_cache()
+  gc_started = start_ranks('gencast_tpu_torch.training.train', [
       '--model', 'graphcast', '--preset', '1deg', '--num_layers',
-      str(CUT_LAYERS), '--data', 'synthetic', '--steps', '2', '--mp', '2',
-      '--log_every', '1', '--prefetch', '0'], 'GraphCast_small --mp 2')
+      str(GC_MP_LAYERS), '--data', 'synthetic', '--steps', '2', '--mp', '2',
+      '--log_every', '1', '--prefetch', '0'])
+  try:
+    dry = run_ranks('gencast_tpu_torch.tools.dryrun_multichip', ['8'],
+                    'dryrun_multichip 8')
+    gc_run = finish_ranks(gc_started, 'GraphCast_small --mp 2')
+  except BaseException:
+    stop_ranks(gc_started)
+    raise
+  dry_got = {int(r): json.loads(j) for r, j in re.findall(
+      r'\[dryrun\] rank (\d+) launches (\{.*\})', dry['stdout'])}
+  tiny_got = {int(r): json.loads(j) for r, j in re.findall(
+      r'\[dryrun\] rank (\d+) TINY kernel path launches (\{.*\})',
+      dry['stdout'])}
+  tiny_b = dryrun_tiny_b_launches(dev)
+  path_kernels = {c.name for c in counters()[:8]}
+  seen = {k for v in dry_got.values() for k in v}
+  b_name = segment.KERNEL.name
+  b_by_rank = {r: v.get(b_name, 0) for r, v in sorted(tiny_got.items())}
+  if ('dryrun_multichip ok: mesh=(2,2,2)' not in dry['stdout']
+      or dry['stdout'].count('dryrun kernels ok') != 2
+      or 'grid nodes sharded over the model axis: True' not in dry['stdout']
+      or 'not ported' in dry['stdout']
+      or sorted(dry_got) != list(range(8)) or seen != path_kernels
+      or b_by_rank != {r: tiny_b[r % 2] for r in range(8)}):
+    raise AssertionError(f'dryrun_multichip 8: B on the TINY kernel path by '
+                         f'rank {b_by_rank}, derived {tiny_b} by model '
+                         f'index\n{dry["stdout"][-3000:]}')
+  log(f'[dryrun] {[ln for ln in dry["stdout"].splitlines() if "ok" in ln]}; '
+      f'grid nodes sharded over the model axis; kernels launched on every '
+      f'rank: {sorted(seen)}; B on the TINY kernel path (the rank\'s grid '
+      f'rows\' plans and stream chunks) by rank {b_by_rank}, as derived; '
+      f'wall {dry["wall"]:.1f} s (beside GraphCast_small --mp 2); {card}')
+
   gc_got = rank_launches(gc_run)
   gc_want = {k: 2 * v for k, v in gc_step.items() if v}
   gc_losses = [float(x) for x in re.findall(r'step \d+/2 loss=([-0-9.naif]+)',
@@ -4284,9 +4515,10 @@ def pod_and_dryrun(spec, dev, card, work) -> dict:
                          f'{gc_want} each), losses {gc_losses}')
   gc_ms = {r: round(1e3 * v['pipeline']['step_s']['mean'], 2)
            for r, v in gc_run['ranks'].items()}
-  log(f'[graphcast mp] GraphCast_small at {CUT_LAYERS} processor steps, '
+  log(f'[graphcast mp] GraphCast_small at {GC_MP_LAYERS} processor step, '
       f'--mp 2 (two ranks on cuda:0, gloo, eager), 2 steps: losses '
-      f'{gc_losses[:2]}, B {gc_want} per rank as derived; mean step ms by '
+      f'{gc_losses[:2]}, B {gc_want} per rank as derived (beside the '
+      f'dryrun); mean step ms by '
       f'rank {gc_ms}; phase {time.perf_counter() - t_phase:.1f} s; {card}')
   return {'pod_nano_mp': {k: sum(v.get(k, 0) for v in pod_got.values())
                           for k in pod_want},
@@ -4294,6 +4526,383 @@ def pod_and_dryrun(spec, dev, card, work) -> dict:
                      for k in seen},
           'graphcast_mp': {k: sum(v.get(k, 0) for v in gc_got.values())
                            for k in gc_want}}
+
+
+def dryrun_tiny_b_launches(dev) -> dict:
+  """Kernel B's launches in the loss and backward of the dryrun's TINY
+  kernel path (`tools.dryrun_multichip._kernel_paths`: triblock_pallas,
+  plans forced, streamed edges, save_attention) on the rank of each model
+  index of a model axis of 2, derived from the model with that rank's
+  grid rows (expected_step_launches): {model index: launches}."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.parallel import tensor
+  from gencast_tpu_torch.ops import segment
+  spec = dataclasses.replace(
+      configs.TINY, attention_type='triblock_pallas',
+      remat_policy='save_attention', use_agg_plans=True,
+      agg_plan_min_degree=1, edge_chunk_size=1024, num_noise_levels=2)
+  out = {}
+  for index in range(2):
+    model, _ = configs.build_gencast(spec, seed=0, device=dev,
+                                     node_sharding_axis='model')
+    tensor.shard_model(model, tensor.ModelAxis(None, 2, index))
+    out[index] = expected_step_launches(model)[segment.KERNEL.name]
+  return out
+
+
+# Phase 43: 1-degree steps of the node-sharded run (and of its one-process
+# reference); the first update takes the full rate (no warmup), so the
+# second loss sees the first step's gradients.
+NODE_STEPS = 2
+# Its denoiser call against one process, max|sharded - one| / max|one|:
+# float32, the same arithmetic in other summation orders (grid2mesh's
+# mesh-side sums as two partial sums; each row-parallel product as two)
+# through 16 layers, as STREAMED_F32_RTOL; bf16, each rank's partial
+# product rounded to bf16 before the float32 sum (DENOISER_BF16_RTOL's
+# flipped roundings carried through 16 layers).
+NODE_F32_RTOL = 1e-4
+NODE_BF16_RTOL = 5e-2
+# Its float32 training pair's first gradients against one process, per
+# parameter max|sharded - one| / max|one|: TRAIN_GRAD_RTOL's summation
+# orders through 16 layers instead of 2 (a partial gradient missing,
+# halved or counted twice is off by O(1)).
+NODE_GRAD_RTOL = 1e-3
+
+
+def node_axis_stack(spec, stats_path, dev, axis):
+  """GenCast of `spec` with `node_sharding_axis='model'` (seed 0, its
+  weights perturbed by `bridge.perturbed`), its bf16 stack with
+  --clean_sst_nans over the statistics file `stats_path`, sharded over
+  `axis` (None: nothing sharded, the unsharded model): (model, stack,
+  stats, statics)."""
+  from gencast_tpu_torch import bridge, configs
+  from gencast_tpu_torch.data import sources
+  from gencast_tpu_torch.models import casting, wrappers
+  from gencast_tpu_torch.parallel import tensor
+  model, statics = configs.build_gencast(spec, seed=0, device=dev,
+                                         node_sharding_axis='model')
+  bridge.load_reference_params(model, bridge.perturbed(
+      bridge.export_reference_params(model), seed=7))
+  stats = sources.load_stats_auto(stats_path, model.task.pressure_levels)
+  stack = wrappers.build_stack(model, stats, bf16=True,
+                               clean_sst_nans=True).to(dev)
+  tensor.shard_model(stack, axis)
+  casting.refresh_all(stack)
+  return model, stack, stats, statics
+
+
+def rel_by_parameter(got, want):
+  """max over parameters of max|got - want| / max|want| (parameters whose
+  `want` is all zeros must be zeros in `got`), and the worst one's name."""
+  worst = (0.0, None)
+  for name, w in want.items():
+    g, scale = got[name].to(w.device), float(w.abs().max())
+    err = float((g - w).abs().max())
+    r = err / scale if scale > 0 else (0.0 if err == 0 else float('inf'))
+    worst = max(worst, (r, name), key=lambda x: x[0])
+  return worst
+
+
+def node_axis_run(spec, stats_path, dev, axis, reference=None) -> dict:
+  """node_axis_stack's model over `axis`, with perturbed weights (the
+  seeded init's zero output projections would leave the processor's
+  row-parallel sums exact and the first loss without gradients): one
+  denoiser call of seeded inputs through the bf16 stack and through a
+  float32 stack; from those weights, NODE_STEPS float32 training steps at
+  batch 1 on the synthetic source's batches (batch_iterator, seed 0) with
+  the CLI's draws of each step, AdamW without warmup, keeping the first
+  step's gradients and each parameter's change (full tensors, gathered
+  over the axis); then from the same weights the same steps through the
+  bf16 stack, measured. Returns the two calls' outputs (on the host) and
+  seconds, the float32 losses, the bf16 losses, each bf16 step's seconds,
+  kernel launches and the axis's all_reduce calls and bytes, the launches
+  derived from the model (expected_step_launches), and the bf16 steps'
+  peak memory. Without `reference` also the float32 gradients and changes
+  (on the host); with it (a file of those from one process), their worst
+  relative errors against it (rel_by_parameter; for the changes also
+  ||change - one's|| / ||one's||)."""
+  from gencast_tpu_torch.data import sources
+  from gencast_tpu_torch.models import casting, wrappers
+  from gencast_tpu_torch.parallel import tensor
+  from gencast_tpu_torch.training import steps, train
+  model, stack, stats, statics = node_axis_stack(spec, stats_path, dev, axis)
+  out = {'rows': model.denoiser.architecture.node_rows}
+  d = model.denoiser
+  g = torch.Generator().manual_seed(3)
+  grid = (1, d.num_lat, d.num_lon)
+  inputs, noisy, forcings = (
+      torch.randn(grid + (lay.num_channels,), generator=g).to(dev)
+      for lay in (d.input_layout, d.target_layout, d.forcing_layout))
+  sigma = torch.tensor([2.0], device=dev)
+  f32_stack = wrappers.build_stack(model, stats, bf16=False,
+                                   clean_sst_nans=True).to(dev)
+  with torch.no_grad():
+    for name, s in (('bf16', stack), ('f32', f32_stack)):
+      torch.cuda.synchronize(dev)
+      t0 = time.perf_counter()
+      out[f'call_{name}'] = s(inputs, noisy, sigma, forcings).cpu()
+      out[f'call_{name}_s'] = time.perf_counter() - t0
+  del inputs, noisy, forcings
+  torch.cuda.empty_cache()
+
+  source = sources.SyntheticSource(model.task, np.asarray(statics.grid_lat),
+                                   np.asarray(statics.grid_lon),
+                                   num_times=40, seed=0)
+  perturbed = [p.detach().clone() for p in model.parameters()]
+  dims = tensor.sharded_dims(model)
+
+  def train_steps(s, on_step=None):
+    with torch.no_grad():
+      for p, p0 in zip(model.parameters(), perturbed):
+        p.copy_(p0)
+    casting.refresh_all(s)
+    optimizer = steps.create_optimizer(s, steps.OptimizerConfig(
+        warmup_steps=0, total_steps=NODE_STEPS))
+    batches = sources.batch_iterator(source, 1, seed=0)
+    losses = []
+    for step in range(NODE_STEPS):
+      batch = {k: torch.as_tensor(v).to(dev)
+               for k, v in next(batches).items()}
+      if on_step is not None:
+        on_step(step, optimizer)
+      loss, _ = steps.train_step(s, optimizer, batch['inputs'],
+                                 batch['targets'], batch['forcings'],
+                                 train.step_generator(0, step, dev))
+      losses.append(float(loss))
+      if on_step is not None:
+        on_step(None, optimizer)
+    return losses
+
+  # The float32 pair: the first step's gradients (taken before the
+  # update) and each parameter's change after the steps, full tensors.
+  kept = {}
+
+  def keep_first_gradients(step, optimizer):
+    if step != 0:
+      return
+    update = optimizer.update
+
+    def update_keeping():
+      kept['grads'] = tensor.gather_state_dict(
+          {n: (p.grad.detach().clone() if p.grad is not None
+               else torch.zeros_like(p))
+           for n, p in model.named_parameters()}, dims, axis)
+      optimizer.update = update
+      update()
+
+    optimizer.update = update_keeping
+
+  out['f32_losses'] = train_steps(f32_stack, keep_first_gradients)
+  with torch.no_grad():
+    change = tensor.gather_state_dict(
+        {n: p.detach() - p0 for (n, p), p0 in zip(model.named_parameters(),
+                                                  perturbed)}, dims, axis)
+  if reference is None:
+    out['f32_grads'] = {n: v.cpu() for n, v in kept['grads'].items()}
+    out['f32_change'] = {n: v.cpu() for n, v in change.items()}
+  else:
+    want = torch.load(reference, map_location=dev)
+    out['f32_grad_rel'] = rel_by_parameter(kept['grads'], want['grads'])
+    out['f32_change_rel'] = max(
+        ((float((change[n] - w).norm() / w.norm()), n)
+         for n, w in want['change'].items() if w.norm() > 0),
+        key=lambda x: x[0])
+    out['f32_change_max_rel'] = rel_by_parameter(change, want['change'])
+    del want
+  del kept, change, f32_stack
+  torch.cuda.empty_cache()
+
+  traffic = axis.traffic if axis is not None else {'calls': 0, 'bytes': 0}
+  out.update(step_s=[], launches=[], all_reduce=[])
+  timing = {}
+
+  def measure(step, optimizer):
+    if step is not None:
+      for c in counters():
+        c.reset()
+      timing['before'] = dict(traffic)
+      torch.cuda.synchronize(dev)
+      timing['t0'] = time.perf_counter()
+      return
+    torch.cuda.synchronize(dev)
+    out['step_s'].append(time.perf_counter() - timing['t0'])
+    out['launches'].append({c.name: c.launches for c in counters()})
+    out['all_reduce'].append({k: traffic[k] - timing['before'][k]
+                              for k in timing['before']})
+
+  torch.cuda.reset_peak_memory_stats(dev)
+  out['losses'] = train_steps(stack, measure)
+  out['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2**30
+  out['derived'] = expected_step_launches(model)
+  return out
+
+
+def node_axis_rank(rank, world, coordinator, spec, stats_path, out_dir,
+                   device='cuda') -> None:
+  """One rank of phase 43 (spawned by `meshes.spawn`): node_axis_run over
+  the model axis of `world` ranks on cuda:0 (gloo), against the one
+  process's float32 gradients and changes in out_dir/one_f32.pt; writes
+  its results to out_dir/rank<r>.pt."""
+  from gencast_tpu_torch.parallel import meshes, tensor
+  backend, dev = meshes.initialize(coordinator, world, rank, device=device)
+  try:
+    mesh = meshes.make_mesh(model=world)
+    out = node_axis_run(spec, stats_path, dev, tensor.axis_of(mesh),
+                        reference=os.path.join(out_dir, 'one_f32.pt'))
+    out['backend'] = backend
+    torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
+  finally:
+    meshes.shutdown()
+
+
+def rank_plans_b(spec, statics, g, card) -> dict:
+  """Kernel B (check_segment_plan, float32 and bf16, without the split
+  variants) on the plans of each rank's edges under a node axis of 2 at 1
+  degree: the grid2mesh receivers (mesh nodes, this rank's partial sums),
+  its senders (this rank's grid rows) and the mesh2grid senders (mesh
+  nodes). Returns {(name, dtype): (max abs err, ms, bound inputs)} and each
+  plan's [E, C] under ('shape', name)."""
+  from gencast_tpu_torch.models.denoiser import DenoiserConfig, rank_topology
+  from gencast_tpu_torch.nn.gnn import EdgeTopology
+  from gencast_tpu_torch.parallel import tensor
+  cfg = DenoiserConfig(use_agg_plans=True,
+                       agg_plan_min_degree=spec.agg_plan_min_degree)
+  m = statics.num_mesh_nodes
+  topos = [EdgeTopology(name, snd, rcv, edges.senders, edges.receivers)
+           for name, snd, rcv, edges in (
+               ('g2m', 'grid', 'mesh', statics.grid2mesh),
+               ('m2g', 'mesh', 'grid', statics.mesh2grid))]
+  results = {}
+  for r in range(2):
+    lo, hi = tensor.node_rows(len(statics.grid_lat), len(statics.grid_lon),
+                              tensor.ModelAxis(None, 2, r))
+    g2m, _ = rank_topology(topos[0], lo, hi, m, cfg)
+    m2g, _ = rank_topology(topos[1], lo, hi, m, cfg)
+    for name, ids, n in (
+        (f'rank {r} grid2mesh receivers', g2m.receivers, m),
+        (f'rank {r} grid2mesh senders', g2m.senders, hi - lo),
+        (f'rank {r} mesh2grid senders', m2g.senders, m)):
+      results.update(check_segment_plan(name, ids, n, spec.d_model, g, card,
+                                        variants=False))
+      results[('shape', name)] = [len(ids), spec.d_model]
+  return results
+
+
+def node_axis_1deg(spec, statics, dev, g, card, work, stats) -> dict:
+  """Phase 43: the grid-node axis at 1 degree, full width and depth
+  (`DenoiserConfig.node_sharding_axis='model'`), through the Python API as
+  the reference's dryrun uses it: kernel B on each rank's plans
+  (rank_plans_b); node_axis_run in this process (one process, the
+  reference) and on two spawned ranks on cuda:0 (gloo, eager; each holds
+  half the grid's latitude rows, 2 of the 4 heads and half of each
+  transformer MLP's hidden width). Checks, from perturbed weights: the
+  float32 training pair's losses within TRAIN_LOSS_RTOL, every first
+  gradient within NODE_GRAD_RTOL and every parameter's change within
+  TRAIN_STEP_RTOL of one process's, as ||change - one's|| / ||one's||
+  (the largest entry's figure is logged, not held: Adam turns the noise of
+  a near-zero gradient entry into a full-size update); a missing, halved
+  or doubled partial gradient fails both; the bf16 ranks' losses against one process within
+  DP_LOSS_RTOL and equal on both ranks, the denoiser call within
+  NODE_BF16_RTOL (bf16) and NODE_F32_RTOL (float32), the launches of
+  each rank-step as derived from the rank's model (A 16, F 16 + 16, B 4,
+  E 42) and the model axis's all_reduces of each rank-step as derived (one
+  forward sum of grid2mesh's mesh-side partials, two per layer in the
+  processor, the output gathered; two copies per layer backward, four in
+  the GNNs and one sum of the GNNs' partial gradients: 71). Logs seconds,
+  all_reduce calls and float32 bytes and peak memory per rank-step.
+  Returns each kernel's launches over the ranks' steps."""
+  from gencast_tpu_torch.parallel import meshes
+  t_phase = time.perf_counter()
+  b_results = rank_plans_b(spec, statics, g, card)
+  t_b = time.perf_counter() - t_phase
+  one = node_axis_run(spec, stats, dev, None)
+  torch.save({'grads': one.pop('f32_grads'), 'change': one.pop('f32_change')},
+             os.path.join(work, 'one_f32.pt'))
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  meshes.spawn(node_axis_rank, 2, (spec, stats, work))
+  ranks_wall = time.perf_counter() - t0
+  ranks = [torch.load(os.path.join(work, f'rank{r}.pt'), weights_only=False)
+           for r in range(2)]
+  layers = spec.num_layers
+  calls = (1 + 2 * layers + 1) + (2 * layers + 4 + 1)
+
+  def rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+  losses = max(abs(x - y) / abs(y) for r in ranks
+               for x, y in zip(r['losses'], one['losses']))
+  call_rel = {k: max(rel(r[f'call_{k}'], one[f'call_{k}']) for r in ranks)
+              for k in ('bf16', 'f32')}
+  f32_losses = max(abs(x - y) / abs(y) for r in ranks
+                   for x, y in zip(r['f32_losses'], one['f32_losses']))
+  grad_rel = max((r['f32_grad_rel'] for r in ranks), key=lambda x: x[0])
+  change_rel = max((r['f32_change_rel'] for r in ranks), key=lambda x: x[0])
+  change_max = max((r['f32_change_max_rel'] for r in ranks),
+                   key=lambda x: x[0])
+  bad = []
+  if not (f32_losses <= TRAIN_LOSS_RTOL and grad_rel[0] <= NODE_GRAD_RTOL
+          and change_rel[0] <= TRAIN_STEP_RTOL
+          and all(len(r['f32_losses']) == NODE_STEPS for r in ranks)):
+    bad.append(f'float32 losses {[r["f32_losses"] for r in ranks]} against '
+               f'one process {one["f32_losses"]} (max rel {f32_losses:.3e}, '
+               f'tol {TRAIN_LOSS_RTOL}); first gradients worst rel '
+               f'{grad_rel} (tol {NODE_GRAD_RTOL}); parameter changes worst '
+               f'rel {change_rel} (tol {TRAIN_STEP_RTOL})')
+  if not (losses <= DP_LOSS_RTOL and ranks[0]['losses'] == ranks[1]['losses']
+          and len(ranks[0]['losses']) == NODE_STEPS):
+    bad.append(f'losses {[r["losses"] for r in ranks]} against one '
+               f'process {one["losses"]} (max rel {losses:.3e})')
+  if not (call_rel['bf16'] <= NODE_BF16_RTOL
+          and call_rel['f32'] <= NODE_F32_RTOL):
+    bad.append(f'denoiser call max rel {call_rel}')
+  for r, res in enumerate(ranks):
+    main_path = ('sparse_attention_fwd', 'sparse_attention_bwd_dq',
+                 'sparse_attention_bwd_dkv', 'segment_sum', 'ln_film_bwd')
+    if (res['backend'] != 'gloo' or any(l != res['derived']
+                                        for l in res['launches'])
+        or not all(res['derived'].get(k) for k in main_path)
+        or any(a['calls'] != calls for a in res['all_reduce'])):
+      bad.append(f'rank {r}: backend {res["backend"]}, launches '
+                 f'{res["launches"]} (derived {res["derived"]}), '
+                 f'all_reduces {res["all_reduce"]} ({calls} calls derived)')
+  if any(l != one['derived'] for l in one['launches']):
+    bad.append(f'one process: launches {one["launches"]}, derived '
+               f'{one["derived"]}')
+  if bad:
+    raise AssertionError('1deg node axis: ' + '; '.join(bad))
+  b_ms = {key[0]: round(value[1]['kernel'], 4)
+          for key, value in b_results.items() if key[1] == torch.bfloat16}
+  log(f'[node axis 1deg] kernel B on each rank\'s plans (bf16 in, card ms): '
+      f'{b_ms}, float32 and bf16 against the plain version (tol '
+      f'{SEGMENT_RTOL}); {t_b:.1f} s; {card}')
+  for r, res in enumerate(ranks):
+    log(f'[node axis 1deg] rank {r} (grid rows {res["rows"]}), --mp 2 with '
+        f'the grid nodes sharded (two ranks on cuda:0, gloo, eager), batch '
+        f'1: step s {[round(x, 4) for x in res["step_s"]]}; all_reduces per '
+        f'step {res["all_reduce"]} (float32 bytes); peak memory '
+        f'{res["peak_gib"]:.2f} GiB; launches per step {res["launches"][-1]}'
+        f', as derived; denoiser call s bf16 {res["call_bf16_s"]:.3f}, '
+        f'float32 {res["call_f32_s"]:.3f}; {card}')
+  log(f'[node axis 1deg] against one process, from perturbed weights: '
+      f'float32 training, {NODE_STEPS} steps: losses max rel '
+      f'{f32_losses:.3e} (tol {TRAIN_LOSS_RTOL}), every first gradient '
+      f'(gathered) worst rel {grad_rel[0]:.3e} ({grad_rel[1]}; tol '
+      f'{NODE_GRAD_RTOL}), every parameter\'s change worst rel '
+      f'{change_rel[0]:.3e} (root-sum-square; {change_rel[1]}; tol '
+      f'{TRAIN_STEP_RTOL}; by the largest entry {change_max[0]:.3e}, '
+      f'{change_max[1]}, logged); bf16 '
+      f'losses max rel {losses:.3e} '
+      f'(tol {DP_LOSS_RTOL}), {ranks[0]["losses"]} on both ranks, one '
+      f'process {one["losses"]}; denoiser call max rel bf16 '
+      f'{call_rel["bf16"]:.3e} (tol {NODE_BF16_RTOL}), float32 '
+      f'{call_rel["f32"]:.3e} (tol {NODE_F32_RTOL}); one process step s '
+      f'{[round(x, 4) for x in one["step_s"]]}, peak {one["peak_gib"]:.2f} '
+      f'GiB; ranks wall {ranks_wall:.1f} s; phase '
+      f'{time.perf_counter() - t_phase:.1f} s; {card}')
+  launched = {k: sum(step.get(k, 0) for r in ranks for step in r['launches'])
+              for k in ranks[0]['launches'][0]}
+  return launched, b_results
 
 
 def parallel_phases(spec, statics, nano_statics, dev, g, card, stats,
@@ -4374,6 +4983,10 @@ def main() -> int:
       'slot')
 
   clock.done(1)
+  # Phase 21's 0.25-degree statics, built beside phases 2-20 (CPU only).
+  q_report = os.path.join(cache_root, 'quarter_statics.json')
+  os.makedirs(cache_root, exist_ok=True)
+  q_job = start_quarter_statics(q_report)
   # --- 2. statics ---
   spec = configs.ONE_DEG
   t0 = time.perf_counter()
@@ -4708,7 +5321,7 @@ def main() -> int:
   clock.done(20)
   # --- 21. the 0.25-degree statics, built then loaded from the cache ---
   qdeg = configs.QUARTER_DEG
-  q_statics = quarter_deg_statics(qdeg, card)
+  q_statics = quarter_deg_statics(qdeg, card, q_job, q_report)
 
   clock.done(21)
   # --- 22. kernels A, F, B and E at the 0.25-degree shapes ---
@@ -4877,6 +5490,17 @@ def main() -> int:
   torch.cuda.empty_cache()
   clock.done(42)
 
+  # --- 43. the grid-node axis: 1-degree training steps and a denoiser
+  # call on two ranks with the grid nodes sharded; B on each rank's plans
+  work = os.path.join(repo, 'build', 'chip_smoke_node_axis')
+  shutil.rmtree(work, ignore_errors=True)
+  os.makedirs(work)
+  new_launches['node_1deg'], node_b = node_axis_1deg(
+      spec, statics, dev, g, card, work, one_deg_stats)
+  shutil.rmtree(work, ignore_errors=True)
+  torch.cuda.empty_cache()
+  clock.done(43)
+
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B on the grid2mesh
   # receiver plan from bf16 edges (float32 out), E in bf16 at the largest
@@ -4930,7 +5554,11 @@ def main() -> int:
                gcq_segment[(f'0.25deg multimesh {name}', bf16)],
                [gcq_segment['edges'], spec.d_model], bf16)
               for side, name in (('recv', 'receivers'),
-                                 ('send', 'senders'))}),
+                                 ('send', 'senders'))},
+           **{'node_axis_' + name.replace(' ', '_'): quarter_deg_row(
+               node_b[(name, bf16)], node_b[('shape', name)], bf16)
+              for name, dtype in node_b
+              if name != 'shape' and dtype == bf16}),
       row(banded_attention.KERNEL, err_c, ms_c['kernel'], ms_c['plain'],
           ms_c['library'], *cost_c, bf16),
       row(banded_attention.KERNEL_DQ, errs_d['dq'][1], ms_d['dq'],
@@ -5039,4 +5667,13 @@ def main() -> int:
 if __name__ == '__main__':
   if sys.argv[1:2] == ['--profile-ln-film']:
     sys.exit(profile_ln_film_main(sys.argv[2]))
-  sys.exit(main())
+  if sys.argv[1:2] == ['--quarter-statics']:
+    sys.exit(quarter_statics_job(sys.argv[2]))
+  try:
+    code = main()
+  finally:
+    killed = stop_processes()
+    if killed:
+      print(f'chip_smoke: stopped processes left running: {killed}',
+            file=sys.stderr)
+  sys.exit(code)

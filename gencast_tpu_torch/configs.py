@@ -187,7 +187,8 @@ def dense_attention_mask(statics: compiler.GraphStatics,
 def build_gencast(spec: ModelSpec, *, seed: int = 0,
                   statics: Optional[compiler.GraphStatics] = None,
                   device: torch.device | str = 'cuda',
-                  use_kernels: bool = True
+                  use_kernels: bool = True,
+                  node_sharding_axis: Optional[str] = None
                   ) -> Tuple[GenCast, compiler.GraphStatics]:
   """Builds a GenCast model (unwrapped; see models.wrappers for the
   normalization / bf16 stack) on `device` (the CUDA card unless the caller
@@ -197,7 +198,9 @@ def build_gencast(spec: ModelSpec, *, seed: int = 0,
   use_kernels=False routes the attention and planned-sum forwards through
   their plain PyTorch versions on every device (for comparing the two
   serving paths on the card). A 'dense' spec gets the [N, N] k-hop mask
-  (`dense_attention_mask`).
+  (`dense_attention_mask`). `node_sharding_axis='model'` shards the grid
+  nodes over the model axis once the model is sharded
+  (`DenoiserConfig.node_sharding_axis`).
   """
   if statics is None:
     statics = build_statics(spec)
@@ -214,7 +217,8 @@ def build_gencast(spec: ModelSpec, *, seed: int = 0,
           use_agg_plans=spec.use_agg_plans,
           agg_plan_min_degree=spec.agg_plan_min_degree,
           edge_chunk_size=spec.edge_chunk_size,
-          remat_gnns=spec.remat_gnns),
+          remat_gnns=spec.remat_gnns,
+          node_sharding_axis=node_sharding_axis),
       sampler_config=SamplerConfig(
           stochastic_churn_rate=spec.stochastic_churn_rate,
           num_noise_levels=spec.num_noise_levels),

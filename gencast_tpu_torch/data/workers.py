@@ -57,8 +57,9 @@ def _source_len() -> int:
   return len(_SOURCE)
 
 
-def _pack_batch(indices: Sequence[int]) -> Dict[str, np.ndarray]:
-  ws = [_SOURCE.sample(int(i)) for i in indices]
+def _pack_batch(indices: Sequence[int],
+                num_target_frames: int) -> Dict[str, np.ndarray]:
+  ws = [_SOURCE.sample(int(i), num_target_frames) for i in indices]
   return {
       'inputs': np.stack([w.inputs for w in ws]),
       'targets': np.stack([w.targets for w in ws]),
@@ -77,12 +78,15 @@ class ParallelBatchIterator:
     batch_size / shuffle / seed / loop / rows: exactly as in
       `sources.batch_iterator`; the index stream is replicated so output
       batches are bitwise identical to the in-process iterator.
+    num_target_frames: forwarded to ``source.sample``: windows of K
+      target frames (GraphCast's AR training), of which the source holds
+      K - 1 fewer than of one frame.
     num_workers: worker process count ('spawn' processes); at most
       ``num_workers + 2`` batches are submitted and not yet consumed.
 
-  Windows hold one target frame: the JAX counterpart's
-  ``num_target_frames`` packs autoregressive windows, and AR training is
-  GraphCast's, not ported yet.
+  The training CLI packs AR windows in-process (`--data_workers` is
+  ignored under `--ar_steps` > 1, as in the reference); this class packs
+  them for callers of the library.
 
   Iterate, or use as a context manager; `close()` shuts the pool down
   promptly (pending batches are cancelled where possible). Worker
@@ -92,16 +96,22 @@ class ParallelBatchIterator:
   def __init__(self, source_factory: Callable[[], 'sources_lib.WindowedSource'],
                batch_size: int, *, num_workers: int,
                shuffle: bool = True, seed: int = 0, loop: bool = True,
-               rows=None):
+               rows=None, num_target_frames: int = 1):
     if num_workers < 1:
       raise ValueError(f'num_workers must be >= 1, got {num_workers}')
+    if num_target_frames < 1:
+      raise ValueError(
+          f'num_target_frames must be >= 1, got {num_target_frames}')
+    self._num_target_frames = num_target_frames
     self._closed = False
     self._pool = ProcessPoolExecutor(
         max_workers=num_workers,
         mp_context=multiprocessing.get_context('spawn'),
         initializer=_init_worker, initargs=(source_factory,))
     try:
-      n = self._pool.submit(_source_len).result()
+      # len(source) counts windows of one target frame; a K-frame window
+      # needs K - 1 more trailing frames, so the last K - 1 starts go.
+      n = self._pool.submit(_source_len).result() - (num_target_frames - 1)
       # The selection stream is SHARED with sources.batch_iterator, so the
       # output batches are bitwise the in-process iterator's by
       # construction (tests/test_torch_era5_pipeline.py pins that oracle).
@@ -120,7 +130,8 @@ class ParallelBatchIterator:
       if sel is None:
         return
       self._pending.append(
-          self._pool.submit(_pack_batch, [int(i) for i in sel]))
+          self._pool.submit(_pack_batch, [int(i) for i in sel],
+                            self._num_target_frames))
 
   def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
     return self

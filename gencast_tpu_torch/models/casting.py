@@ -39,6 +39,20 @@ def cast_params(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
   return twin
 
 
+def _layout(model: nn.Module) -> tuple:
+  """What a serving copy of `model` is made from, beyond the values of its
+  parameters: each parameter's identity, shape, dtype and device, each
+  buffer's identity (the copy shares them), and the axes its modules
+  compute over (parallel/tensor.py). While it holds, a refresh can copy
+  values in place."""
+  return (tuple((id(p), p.shape, p.dtype, p.device)
+                for p in model.parameters()),
+            tuple(id(b) for b in model.buffers()),
+            tuple((id(getattr(m, 'model_axis', None)),
+                   id(getattr(m, 'node_axis', None)))
+                  for m in model.modules()))
+
+
 class Bfloat16Cast(nn.Module):
   """Predictor wrapper running the inner model in bf16.
 
@@ -53,10 +67,22 @@ class Bfloat16Cast(nn.Module):
     self.refresh()
 
   def refresh(self) -> None:
-    """Remakes the bf16 copy from the predictor's current parameters."""
+    """Brings the bf16 copy up to the predictor's current parameters: the
+    master values copied into the copy's own parameters when the predictor
+    is laid out as when the copy was made (new weights from training or a
+    checkpoint), so the CUDA graphs captured on the copy stay valid;
+    otherwise (moved, sharded, new buffers) a new copy."""
+    layout = _layout(self.predictor)
+    twin = self.__dict__.get('_bf16')
+    if twin is not None and self.__dict__.get('_bf16_layout') == layout:
+      with torch.no_grad():
+        for master, p in zip(self.predictor.parameters(), twin.parameters()):
+          p.copy_(master)
+      return
     # Kept out of the module tree (in __dict__, not as a submodule) so that
     # .to() and state_dict() see only the master weights.
     self.__dict__['_bf16'] = cast_params(self.predictor)
+    self.__dict__['_bf16_layout'] = layout
 
   @staticmethod
   def _in(*arrays):
@@ -99,9 +125,10 @@ class Bfloat16Cast(nn.Module):
 
 
 def refresh_all(model: nn.Module) -> None:
-  """Remakes the serving copy of every Bfloat16Cast in `model` from its
-  master weights: after training, or after loading a checkpoint (the copy
-  lives outside `state_dict`, so a load does not reach it)."""
+  """Brings the serving copy of every Bfloat16Cast in `model` up to its
+  master weights (`Bfloat16Cast.refresh`): after training, or after loading
+  a checkpoint (the copy lives outside `state_dict`, so a load does not
+  reach it)."""
   for m in model.modules():
     if isinstance(m, Bfloat16Cast):
       m.refresh()

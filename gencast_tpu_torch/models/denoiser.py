@@ -11,7 +11,7 @@ nothing).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +21,7 @@ from gencast_tpu_torch.data import layout as layout_lib
 from gencast_tpu_torch.data.registry import TaskSpec
 from gencast_tpu_torch.graph.compiler import GraphStatics
 from gencast_tpu_torch.nn import remat
-from gencast_tpu_torch.nn.gnn import EdgeTopology, TypedGraphNet
+from gencast_tpu_torch.nn.gnn import EdgeTopology, NodeShard, TypedGraphNet
 from gencast_tpu_torch.nn.mlp import FourierFeaturesMLP
 from gencast_tpu_torch.nn.transformer import MeshTransformer, \
     TransformerConfig
@@ -54,6 +54,12 @@ class DenoiserConfig:
   # recomputes them instead of keeping their [num_grid_nodes, latent]-sized
   # activations (at 0.25 degrees, a GB each).
   remat_gnns: bool = False
+  # The mesh axis to shard the grid nodes over (the reference's sequence
+  # parallelism): 'model', the port's model axis, or None. Under a model
+  # axis of size > 1 (`parallel.tensor.shard_model`) each rank then keeps a
+  # contiguous share of the grid's latitude rows; see
+  # `DenoiserArchitecture.shard_nodes`. Without one it changes nothing.
+  node_sharding_axis: Optional[str] = None
 
 
 class DenoiserArchitecture(nn.Module):
@@ -69,6 +75,20 @@ class DenoiserArchitecture(nn.Module):
     cfg = config
     latent = cfg.latent_size
     self.remat_gnns = cfg.remat_gnns
+    if cfg.node_sharding_axis not in (None, 'model'):
+      raise ValueError(f'node_sharding_axis must be None or \'model\' (the '
+                       f'model axis), got {cfg.node_sharding_axis!r}')
+    self.config = cfg
+    self.num_lat = statics.grid_lat.shape[0]
+    self.num_lon = statics.grid_lon.shape[0]
+    # Set by shard_nodes: the model axis the grid nodes are sharded over,
+    # this rank's rows [lo, hi) of them, and the names of the parameters
+    # whose gradients are partial over the axis.
+    self.node_axis = None
+    self.node_rows = None
+    self._partial_params: list = []
+    # The autograd graph task whose end sums the partial gradients.
+    self._sum_task = None
     if transformer.d_model != latent:
       raise ValueError(
           f'transformer d_model ({transformer.d_model}) must equal the GNN '
@@ -134,9 +154,80 @@ class DenoiserArchitecture(nn.Module):
         edge_chunk_size=cfg.edge_chunk_size,
         rng=rng, use_kernels=use_kernels)
 
+  def custom_shard(self, axis) -> list:
+    """`parallel.tensor.shard_model`'s hook: with `node_sharding_axis`
+    'model', keeps this rank's grid nodes over `axis` (shard_nodes) and
+    returns the GNNs, whose MLPs stay whole; else does nothing."""
+    if self.config.node_sharding_axis != 'model':
+      return []
+    self.shard_nodes(axis)
+    return [self.grid2mesh, self.mesh2grid]
+
+  def shard_nodes(self, axis) -> None:
+    """Keeps this rank's share of the grid nodes over `axis` (a
+    `parallel.tensor.ModelAxis` of size > 1): whole latitude rows [lo, hi)
+    (`tensor.node_rows`). The grid-node embedder, MLPs and decoder then run
+    on those rows only; the grid2mesh edges whose sender is one of them
+    (their mesh-side sums partial, summed by one float32 all_reduce before
+    the mesh-node MLP) and the mesh2grid edges whose receiver is (their
+    senders, mesh nodes, are on every rank: no halo). The mesh, and so the
+    processor, stays whole. Aggregation plans (where the config asks for
+    them) and stream chunks are built over the rank's edges. The GNNs'
+    parameters stay whole on every rank; their gradients from this rank's
+    rows are summed over the axis at the end of the backward pass."""
+    from gencast_tpu_torch.parallel import tensor
+    lo, hi = tensor.node_rows(self.num_lat, self.num_lon, axis)
+    cfg = self.config
+    shard = NodeShard(axis, frozenset({'grid'}))
+    num_nodes = {'grid': hi - lo,
+                 'mesh': self.grid2mesh.num_nodes['mesh']}
+    for net, feats in ((self.grid2mesh, 'g2m_edge_feats'),
+                       (self.mesh2grid, 'm2g_edge_feats')):
+      (topo,) = net.topologies
+      rank_topo, ids = rank_topology(topo, lo, hi, num_nodes['mesh'], cfg)
+      net.shard_nodes(shard, [rank_topo], num_nodes)
+      buf = getattr(self, feats)
+      setattr(self, feats, buf[torch.as_tensor(ids, device=buf.device)])
+    self.grid_struct = self.grid_struct[lo:hi].clone()
+    partial = {id(m) for net in (self.grid2mesh, self.mesh2grid)
+               for m in net.node_partial_modules()}
+    self._partial_params = [
+        f'{prefix}.{name}' for prefix, m in self.named_modules()
+        if id(m) in partial for name, _ in m.named_parameters()]
+    self.node_axis = axis
+    self.node_rows = (lo, hi)
+
+  def _queue_gradient_sum(self) -> None:
+    """Queues, once per backward pass (autograd graph task), the sum over
+    the node axis of the partial gradients that the pass adds
+    (`tensor.sum_gradients`) for when the pass ends, so that the
+    parameters' .grad hold the unsharded model's gradients. Called before
+    the pass adds any: what .grad holds then (an earlier pass's gradients,
+    accumulated) is kept out of the sum. A pass that raises before its end
+    sums nothing and leaves the next pass to queue its own sum."""
+    task = torch._C._current_graph_task_id()
+    if task == self._sum_task:
+      return
+    self._sum_task = task
+    params = dict(self.named_parameters())
+    params = [params[n] for n in self._partial_params]
+    before = [None if p.grad is None else p.grad.detach().clone()
+              for p in params]
+
+    def run():
+      from gencast_tpu_torch.parallel import tensor
+      tensor.sum_gradients(params, self.node_axis, before)
+
+    torch.autograd.Variable._execution_engine.queue_callback(run)
+
   def forward(self, grid_data: torch.Tensor,
               cond: torch.Tensor) -> torch.Tensor:
     """grid_data: [G, B, C_data]; cond: [B, 16] -> [G, B, out]."""
+    from gencast_tpu_torch.parallel import tensor
+    num_grid = grid_data.shape[0]
+    if self.node_axis is not None:
+      grid_data = tensor.scatter_rows(grid_data, self.node_rows,
+                                      self.node_axis)
     batch = grid_data.shape[1]
     dtype = grid_data.dtype
 
@@ -152,8 +243,9 @@ class DenoiserArchitecture(nn.Module):
       return nodes['grid'], nodes['mesh']
 
     def run_m2g(latent_grid, latent_mesh, edge_in, cond):
+      # Only the grid nodes are decoded: the mesh nodes' update is skipped.
       nodes, _ = self.mesh2grid({'grid': latent_grid, 'mesh': latent_mesh},
-                                {'m2g': edge_in}, cond)
+                                {'m2g': edge_in}, cond, outputs=('grid',))
       return nodes['grid']
 
     g2m_args = (grid_in, bcast(self.mesh_struct), bcast(self.g2m_edge_feats),
@@ -168,8 +260,43 @@ class DenoiserArchitecture(nn.Module):
     latent_mesh = self.processor(latent_mesh, cond).to(dtype)
     m2g_args = (latent_grid, latent_mesh, bcast(self.m2g_edge_feats), cond)
     if self.remat_gnns and torch.is_grad_enabled():
-      return remat.checkpoint(self.mesh2grid, run_m2g, *m2g_args)
-    return run_m2g(*m2g_args)
+      out = remat.checkpoint(self.mesh2grid, run_m2g, *m2g_args)
+    else:
+      out = run_m2g(*m2g_args)
+    if self.node_axis is None:
+      return out
+    return tensor.gather_rows(out, self.node_rows[0], num_grid,
+                              self.node_axis, self._queue_gradient_sum)
+
+
+def rank_edges(topo: EdgeTopology, lo: int, hi: int) -> np.ndarray:
+  """[E] bool: the edges of `topo` that the rank of grid rows [lo, hi)
+  computes: a grid2mesh edge by its sender, a mesh2grid edge by its
+  receiver (the grid end)."""
+  ids = topo.senders if topo.sender_set == 'grid' else topo.receivers
+  return (ids >= lo) & (ids < hi)
+
+
+def rank_topology(topo: EdgeTopology, lo: int, hi: int, num_mesh: int,
+                  config: DenoiserConfig
+                  ) -> Tuple[EdgeTopology, np.ndarray]:
+  """The edges of `topo` (grid2mesh or mesh2grid) that the rank of grid
+  rows [lo, hi) computes, as a topology of their own (grid ids counted from
+  lo, receivers still ascending; aggregation plans built over them where
+  `config` asks for plans), and their indices into `topo`'s edges."""
+  ids = np.flatnonzero(rank_edges(topo, lo, hi))
+  if topo.sender_set == 'grid':
+    senders, receivers = topo.senders[ids] - lo, topo.receivers[ids]
+    sizes = (hi - lo, num_mesh)
+  else:
+    senders, receivers = topo.senders[ids], topo.receivers[ids] - lo
+    sizes = (num_mesh, hi - lo)
+  local = EdgeTopology(topo.name, topo.sender_set, topo.receiver_set,
+                       senders, receivers)
+  if config.use_agg_plans:
+    local = local.with_agg_plans(
+        *sizes, min_max_degree=config.agg_plan_min_degree)
+  return local, ids
 
 
 class Denoiser(nn.Module):

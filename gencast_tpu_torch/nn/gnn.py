@@ -24,12 +24,18 @@ through the edge MLP and the receiver sum, each chunk recomputed in the
 backward, so no [E, B, latent] tensor exists; node MLPs over more rows than
 a chunk run chunk by chunk too. Each chunk carries its own plans, built
 once in numpy, so the streamed path is as free of atomics on the card.
+
+A caller names the node sets it reads (`outputs`); the last step updates
+only those. Under a node axis (`NodeShard`, set by `shard_nodes`) a
+single-step net holds one rank's rows of its local node sets and the edges
+that touch them, with plans and chunks over those edges; its sums into a
+set whole on every rank are partial, finished by one float32 all_reduce.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +46,7 @@ from gencast_tpu_torch.graph import plans
 from gencast_tpu_torch.nn import remat
 from gencast_tpu_torch.nn.mlp import MLP, CondMLP
 from gencast_tpu_torch.ops import segment
+from gencast_tpu_torch.parallel import tensor
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -102,37 +109,11 @@ class InteractionNetwork(nn.Module):
                use_norm_conditioning: bool = True,
                use_kernels: bool = True):
     super().__init__()
-    self.topologies = topologies
-    self.num_nodes = dict(num_nodes)
     self.f32_aggregation = f32_aggregation
     self.aggregate_normalization = aggregate_normalization
     self.use_kernels = use_kernels
-
-    # Index and plan tensors as non-persistent buffers: they follow the
-    # module's device but are not parameters and not in the state dict.
-    # `_card_only` names the sides ('<edge set>_recv', '<edge set>_send')
-    # whose plan the topology does not carry: it is used on the card alone,
-    # where the unplanned paths are atomic (see `_plan`).
-    self._uniform = {}
-    self._card_only = set()
-    for topo in topologies:
-      self._uniform[topo.name] = (
-          plans.uniform_degree(topo.senders, num_nodes[topo.sender_set]),
-          plans.uniform_degree(topo.receivers, num_nodes[topo.receiver_set]))
-      self._buffer(f'{topo.name}_senders', topo.senders, torch.long)
-      self._buffer(f'{topo.name}_receivers', topo.receivers, torch.long)
-      for side, plan, ids, node_set, uniform_k in (
-          ('recv', topo.recv_plan, topo.receivers, topo.receiver_set,
-           self._uniform[topo.name][1]),
-          ('send', topo.sender_plan, topo.senders, topo.sender_set,
-           self._uniform[topo.name][0])):
-        if uniform_k is not None:
-          continue  # the dense reshape-sum and the broadcast
-        if plan is None:
-          plan = plans.build_agg_plan(ids, num_nodes[node_set])
-          self._card_only.add(f'{topo.name}_{side}')
-        self._buffer(f'{topo.name}_{side}_row_ptr', plan.row_ptr, torch.int32)
-        self._buffer(f'{topo.name}_{side}_perm', plan.perm, torch.int32)
+    self._topology_buffers = []
+    self.set_topologies(topologies, num_nodes)
 
     self.edge_mlps = nn.ModuleDict()
     for topo in topologies:
@@ -153,9 +134,51 @@ class InteractionNetwork(nn.Module):
           rng=rng, use_layer_norm=use_layer_norm,
           use_norm_conditioning=use_norm_conditioning)
 
-  def _buffer(self, name: str, array: Optional[np.ndarray], dtype) -> None:
-    tensor = None if array is None else torch.as_tensor(array, dtype=dtype)
+  def set_topologies(self, topologies: List[EdgeTopology],
+                     num_nodes: Mapping[str, int],
+                     device: Optional[torch.device] = None) -> None:
+    """Takes `topologies` over `num_nodes` (at construction; again for a
+    rank's share of a node axis): their index and plan tensors as
+    non-persistent buffers on `device`, which follow the module's device
+    but are not parameters and not in the state dict. `_card_only` names
+    the sides ('<edge set>_recv', '<edge set>_send') whose plan the
+    topology does not carry: it is used on the card alone, where the
+    unplanned paths are atomic (see `_plan`)."""
+    for name in self._topology_buffers:
+      delattr(self, name)
+    self._topology_buffers = []
+    self.topologies = topologies
+    self.num_nodes = dict(num_nodes)
+    self._uniform = {}
+    self._card_only = set()
+    for topo in topologies:
+      self._uniform[topo.name] = (
+          plans.uniform_degree(topo.senders, num_nodes[topo.sender_set]),
+          plans.uniform_degree(topo.receivers, num_nodes[topo.receiver_set]))
+      self._buffer(f'{topo.name}_senders', topo.senders, torch.long, device)
+      self._buffer(f'{topo.name}_receivers', topo.receivers, torch.long,
+                   device)
+      for side, plan, ids, node_set, uniform_k in (
+          ('recv', topo.recv_plan, topo.receivers, topo.receiver_set,
+           self._uniform[topo.name][1]),
+          ('send', topo.sender_plan, topo.senders, topo.sender_set,
+           self._uniform[topo.name][0])):
+        if uniform_k is not None:
+          continue  # the dense reshape-sum and the broadcast
+        if plan is None:
+          plan = plans.build_agg_plan(ids, num_nodes[node_set])
+          self._card_only.add(f'{topo.name}_{side}')
+        self._buffer(f'{topo.name}_{side}_row_ptr', plan.row_ptr, torch.int32,
+                     device)
+        self._buffer(f'{topo.name}_{side}_perm', plan.perm, torch.int32,
+                     device)
+
+  def _buffer(self, name: str, array: Optional[np.ndarray], dtype,
+              device=None) -> None:
+    tensor = None if array is None else torch.as_tensor(array, dtype=dtype,
+                                                        device=device)
     self.register_buffer(name, tensor, persistent=False)
+    self._topology_buffers.append(name)
 
   def _plan(self, topo: EdgeTopology, side: str, x: torch.Tensor
             ) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
@@ -180,43 +203,131 @@ class InteractionNetwork(nn.Module):
     return segment.gather(x, indices, uniform_k)
 
   def forward(self, nodes: NodeFeats, edges: EdgeFeats,
-              cond: Optional[torch.Tensor] = None
+              cond: Optional[torch.Tensor] = None,
+              outputs: Optional[Sequence[str]] = None,
+              shard: Optional['_ShardCall'] = None
               ) -> Tuple[NodeFeats, EdgeFeats]:
+    """The updated edges and the updated node sets `outputs` (default:
+    every set). Under a node axis (`shard`), edges and the local node sets
+    hold this rank's rows."""
+    shard = shard or _ShardCall(None, cond)
+    inputs = {}
     new_edges = {}
     for topo in self.topologies:
       send_k, recv_k = self._uniform[topo.name]
-      sent = self._gather(nodes[topo.sender_set], topo, 'senders', send_k)
-      received = self._gather(nodes[topo.receiver_set], topo, 'receivers',
-                              recv_k)
+      sent = self._gather(shard.edge_input(nodes, topo.sender_set, inputs),
+                          topo, 'senders', send_k)
+      received = self._gather(
+          shard.edge_input(nodes, topo.receiver_set, inputs), topo,
+          'receivers', recv_k)
       concat = torch.cat([edges[topo.name], sent, received], dim=-1)
-      new_edges[topo.name] = self.edge_mlps[topo.name](concat, cond)
+      new_edges[topo.name] = self.edge_mlps[topo.name](
+          concat, shard.cond_of(None, cond))
 
     new_nodes = {}
     for name, mlp in self.node_mlps.items():
+      if outputs is not None and name not in outputs:
+        continue  # nothing reads it: not computed
       parts = [nodes[name]]
       for topo in self.topologies:
-        if topo.receiver_set != name:
-          continue
-        messages = new_edges[topo.name]
-        plan = self._plan(topo, 'recv', messages)
-        if plan is not None:
-          # B reads bf16 and sums in float32; f32_aggregation keeps the sum
-          # in float32 through the normalization (else it is rounded to the
-          # messages' dtype first, as the reference's kernel writes it).
-          parts.append(segment.segment_sum_planned(
-              messages, *plan, f32_accumulate=self.f32_aggregation,
-              normalization=self.aggregate_normalization,
-              use_kernel=self.use_kernels))
-        else:
-          parts.append(segment.sorted_segment_sum(
-              messages,
-              getattr(self, f'{topo.name}_receivers'),
-              num_segments=self.num_nodes[name],
-              f32_accumulate=self.f32_aggregation,
-              normalization=self.aggregate_normalization,
-              uniform_k=self._uniform[topo.name][1]))
-      new_nodes[name] = mlp(torch.cat(parts, dim=-1), cond)
+        if topo.receiver_set == name:
+          parts.append(self._aggregate(new_edges[topo.name], topo, shard))
+      new_nodes[name] = mlp(torch.cat(parts, dim=-1),
+                            shard.cond_of(name, cond))
     return new_nodes, new_edges
+
+  def _aggregate(self, messages: torch.Tensor, topo: EdgeTopology,
+                 shard: '_ShardCall') -> torch.Tensor:
+    """The receivers' sums of `topo`'s messages; under a node axis, into a
+    set whole on every rank, this rank's partial sums in float32 summed
+    over the axis (`_ShardCall.finish`)."""
+    name = topo.receiver_set
+    plan = self._plan(topo, 'recv', messages)
+    if shard.partial(name):
+      if plan is not None:
+        part = segment.segment_sum_planned(
+            messages, *plan, f32_accumulate=True,
+            use_kernel=self.use_kernels, out_dtype=torch.float32)
+      else:
+        part = segment.sorted_segment_sum(
+            messages.float(), getattr(self, f'{topo.name}_receivers'),
+            num_segments=self.num_nodes[name],
+            uniform_k=self._uniform[topo.name][1])
+      return shard.finish(part, self.f32_aggregation,
+                          self.aggregate_normalization, messages.dtype)
+    if plan is not None:
+      # B reads bf16 and sums in float32; f32_aggregation keeps the sum in
+      # float32 through the normalization (else it is rounded to the
+      # messages' dtype first, as the reference's kernel writes it).
+      return segment.segment_sum_planned(
+          messages, *plan, f32_accumulate=self.f32_aggregation,
+          normalization=self.aggregate_normalization,
+          use_kernel=self.use_kernels)
+    return segment.sorted_segment_sum(
+        messages, getattr(self, f'{topo.name}_receivers'),
+        num_segments=self.num_nodes[name],
+        f32_accumulate=self.f32_aggregation,
+        normalization=self.aggregate_normalization,
+        uniform_k=self._uniform[topo.name][1])
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NodeShard:
+  """A GNN's share of a node axis (`DenoiserConfig.node_sharding_axis`):
+  the node sets in `local` hold this rank's rows of the axis `axis` (a
+  `parallel.tensor.ModelAxis`), every other set is whole on every rank,
+  and every edge is this rank's (it touches a local row)."""
+  axis: object
+  local: frozenset
+
+
+class _ShardCall:
+  """One forward's view of a `NodeShard` (none: every set whole). Whole
+  sets that local edges read, and the conditioning that local rows take,
+  go through `parallel.tensor.copy_in` once (the gradient from this rank's
+  rows summed over the axis backward); a sum into a whole set is a partial
+  sum, finished by one float32 all_reduce."""
+
+  def __init__(self, shard: Optional[NodeShard], cond):
+    self.shard = shard
+    self.local_cond = cond
+    if shard is not None and cond is not None:
+      self.local_cond = tensor.copy_in(cond, shard.axis)
+
+  def is_local(self, name: Optional[str]) -> bool:
+    """Whether node set `name` (None: the edges) holds this rank's rows."""
+    return self.shard is not None and (name is None
+                                       or name in self.shard.local)
+
+  def cond_of(self, name: Optional[str], cond):
+    """The conditioning of the MLPs over set `name` (None: the edges)."""
+    return self.local_cond if self.is_local(name) else cond
+
+  def partial(self, name: str) -> bool:
+    """Whether the edges' sums into set `name` are partial on this rank."""
+    return self.shard is not None and name not in self.shard.local
+
+  def edge_input(self, nodes: NodeFeats, name: str, seen: dict
+                 ) -> torch.Tensor:
+    """nodes[name] as this rank's edges read it (`seen` keeps one copy per
+    set)."""
+    if self.shard is None or name in self.shard.local:
+      return nodes[name]
+    if name not in seen:
+      seen[name] = tensor.copy_in(nodes[name], self.shard.axis)
+    return seen[name]
+
+  def finish(self, part: torch.Tensor, f32_aggregation: bool,
+             normalization: Optional[float], dtype) -> torch.Tensor:
+    """The full sums from this rank's float32 partial sums `part`, then as
+    the unsharded aggregation: rounded to `dtype` first unless
+    `f32_aggregation`, normalized, cast to `dtype`."""
+    total = tensor.reduce_sum(part, self.shard.axis)
+    if not f32_aggregation:
+      total = total.to(dtype)
+    if normalization is not None:
+      total = total / normalization
+    return total.to(dtype)
 
 
 class TypedGraphNet(nn.Module):
@@ -271,13 +382,13 @@ class TypedGraphNet(nn.Module):
     # single-step net whose caller does not read the output edge latents
     # (the encoder and decoder of the denoiser); see _streaming_call.
     self.edge_chunk_size = edge_chunk_size
+    if edge_chunk_size is not None and num_message_passing_steps != 1:
+      raise ValueError('edge_chunk_size requires a single-step graph net')
     self.streams = nn.ModuleDict()
-    if edge_chunk_size is not None:
-      if num_message_passing_steps != 1:
-        raise ValueError('edge_chunk_size requires a single-step graph net')
-      for topo in topologies:
-        self.streams[topo.name] = EdgeStream(topo, num_nodes,
-                                             edge_chunk_size)
+    self._set_streams()
+    # A rank's share of a node axis (`shard_nodes`); None: every node set
+    # whole.
+    self.node_shard: Optional[NodeShard] = None
     self.node_embedders = nn.ModuleDict()
     if embed_nodes:
       for name, latent in node_latent_size.items():
@@ -310,59 +421,72 @@ class TypedGraphNet(nn.Module):
           out, act, rng=rng)
 
   def forward(self, nodes: NodeFeats, edges: EdgeFeats,
-              cond: Optional[torch.Tensor] = None
+              cond: Optional[torch.Tensor] = None,
+              outputs: Optional[Sequence[str]] = None
               ) -> Tuple[NodeFeats, EdgeFeats]:
+    """The output node sets (decoded where a decoder is given) and edges.
+    `outputs` names the node sets the caller reads: the last step updates
+    only those, and only those are returned (default: every set)."""
+    shard = _ShardCall(self.node_shard, cond)
     if self.edge_chunk_size is not None:
-      return self._streaming_call(nodes, edges, cond)
-    nodes = {k: (self.node_embedders[k](v, cond)
+      return self._streaming_call(nodes, edges, cond, shard, outputs)
+    nodes = {k: (self.node_embedders[k](v, shard.cond_of(k, cond))
                  if k in self.node_embedders else v)
              for k, v in nodes.items()}
-    edges = {k: (self.edge_embedders[k](v, cond)
+    edges = {k: (self.edge_embedders[k](v, shard.cond_of(None, cond))
                  if k in self.edge_embedders else v)
              for k, v in edges.items()}
     remat_on = self.remat_steps and torch.is_grad_enabled()
     group = self.remat_group if remat_on else 1
     for lo in range(0, len(self.processors), group):
       steps = list(self.processors[lo:lo + group])
+      last = outputs if lo + group >= len(self.processors) else None
+      run = self._run_steps(steps, remat_on, shard, last)
       if group > 1:
-        nodes, edges = self._checkpointed(
-            nn.ModuleList(steps), self._run_steps(steps, remat_on),
-            nodes, edges, cond)
+        nodes, edges = self._checkpointed(nn.ModuleList(steps), run, nodes,
+                                          edges, cond, last)
       else:
-        nodes, edges = self._run_steps(steps, remat_on)(nodes, edges, cond)
+        nodes, edges = run(nodes, edges, cond)
     out_nodes = {k: (self.node_decoders[k](v)
                      if k in self.node_decoders else v)
                  for k, v in nodes.items()}
     return out_nodes, edges
 
-  def _run_steps(self, steps: List['InteractionNetwork'], remat_on: bool
+  def _run_steps(self, steps: List['InteractionNetwork'], remat_on: bool,
+                 shard: '_ShardCall', outputs: Optional[Sequence[str]]
                  ) -> Callable:
     """fn(nodes, edges, cond) running `steps` with their residuals, each
-    step recomputed in the backward pass when remat_on."""
+    step recomputed in the backward pass when remat_on; the last step
+    updates and returns only the node sets `outputs` (None: every set)."""
 
-    def step(p, nodes, edges, cond):
-      upd_nodes, upd_edges = p(nodes, edges, cond)
-      return ({k: nodes[k] + upd_nodes[k] for k in nodes},
+    def step(p, nodes, edges, cond, outputs):
+      upd_nodes, upd_edges = p(nodes, edges, cond, outputs, shard)
+      return ({k: nodes[k] + upd_nodes[k] for k in upd_nodes},
               {k: edges[k] + upd_edges[k] for k in edges})
 
     def run(nodes, edges, cond):
-      for p in steps:
+      for i, p in enumerate(steps):
+        out = outputs if i + 1 == len(steps) else None
         if remat_on:
           nodes, edges = self._checkpointed(
-              p, lambda n, e, c, p=p: step(p, n, e, c), nodes, edges, cond)
+              p, lambda n, e, c, p=p, out=out: step(p, n, e, c, out),
+              nodes, edges, cond, out)
         else:
-          nodes, edges = step(p, nodes, edges, cond)
+          nodes, edges = step(p, nodes, edges, cond, out)
       return nodes, edges
     return run
 
   @staticmethod
   def _checkpointed(module: nn.Module, fn: Callable, nodes: NodeFeats,
-                    edges: EdgeFeats, cond: Optional[torch.Tensor]
+                    edges: EdgeFeats, cond: Optional[torch.Tensor],
+                    outputs: Optional[Sequence[str]] = None
                     ) -> Tuple[NodeFeats, EdgeFeats]:
     """fn(nodes, edges, cond) -> (nodes, edges), recomputed in the backward
     pass with the parameters of `module` this call saw (nn/remat.py): the
-    reference's jax.checkpoint of a step or group of steps."""
+    reference's jax.checkpoint of a step or group of steps. fn returns the
+    node sets `outputs` (None: those it was given)."""
     n_keys, e_keys = list(nodes), list(edges)
+    out_keys = [k for k in n_keys if outputs is None or k in outputs]
     args = [nodes[k] for k in n_keys] + [edges[k] for k in e_keys]
     if cond is not None:
       args.append(cond)
@@ -371,12 +495,54 @@ class TypedGraphNet(nn.Module):
       c = xs[len(n_keys) + len(e_keys)] if cond is not None else None
       out_n, out_e = fn(dict(zip(n_keys, xs[:len(n_keys)])),
                         dict(zip(e_keys, xs[len(n_keys):])), c)
-      return tuple(out_n[k] for k in n_keys) + tuple(out_e[k]
-                                                     for k in e_keys)
+      return tuple(out_n[k] for k in out_keys) + tuple(out_e[k]
+                                                       for k in e_keys)
 
     out = remat.checkpoint(module, flat, *args)
-    return (dict(zip(n_keys, out[:len(n_keys)])),
-            dict(zip(e_keys, out[len(n_keys):])))
+    return (dict(zip(out_keys, out[:len(out_keys)])),
+            dict(zip(e_keys, out[len(out_keys):])))
+
+  # --- Topologies: construction, and a rank's share of a node axis ---
+
+  def _set_streams(self, device: Optional[torch.device] = None) -> None:
+    """The streamed path's chunks (an EdgeStream per edge set) of the
+    current topologies."""
+    if self.edge_chunk_size is None:
+      return
+    for topo in self.topologies:
+      self.streams[topo.name] = EdgeStream(topo, self.num_nodes,
+                                           self.edge_chunk_size).to(device)
+
+  def shard_nodes(self, shard: NodeShard, topologies: List[EdgeTopology],
+                  num_nodes: Mapping[str, int]) -> None:
+    """Takes this rank's share of a node axis: `topologies`, this rank's
+    edges (node ids of the `shard.local` sets counted from the rank's
+    first row; plans and stream chunks built over them here), over
+    `num_nodes`. The parameters stay whole."""
+    if len(self.processors) != 1 or self.remat_steps:
+      raise ValueError('a node axis takes single-step graph nets without '
+                       'step remat')
+    device = next(self.parameters()).device
+    self.topologies = topologies
+    self.num_nodes = dict(num_nodes)
+    self.processors[0].set_topologies(topologies, num_nodes, device)
+    self._set_streams(device)
+    self.node_shard = shard
+
+  def node_partial_modules(self) -> List[nn.Module]:
+    """Under a node axis, the modules that see only this rank's rows: their
+    parameters' gradients are partial sums over the axis (the embedders
+    and MLPs of the edges and of the local node sets, and the local
+    decoders)."""
+    if self.node_shard is None:
+      return []
+    local = self.node_shard.local
+    inet = self.processors[0]
+    return (list(self.edge_embedders.values())
+            + list(inet.edge_mlps.values())
+            + [m for k, m in self.node_embedders.items() if k in local]
+            + [m for k, m in inet.node_mlps.items() if k in local]
+            + [m for k, m in self.node_decoders.items() if k in local])
 
   # --- The streamed path ---
 
@@ -407,7 +573,8 @@ class TypedGraphNet(nn.Module):
     return torch.cat([self._remat(fn, *xs) for xs in zip(*pieces)])
 
   def _streaming_call(self, nodes: NodeFeats, edges: EdgeFeats,
-                      cond: Optional[torch.Tensor]
+                      cond: Optional[torch.Tensor], shard: '_ShardCall',
+                      outputs: Optional[Sequence[str]]
                       ) -> Tuple[NodeFeats, EdgeFeats]:
     """The single-step forward with the edges taken a chunk at a time
     (the reference's _streaming_call). The same numbers as the dense path
@@ -416,24 +583,30 @@ class TypedGraphNet(nn.Module):
     node_lat = {}
     for k, v in nodes.items():
       if k in self.node_embedders:
-        emb = self.node_embedders[k]
+        emb, c = self.node_embedders[k], shard.cond_of(k, cond)
         node_lat[k] = self._node_chunked(
-            lambda v_c, emb=emb: emb(v_c, cond), [v])
+            lambda v_c, emb=emb, c=c: emb(v_c, c), [v])
       else:
         node_lat[k] = v
     processor = self.processors[0]
-    agg = {topo.name: self._stream_edges(topo, processor, edges[topo.name],
-                                         node_lat, cond)
-           for topo in self.topologies}
+    inputs = {}
+    agg = {topo.name: self._stream_edges(
+        topo, processor, edges[topo.name],
+        shard.edge_input(node_lat, topo.sender_set, inputs),
+        shard.edge_input(node_lat, topo.receiver_set, inputs),
+        shard.cond_of(None, cond), shard) for topo in self.topologies}
 
     out_nodes = {}
     for name, mlp in processor.node_mlps.items():
+      if outputs is not None and name not in outputs:
+        continue  # nothing reads it: not computed
       aggs = [agg[t.name] for t in self.topologies if t.receiver_set == name]
       decoder = (self.node_decoders[name] if name in self.node_decoders
                  else None)
 
-      def update(lat_c, *agg_c, mlp=mlp, decoder=decoder):
-        out = lat_c + mlp(torch.cat([lat_c, *agg_c], dim=-1), cond)
+      def update(lat_c, *agg_c, mlp=mlp, decoder=decoder,
+                 c=shard.cond_of(name, cond)):
+        out = lat_c + mlp(torch.cat([lat_c, *agg_c], dim=-1), c)
         return decoder(out) if decoder is not None else out
 
       out_nodes[name] = self._node_chunked(update, [node_lat[name], *aggs])
@@ -441,17 +614,17 @@ class TypedGraphNet(nn.Module):
 
   def _stream_edges(self, topo: EdgeTopology,
                     processor: InteractionNetwork, raw_e: torch.Tensor,
-                    node_lat: NodeFeats, cond: Optional[torch.Tensor]
+                    sender_lat: torch.Tensor, receiver_lat: torch.Tensor,
+                    cond: Optional[torch.Tensor], shard: '_ShardCall'
                     ) -> torch.Tensor:
     """The receiver aggregation [N_recv, B, latent] (in the edges' dtype) of
-    `topo`'s edge-MLP messages, edges a chunk at a time."""
+    `topo`'s edge-MLP messages, edges a chunk at a time; under a node axis
+    into a whole set, this rank's partial sums summed over the axis."""
     stream = self.streams[topo.name]
     embed = (self.edge_embedders[topo.name]
              if topo.name in self.edge_embedders else None)
     edge_mlp = processor.edge_mlps[topo.name]
     norm = self.aggregate_normalization
-    sender_lat = node_lat[topo.sender_set]
-    receiver_lat = node_lat[topo.receiver_set]
     plan_send = stream.takes_plan(topo.sender_plan, sender_lat)
     raw_chunks = raw_e.split(stream.chunk)
 
@@ -485,7 +658,9 @@ class TypedGraphNet(nn.Module):
     # after chunk: a receiver whose edges straddle chunks gets its parts in
     # chunk order.
     plan_recv = stream.takes_plan(topo.recv_plan, receiver_lat)
-    acc_dtype = torch.float32 if self.f32_aggregation else raw_e.dtype
+    partial = shard.partial(topo.receiver_set)
+    acc_dtype = (torch.float32 if self.f32_aggregation or partial
+                 else raw_e.dtype)
     acc = raw_e.new_zeros(
         (self.num_nodes[topo.receiver_set],) + raw_e.shape[1:-1]
         + (self.edge_latent_size[topo.name],), dtype=acc_dtype)
@@ -505,6 +680,8 @@ class TypedGraphNet(nn.Module):
       lo, hi = stream.rows(c, 'recv')
       acc[lo:hi] += self._remat(lambda *a, c=c: body(c, *a), raw_c,
                                 sender_lat, receiver_lat)
+    if partial:
+      return shard.finish(acc, self.f32_aggregation, norm, raw_e.dtype)
     if norm is not None:
       acc = acc / norm
     return acc.to(raw_e.dtype)

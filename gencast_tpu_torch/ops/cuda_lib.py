@@ -237,11 +237,12 @@ class GraphedCalls:
   of a call's inputs).
 
   They hold the addresses of the model's parameters, so they live on the
-  model and die with it: the serving copy that `Bfloat16Cast.refresh()`
-  replaces takes its graphs along, and a replay never reads weights a
-  refresh has replaced. A deep copy of the model (how that copy is made)
-  starts with none, since a CUDA graph cannot be copied; a model moved by
-  `.to()` must start with none too (its `_apply`).
+  model and die with it: `Bfloat16Cast.refresh()` copies new weights into
+  the serving copy's parameters in place, where its graphs read them, and
+  a serving copy that it makes anew (the model moved or sharded) takes the
+  old graphs along with the old copy. A deep copy of the model (how that
+  copy is made) starts with none, since a CUDA graph cannot be copied; a
+  model moved by `.to()` must start with none too (its `_apply`).
   """
 
   def __init__(self):

@@ -237,20 +237,42 @@ def synthesize(coeffs: torch.Tensor, legendre: torch.Tensor,
   return out.to(coeffs.dtype)
 
 
-def unit_white_noise(generator: torch.Generator, batch_shape: Tuple[int, ...],
-                     legendre: torch.Tensor, fourier: torch.Tensor,
+def sample_isotropic(generator: torch.Generator, power_spectrum,
+                     batch_shape: Tuple[int, ...],
+                     basis: SphericalHarmonicBasis,
                      dtype=torch.float32) -> torch.Tensor:
-  """Unit-marginal-variance isotropic noise with a flat power spectrum,
-  [*batch_shape, lat, lon], drawn from `generator` on its device."""
+  """Isotropic noise with the given spectrum, [*batch_shape, lat, lon],
+  drawn from `generator` on its device.
+
+  power_spectrum: the power per total wavenumber l, a [L+1] tensor or one
+  number for a flat spectrum; the pointwise marginal variance of the result
+  is the spectrum's sum."""
+  legendre, fourier = basis.legendre, basis.fourier
   n = legendre.shape[0]  # L + 1
   device = legendre.device
   l_idx = torch.arange(n, device=device)
-  # Flat spectrum power_l = 1 / n; valid coefficients: m <= l, and for
-  # m == 0 only the cos (s=0) entry.
-  sigma_l = torch.sqrt(4.0 * math.pi / n / (2.0 * l_idx + 1.0))
+  if isinstance(power_spectrum, torch.Tensor):
+    power_spectrum = power_spectrum.to(device, torch.float32)
+  # Std per l; valid coefficients: m <= l, and for m == 0 only the cos
+  # (s=0) entry.
+  sigma_l = torch.sqrt(4.0 * math.pi * power_spectrum
+                       / (2.0 * l_idx + 1.0))
   tri = (l_idx[None, :] <= l_idx[:, None]).float()
   mask = torch.stack([tri, tri * (l_idx[None, :] > 0)])
   scale = mask * sigma_l[None, :, None]
   z = torch.randn(tuple(batch_shape) + tuple(scale.shape),
                   generator=generator, device=generator.device)
   return synthesize(z.to(device) * scale, legendre, fourier).to(dtype)
+
+
+def unit_white_noise(generator: torch.Generator, batch_shape: Tuple[int, ...],
+                     legendre: torch.Tensor, fourier: torch.Tensor,
+                     dtype=torch.float32) -> torch.Tensor:
+  """Unit-marginal-variance isotropic noise with a flat power spectrum,
+  [*batch_shape, lat, lon], drawn from `generator` on its device: the
+  spectrum 1 / (L+1) at every l, passed as a number, so that the std per l
+  is computed as it always was (the sampler's noise keeps its bits)."""
+  basis = SphericalHarmonicBasis(legendre=legendre, fourier=fourier,
+                                 max_l=legendre.shape[0] - 1)
+  return sample_isotropic(generator, 1.0 / legendre.shape[0], batch_shape,
+                          basis, dtype)

@@ -36,12 +36,24 @@ Every rank builds (or bridges) the full model and then keeps its slices
 (`shard_model`), so a run at --mp 2 from seed s starts from the weights of
 --mp 1 from seed s. `gather_state_dict` and `shard_state_dict` move between
 the full tensors that checkpoints hold and a rank's slices.
+
+The grid-node axis (the reference's sequence parallelism): a module that
+asks for it gives each rank whole latitude rows of the grid (`node_rows`)
+in its `custom_shard` hook, which `shard_model` calls. Its GNNs keep their
+MLPs whole (a column/row pair cannot also split rows over the same axis)
+and run on the rank's rows and edges; the processor keeps its pairs. Its
+collectives are float32 all_reduces too: the mesh-side partial sums
+(`reduce_sum`), the copies of whole tensors that the rank's rows read
+(`copy_in`), the output gathered to every rank (`gather_rows`, a buffer of
+-0.0) and, once at the end of the backward pass, the GNNs' partial
+parameter gradients (`sum_gradients`).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -105,6 +117,12 @@ class _Reduce(torch.autograd.Function):
     return grad.to(ctx.dtype), None
 
 
+def reduce_sum(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+  """The float32 sum over the axis of every rank's `x` (identity backward:
+  what reads the sum is the same on every rank, and so its cotangent)."""
+  return _Reduce.apply(x, axis)
+
+
 def copy_in(x: torch.Tensor, axis: Optional[ModelAxis]) -> torch.Tensor:
   """`x` at the input of a column-parallel group (as it is without an
   axis)."""
@@ -163,7 +181,10 @@ def _shard_pair(owner: nn.Module, columns: List[nn.Module], row: nn.Module,
 def shard_model(model: nn.Module, axis: Optional[ModelAxis]
                 ) -> Tuple[List[str], List[str]]:
   """Keeps this rank's slices of every pair of `model` (in place; see the
-  module docstring) and marks them to compute over `axis`. Returns the
+  module docstring) and marks them to compute over `axis`. A module that
+  shards itself in a way of its own (a denoiser whose grid nodes are
+  sharded) defines `custom_shard(axis)`: it is called first, and the MLPs
+  of the modules it returns are neither sharded nor listed. Returns the
   names of the modules sharded and of those that stayed whole. Call it
   once, on the full model, before an optimizer is made over its
   parameters; then `casting.refresh_all` remakes any bf16 serving copy."""
@@ -177,6 +198,10 @@ def shard_model(model: nn.Module, axis: Optional[ModelAxis]
                if isinstance(net, gnn.TypedGraphNet)
                for part in (net.node_embedders, net.edge_embedders)
                for m in part.modules()}
+  for module in list(model.modules()):
+    if hasattr(module, 'custom_shard'):
+      embedders |= {id(m) for kept in module.custom_shard(axis)
+                    for m in kept.modules()}
   for name, m in model.named_modules():
     if isinstance(m, _QKVProjections):
       done = _shard_pair(m, [m.q, m.k, m.v], m.out,
@@ -213,10 +238,13 @@ def sharded_dims(model: nn.Module) -> Dict[str, int]:
 
 
 def model_axis(model: nn.Module) -> Optional[ModelAxis]:
-  """The axis `model` is sharded over; None when nothing is sharded."""
+  """The axis `model` is sharded over (its pairs' or its grid nodes');
+  None when nothing is sharded."""
   for m in model.modules():
     if getattr(m, 'shard', None) is not None:
       return m.model_axis
+    if getattr(m, 'node_axis', None) is not None:
+      return m.node_axis
   return None
 
 
@@ -238,6 +266,107 @@ def gather(x: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
   buf.narrow(dim, axis.index * size, size).copy_(x)
   dist.all_reduce(buf, group=axis.group)
   return buf
+
+
+def _gather_rows(x: torch.Tensor, lo: int, total: int,
+                 axis: ModelAxis) -> torch.Tensor:
+  """[total, ...] from every rank's rows [lo, lo + len(x)) of it, bitwise:
+  one float32 all_reduce of a buffer of -0.0 holding this rank's rows,
+  cast back to x's dtype (exact: float32 holds every bf16 value)."""
+  import torch.distributed as dist
+  buf = torch.full((total,) + tuple(x.shape[1:]), -0.0, dtype=torch.float32,
+                   device=x.device)
+  buf[lo:lo + x.shape[0]] = x
+  dist.all_reduce(buf, group=axis.group)
+  axis.traffic['calls'] += 1
+  axis.traffic['bytes'] += buf.numel() * 4
+  return buf.to(x.dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+  """The node axis's output gathered to every rank forward; this rank's
+  rows of the cotangent backward (then `on_backward()`)."""
+
+  @staticmethod
+  def forward(ctx, x, lo, total, axis, on_backward):
+    ctx.rows = (lo, lo + x.shape[0])
+    ctx.on_backward = on_backward
+    return _gather_rows(x, lo, total, axis)
+
+  @staticmethod
+  def backward(ctx, grad):
+    if ctx.on_backward is not None:
+      ctx.on_backward()
+    lo, hi = ctx.rows
+    return grad[lo:hi], None, None, None, None
+
+
+class _ScatterRows(torch.autograd.Function):
+  """This rank's rows of a tensor whole on every rank forward; the rows'
+  cotangents gathered to every rank backward."""
+
+  @staticmethod
+  def forward(ctx, x, lo, hi, axis):
+    ctx.lo, ctx.total, ctx.axis = lo, x.shape[0], axis
+    return x[lo:hi]
+
+  @staticmethod
+  def backward(ctx, grad):
+    return _gather_rows(grad, ctx.lo, ctx.total, ctx.axis), None, None, None
+
+
+def node_rows(num_lat: int, num_lon: int, axis: ModelAxis
+              ) -> Tuple[int, int]:
+  """[lo, hi): the grid nodes (latitude-major) of this rank's share of a
+  node axis, whole latitude rows, the rows split as numpy's array_split
+  splits them (the first ranks take one more where the axis does not
+  divide them)."""
+  rows = np.array_split(np.arange(num_lat), axis.size)[axis.index]
+  if rows.size == 0:
+    raise ValueError(f'{num_lat} latitude rows cannot be shared by '
+                     f'{axis.size} ranks')
+  return int(rows[0]) * num_lon, (int(rows[-1]) + 1) * num_lon
+
+
+def scatter_rows(x: torch.Tensor, rows: Tuple[int, int], axis: ModelAxis
+                 ) -> torch.Tensor:
+  """Rows [lo, hi) of `x`, which is whole on every rank (its gradient, if
+  one is needed, gathered over the axis)."""
+  return _ScatterRows.apply(x, rows[0], rows[1], axis)
+
+
+def gather_rows(x: torch.Tensor, lo: int, total: int, axis: ModelAxis,
+                on_backward=None) -> torch.Tensor:
+  """The [total, ...] tensor whose rows [lo, lo + len(x)) are this rank's
+  `x`, on every rank (bitwise); backward, this rank's rows of the
+  cotangent, after calling `on_backward()`."""
+  return _GatherRows.apply(x, lo, total, axis, on_backward)
+
+
+def sum_gradients(params: List[torch.Tensor], axis: ModelAxis,
+                  before: Optional[List[Optional[torch.Tensor]]] = None
+                  ) -> None:
+  """Each gradient of `params` replaced by its sum over the axis (a missing
+  one counts as zeros), with one float32 all_reduce of one flat buffer in
+  the parameters' order. Where `before` holds a parameter's gradient from
+  before this backward pass (None: it had none), only what the pass added
+  to it is summed."""
+  import torch.distributed as dist
+  if not params:
+    return
+  before = before or [None] * len(params)
+  grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+           for p in params]
+  grads = [g if b is None else g - b for g, b in zip(grads, before)]
+  flat = torch.cat([g.reshape(-1).float() for g in grads])
+  dist.all_reduce(flat, group=axis.group)
+  axis.traffic['calls'] += 1
+  axis.traffic['bytes'] += flat.numel() * 4
+  offset = 0
+  for p, g, b in zip(params, grads, before):
+    summed = flat[offset:offset + g.numel()].view_as(g).to(g.dtype)
+    p.grad = summed if b is None else b + summed
+    offset += g.numel()
 
 
 def local_slice(full: torch.Tensor, dim: int, axis: ModelAxis

@@ -11,21 +11,20 @@ its own) and factors them as the reference does, e.g. 4 -> (1, 2, 2) and
 - the reference's toy GenCast (a 30-degree grid, mesh splits 1, d_model
   32, 2 layers, 2 heads, ffw 64, the einsum tri-block attention,
   'save_attention' remat, churn 2.5), its attention heads and MLP hidden
-  widths sharded over the model axis (parallel/tensor.py): one training
+  widths sharded over the model axis (parallel/tensor.py) and, as the
+  reference's, its grid nodes too (`DenoiserConfig.node_sharding_axis`,
+  when the model axis has more than one rank): one training
   step on a global batch of max(2, dp) rows split over the data axis, with
   a finite loss, then an ensemble sample of max(2, 2e) members over the
   ensemble axis, gathered and finite;
 - the kernel paths: TINY on the fused tri-block backend (kernels C and D on
   the card) with aggregation plans forced (`agg_plan_min_degree=1`: kernel
-  B) and streamed edges (`edge_chunk_size=1024`), loss and every gradient
-  finite; and a 2-layer block-sparse transformer over a tile plan (kernels
+  B, on plans of each rank's edges under the grid-node axis) and streamed
+  edges (`edge_chunk_size=1024`), its grid nodes sharded as the toy's, loss
+  and every gradient finite; and a 2-layer block-sparse transformer over a tile plan (kernels
   A and F) at the port's tile 64 (the reference's is 32: the tile is the
   kernels' design) and d_model 64 (the reference's 32 gives a head dim of
   16, which the kernels are not built for), loss and gradients finite.
-
-The reference's dryrun also shards the grid nodes over the model axis
-(`DenoiserConfig.node_sharding_axis`); that axis is not ported, and the
-run says so.
 
   python -m gencast_tpu_torch.tools.dryrun_multichip 8      # on one card
   python -m gencast_tpu_torch.tools.dryrun_multichip 4 --device cpu
@@ -53,7 +52,7 @@ def factor(n: int) -> Tuple[int, int, int]:
   return FACTORS.get(n, (n, 1, 1))
 
 
-def toy_model(device):
+def toy_model(device, node_sharding_axis=None):
   """The reference dryrun's toy GenCast, wrapped with unit statistics:
   (stack, model, lat, lon)."""
   from gencast_tpu_torch.data import layout as layout_lib
@@ -81,7 +80,8 @@ def toy_model(device):
       TransformerConfig(d_model=32, num_layers=2, num_heads=2, ffw_hidden=64,
                         attention_type='triblock',
                         remat_policy='save_attention'),
-      denoiser_config=DenoiserConfig(latent_size=32),
+      denoiser_config=DenoiserConfig(latent_size=32,
+                                     node_sharding_axis=node_sharding_axis),
       sampler_config=SamplerConfig(num_noise_levels=2,
                                    stochastic_churn_rate=2.5),
       rng=torch.Generator().manual_seed(0))
@@ -89,6 +89,12 @@ def toy_model(device):
       sorted(set(task.input_variables) | set(task.target_variables)),
       task.pressure_levels)
   return wrappers.InputsAndResiduals(model, stats).to(device), model, lat, lon
+
+
+def node_axis(mp: int):
+  """The reference dryrun's `node_sharding_axis`: 'model' on a model axis
+  of more than one rank."""
+  return 'model' if mp > 1 else None
 
 
 def _batch(rng, denoiser, batch, lat_size, lon_size, rows, device):
@@ -123,8 +129,8 @@ def _toy_step(mesh, device) -> dict:
   """The toy's training step and ensemble sample (module docstring)."""
   from gencast_tpu_torch.parallel import ensemble, meshes, tensor
   from gencast_tpu_torch.training import steps
-  e, dp, _ = mesh.shape
-  wrapped, model, lat, lon = toy_model(device)
+  e, dp, mp = mesh.shape
+  wrapped, model, lat, lon = toy_model(device, node_axis(mp))
   tensor.shard_model(wrapped, tensor.axis_of(mesh))
   optimizer = steps.create_optimizer(
       wrapped, steps.OptimizerConfig(),
@@ -167,7 +173,7 @@ def _kernel_paths(mesh, device) -> dict:
       agg_plan_min_degree=1, edge_chunk_size=1024, num_noise_levels=2)
   model, statics = configs.build_gencast(
       spec, seed=0, statics=configs.build_statics(spec, cache_dir=None),
-      device=device)
+      device=device, node_sharding_axis=node_axis(mesh.axis_size('model')))
   tensor.shard_model(model, axis)
   # Only to average the loss and gradients over the data axis.
   optimizer = steps.create_optimizer(
@@ -182,6 +188,7 @@ def _kernel_paths(mesh, device) -> dict:
   loss.mean().backward()
   loss = float(optimizer.average_over_ranks(loss.mean().detach()))
   leaves = _finite_grads(model)
+  tiny_launches = _launches()
   if not np.isfinite(loss):
     raise AssertionError(f'tiny triblock_pallas: loss {loss}')
 
@@ -207,13 +214,18 @@ def _kernel_paths(mesh, device) -> dict:
     raise AssertionError(f'tile-plan transformer: loss {flash_loss}')
   return {'kernels_loss': loss, 'grad_leaves': leaves,
           'flash_loss': float(flash_loss.detach()),
-          'flash_grad_leaves': flash_leaves}
+          'flash_grad_leaves': flash_leaves, 'tiny_launches': tiny_launches}
+
+
+def _launches() -> dict:
+  """Every kernel's launches in this process so far."""
+  from gencast_tpu_torch.ops import cuda_lib
+  return {c.name: c.launches for c in cuda_lib.COUNTERS}
 
 
 def _rank(rank: int, world: int, coordinator: str, device: str,
           out_dir: str) -> None:
   """One rank of the dryrun; writes its numbers to out_dir/rank<r>.json."""
-  from gencast_tpu_torch.ops import cuda_lib
   from gencast_tpu_torch.parallel import meshes
   t0 = time.perf_counter()
   backend, dev = meshes.initialize(coordinator, world, rank, device=device)
@@ -222,17 +234,20 @@ def _rank(rank: int, world: int, coordinator: str, device: str,
     mesh = meshes.make_mesh(e, dp, mp)
     if rank == 0:
       print(f'[dryrun] {world} ranks, backend {backend}, mesh (ensemble, '
-            f'data, model) = ({e}, {dp}, {mp}); the grid-node axis '
-            '(DenoiserConfig.node_sharding_axis) is not ported: this dryrun '
-            'runs without it', flush=True)
+            f'data, model) = ({e}, {dp}, {mp}); grid nodes sharded over the '
+            f'model axis: {node_axis(mp) is not None}', flush=True)
     out = {'rank': rank, 'mesh': [e, dp, mp], 'backend': backend}
     out.update(_toy_step(mesh, dev))
+    toy_launches = _launches()
     if rank == 0:
       print(f'dryrun_multichip ok: mesh=({e},{dp},{mp}) loss='
             f'{out["loss"]:.4f} samples={tuple(out["samples"])} '
             f'({time.perf_counter() - t0:.0f}s)', flush=True)
     out.update(_kernel_paths(mesh, dev))
-    out['launches'] = {c.name: c.launches for c in cuda_lib.COUNTERS}
+    out['launches'] = _launches()
+    # The TINY kernel path's launches alone (a loss and its backward).
+    out['tiny_launches'] = {k: v - toy_launches[k]
+                            for k, v in out['tiny_launches'].items()}
     if rank == 0:
       print(f'dryrun kernels ok: tiny-shaped triblock_pallas mesh=({e},{dp},'
             f'{mp}) loss={out["kernels_loss"]:.4f} grad_leaves='
@@ -273,9 +288,11 @@ def main(argv=None) -> None:
                      '--device cpu to run on the CPU')
   for out in dryrun_multichip(args.n, args.device):
     # One write per line: the ranks' output may interleave.
-    print(f'[dryrun] rank {out["rank"]} launches ' + json.dumps(
-        {k: v for k, v in out['launches'].items() if v}) + '\n', end='',
-          flush=True)
+    for what, key in (('launches', 'launches'),
+                      ('TINY kernel path launches', 'tiny_launches')):
+      print(f'[dryrun] rank {out["rank"]} {what} ' + json.dumps(
+          {k: v for k, v in out[key].items() if v}) + '\n', end='',
+            flush=True)
 
 
 if __name__ == '__main__':

@@ -569,13 +569,17 @@ def start_rank(args):
 
 def check_ranks(args) -> None:
   """The reference's rules for a run of several ranks: the batch splits
-  evenly over dp, and no --ar_steps > 1."""
+  evenly over dp, and --ar_steps > 1 only on one host with dp 1 (every
+  rank of a model axis holds the whole [K, B, ...] window; a data axis
+  cannot split it, and --multihost refuses it as the reference does)."""
   if args.batch_size % args.dp:
     raise SystemExit(f'[train] batch_size ({args.batch_size}) must be '
                      f'divisible by dp ({args.dp})')
-  if ar_steps(args) > 1:
+  multihost = args.multihost and not getattr(args, 'local_rank', False)
+  if ar_steps(args) > 1 and (args.dp > 1 or multihost):
     raise SystemExit('[train] --ar_steps > 1 is not supported under '
-                     '--multihost; train AR single-host or dp=1')
+                     '--multihost or with dp > 1; train AR on one host '
+                     'with dp=1')
 
 
 def _local_rank(rank: int, world: int, coordinator: str, argv: List[str],
@@ -584,7 +588,7 @@ def _local_rank(rank: int, world: int, coordinator: str, argv: List[str],
   rank 0 writes its run's numbers to `result` for the parent."""
   run = main(argv + ['--multihost', '--coordinator', coordinator,
                      '--process_id', str(rank), '--num_processes',
-                     str(world)])
+                     str(world)], local_rank=True)
   if rank == 0:
     with open(result, 'w') as f:
       json.dump({k: getattr(run, k) for k in _RUN_FIELDS}, f)
@@ -609,9 +613,12 @@ def spawn_local_ranks(args, argv: List[str]) -> TrainRun:
   return TrainRun(model=None, **numbers)
 
 
-def main(argv=None) -> TrainRun:
+def main(argv=None, *, local_rank: bool = False) -> TrainRun:
+  """The CLI; `local_rank` marks one of the ranks that `--dp N --mp M`
+  starts on this host (spawn_local_ranks), not a --multihost process."""
   argv = list(sys.argv[1:] if argv is None else argv)
   args = parse_args(argv)
+  args.local_rank = local_rank
   if args.dp * args.mp > 1 and not args.multihost:
     return spawn_local_ranks(args, argv)
   try:

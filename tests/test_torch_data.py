@@ -2,6 +2,8 @@
 package: the loss weights, losses, generated forcings, synthetic source,
 batching and statistics, array for array."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,3 +152,27 @@ def test_pack_equals_jax():
       {k: jnp.asarray(v) for k, v in fields.items()}, jlay))
   assert got.shape == (3, 5, 6, lay.num_channels)
   np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('k', [1, 3])
+def test_packer_windows_of_k_frames_equal_in_process(k):
+  """The worker packer with num_target_frames=K: one unshuffled pass of
+  batch 1 holds len(source) - (K - 1) windows, each bitwise the in-process
+  source.sample(i, num_target_frames=K)."""
+  from gencast_tpu_torch.data.workers import ParallelBatchIterator
+  lat, lon = jax_configs.grid_for_resolution(30.0)
+  factory = functools.partial(sources.SyntheticSource, TASKS['gencast'],
+                              lat, lon, num_times=8, seed=3)
+  source = factory()
+  with ParallelBatchIterator(factory, 1, num_workers=1, shuffle=False,
+                             loop=False, num_target_frames=k) as it:
+    got = list(it)
+  assert len(got) == len(source) - (k - 1)
+  for i, batch in enumerate(got):
+    want = source.sample(i, num_target_frames=k)
+    for name in ('inputs', 'targets', 'forcings'):
+      g, w = batch[name][0], getattr(want, name)
+      assert g.shape == w.shape and g.dtype == w.dtype, name
+      assert np.array_equal(g.view(np.uint32), w.view(np.uint32)), (i, name)
+  with pytest.raises(ValueError, match='num_target_frames'):
+    ParallelBatchIterator(factory, 1, num_workers=1, num_target_frames=0)

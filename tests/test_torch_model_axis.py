@@ -375,10 +375,11 @@ RECOMPUTED_PER_LAYER = {('full', True): 1, ('full', False): 2,
 @pytest.mark.parametrize('policy,early', sorted(RECOMPUTED_PER_LAYER))
 def test_all_reduce_calls_of_a_step_as_derived(calls, policy, early):
   """One training step's all_reduces: in the forward one sum per call of a
-  sharded module (each runs once); in the backward one gradient sum per
-  copy that a gradient reaches (all but mesh2grid's mesh-node MLP, whose
-  output nothing decodes) plus the sums the remat recomputes. At ONE_DEG
-  (save_attention, 16 layers, 39 sharded modules) that is 39 + 38 = 77."""
+  sharded module (each runs once, but mesh2grid's mesh-node MLP, whose
+  output nothing decodes, runs not at all); in the backward one gradient
+  sum per copy that a gradient reaches (the same modules) plus the sums
+  the remat recomputes. At ONE_DEG (save_attention, 16 layers, 39 sharded
+  modules) that is 38 + 38 = 76."""
   step = calls['steps'][f'{policy}:{early}']
   sharded = len(calls['sharded'])
   # grid2mesh's edge MLP and both node MLPs; per layer the attention and
@@ -387,7 +388,7 @@ def test_all_reduce_calls_of_a_step_as_derived(calls, policy, early):
   assert step['no_grad'] == [
       'predictor.denoiser.architecture.mesh2grid.processors.0.node_mlps.'
       'mesh.network']
-  assert step['forward'] == sharded
+  assert step['forward'] == sharded - 1
   assert step['backward'] == (sharded - 1 + calls['layers']
                               * RECOMPUTED_PER_LAYER[policy, early])
 
@@ -529,3 +530,25 @@ def test_dryrun_multichip_on_four_ranks(monkeypatch):
   assert len({r['loss'] for r in four}) == 1
   assert abs(four[0]['loss'] - one[0]['loss']) <= DRYRUN_RTOL * abs(
       one[0]['loss'])
+
+
+def test_ar_steps_under_mp2_matches_mp1(tmp_path):
+  """--ar_steps 2 under --mp 2 --dp 1 (refused before; the reference runs
+  it on one host): TINY GraphCast's 2-step AR losses and the parameters
+  after 2 steps within MP_RTOL of --mp 1's. Under --dp 2 it stays refused
+  (tests/test_torch_multihost.py)."""
+  base = ARGV + ['--model', 'graphcast', '--preset', 'tiny', '--steps', '2',
+                 '--ar_steps', '2']
+  one = train.main(base + ['--ckpt_dir', str(tmp_path / 'one')])
+  metrics = str(tmp_path / 'mp.jsonl')
+  out = torch_ranks.run_cli(TRAIN, base + [
+      '--mp', '2', '--ckpt_dir', str(tmp_path / 'mp'), '--metrics_jsonl',
+      metrics])
+  assert '[train] mesh: data=1 model=2' in out
+  got = _losses(metrics)
+  assert len(got) == len(one.losses) == 2
+  np.testing.assert_allclose(got, one.losses, rtol=MP_RTOL)
+  a, b = (_params(str(tmp_path / k), 1) for k in ('one', 'mp'))
+  assert sorted(a) == sorted(b)
+  for name, want in a.items():
+    assert _rel(b[name].numpy(), want.numpy()) <= MP_RTOL, name

@@ -325,8 +325,9 @@ def test_sample_rollout_jit_equals_eager_on_the_cpu():
 
 def test_refresh_serves_the_new_masters():
   """(e) After the masters change and `refresh_all`, the next sample
-  differs from the one before; the replaced serving copy takes its
-  sampler graphs with it."""
+  differs from the one before; the serving copy is refreshed in place and
+  keeps its sampler graphs, whose captured parameters now hold the new
+  values."""
   model, stack = _stack(bf16=True)
   inputs, forcings = _window(model, steps_k=1)
   cast = next(m for m in stack.modules()
@@ -344,7 +345,43 @@ def test_refresh_serves_the_new_masters():
   casting.refresh_all(stack)
   after = sample()
   assert torch.isfinite(after).all() and not torch.equal(after, before)
-  assert cast._bf16.denoiser_graphs is not graphs
+  assert cast._bf16.denoiser_graphs is graphs
+
+
+def test_refresh_in_place_gives_a_fresh_copys_bits():
+  """After a training step has changed the masters, a refresh copies them
+  into the serving copy's own bf16 parameters (the addresses a captured
+  graph reads stay valid): bitwise a fresh `cast_params` copy, buffers
+  still shared with the masters. A serving copy of a model laid out anew
+  (here sharded over a model axis of one rank's slices) is made anew."""
+  from gencast_tpu_torch.parallel import tensor
+  model, stack = _stack(bf16=True)
+  cast = next(m for m in stack.modules()
+              if isinstance(m, casting.Bfloat16Cast))
+  twin = cast._bf16
+  addresses = [p.data_ptr() for p in twin.parameters()]
+  optimizer = steps.create_optimizer(stack, steps.OptimizerConfig(
+      learning_rate=1e-2, warmup_steps=0, total_steps=4))
+  pool = _pool(model, m=1)
+  for step in range(2):  # the first update's rate is 0
+    steps.train_step(stack, optimizer, pool['inputs'][0],
+                     pool['targets'][0], pool['forcings'][0],
+                     train.step_generator(0, step, 'cpu'))
+  fresh = casting.cast_params(model)
+  assert not all(torch.equal(a, b) for a, b in zip(twin.parameters(),
+                                                   fresh.parameters()))
+  casting.refresh_all(stack)
+  assert cast._bf16 is twin
+  assert [p.data_ptr() for p in twin.parameters()] == addresses
+  for (name, p), q in zip(twin.named_parameters(), fresh.parameters()):
+    assert p.dtype == q.dtype == torch.bfloat16, name
+    assert torch.equal(p.view(torch.int16), q.view(torch.int16)), name
+  assert all(a is b for a, b in zip(twin.buffers(), model.buffers()))
+  tensor.shard_model(stack, tensor.ModelAxis(None, 2, 0))
+  casting.refresh_all(stack)
+  assert cast._bf16 is not twin
+  assert ([p.shape for p in cast._bf16.parameters()]
+          == [p.shape for p in model.parameters()])
 
 
 def test_denoiser_graphs_are_never_copied_or_moved():

@@ -321,3 +321,155 @@ def model_axis_calls_rank(rank, world, coordinator, work):
         json.dump(out, f)
   finally:
     meshes.shutdown()
+
+
+def node_axis_rank(rank, world, coordinator, work):
+  """One rank of tests/test_torch_node_axis.py, over a model axis of
+  `world` ranks on the CPU with the grid nodes sharded over it
+  (`DenoiserConfig.node_sharding_axis='model'`): for each case of
+  work/cases.json (its weights and data in work/<case>.npz), the forward,
+  the loss and every gradient (the processor's sharded ones gathered);
+  then the all_reduce calls of the forward and of the backward of a
+  TINY_PALLAS step under each remat policy. Rank r writes
+  work/rank<r>.npz, rank 0 also work/calls.json."""
+  import json
+  import numpy as np
+  import torch
+  from gencast_tpu_torch.parallel import meshes, tensor
+  torch.set_num_threads(1)  # the parent's summation order
+  meshes.initialize(coordinator, world, rank, device='cpu')
+  try:
+    axis = tensor.axis_of(meshes.make_mesh(model=world))
+    with open(os.path.join(work, 'cases.json')) as f:
+      cases = json.load(f)
+    out = {}
+    for name, case in cases.items():
+      data = dict(np.load(os.path.join(work, f'{name}.npz')))
+      model, stack = node_axis_stack(case, data, 'model')
+      tensor.shard_model(stack, axis)
+      out.update(node_axis_step(name, model, stack, data, axis))
+      out[f'{name}:rows'] = np.asarray(
+          model.denoiser.architecture.node_rows)
+      if name == 'dense':
+        out.update(node_axis_accumulate(model, stack, data, axis))
+    calls = {'layers': 2}
+    for policy in ('full', 'save_attention'):
+      case = dict(preset='tiny_pallas', remat_policy=policy,
+                  remat_gnns=False, use_agg_plans=False,
+                  agg_plan_min_degree=32, edge_chunk_size=None)
+      model, stack = node_axis_stack(case, None, 'model')
+      tensor.shard_model(stack, axis)
+      rng = np.random.default_rng(0)
+      d = model.denoiser
+      grid = (1, d.num_lat, d.num_lon)
+      batch = [torch.as_tensor(rng.standard_normal(
+          grid + (lay.num_channels,)).astype(np.float32))
+               for lay in (d.input_layout, d.target_layout,
+                           d.forcing_layout)]
+      counts = [axis.traffic['calls']]
+      loss, _ = stack.loss(*batch, generator=torch.Generator().manual_seed(1))
+      counts.append(axis.traffic['calls'])
+      loss.mean().backward()
+      counts.append(axis.traffic['calls'])
+      calls[policy] = {'forward': counts[1] - counts[0],
+                       'backward': counts[2] - counts[1]}
+    np.savez(os.path.join(work, f'rank{rank}.npz'), **out)
+    if rank == 0:
+      with open(os.path.join(work, 'calls.json'), 'w') as f:
+        json.dump(calls, f)
+  finally:
+    meshes.shutdown()
+
+
+def node_axis_accumulate(model, stack, data, axis):
+  """Every gradient (gathered over `axis`, in the reference's keys, keyed
+  `accumulate:grad:...`) after a backward pass of the case's loss that
+  raises midway (in the processor, after the GNNs' gradient sum was
+  queued), the gradients set to None, then two passes with no zeroing in
+  between: twice one pass's gradients, as each pass sums over the axis only
+  what it adds, and the raised pass leaves no sum behind."""
+  import torch
+  from gencast_tpu_torch.parallel import tensor
+  inputs, targets, forcings = (torch.as_tensor(data[k]) for k in (
+      'inputs', 'targets', 'forcings'))
+  draws = {k: torch.as_tensor(data[k]) for k in ('sigma', 'noise')}
+
+  def backward():
+    loss, _ = stack.loss(inputs, targets, forcings, **draws)
+    loss.mean().backward()
+
+  def abort(grad):
+    raise RuntimeError('the pass aborted here')
+
+  processor = next(p for n, p in model.named_parameters()
+                   if '.architecture.processor.' in n)
+  handle = processor.register_hook(abort)
+  try:
+    backward()
+  except RuntimeError as e:
+    if 'the pass aborted here' not in str(e):
+      raise
+  else:
+    raise AssertionError('the backward pass did not raise')
+  finally:
+    handle.remove()
+  model.zero_grad(set_to_none=True)
+  backward()
+  backward()
+  grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+           for n, p in model.named_parameters()}
+  grads = tensor.gather_state_dict(grads, tensor.sharded_dims(model), axis)
+  return {f'accumulate:grad:{k}': v
+          for k, v in _reference_keys(model, grads).items()}
+
+
+def node_axis_stack(case, data, node_sharding_axis=None):
+  """The port's GenCast of a case of node_axis_rank (a TINY preset with
+  the case's GNN layout fields; the weights of data's 'param:' entries,
+  in the reference's keys, when `data` is given) and its float32 wrapper
+  stack with unit statistics."""
+  import dataclasses
+  import torch  # noqa: F401
+  from gencast_tpu_torch import bridge, configs
+  from gencast_tpu_torch.data import layout
+  from gencast_tpu_torch.models import wrappers
+  fields = ('remat_policy', 'remat_gnns', 'use_agg_plans',
+            'agg_plan_min_degree', 'edge_chunk_size')
+  spec = dataclasses.replace(configs.SPECS[case['preset']],
+                             **{k: case[k] for k in fields})
+  model, _ = configs.build_gencast(spec, seed=0, device='cpu',
+                                   node_sharding_axis=node_sharding_axis)
+  if data is not None:
+    bridge.load_reference_params(model, {
+        k[len('param:'):]: v for k, v in data.items()
+        if k.startswith('param:')})
+  task = model.task
+  stats = layout.Stats.unit(
+      sorted(set(task.input_variables) | set(task.target_variables)),
+      task.pressure_levels)
+  return model, wrappers.build_stack(model, stats, bf16=False)
+
+
+def node_axis_step(tag, model, stack, data, axis):
+  """The forward, the loss and every gradient (in the reference's keys;
+  the processor's sharded ones gathered over `axis` when it is given) of
+  one step on the case's data, keyed `<tag>:...`."""
+  import torch
+  from gencast_tpu_torch.parallel import tensor
+  inputs, targets, forcings = (torch.as_tensor(data[k]) for k in (
+      'inputs', 'targets', 'forcings'))
+  draws = {k: torch.as_tensor(data[k]) for k in ('sigma', 'noise')}
+  out = {}
+  with torch.no_grad():
+    out[f'{tag}:forward'] = stack(inputs, torch.as_tensor(data['noisy']),
+                                  draws['sigma'], forcings).numpy()
+  loss, _ = stack.loss(inputs, targets, forcings, **draws)
+  loss.mean().backward()
+  grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+           for n, p in model.named_parameters()}
+  if axis is not None:
+    grads = tensor.gather_state_dict(grads, tensor.sharded_dims(model), axis)
+  out[f'{tag}:loss'] = loss.detach().numpy()
+  out.update({f'{tag}:grad:{k}': v
+              for k, v in _reference_keys(model, grads).items()})
+  return out
