@@ -11,8 +11,10 @@ reference's einsum attention backends, data-parallel training over ranks,
 the member-sharded ensemble, a published-layout GenCast checkpoint
 translated and served, the tracing tool and MFU accounting, the model
 axis (tensor parallelism over heads and MLP hidden widths) in training,
-the pod forecast and dryrun_multichip, and the grid-node axis (the grid
-nodes sharded over the model axis) at 1 degree and in dryrun_multichip.
+the pod forecast and dryrun_multichip, the grid-node axis (the grid
+nodes sharded over the model axis) at 1 degree and in dryrun_multichip,
+and ensemble members sampled as one batch at nano, 1 degree and 0.25
+degrees.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -105,7 +107,8 @@ Phases (any failure raises and exits non-zero):
      step),
      seconds per step and peak memory beside phase 10's; then
      `evaluate.main` on the checkpoint:
-     a 2-member, 2-step 1-degree ensemble (A 624 and B 156 launches) from
+     a 2-member, 2-step 1-degree ensemble, its members as one batch (A 312
+     and B 78 launches: a batched call launches as a one-member call) from
      the parameters saved, with finite scores and predictions
      [2, 2, 181, 360, C];
  18. reproducibility: two full-width nano training steps through
@@ -141,11 +144,16 @@ Phases (any failure raises and exits non-zero):
      gives it (edge chunks, grid-node chunks, the mesh, the transformer),
      and one kernel per E call at these shapes under torch.profiler in a
      fresh python3 process (a profiler session that is not its process's
-     first may record fewer kernels than were launched);
+     first may record fewer kernels than were launched), a check whose
+     time is no metric, run in phase 42 beside the pod forecast's ranks
+     (its line there);
  23. the QUARTER_DEG denoiser (seeded, perturbed, bf16 stack) through the
      kernels against the plain path (A 16, B 13 launches: one per grid2mesh
-     chunk); the 1-degree denoiser with streamed edges against the dense
-     one, float32, the same weights;
+     chunk); one call at batch 2 (two rows, each its own noise level: the
+     streamed chunks at a batch) against two batch-1 calls of the same
+     rows, each row bitwise or within MEMBER_BATCH_RTOL, A 16 and B 13
+     launches, its peak memory; the 1-degree denoiser with streamed edges
+     against the dense one, float32, the same weights;
  24. serving: one 0.25-degree 12-hour forecast step graphed, then eagerly
      from the same generator seed: bitwise equal, A 624 and B 507 launches
      each, seconds both ways, the capture, its pool, the peak memory;
@@ -236,8 +244,10 @@ Phases (any failure raises and exits non-zero):
      step and the kernels of steps 10-15 in each rank's trace;
  37. the member-sharded ensemble: `python3 -m
      gencast_tpu_torch.scripts.ensemble_forecast_pod --preset 1deg
-     --members 2 --steps 2 --score` on two ranks on cuda:0: the members
-     bitwise the one-device `parallel.ensemble.ensemble_rollout`, the scores
+     --members 2 --steps 2 --score` on two ranks on cuda:0 (one member per
+     rank and call, as the reference's pod): the members bitwise the
+     one-device `parallel.ensemble.ensemble_rollout` run one member per
+     call, the scores
      reduced on the devices within POD_SCORE_RTOL of `ops.metrics`, A and B
      launches per rank as derived, seconds per member-step;
  38. a published GenCast checkpoint at 1 degree, full width and depth: a
@@ -253,7 +263,9 @@ Phases (any failure raises and exits non-zero):
      step as derived; `python3 -m gencast_tpu_torch.training.evaluate
      --preset 1deg --ckpt_dir` in a fresh process (1 member x 1 step)
      restores step 0 and writes finite scores; each stage's seconds and
-     the npz's size;
+     the npz's size (run inside phase 42, beside the pod forecast's
+     ranks: checks whose time is no metric; its seconds on the [time]
+     line's note);
  39. `python3 -m gencast_tpu_torch.tools.trace_sampler
      build/chip_smoke_trace_1deg 1deg` in a fresh process (`profile_step
      --mode sample --steps 1`: the CLIs' serving stack): the trace file
@@ -272,7 +284,8 @@ Phases (any failure raises and exits non-zero):
      DP_LOSS_RTOL; the float32 pair at CUT_LAYERS layers, both with
      GENCAST_SPARSE_FUSED_BWD=1 (kernel G and its reduce), losses and
      parameter changes within the TINY training tolerances (its --mp 2 run
-     beside the one process's float32 run and the evaluate); launches per
+     beside the one process's float32 run and the evaluate, and phase 42's
+     dryrun_multichip beside them); launches per
      rank-step as derived (A 16, F 16 + 16, B 4, E 42 at full depth), in
      each rank's trace of steps 1-2 too (`--profile_dir --profile_steps 1
      2`); the --mp 2 checkpoint restored by a --mp 1 evaluate; seconds per
@@ -281,23 +294,30 @@ Phases (any failure raises and exits non-zero):
  41. kernels A and F at [1, 10304, 2, 128] and [1, 10304, 1, 128], C and D
      at [1, 2624, 2, 64] and [1, 2624, 1, 64] (one rank's heads under a
      model axis of 2 and 4), float32 and bfloat16, against their plain
-     versions, with card ms, bound and library ms;
+     versions, with card ms, bound and library ms; phase 43's kernel B on
+     each rank's plans;
  42. `python3 -m gencast_tpu_torch.scripts.ensemble_forecast_pod --preset
      nano --members 2 --steps 2 --score` on four ranks (ensemble 2 x model
      2): each member saved once, within POD_MP_RTOL of the one-device
-     member, scores within POD_SCORE_RTOL of `ops.metrics`, C and B
-     launches per rank as derived; `python3 -m
+     member (run one member per call, as each rank runs its member),
+     scores within POD_SCORE_RTOL of `ops.metrics`, C and B
+     launches per rank as derived, while phase 38 and phase 22's profiler
+     check run here beside its ranks; `python3 -m
      gencast_tpu_torch.tools.dryrun_multichip 8` in a fresh process, mesh
      (2, 2, 2), the grid nodes sharded over the model axis, every kernel
      of its paths launched, B on the TINY kernel path as derived from each
-     rank's grid rows; beside it GraphCast_small at one processor step
-     (GC_MP_LAYERS) trained 2 steps under --mp 2, B per rank-step as
-     derived;
- 43. the grid-node axis at 1 degree, full width and depth
+     rank's grid rows (run beside phase 40's float32 --mp 2 run);
+     GraphCast_small at one processor step (GC_MP_LAYERS) trained 2 steps
+     under --mp 2 (started with the pod, beside it and phases 38 and 43),
+     B per rank-step as derived;
+ 43. the grid-node axis at 1 degree, full width, CUT_LAYERS layers (phase
+     40 drives the model axis at full depth; a rank's grid rows and edges
+     do not depend on the depth)
      (`DenoiserConfig.node_sharding_axis='model'`), through the Python API:
      kernel B on the plans of each rank's edges (float32 and bf16 against
-     its plain version, with card ms, bound and library ms); then in this
-     process and on two spawned ranks on cuda:0 (gloo, eager; each holds
+     its plain version, with card ms, bound and library ms; run in phase
+     41, alone); then, inside phase 42 beside GraphCast's --mp 2 ranks, in
+     this process and on two spawned ranks on cuda:0 (gloo, eager; each holds
      half the grid's latitude rows, 2 of the 4 heads and half of each
      transformer MLP's hidden width), all from perturbed weights: a
      denoiser call in bf16 and float32, the ranks' within NODE_BF16_RTOL
@@ -305,9 +325,23 @@ Phases (any failure raises and exits non-zero):
      losses within TRAIN_LOSS_RTOL, every first gradient within
      NODE_GRAD_RTOL and every parameter's change (root-sum-square) within
      TRAIN_STEP_RTOL of one process's; two bf16 training steps whose losses agree within
-     DP_LOSS_RTOL; launches per rank-step as derived (A 16, F 16 + 16, B 4,
-     E 42) and the model axis's all-reduces per rank-step as derived (71);
-     seconds, all-reduce bytes and peak memory per rank-step;
+     DP_LOSS_RTOL; launches per rank-step as derived (at 16 layers A 16, F
+     16 + 16, B 4, E 42) and the model axis's all-reduces per rank-step as
+     derived (71 at 16 layers, 23 at 4); all-reduce bytes and peak memory
+     per rank-step, and its seconds (no metric beside the other ranks);
+ 44. ensemble members as one batch (`rollout.sample_rollout` given
+     `generators`; the JAX package's vmapped ensemble): kernels A at
+     [4, 10304, 4, 128] and the ragged [4, 10242, 4, 128], C at
+     [8, 2624, 4, 64], B on the 1-degree and nano grid2mesh receiver plans
+     at f = 4 x 512 and 8 x 512, float32 and bf16, against their plain
+     versions with card ms, bound and library ms; then nano 8 members x 2
+     steps and 1 degree 4 members x 1 step (seeded, perturbed bf16 stacks,
+     graphed), each member run alone, then all as one batch twice (the
+     first captures the batch's graph; the two bitwise equal): each member
+     bitwise its one-member run or within MEMBER_BATCH_RTOL (the largest
+     error logged), launches per batched call as derived (C 16 and B 1 at
+     nano, A 16 and B 1 at 1 degree), seconds per member-step both ways,
+     each graph's capture seconds and private pool, peak memory both ways;
 then a [time] line (the seconds of each phase), one JSON line of kernel
 results (launches from the training runs of each kernel's paths, eager and
 graphed), the card's name and power limit, and a last JSON line
@@ -324,7 +358,9 @@ for matmuls and cuDNN: float32 products run in full float32. Phases 17,
 20, 25, 26, 28-30 and 33-43 write under build/ (git-ignored) and remove
 what they wrote;
 the graph statics are cached under build/chip_smoke_cache for the run and
-removed at its end. About eighteen minutes on an H100, build included.
+removed at its end. Checks whose time is no metric run beside work whose
+time is no metric either (the [time] line notes each phase run inside
+another). About eighteen minutes on an H100, build included.
 """
 
 from __future__ import annotations
@@ -466,6 +502,7 @@ class PhaseClock:
 
   def __init__(self):
     self.seconds = {}
+    self.inside = {}
     self.last = time.perf_counter()
 
   def done(self, phase: int) -> None:
@@ -473,9 +510,16 @@ class PhaseClock:
     self.seconds[phase] = round(now - self.last, 1)
     self.last = now
 
+  def beside(self, phase: int, host: int, seconds: float) -> None:
+    """`phase` ran inside phase `host` (beside its ranks), `seconds` of
+    the host's wall."""
+    self.inside[phase] = (host, round(seconds, 1))
+
   def line(self, card: str) -> str:
+    inside = ''.join(f'; phase {p} inside phase {h} ({s} s of it)'
+                     for p, (h, s) in self.inside.items())
     return (f'[time] seconds by phase {json.dumps(self.seconds)}; total '
-            f'{sum(self.seconds.values()):.1f}; {card}')
+            f'{sum(self.seconds.values()):.1f}{inside}; {card}')
 
 
 def card_line() -> str:
@@ -582,28 +626,29 @@ def graph_ms(fns, reps):
   return {n: v / reps for n, v in ms.items()}
 
 
-def nan_tailed(shape, count, dtype, g, dev, tail):
-  """`count` seeded normal tensors [1, *shape] in `dtype`, each the head of a
-  buffer `tail` rows longer whose tail is NaN: a kernel that read a row past
-  the last would carry it into its sums (0 * NaN)."""
-  n = shape[0]
-  bufs = [torch.randn((1, n + tail) + shape[1:], generator=g, device=dev)
+def nan_tailed(shape, count, dtype, g, dev, tail, batch=1):
+  """`count` seeded normal tensors [batch, *shape] in `dtype`, each the head
+  of a buffer `tail` rows longer whose tail is NaN: a kernel that read a
+  row past the last (of the last batch entry) would carry it into its sums
+  (0 * NaN)."""
+  rows = batch * shape[0]
+  bufs = [torch.randn((rows + tail,) + shape[1:], generator=g, device=dev)
           .to(dtype) for _ in range(count)]
   for x in bufs:
-    x[:, n:] = float('nan')
-  return [x[:, :n] for x in bufs]
+    x[rows:] = float('nan')
+  return [x[:rows].view((batch,) + tuple(shape)) for x in bufs]
 
 
 def check_attention(shape, dtype, atol, mt, ids, pids, tile, g, dense,
-                    allowed, reps=10):
-  """Kernel A against its plain version on seeded q/k/v [1, *shape] with NaN
-  behind the last row: o, lse on the rows that see a key, and o = 0 and
+                    allowed, reps=10, batch=1):
+  """Kernel A against its plain version on seeded q/k/v [batch, *shape] with
+  NaN behind the last row: o, lse on the rows that see a key, and o = 0 and
   lse ~ -1e30 on the others. Returns (max abs err, {'kernel': ms,
   'plain': ms, 'library': ms}, bound inputs (flops, bytes)). `dense` is the
   [n, n] boolean mask and `allowed` its entry count, for the library call
   and the bound."""
   from gencast_tpu_torch.ops import sparse_attention
-  q, k, v = nan_tailed(shape, 3, dtype, g, mt.device, tile)
+  q, k, v = nan_tailed(shape, 3, dtype, g, mt.device, tile, batch)
   plain, lse_p = sparse_attention.sparse_banded_attention_plain(
       q, k, v, mt, ids, pids, tile, return_lse=True)
   got, lse = sparse_attention.sparse_attention_fwd_cuda(
@@ -629,10 +674,10 @@ def check_attention(shape, dtype, atol, mt, ids, pids, tile, g, dense,
           q, k, v, mt, ids, pids, tile),
       'library': lambda: sdpa_forward(*sdpa)}, reps=reps)
   h, d = shape[1], shape[2]
-  cost = (4 * d * allowed * h,
+  cost = (4 * d * allowed * h * batch,
           nbytes(q, k, v, mt, ids, pids, got, lse))
-  log(f'[kernel A] {dtype} [1, {", ".join(map(str, shape))}]: max abs err '
-      f'{err:.3e} (tol {atol}), lse {lse_err:.3e} (tol {ATTN_F32_ATOL}); '
+  log(f'[kernel A] {dtype} [{batch}, {", ".join(map(str, shape))}]: max abs '
+      f'err {err:.3e} (tol {atol}), lse {lse_err:.3e} (tol {ATTN_F32_ATOL}); '
       f'{int((~seen).sum())} rows without a key give 0 and ~-1e30; NaN behind '
       f'row {shape[0]} not read; kernel {ms["kernel"]:.3f} ms, plain '
       f'{ms["plain"]:.3f} ms, library (scaled_dot_product_attention, dense '
@@ -941,21 +986,21 @@ def ln_film_shapes(presets):
   return shapes
 
 
-def check_ln_film_shapes(shapes, g, card, fresh_process=False):
+def check_ln_film_shapes(shapes, g, card, profiled=None):
   """Phases 8 and 22: kernel E at every shape, float32 and bf16, against its
   plain version and twice for equal bits (check_ln_film_bwd); one call of
   each under torch.profiler must run exactly one kernel, E's; a call
   captured in a CUDA graph and replayed twice gives the eager call's bits.
   Returns {(shape, dtype): check_ln_film_bwd's result}.
 
-  Phase 22 (the 0.25-degree shapes) passes fresh_process=True: its profiler
-  session runs in a new python3 process (`--profile-ln-film`), which loads
-  the kernels already built under build/. A torch.profiler session that
-  is not its process's first may record fewer kernels than were launched:
-  in this process, one of 14 calls in an H100 run; in
-  `gencast_tpu_torch.tools.profiler_sessions`, 13 of 14 in later sessions
-  whatever ran between them, while every process's first session recorded
-  all 14."""
+  Phase 22 (the 0.25-degree shapes) passes `profiled`, a note saying where
+  its profiler check runs instead: in a new python3 process
+  (`start_ln_film_profile`), which loads the kernels already built under
+  build/. A torch.profiler session that is not its process's first may
+  record fewer kernels than were launched: in this process, one of 14
+  calls in an H100 run; in `gencast_tpu_torch.tools.profiler_sessions`, 13
+  of 14 in later sessions whatever ran between them, while every process's
+  first session recorded all 14."""
   from gencast_tpu_torch.ops import ln_film
   results, calls = {}, []
   for shape, axis in shapes:
@@ -965,9 +1010,7 @@ def check_ln_film_shapes(shapes, g, card, fresh_process=False):
       results[(shape, dtype)] = res[:3]
       calls.append((res[3], axis))
   torch.cuda.synchronize()
-  if fresh_process:
-    profiled = profile_ln_film_in_fresh_process(shapes)
-  else:
+  if profiled is None:
     profiled = profile_ln_film_calls(calls)
   # A CUDA graph replays the launch: no state to reset between calls.
   (x, dy, scale), axis = next(c for c in calls if c[0][0].shape == shapes[0][0]
@@ -1037,19 +1080,33 @@ def profile_ln_film_main(shapes_json: str) -> int:
   return 0
 
 
-def profile_ln_film_in_fresh_process(shapes) -> str:
-  """profile_ln_film_main in a new python3 process; raises if it fails."""
-  t0 = time.perf_counter()
-  done = subprocess.run(
+def start_ln_film_profile(shapes):
+  """profile_ln_film_main in a new python3 process in a session of its own,
+  started here and waited for by finish_ln_film_profile: a check whose
+  time is no metric (phase 22's shapes; it runs in phase 42 beside the pod
+  forecast's ranks, whose times are no metric either). Returns (process,
+  start time)."""
+  proc = subprocess.Popen(
       [sys.executable, os.path.abspath(__file__), '--profile-ln-film',
        json.dumps([[list(shape), axis] for shape, axis in shapes])],
-      capture_output=True, text=True, timeout=600)
-  if done.returncode:
+      cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, start_new_session=True)
+  STARTED.append(proc)
+  return proc, time.perf_counter()
+
+
+def finish_ln_film_profile(job, shapes, card) -> None:
+  """Waits for start_ln_film_profile's process; raises if it failed."""
+  proc, t0 = job
+  stdout, stderr = proc.communicate(timeout=600)
+  if proc.returncode:
     raise AssertionError(f'kernel E under torch.profiler in a fresh process: '
-                         f'exit {done.returncode}\n{done.stdout[-2000:]}'
-                         f'\n{done.stderr[-4000:]}')
-  return (f'{done.stdout.strip().splitlines()[-1]} in a fresh process '
-          f'({time.perf_counter() - t0:.1f} s)')
+                         f'exit {proc.returncode}\n{stdout[-2000:]}'
+                         f'\n{stderr[-4000:]}')
+  log(f'[kernel E] {len(shapes)} 0.25-degree shapes x 2 dtypes: '
+      f'{stdout.strip().splitlines()[-1]} in a fresh process beside phase '
+      f'42\'s pod forecast (done {time.perf_counter() - t0:.1f} s after its '
+      f'start); {card}')
 
 
 @contextlib.contextmanager
@@ -1677,13 +1734,13 @@ def dense_from_plan(plan, dev) -> torch.Tensor:
   return dense.permute(0, 2, 1, 3).reshape(nq * t, nq * t)
 
 
-def check_banded(shape, dtype, atol, mask, bs, g, dense, allowed):
-  """Kernel C against its plain version on seeded q/k/v [1, *shape] (NaN
+def check_banded(shape, dtype, atol, mask, bs, g, dense, allowed, batch=1):
+  """Kernel C against its plain version on seeded q/k/v [batch, *shape] (NaN
   behind the last row) under the tri-block `mask` (uint8 [3, nb, bs, bs]):
   returns (max abs err,
   {'kernel': ms, 'plain': ms, 'library': ms}, (flops, bytes))."""
   from gencast_tpu_torch.ops import banded_attention as ba
-  q, k, v = nan_tailed(shape, 3, dtype, g, mask.device, 64)
+  q, k, v = nan_tailed(shape, 3, dtype, g, mask.device, 64, batch)
   plain, lse_p = ba.banded_attention_plain(q, k, v, mask, bs,
                                            return_lse=True)
   got, lse = ba.banded_attention_fwd_cuda(q, k, v, mask, bs)
@@ -1704,14 +1761,15 @@ def check_banded(shape, dtype, atol, mask, bs, g, dense, allowed):
       'kernel': lambda: ba.banded_attention_fwd_cuda(q, k, v, mask, bs),
       'library': lambda: sdpa_forward(*sdpa)}, reps=20)
   h, d = shape[1], shape[2]
-  log(f'[kernel C] {dtype} [1, {", ".join(map(str, shape))}], block {bs}: '
-      f'max abs err {err:.3e} (tol {atol}), lse {lse_err:.3e}; {int((~seen).sum())} '
-      f'rows without a key give 0 and +1e30; NaN behind row {shape[0]} not '
-      f'read; kernel {ms["kernel"]:.3f} ms, '
+  log(f'[kernel C] {dtype} [{batch}, {", ".join(map(str, shape))}], block '
+      f'{bs}: max abs err {err:.3e} (tol {atol}), lse {lse_err:.3e}; '
+      f'{int((~seen).sum())} rows without a key give 0 and +1e30; NaN '
+      f'behind row {shape[0]} not read; kernel {ms["kernel"]:.3f} ms, '
       f'plain {ms["plain"]:.3f} ms, library (scaled_dot_product_attention, '
       f'dense mask; max abs err {lib_err:.3e} on rows that see a key) '
       f'{ms["library"]:.3f} ms per layer call')
-  return err, ms, (4 * d * allowed * h, nbytes(q, k, v, mask, got, lse))
+  return err, ms, (4 * d * allowed * h * batch,
+                   nbytes(q, k, v, mask, got, lse))
 
 
 def check_banded_bwd(shape, dtype, rtol, mask, bs, g, dense, allowed):
@@ -1933,7 +1991,10 @@ def fused_path(spec, statics, dev, card, f_seconds, f_peak, stats):
                        out, '--plot_vars'])
   wall = time.perf_counter() - t0
   served = {c.name: c.launches for c in counters()}
-  calls = members * rollout_steps * (2 * spec.num_noise_levels - 1)
+  # The members sample as one batch (evaluate's default, the reference's
+  # vmapped ensemble): a batched call launches A and B as often as a
+  # one-member call.
+  calls = rollout_steps * (2 * spec.num_noise_levels - 1)
   expected = {c.name: 0 for c in counters()}
   expected.update({sparse_attention.KERNEL.name: calls * spec.num_layers,
                    segment.KERNEL.name: calls})
@@ -2201,7 +2262,10 @@ def check_quarter_deg_kernels(spec, statics, gencast, g, card):
                                   spec.d_model]
 
   e_shapes = quarter_deg_e_shapes(gencast)
-  e_results = check_ln_film_shapes(e_shapes, g, card, fresh_process=True)
+  e_results = check_ln_film_shapes(
+      e_shapes, g, card, profiled='one kernel per call under torch.profiler '
+      'checked in a fresh process beside phase 42\'s pod forecast (its line '
+      'there)')
   log(f'[0.25deg kernels] A, F, B and E at the 0.25-degree shapes in '
       f'{time.perf_counter() - t_phase:.1f} s; {card}')
   return results, e_results, e_shapes
@@ -3704,8 +3768,10 @@ def pod_ensemble_1deg(dev, card, work) -> dict:
                                                                       dev)
   torch.cuda.synchronize()
   t0 = time.perf_counter()
+  # One member per call here too, as each rank runs its member: the bits
+  # of a batch-1 sampler call.
   want = ensemble.ensemble_rollout(wrapped, inputs, forcings, seed=0,
-                                   num_members=members)
+                                   num_members=members, member_chunk=1)
   here_s = (time.perf_counter() - t0) / (members * steps)
   got = np.zeros(want.shape, np.float32)
   for rank in range(2):
@@ -3744,7 +3810,7 @@ def pod_ensemble_1deg(dev, card, work) -> dict:
                          f'worst rel {worst} (tol {POD_SCORE_RTOL}), launches '
                          f'{launched} (expected {per_rank} each)')
   member_step = [float(x) for x in re.findall(
-      r'\(([0-9.]+) s per member-step', run['stdout'])]
+      r'\(([0-9.]+) s per kept member-step', run['stdout'])]
   log(f'[pod 1deg] 2 ranks on cuda:0, {members} members x {steps} steps, '
       f'--score: members bitwise the one-device ensemble_rollout; scores on '
       f'the devices against ops.metrics: worst rel {worst:.3e} (tol '
@@ -4114,7 +4180,8 @@ def rank_launches(run) -> dict:
               .items() if v} for r, lines in run['ranks'].items()}
 
 
-def model_axis_1deg(spec, statics, dev, card, work, stats) -> dict:
+def model_axis_1deg(spec, statics, dev, card, work, stats,
+                    beside=contextlib.nullcontext) -> dict:
   """Phase 40: full-width, full-depth 1-degree training at batch 1 under
   `--mp 2` (`python3 -m gencast_tpu_torch.training.train --preset 1deg --mp
   2`: two ranks on cuda:0, gloo, eager, each holding 2 of the 4 heads and
@@ -4223,22 +4290,25 @@ def model_axis_1deg(spec, statics, dev, card, work, stats) -> dict:
                     1e3 * lines['pipeline']['step_s']['mean'])
 
   # The float32 --mp 2 run only checks (its times are not metrics): it runs
-  # beside this process's float32 run and the evaluate.
+  # beside this process's float32 run and the evaluate, and `beside()`
+  # (checks whose time is no metric either) around them.
   f32_started = start_ranks('gencast_tpu_torch.training.train',
                             mp_argv('mp_f32', f32), env=fused)
   try:
-    one_process('one_f32', f32, fused)
-    # The --mp 2 checkpoint (full tensors) restored at --mp 1 by evaluate.
-    ev = evaluate.main(['--preset', '1deg', '--clean_sst_nans',
-                        '--stats_path', stats, '--ckpt_dir',
-                        os.path.join(work, 'mp'), '--num_members', '1',
-                        '--max_rollout_steps', '1', '--plot_vars',
-                        '--out_dir', os.path.join(work, 'eval')])
-    rmse = ev.results['rmse']
-    if not np.isfinite(list(rmse.values())).all():
-      raise AssertionError(f'evaluate of the --mp 2 checkpoint: rmse {rmse}')
-    del ev
-    torch.cuda.empty_cache()
+    with beside():
+      one_process('one_f32', f32, fused)
+      # The --mp 2 checkpoint (full tensors) restored at --mp 1 by evaluate.
+      ev = evaluate.main(['--preset', '1deg', '--clean_sst_nans',
+                          '--stats_path', stats, '--ckpt_dir',
+                          os.path.join(work, 'mp'), '--num_members', '1',
+                          '--max_rollout_steps', '1', '--plot_vars',
+                          '--out_dir', os.path.join(work, 'eval')])
+      rmse = ev.results['rmse']
+      if not np.isfinite(list(rmse.values())).all():
+        raise AssertionError(f'evaluate of the --mp 2 checkpoint: rmse '
+                             f'{rmse}')
+      del ev
+      torch.cuda.empty_cache()
   except BaseException:
     stop_ranks(f32_started)
     raise
@@ -4390,18 +4460,20 @@ def per_rank_rows(res, shapes) -> dict:
           ms_d['library'], costs_d['dkv'])}
 
 
-def pod_and_dryrun(spec, dev, card, work) -> dict:
+def pod_and_graphcast_mp(spec, dev, card, work, beside_pod,
+                         beside_gc) -> dict:
   """Phase 42: `python3 -m gencast_tpu_torch.scripts.ensemble_forecast_pod
   --preset nano --members 2 --steps 2 --score --num_processes 4` (ensemble
   2 x model 2 on cuda:0, gloo): each member saved once, within POD_MP_RTOL
   of the one-device member, its scores within POD_SCORE_RTOL of
   ops.metrics on the saved members, C 16 and B 1 launches per denoiser
-  call and rank; `python3 -m gencast_tpu_torch.tools.dryrun_multichip 8`
-  in a fresh process, mesh (2, 2, 2), the grid nodes sharded over the
-  model axis, every kernel of its paths launched, B on the TINY kernel path
-  as derived from each rank's grid rows; GraphCast_small at GC_MP_LAYERS
-  processor step trained 2 steps under --mp 2, B per rank-step as derived,
-  beside the dryrun (neither's time is a metric; each only checks).
+  call and rank; GraphCast_small at GC_MP_LAYERS processor step trained 2
+  steps under --mp 2, B per rank-step as derived. GraphCast's ranks start
+  with the pod's; `beside_pod()` (phase 38 and phase 22's profiler check)
+  runs here while the pod's ranks run, then `beside_gc()` (phase 43's
+  ranks) while GraphCast's finish. None of these times is a metric: each
+  run only checks (the pod's seconds per member-step, eager over 4 ranks
+  on one card, are logged, not held; phase 37 gives the pod's metric).
   Returns each kernel's launches by path, over the ranks."""
   from gencast_tpu_torch import configs
   from gencast_tpu_torch.data import layout as layout_lib
@@ -4415,12 +4487,30 @@ def pod_and_dryrun(spec, dev, card, work) -> dict:
   out = os.path.join(work, 'forecast_mp.npz')
   argv = ['--preset', 'nano', '--members', str(members), '--steps',
           str(steps), '--score', '--out', out]
-  run = run_ranks('gencast_tpu_torch.scripts.ensemble_forecast_pod',
-                  argv + ['--num_processes', '4'], 'pod forecast, 4 ranks')
+  gc_spec = dataclasses.replace(spec, num_layers=GC_MP_LAYERS)
+  gc, _ = configs.build_graphcast(gc_spec, device=dev)
+  gc_step = graphcast_launches(gc, train=True)
+  del gc
+  torch.cuda.empty_cache()
+  pod_started = start_ranks('gencast_tpu_torch.scripts.ensemble_forecast_pod',
+                            argv + ['--num_processes', '4'])
+  gc_started = start_ranks('gencast_tpu_torch.training.train', [
+      '--model', 'graphcast', '--preset', '1deg', '--num_layers',
+      str(GC_MP_LAYERS), '--data', 'synthetic', '--steps', '2', '--mp', '2',
+      '--log_every', '1', '--prefetch', '0'])
+  try:
+    beside_pod()
+    run = finish_ranks(pod_started, 'pod forecast, 4 ranks')
+  except BaseException:
+    stop_ranks(pod_started)
+    stop_ranks(gc_started)
+    raise
   wrapped, statics, (inputs, forcings, targets) = pod.build_forecast(
       pod.parse_args(argv), dev)
+  # One member per call, as each rank runs its member.
   want = ensemble.ensemble_rollout(wrapped, inputs, forcings, seed=0,
-                                   num_members=members).numpy()
+                                   num_members=members,
+                                   member_chunk=1).numpy()
   got = np.zeros(want.shape, np.float32)
   for e in range(2):
     z = np.load(f'{os.path.splitext(out)[0]}.p{e}.npz')
@@ -4455,31 +4545,57 @@ def pod_and_dryrun(spec, dev, card, work) -> dict:
                          f'{worst} (tol {POD_SCORE_RTOL}), launches '
                          f'{pod_got} (expected {pod_want} each)')
   member_step = [float(x) for x in re.findall(
-      r'\(([0-9.]+) s per member-step', run['stdout'])]
+      r'\(([0-9.]+) s per kept member-step', run['stdout'])]
   log(f'[pod nano] 4 ranks on cuda:0 (ensemble 2 x model 2, gloo, eager), '
       f'{members} members x {steps} steps, --score: members against the '
       f'one-device members max rel {member_rel:.3e} (tol {POD_MP_RTOL}); '
       f'scores against ops.metrics worst rel {worst:.3e} (tol '
       f'{POD_SCORE_RTOL}); launches per rank {pod_want}, as derived; '
-      f'seconds per member-step by rank {member_step}; wall '
-      f'{run["wall"]:.1f} s; {card}')
+      f'seconds per kept member-step by rank {member_step} (beside phase '
+      f'38, phase 22\'s profiler check and GraphCast_small --mp 2: no '
+      f'metric); wall {run["wall"]:.1f} s; {card}')
 
-  gc_spec = dataclasses.replace(spec, num_layers=GC_MP_LAYERS)
-  gc, _ = configs.build_graphcast(gc_spec, device=dev)
-  gc_step = graphcast_launches(gc, train=True)
-  del gc
-  torch.cuda.empty_cache()
-  gc_started = start_ranks('gencast_tpu_torch.training.train', [
-      '--model', 'graphcast', '--preset', '1deg', '--num_layers',
-      str(GC_MP_LAYERS), '--data', 'synthetic', '--steps', '2', '--mp', '2',
-      '--log_every', '1', '--prefetch', '0'])
   try:
-    dry = run_ranks('gencast_tpu_torch.tools.dryrun_multichip', ['8'],
-                    'dryrun_multichip 8')
+    beside_gc()
     gc_run = finish_ranks(gc_started, 'GraphCast_small --mp 2')
   except BaseException:
     stop_ranks(gc_started)
     raise
+  gc_got = rank_launches(gc_run)
+  gc_want = {k: 2 * v for k, v in gc_step.items() if v}
+  gc_losses = [float(x) for x in re.findall(r'step \d+/2 loss=([-0-9.naif]+)',
+                                            gc_run['stdout'])]
+  if (sorted(gc_got) != [0, 1] or any(v != gc_want for v in gc_got.values())
+      or len(gc_losses) != 4 or not np.isfinite(gc_losses).all()):
+    raise AssertionError(f'GraphCast --mp 2: launches {gc_got} (expected '
+                         f'{gc_want} each), losses {gc_losses}')
+  gc_ms = {r: round(1e3 * v['pipeline']['step_s']['mean'], 2)
+           for r, v in gc_run['ranks'].items()}
+  log(f'[graphcast mp] GraphCast_small at {GC_MP_LAYERS} processor step, '
+      f'--mp 2 (two ranks on cuda:0, gloo, eager), 2 steps: losses '
+      f'{gc_losses[:2]}, B {gc_want} per rank as derived (beside the pod, '
+      f'phase 38 and phase 43); mean step ms by '
+      f'rank {gc_ms}; phase {time.perf_counter() - t_phase:.1f} s; {card}')
+  return {'pod_nano_mp': {k: sum(v.get(k, 0) for v in pod_got.values())
+                          for k in pod_want},
+          'graphcast_mp': {k: sum(v.get(k, 0) for v in gc_got.values())
+                           for k in gc_want}}
+
+
+def start_dryrun():
+  """`python3 -m gencast_tpu_torch.tools.dryrun_multichip 8` started (a
+  check whose time is no metric: it runs beside phase 40's float32 --mp 2
+  run); finish_dryrun takes it."""
+  return start_ranks('gencast_tpu_torch.tools.dryrun_multichip', ['8'])
+
+
+def finish_dryrun(started, dev, card) -> dict:
+  """Phase 42's dryrun: mesh (2, 2, 2), the grid nodes sharded over the
+  model axis, every kernel of its paths launched on every rank, B on the
+  TINY kernel path as derived from each rank's grid rows. Returns each
+  kernel's launches over the ranks."""
+  from gencast_tpu_torch.ops import segment
+  dry = finish_ranks(started, 'dryrun_multichip 8')
   dry_got = {int(r): json.loads(j) for r, j in re.findall(
       r'\[dryrun\] rank (\d+) launches (\{.*\})', dry['stdout'])}
   tiny_got = {int(r): json.loads(j) for r, j in re.findall(
@@ -4503,29 +4619,9 @@ def pod_and_dryrun(spec, dev, card, work) -> dict:
       f'grid nodes sharded over the model axis; kernels launched on every '
       f'rank: {sorted(seen)}; B on the TINY kernel path (the rank\'s grid '
       f'rows\' plans and stream chunks) by rank {b_by_rank}, as derived; '
-      f'wall {dry["wall"]:.1f} s (beside GraphCast_small --mp 2); {card}')
-
-  gc_got = rank_launches(gc_run)
-  gc_want = {k: 2 * v for k, v in gc_step.items() if v}
-  gc_losses = [float(x) for x in re.findall(r'step \d+/2 loss=([-0-9.naif]+)',
-                                            gc_run['stdout'])]
-  if (sorted(gc_got) != [0, 1] or any(v != gc_want for v in gc_got.values())
-      or len(gc_losses) != 4 or not np.isfinite(gc_losses).all()):
-    raise AssertionError(f'GraphCast --mp 2: launches {gc_got} (expected '
-                         f'{gc_want} each), losses {gc_losses}')
-  gc_ms = {r: round(1e3 * v['pipeline']['step_s']['mean'], 2)
-           for r, v in gc_run['ranks'].items()}
-  log(f'[graphcast mp] GraphCast_small at {GC_MP_LAYERS} processor step, '
-      f'--mp 2 (two ranks on cuda:0, gloo, eager), 2 steps: losses '
-      f'{gc_losses[:2]}, B {gc_want} per rank as derived (beside the '
-      f'dryrun); mean step ms by '
-      f'rank {gc_ms}; phase {time.perf_counter() - t_phase:.1f} s; {card}')
-  return {'pod_nano_mp': {k: sum(v.get(k, 0) for v in pod_got.values())
-                          for k in pod_want},
-          'dryrun': {k: sum(v.get(k, 0) for v in dry_got.values())
-                     for k in seen},
-          'graphcast_mp': {k: sum(v.get(k, 0) for v in gc_got.values())
-                           for k in gc_want}}
+      f'wall {dry["wall"]:.1f} s (beside phase 40\'s float32 --mp 2 run); '
+      f'{card}')
+  return {k: sum(v.get(k, 0) for v in dry_got.values()) for k in seen}
 
 
 def dryrun_tiny_b_launches(dev) -> dict:
@@ -4788,11 +4884,26 @@ def rank_plans_b(spec, statics, g, card) -> dict:
   return results
 
 
-def node_axis_1deg(spec, statics, dev, g, card, work, stats) -> dict:
-  """Phase 43: the grid-node axis at 1 degree, full width and depth
+def node_axis_b(spec, statics, g, card) -> dict:
+  """Phase 43's kernel B on each rank's plans (rank_plans_b), timed
+  alone (in phase 41, before phase 42's ranks start)."""
+  t0 = time.perf_counter()
+  b_results = rank_plans_b(spec, statics, g, card)
+  b_ms = {key[0]: round(value[1]['kernel'], 4)
+          for key, value in b_results.items() if key[1] == torch.bfloat16}
+  log(f'[node axis 1deg] kernel B on each rank\'s plans (bf16 in, card ms): '
+      f'{b_ms}, float32 and bf16 against the plain version (tol '
+      f'{SEGMENT_RTOL}); {time.perf_counter() - t0:.1f} s; {card}')
+  return b_results
+
+
+def node_axis_1deg(spec, dev, card, work, stats) -> dict:
+  """Phase 43: the grid-node axis at 1 degree, full width, `spec`'s depth
+  (chip_smoke runs it at CUT_LAYERS: phase 40 drives the model axis at
+  full depth, and a rank's grid rows do not depend on the depth)
   (`DenoiserConfig.node_sharding_axis='model'`), through the Python API as
-  the reference's dryrun uses it: kernel B on each rank's plans
-  (rank_plans_b); node_axis_run in this process (one process, the
+  the reference's dryrun uses it (kernel B on each rank's plans:
+  node_axis_b): node_axis_run in this process (one process, the
   reference) and on two spawned ranks on cuda:0 (gloo, eager; each holds
   half the grid's latitude rows, 2 of the 4 heads and half of each
   transformer MLP's hidden width). Checks, from perturbed weights: the
@@ -4804,17 +4915,17 @@ def node_axis_1deg(spec, statics, dev, g, card, work, stats) -> dict:
   or doubled partial gradient fails both; the bf16 ranks' losses against one process within
   DP_LOSS_RTOL and equal on both ranks, the denoiser call within
   NODE_BF16_RTOL (bf16) and NODE_F32_RTOL (float32), the launches of
-  each rank-step as derived from the rank's model (A 16, F 16 + 16, B 4,
-  E 42) and the model axis's all_reduces of each rank-step as derived (one
-  forward sum of grid2mesh's mesh-side partials, two per layer in the
-  processor, the output gathered; two copies per layer backward, four in
-  the GNNs and one sum of the GNNs' partial gradients: 71). Logs seconds,
-  all_reduce calls and float32 bytes and peak memory per rank-step.
+  each rank-step as derived from the rank's model (at 16 layers A 16, F 16
+  + 16, B 4, E 42) and the model axis's all_reduces of each rank-step as
+  derived (one forward sum of grid2mesh's mesh-side partials, two per
+  layer in the processor, the output gathered; two copies per layer
+  backward, four in the GNNs and one sum of the GNNs' partial gradients:
+  71 at 16 layers). Logs seconds,
+  all_reduce calls and float32 bytes and peak memory per rank-step (its
+  seconds are no metric: it runs beside GraphCast's --mp 2 ranks).
   Returns each kernel's launches over the ranks' steps."""
   from gencast_tpu_torch.parallel import meshes
   t_phase = time.perf_counter()
-  b_results = rank_plans_b(spec, statics, g, card)
-  t_b = time.perf_counter() - t_phase
   one = node_axis_run(spec, stats, dev, None)
   torch.save({'grads': one.pop('f32_grads'), 'change': one.pop('f32_change')},
              os.path.join(work, 'one_f32.pt'))
@@ -4871,15 +4982,10 @@ def node_axis_1deg(spec, statics, dev, g, card, work, stats) -> dict:
                f'{one["derived"]}')
   if bad:
     raise AssertionError('1deg node axis: ' + '; '.join(bad))
-  b_ms = {key[0]: round(value[1]['kernel'], 4)
-          for key, value in b_results.items() if key[1] == torch.bfloat16}
-  log(f'[node axis 1deg] kernel B on each rank\'s plans (bf16 in, card ms): '
-      f'{b_ms}, float32 and bf16 against the plain version (tol '
-      f'{SEGMENT_RTOL}); {t_b:.1f} s; {card}')
   for r, res in enumerate(ranks):
     log(f'[node axis 1deg] rank {r} (grid rows {res["rows"]}), --mp 2 with '
         f'the grid nodes sharded (two ranks on cuda:0, gloo, eager), batch '
-        f'1: step s {[round(x, 4) for x in res["step_s"]]}; all_reduces per '
+        f'1, {spec.num_layers} layers: step s {[round(x, 4) for x in res["step_s"]]}; all_reduces per '
         f'step {res["all_reduce"]} (float32 bytes); peak memory '
         f'{res["peak_gib"]:.2f} GiB; launches per step {res["launches"][-1]}'
         f', as derived; denoiser call s bf16 {res["call_bf16_s"]:.3f}, '
@@ -4900,9 +5006,237 @@ def node_axis_1deg(spec, statics, dev, g, card, work, stats) -> dict:
       f'{[round(x, 4) for x in one["step_s"]]}, peak {one["peak_gib"]:.2f} '
       f'GiB; ranks wall {ranks_wall:.1f} s; phase '
       f'{time.perf_counter() - t_phase:.1f} s; {card}')
-  launched = {k: sum(step.get(k, 0) for r in ranks for step in r['launches'])
-              for k in ranks[0]['launches'][0]}
-  return launched, b_results
+  return {k: sum(step.get(k, 0) for r in ranks for step in r['launches'])
+          for k in ranks[0]['launches'][0]}
+
+
+# Phase 44: ensemble members as one batch. Members and forecast steps of
+# each preset's batch (nano 8 x 2 graphed, 1 degree 4 x 1), and the member
+# batches at which kernels A, C and B are checked.
+MEMBER_BATCHES = {'nano': (8, 2), '1deg': (4, 1)}
+MEMBER_BATCH_WIDTHS = (4, 8)  # B's f = members x 512
+# A member of a batch against its one-member run, max|batched - own| /
+# max|own|, where they are not bitwise equal: the rows are each their own
+# (the conditioning GEMMs row by row, nn/mlp.py `RowwiseLinear`; kernels
+# A, B and C per batch entry), but cuBLAS may pick another algorithm for the M·B
+# rows of a GEMM than for B, which sums a bf16 product's float32 terms in
+# another order; a flipped bf16 rounding is then carried through the
+# step's 39 denoiser calls and the next step (DENOISER_BF16_RTOL's
+# reasoning).
+MEMBER_BATCH_RTOL = 5e-2
+
+
+def member_batch_kernels(spec, statics, nano_statics, g, card) -> dict:
+  """Phase 44, first part: kernels A, C and B at the member batches'
+  shapes against their plain versions, float32 and bf16, with card ms,
+  bound and library ms: A at [4, 10304, 4, 128] and the ragged
+  [4, 10242, 4, 128] (four 1-degree members), C at [8, 2624, 4, 64] (eight
+  nano members), B on the 1-degree and nano grid2mesh receiver plans (the
+  sampler's one B launch a call) at f = 4 x 512 and 8 x 512, the edge rows
+  of 4 and 8 members of d_model 512 (nano's 8 x 256 is 2,048 too).
+  A's slow plain version (70 ms a call) and library call are timed over 3
+  calls a turn, as at 0.25 degrees. Returns {key: (max abs err, ms, bound
+  inputs)} as the checks give them."""
+  from gencast_tpu_torch import configs
+  out = {}
+  members = MEMBER_BATCHES['1deg'][0]
+  plan = statics.attention_tile_plan
+  h = spec.num_heads
+  d = spec.d_model // h
+  mt, ids, pids = (torch.as_tensor(a, device=g.device) for a in (
+      plan.mask_tiles, plan.fwd_kv_ids, plan.fwd_pair_ids))
+  dense = dense_from_plan(plan, g.device)
+  allowed = int(plan.mask_tiles.sum(dtype=np.int64))
+  for dtype, atol in ((torch.float32, ATTN_F32_ATOL),
+                      (torch.bfloat16, ATTN_BF16_ATOL)):
+    for rows in (plan.padded_n, statics.num_mesh_nodes):
+      out[('A', dtype, rows)] = check_attention(
+          (rows, h, d), dtype, atol, mt, ids, pids, plan.tile, g,
+          dense[:rows, :rows], allowed, reps=3, batch=members)
+  del dense
+  nano = configs.NANO
+  mask = nano_statics.attention_mask
+  shape = (mask.num_blocks * mask.block_size, nano.num_heads,
+           nano.d_model // nano.num_heads)
+  mask_t = torch.as_tensor(mask.blocks.astype(np.uint8), device=g.device)
+  dense_b = dense_from_blocks(mask.blocks, g.device)
+  allowed_b = int(mask.blocks.sum(dtype=np.int64))
+  for dtype, atol in ((torch.float32, ATTN_F32_ATOL),
+                      (torch.bfloat16, ATTN_BF16_ATOL)):
+    out[('C', dtype)] = check_banded(
+        shape, dtype, atol, mask_t, mask.block_size, g, dense_b, allowed_b,
+        batch=MEMBER_BATCHES['nano'][0])
+  del dense_b
+  for preset, st in (('1deg', statics), ('nano', nano_statics)):
+    for width in MEMBER_BATCH_WIDTHS:
+      f = width * spec.d_model
+      got = check_segment_plan(
+          f'{preset} grid2mesh receivers, f = {width} x {spec.d_model}',
+          st.grid2mesh.receivers, st.num_mesh_nodes, f, g, card,
+          variants=False)
+      for (_, dtype), result in got.items():
+        out[('B', preset, width, dtype)] = result
+      out[('B shape', preset, width)] = [st.grid2mesh.num_edges, f]
+  log(f'[member batch] kernels A at [{members}, {plan.padded_n}, {h}, {d}] '
+      f'and [{members}, {statics.num_mesh_nodes}, {h}, {d}], C at '
+      f'[{MEMBER_BATCHES["nano"][0]}, {", ".join(map(str, shape))}], B at '
+      f'f = {[w * spec.d_model for w in MEMBER_BATCH_WIDTHS]} on the 1-degree '
+      f'and nano grid2mesh receiver plans: all within their tolerances of '
+      f'their plain versions, float32 and bf16; {card}')
+  return out
+
+
+def member_batch_forecast(spec, statics, dev, card) -> dict:
+  """Phase 44, a preset's forecast: MEMBER_BATCHES[preset] members x steps
+  of `rollout.sample_rollout` on a seeded, perturbed bf16 stack (unit
+  statistics), graphed: first each member alone from its (seed, m)
+  generator, then all members as one batch from the same generators
+  (`sample_rollout` given them as `generators`: each denoiser call
+  samples every member's rows), twice, the first capturing the batch's
+  graph. Each
+  member bitwise its own run or within MEMBER_BATCH_RTOL (the largest
+  error logged); the two batched runs bitwise equal; launches per batched
+  call as derived (A or C once per layer, B once); seconds per
+  member-step both ways, each graph's capture seconds and private pool,
+  peak memory both ways. Returns each kernel's launches over the phase's
+  runs."""
+  from gencast_tpu_torch import bridge, configs, rollout
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.ops import banded_attention, segment, \
+      sparse_attention
+  from gencast_tpu_torch.parallel import ensemble
+  t_part = time.perf_counter()
+  members, steps = MEMBER_BATCHES[spec.name]
+  model, _ = configs.build_gencast(spec, seed=0, statics=statics, device=dev)
+  bridge.load_reference_params(model, bridge.perturbed(
+      bridge.export_reference_params(model), seed=1))
+  stack = wrappers.build_stack(model, unit_stats(spec.task),
+                               bf16=spec.cast_bf16).to(dev)
+  den = model.denoiser
+  gen = torch.Generator(device=dev).manual_seed(44)
+  grid = (1, statics.grid_lat.shape[0], statics.grid_lon.shape[0])
+  inputs = torch.randn(grid + (den.input_layout.num_channels,),
+                       generator=gen, device=dev)
+  forcings = torch.randn((steps,) + grid + (den.forcing_layout.num_channels,),
+                         generator=gen, device=dev)
+  attn = (banded_attention.KERNEL if spec.attention_type == 'triblock_pallas'
+          else sparse_attention.KERNEL)
+  calls = steps * (2 * spec.num_noise_levels - 1)
+  per_call = {attn.name: spec.num_layers, segment.KERNEL.name: 1}
+  launches = {c.name: 0 for c in counters()}
+
+  def run(**draws):
+    for c in counters():
+      c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = rollout.sample_rollout(stack, inputs, forcings, **draws)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for c in counters():
+      launches[c.name] += c.launches
+    return out, wall, {c.name: c.launches for c in counters() if c.launches}
+
+  torch.cuda.reset_peak_memory_stats()
+  own, own_s = [], []
+  for key in ensemble.member_keys(44, members, device=dev):
+    out, wall, _ = run(generator=key)
+    own.append(out)
+    own_s.append(wall)
+  own = torch.stack(own)
+  own_peak = torch.cuda.max_memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  batched, batched_s = [], []
+  for _ in range(2):
+    out, wall, got = run(
+        generators=ensemble.member_keys(44, members, device=dev))
+    want = {k: calls * v for k, v in per_call.items()}
+    if got != want:
+      raise AssertionError(f'{spec.name} member batch: launches {got}, '
+                           f'expected {want} ({calls} calls of {per_call})')
+    batched.append(out)
+    batched_s.append(wall)
+  batched_peak = torch.cuda.max_memory_allocated()
+  shape = (members, steps) + grid + (den.target_layout.num_channels,)
+  if not (tuple(batched[0].shape) == shape
+          and bool(torch.isfinite(batched[0]).all())
+          and torch.equal(batched[0], batched[1])):
+    raise AssertionError(f'{spec.name} member batch: {tuple(batched[0].shape)}'
+                         f' (expected {shape}), finite '
+                         f'{bool(torch.isfinite(batched[0]).all())}, the two '
+                         'batched runs bitwise equal '
+                         f'{torch.equal(batched[0], batched[1])}')
+  bitwise = [torch.equal(batched[0][m], own[m]) for m in range(members)]
+  errs = [rel_err(batched[0][m], own[m])[0] for m in range(members)]
+  if max(errs) > MEMBER_BATCH_RTOL:
+    raise AssertionError(f'{spec.name} member batch against one-member '
+                         f'runs: max rel err by member {errs} (tol '
+                         f'{MEMBER_BATCH_RTOL})')
+  graphs = {call.buffers[0].shape[0]: call.graph
+            for call in sampler_graphs(stack)}
+  one_s = float(np.mean(own_s[1:])) / steps  # member 0 captured batch 1
+  batch_s = batched_s[1] / (members * steps)
+  log(f'[member batch] {spec.name}: {members} members x {steps} steps, '
+      f'graphed: each member against its one-member run bitwise '
+      f'{sum(bitwise)} of {members}, max rel err {max(errs):.3e} (tol '
+      f'{MEMBER_BATCH_RTOL}; by member {[f"{e:.2e}" for e in errs]}); '
+      f'launches per batched call {per_call}, as derived; seconds per '
+      f'member-step one at a time {one_s:.4f} (member 0 with the batch-1 '
+      f'capture {own_s[0]:.3f} s for {steps} steps), as one batch '
+      f'{batch_s:.4f} ({batched_s[0]:.3f} s with the capture, '
+      f'{batched_s[1]:.3f} s replayed; {one_s / batch_s:.2f}x); graphs '
+      + ', '.join(f'batch {b}: captured in {gr.capture_seconds:.2f} s, '
+                  f'private pool {gr.pool_bytes / 2**30:.3f} GiB'
+                  for b, gr in sorted(graphs.items()))
+      + f'; peak memory one at a time {own_peak / 2**30:.2f} GiB, as one '
+      f'batch {batched_peak / 2**30:.2f} GiB; part '
+      f'{time.perf_counter() - t_part:.1f} s; {card}')
+  return {k: v for k, v in launches.items() if v}
+
+
+def quarter_deg_batch2(spec, model, stack, dev, g, card) -> None:
+  """Phase 23, third part: one 0.25-degree denoiser call at batch 2 (two
+  rows, each its own noise level) against two batch-1 calls of the same
+  rows, through the kernels (the streamed grid2mesh chunks at a batch:
+  A 16 and B 13 launches, as at batch 1): each row bitwise its own call
+  or within MEMBER_BATCH_RTOL; the batch-2 call's peak memory."""
+  from gencast_tpu_torch.ops import segment, sparse_attention
+  den = model.denoiser
+  chunks = den.architecture.grid2mesh.streams['g2m'].num_chunks
+  grid = (2, den.num_lat, den.num_lon)
+  inputs = torch.randn(grid + (den.input_layout.num_channels,), generator=g,
+                       device=dev)
+  forcings = torch.randn(grid + (den.forcing_layout.num_channels,),
+                         generator=g, device=dev)
+  noisy = torch.randn(grid + (den.target_layout.num_channels,), generator=g,
+                      device=dev) * 3.0
+  sigma = torch.tensor([3.0, 0.5], device=dev)
+  with torch.no_grad():
+    own = [stack(inputs[r:r + 1], noisy[r:r + 1], sigma[r:r + 1],
+                 forcings[r:r + 1]) for r in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in (sparse_attention.KERNEL, segment.KERNEL):
+      counter.reset()
+    t0 = time.perf_counter()
+    both = stack(inputs, noisy, sigma, forcings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated()
+  launched = (sparse_attention.KERNEL.launches, segment.KERNEL.launches)
+  bitwise = [torch.equal(both[r:r + 1], own[r]) for r in range(2)]
+  errs = [rel_err(both[r:r + 1], own[r])[0] for r in range(2)]
+  if not (launched == (spec.num_layers, chunks) and max(errs) <=
+          MEMBER_BATCH_RTOL and bool(torch.isfinite(both).all())):
+    raise AssertionError(f'0.25deg denoiser at batch 2: launches (A, B) '
+                         f'{launched} (expected ({spec.num_layers}, '
+                         f'{chunks})), rel err by row {errs} (tol '
+                         f'{MEMBER_BATCH_RTOL})')
+  log(f'[0.25deg denoiser] batch 2 {tuple(both.shape)} against two batch-1 '
+      f'calls: bitwise {sum(bitwise)} of 2 rows, max rel err '
+      f'{max(errs):.3e} (tol {MEMBER_BATCH_RTOL}); launches A {launched[0]},'
+      f' B {launched[1]} (one per grid2mesh chunk, as at batch 1); '
+      f'{1e3 * wall:.1f} ms eager; peak memory {peak / 2**30:.2f} GiB; {card}')
 
 
 def parallel_phases(spec, statics, nano_statics, dev, g, card, stats,
@@ -5337,6 +5671,8 @@ def main() -> int:
       qdeg, q_statics, q_model, q_stack, q_plain_stack, dev, g, card)
   del q_plain_stack
   torch.cuda.empty_cache()
+  quarter_deg_batch2(qdeg, q_model, q_stack, dev, g, card)
+  torch.cuda.empty_cache()
   streamed_against_dense(statics, dev, g, card)
 
   clock.done(23)
@@ -5427,17 +5763,6 @@ def main() -> int:
   new_launches = parallel_phases(spec, statics, nano_statics, dev, g, card,
                                  one_deg_stats, clock)
 
-  # --- 38. a published GenCast checkpoint at 1 degree: translate in a
-  # fresh process, restore, serve bitwise, evaluate ---
-  work = os.path.join(repo, 'build', 'chip_smoke_published')
-  shutil.rmtree(work, ignore_errors=True)
-  os.makedirs(work)
-  new_launches['published_1deg'] = published_1deg(spec, statics, dev, card,
-                                                  work, one_deg_stats)
-  shutil.rmtree(work, ignore_errors=True)
-  torch.cuda.empty_cache()
-  clock.done(38)
-
   # --- 39. trace_sampler on the card; model FLOPs and MFU of the times
   # measured above ---
   from gencast_tpu_torch.training import flops
@@ -5473,33 +5798,80 @@ def main() -> int:
        train_flops(gc_cut_fwd))])
   clock.done(39)
 
-  # --- 40-42. the model axis (--mp): 1-degree training over two ranks;
-  # the attention kernels at a rank's heads; the pod forecast over
-  # ensemble x model, dryrun_multichip and GraphCast under --mp 2 ---
+  # --- 40-42. the model axis (--mp): 1-degree training over two ranks
+  # (with phase 42's dryrun_multichip beside its float32 run); the kernels
+  # at a rank's heads and plans; the pod forecast over ensemble x model
+  # and GraphCast under --mp 2 (with phases 38 and 43 beside them) ---
   work = os.path.join(repo, 'build', 'chip_smoke_model_axis')
   shutil.rmtree(work, ignore_errors=True)
   os.makedirs(work)
+
+  @contextlib.contextmanager
+  def dryrun_beside():
+    t0 = time.perf_counter()
+    started = start_dryrun()
+    try:
+      yield
+    except BaseException:
+      stop_ranks(started)
+      raise
+    new_launches['dryrun'] = finish_dryrun(started, dev, card)
+    clock.beside('42 (dryrun_multichip)', 40, time.perf_counter() - t0)
+
   new_launches['mp_1deg'] = model_axis_1deg(spec, statics, dev, card, work,
-                                            one_deg_stats)
+                                            one_deg_stats, dryrun_beside)
   torch.cuda.empty_cache()
   clock.done(40)
   heads = per_rank_heads(statics, nano_statics, g, card)
+  node_b = node_axis_b(spec, statics, g, card)
   clock.done(41)
-  new_launches.update(pod_and_dryrun(spec, dev, card, work))
+
+  def beside_pod():
+    # --- 38. a published GenCast checkpoint at 1 degree: translate in a
+    # fresh process, restore, serve bitwise, evaluate; and phase 22's
+    # profiler check: checks whose time is no metric, run while the pod
+    # forecast's ranks run ---
+    t0 = time.perf_counter()
+    e_profile = start_ln_film_profile(q_e_shapes)
+    pub_work = os.path.join(repo, 'build', 'chip_smoke_published')
+    shutil.rmtree(pub_work, ignore_errors=True)
+    os.makedirs(pub_work)
+    new_launches['published_1deg'] = published_1deg(
+        spec, statics, dev, card, pub_work, one_deg_stats)
+    shutil.rmtree(pub_work, ignore_errors=True)
+    finish_ln_film_profile(e_profile, q_e_shapes, card)
+    torch.cuda.empty_cache()
+    clock.beside(38, 42, time.perf_counter() - t0)
+
+  def beside_gc():
+    # --- 43. the grid-node axis at CUT_LAYERS layers: 1-degree training
+    # steps and a denoiser call on two ranks with the grid nodes sharded,
+    # while GraphCast's --mp 2 ranks finish ---
+    t0 = time.perf_counter()
+    node_work = os.path.join(repo, 'build', 'chip_smoke_node_axis')
+    shutil.rmtree(node_work, ignore_errors=True)
+    os.makedirs(node_work)
+    new_launches['node_1deg'] = node_axis_1deg(
+        cut_depth(spec), dev, card, node_work, one_deg_stats)
+    shutil.rmtree(node_work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    clock.beside(43, 42, time.perf_counter() - t0)
+
+  new_launches.update(pod_and_graphcast_mp(spec, dev, card, work, beside_pod,
+                                           beside_gc))
   shutil.rmtree(work, ignore_errors=True)
   torch.cuda.empty_cache()
   clock.done(42)
 
-  # --- 43. the grid-node axis: 1-degree training steps and a denoiser
-  # call on two ranks with the grid nodes sharded; B on each rank's plans
-  work = os.path.join(repo, 'build', 'chip_smoke_node_axis')
-  shutil.rmtree(work, ignore_errors=True)
-  os.makedirs(work)
-  new_launches['node_1deg'], node_b = node_axis_1deg(
-      spec, statics, dev, g, card, work, one_deg_stats)
-  shutil.rmtree(work, ignore_errors=True)
+  # --- 44. ensemble members as one batch: A, C and B at the batches'
+  # shapes; nano and 1-degree member batches against one-member runs ---
+  member_kernels = member_batch_kernels(spec, statics, nano_statics, g, card)
   torch.cuda.empty_cache()
-  clock.done(43)
+  for preset, preset_statics in ((nano, nano_statics), (spec, statics)):
+    new_launches[f'member_batch_{preset.name}'] = member_batch_forecast(
+        preset, preset_statics, dev, card)
+    torch.cuda.empty_cache()
+  clock.done(44)
 
   # Rows at the shapes of the main paths, in the dtype they run: A and F at
   # the transformer's padded 1-degree shape in bf16, B on the grid2mesh
@@ -5529,12 +5901,21 @@ def main() -> int:
   q_rows = {'0.25deg_ragged': q_statics.num_mesh_nodes,
             '0.25deg': q_plan.padded_n}
   q_e_big = max(s for s, axis in q_e_shapes if axis == 1)
+  # Phase 44's member batches (bf16): A at four 1-degree members, C at
+  # eight nano members, B at f = 4 and 8 x 512 on both grid2mesh plans.
+  b_1deg, b_nano = MEMBER_BATCHES['1deg'][0], MEMBER_BATCHES['nano'][0]
+  nano_rows = nano_statics.attention_mask.num_blocks * \
+      nano_statics.attention_mask.block_size
   kernels = [
       dict(row(sparse_attention.KERNEL, err_a, ms_a['kernel'], ms_a['plain'],
                ms_a['library'], *cost_a, bf16),
            **{key: quarter_deg_row(q_results[('A', bf16, rows)],
                                    q_attn[:1] + (rows,) + q_attn[2:], bf16)
-              for key, rows in q_rows.items()}),
+              for key, rows in q_rows.items()},
+           **{f'member_batch_{b_1deg}{tag}': quarter_deg_row(
+               member_kernels[('A', bf16, rows)], [b_1deg, rows, h, d], bf16)
+              for tag, rows in (('', plan.padded_n),
+                                ('_ragged', statics.num_mesh_nodes))}),
       dict(row(segment.KERNEL, err_b, ms_b['kernel'], ms_b['plain'],
                ms_b['library'], *cost_b, bf16),
            dtype='bfloat16 in, float32 out',
@@ -5558,9 +5939,19 @@ def main() -> int:
            **{'node_axis_' + name.replace(' ', '_'): quarter_deg_row(
                node_b[(name, bf16)], node_b[('shape', name)], bf16)
               for name, dtype in node_b
-              if name != 'shape' and dtype == bf16}),
-      row(banded_attention.KERNEL, err_c, ms_c['kernel'], ms_c['plain'],
-          ms_c['library'], *cost_c, bf16),
+              if name != 'shape' and dtype == bf16},
+           **{f'member_batch_{preset}_f{width * spec.d_model}':
+              quarter_deg_row(member_kernels[('B', preset, width, bf16)],
+                              member_kernels[('B shape', preset, width)],
+                              bf16)
+              for preset in ('1deg', 'nano')
+              for width in MEMBER_BATCH_WIDTHS}),
+      dict(row(banded_attention.KERNEL, err_c, ms_c['kernel'], ms_c['plain'],
+               ms_c['library'], *cost_c, bf16),
+           **{f'member_batch_{b_nano}': quarter_deg_row(
+               member_kernels[('C', bf16)],
+               [b_nano, nano_rows, nano.num_heads,
+                nano.d_model // nano.num_heads], bf16)}),
       row(banded_attention.KERNEL_DQ, errs_d['dq'][1], ms_d['dq'],
           ms_d['dq_plain'], ms_d['library'], *costs_d['dq'], bf16),
       row(banded_attention.KERNEL_DKV, errs_d['dkv'][1], ms_d['dkv'],
@@ -5599,8 +5990,6 @@ def main() -> int:
   ]
   # A, F, C and D at one rank's heads under a model axis of 2 and of 4
   # (phase 41, bf16).
-  nano_rows = nano_statics.attention_mask.num_blocks * \
-      nano_statics.attention_mask.block_size
   for h, key in ((2, 'mp2_rank'), (1, 'mp4_rank')):
     rows = per_rank_rows(heads[h], ([1, plan.padded_n, h, 128],
                                     [1, nano_rows, h, 64]))

@@ -114,6 +114,8 @@ class Bfloat16Cast(nn.Module):
     return self._bf16(i, t, noise_levels, f).float()
 
   def sample(self, inputs, forcings, generator=None, **kwargs):
+    """The bf16 copy's sample, float32 out; keyword arguments (a member
+    batch's `generators` or per-member `noise`) go to GenCast.sample."""
     i, f = self._in(inputs, forcings)
     kwargs.setdefault('dtype', torch.bfloat16)
     return self._bf16.sample(i, f, generator, **kwargs).float()

@@ -71,6 +71,36 @@ def rounded(value, dtype) -> float:
   return float(torch.tensor(float(value), dtype=dtype))
 
 
+def member_draws(generator, generators, noise, depth: int):
+  """A sampler's draws as a list per member: (generators, noise, one).
+
+  Exactly one source is given: `generator` (one member's), `generators`
+  (one per member) or `noise`, which is either one member's fields, nested
+  `depth` lists deep down to the tensors (GenCast.sample: 1, its N + 1
+  fields; rollout.sample_rollout: 2, those of each step), or a list of
+  such, one per member. `one` is True where one member's draws were given,
+  so the caller returns its result without the member axis."""
+  if (generator is not None) + (generators is not None) + (
+      noise is not None) != 1:
+    raise ValueError('sampling needs a generator or per-step noise, or '
+                     'generators (one per member): exactly one of them')
+  if generator is not None:
+    if not isinstance(generator, torch.Generator):
+      raise TypeError(f'generator is one torch.Generator, not '
+                      f'{type(generator).__name__}: give a member batch\'s '
+                      'as generators=')
+    return [generator], None, True
+  if generators is not None:
+    if not generators:
+      raise ValueError('no members: generators is empty')
+    return list(generators), None, False
+  nested, x = 0, noise
+  while isinstance(x, (list, tuple)) and x:
+    nested, x = nested + 1, x[0]
+  one = nested <= depth
+  return None, [noise] if one else list(noise), one
+
+
 class GenCast(nn.Module):
   """Denoising-diffusion predictor over packed fields.
 
@@ -212,14 +242,26 @@ class GenCast(nn.Module):
   def sample(self, inputs: torch.Tensor, forcings: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              dtype=torch.float32,
-             noise: Optional[Sequence[torch.Tensor]] = None,
-             graphed: bool = True) -> torch.Tensor:
+             noise: Optional[Sequence] = None,
+             graphed: bool = True,
+             generators: Optional[Sequence[torch.Generator]] = None
+             ) -> torch.Tensor:
     """Draws one sample of the (normalized-space) targets: [B, lat, lon, C].
 
     Noise comes from `generator`, or, when `noise` is given, from its N + 1
     precomputed unit fields [B, lat, lon, C]: the initial state's, then one
     per churn step (N steps; drawn, as in the reference, even where the
     churn rate is 0). Each field is cast to `dtype` before use.
+
+    A member batch (the reference's vmap over member keys): the inputs'
+    M·B rows are M members of B rows each, member after member, and the
+    draws come from `generators` (one per member) or from `noise` given
+    per member (M lists of N + 1 fields [B, lat, lon, C]); one generator
+    or one list of fields is the batch of one member (`member_draws`).
+    Field i of member m is drawn as that member's own call draws it,
+    `sphere_noise(generators[m], B, dtype)`, level by level, and the
+    members' fields are concatenated on the batch axis: member m's rows
+    see bitwise the draws of its one-member call.
 
     On the card each denoiser call replays one CUDA graph of it (the port's
     counterpart of the reference's jitted sampler scan), captured at this
@@ -241,16 +283,21 @@ class GenCast(nn.Module):
     sigmas = [np.float32(s) for s in sigmas]
     churns = [np.float32(c) for c in churns]
     num_steps = sc.num_noise_levels
-    if noise is not None and len(noise) != num_steps + 1:
-      raise ValueError(f'expected {num_steps + 1} noise fields, got '
-                       f'{len(noise)}')
-    if noise is None and generator is None:
-      raise ValueError('sample needs a generator or precomputed noise')
+    generators, noise, _ = member_draws(generator, generators, noise, 1)
+    members = len(generators or noise)
+    if batch % members:
+      raise ValueError(f'{members} members for a batch of {batch} rows')
+    for fields in noise or []:
+      if len(fields) != num_steps + 1:
+        raise ValueError(f'expected {num_steps + 1} noise fields, got '
+                         f'{len(fields)}')
 
     def draw(i):
-      if noise is not None:
-        return noise[i].to(inputs.device, dtype)
-      return self.sphere_noise(generator, batch, dtype)
+      if generators is not None:
+        return torch.cat([self.sphere_noise(g, batch // members, dtype)
+                          for g in generators])
+      return torch.cat([fields[i].to(inputs.device, dtype)
+                        for fields in noise])
 
     # On the card each denoiser call replays one graph over static buffers:
     # the window (loaded once per sample), the state x and the [B] noise

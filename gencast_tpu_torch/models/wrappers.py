@@ -5,7 +5,10 @@ Counterpart of `gencast_tpu.models.wrappers`: `__call__`, `sample`,
 fixes channel <-> (variable, level, frame), so each wrapper is a handful
 of precomputed per-channel vectors applied elementwise. Loss calls pass
 `generator` and any keyword arguments (the injected `sigma` / `noise`)
-through to GenCast.
+through to GenCast; so do `sample` calls, a member batch's `generators`
+or per-member `noise` too (`GenCast.sample`): the normalization, the NaN
+cleaning and the residuals act row by row, so each member's rows are
+treated as in its own call.
 """
 
 from __future__ import annotations

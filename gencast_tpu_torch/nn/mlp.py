@@ -92,6 +92,24 @@ class Linear(nn.Module):
     return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
+class RowwiseLinear(Linear):
+  """The [B, D] conditioning path's Linear (the noise encoder, the FiLM
+  projections; never sharded): each row of x's leading axes is its own
+  one-row product, a batched product of [1, in] by the weight, with
+  Linear's dtype promotion. A GEMM of a few rows picks its kernel by the
+  row count, so row b of a B-row call would otherwise not be the bits of
+  the same row alone, and a member batch's forecast not its members'
+  own."""
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    dtype = torch.promote_types(x.dtype, self.weight.dtype)
+    rows = x.to(dtype).reshape(-1, 1, x.shape[-1])
+    w = self.weight.to(dtype).t().expand(rows.shape[0], -1, -1)
+    out = (torch.bmm(rows, w) if self.bias is None else torch.baddbmm(
+        self.bias.to(dtype).expand(rows.shape[0], 1, -1), rows, w))
+    return out.reshape(x.shape[:-1] + (-1,))
+
+
 class MLP(nn.Module):
   """Plain MLP: [in -> hidden]*num_hidden -> out, activation between. Under
   a model axis its last two Linears are a column/row pair
@@ -125,8 +143,8 @@ class FiLM(nn.Module):
   def __init__(self, feature_size: int, *, rng: torch.Generator,
                conditioning_dim: int = CONDITIONING_DIM):
     super().__init__()
-    self.linear = Linear(conditioning_dim, 2 * feature_size, rng=rng,
-                         init=truncated_normal(1e-8))
+    self.linear = RowwiseLinear(conditioning_dim, 2 * feature_size,
+                                rng=rng, init=truncated_normal(1e-8))
 
 
 def ln_film(x: torch.Tensor, film: FiLM, cond: torch.Tensor) -> torch.Tensor:
@@ -235,7 +253,7 @@ class FourierFeaturesMLP(nn.Module):
     self.apply_log_first = apply_log_first
     sizes = [2 * num_frequencies] + list(output_sizes[:-1])
     self.linears = nn.ModuleList(
-        Linear(i, o, rng=rng, init=variance_scaling(2.0, 'uniform'))
+        RowwiseLinear(i, o, rng=rng, init=variance_scaling(2.0, 'uniform'))
         for i, o in zip(sizes, output_sizes))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:

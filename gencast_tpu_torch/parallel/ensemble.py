@@ -5,13 +5,14 @@ generator seeded from (seed, m) alone, the reference's fold_in(key, m), so
 a member's forecast does not depend on how many members run, in what
 groups, or on which rank.
 
-- One device (`ensemble_rollout`, the default path): members run one after
-  another on the model's device, each its own sampled rollout, and go to
-  the host as they end, so the device never holds more than one group of
-  members.
+- One device (`ensemble_rollout`, the default path): the members run as
+  one batch (the reference's `jax.vmap` over member keys), or in groups of
+  `member_chunk` members, each group one batched sampled rollout whose
+  denoiser calls sample all its members at once; each group goes to the
+  host as it ends, so the device never holds more than one group.
 - Over the 'ensemble' axis of a `parallel.meshes.Mesh` (one process per
   rank): `make_ensemble_rollout` and `ensemble_sample` run on rank e the
-  members [e·M/E, (e+1)·M/E) and keep them on its device;
+  members [e·M/E, (e+1)·M/E), as one batch, and keep them on its device;
   `ensemble_statistics` and `ensemble_scores` reduce over the ranks on the
   devices, so only [..., C] scores reach the host. `ensemble_scores`
   reshards members to latitude bands first, as the reference's one
@@ -59,46 +60,50 @@ def ensemble_rollout(model: nn.Module,
   member_keys(seed, num_members) on the inputs' device), or from `noise`:
   for each member, each step's N + 1 unit noise fields (as
   `rollout.sample_rollout` takes them). teacher_targets [K, B, ...]
-  advances every member's window with the ground truth. Each group of
-  `member_chunk` finished members (default 1) is copied to the host before
-  the next begins (the reference's --member_chunk); the grouping does not
-  change a member's forecast. `jit` goes to `rollout.sample_rollout`: on
-  the card, True replays each denoiser call from a CUDA graph. With
-  `chunk_size`, each member's rollout runs through
-  `rollout.chunked_rollout` (its steps `chunk_size` at a time, moved to the
-  host as they end, with `overlap_offload`): the same forecast, with at
-  most a chunk of steps on the device.
+  advances every member's window with the ground truth. The members run
+  `member_chunk` at a time as one batch (`rollout.sample_rollout` given a
+  group's generators or noise), all of them at once by default (None, the
+  reference's vmapped ensemble), and each group is copied to the host
+  before the next begins (the reference's --member_chunk); a member's
+  forecast is that of its own draws however the members are grouped.
+  `jit` goes to `rollout.sample_rollout`: on the card, True replays each
+  denoiser call from a CUDA graph of the group's batch. With `chunk_size`
+  each member runs alone through `rollout.chunked_rollout` (its steps
+  `chunk_size` at a time, moved to the host as they end, with
+  `overlap_offload`), as the reference's --chunk_size streams members
+  singly; `member_chunk` is then not used.
   """
   if noise is not None:
-    draws = [{'noise': member_noise} for member_noise in noise]
+    draws, one, many = noise, 'noise', 'noise'
   else:
     if keys is None:
       if seed is None or num_members is None:
         raise ValueError('ensemble_rollout needs seed and num_members, keys '
                          'or noise')
       keys = member_keys(seed, num_members, device=inputs.device)
-    draws = [{'generator': key} for key in keys]
-  chunk = member_chunk or 1
-  if chunk < 1:
+    draws, one, many = keys, 'generator', 'generators'
+  if member_chunk is not None and member_chunk < 1:
     raise ValueError(f'member_chunk must be positive, got {member_chunk}')
   if chunk_size is not None:
-    def member(draw):
-      return rollout_lib.chunked_rollout(
-          model, inputs, forcings, draw.get('generator'),
-          noise=draw.get('noise'), chunk_size=chunk_size,
+    def run(group):
+      return torch.stack([rollout_lib.chunked_rollout(
+          model, inputs, forcings, chunk_size=chunk_size,
           teacher_targets=teacher_targets, overlap_offload=overlap_offload,
-          jit=jit)
+          jit=jit, **{one: draw}) for draw in group])
+    size = 1
   else:
-    def member(draw):
+    def run(group):
       return rollout_lib.sample_rollout(
           model, inputs, forcings, teacher_targets=teacher_targets, jit=jit,
-          **draw)
+          **{many: list(group)})
+    size = member_chunk or len(draws)
   out = None
-  for lo in range(0, len(draws), chunk):
-    group = torch.stack([member(draw) for draw in draws[lo:lo + chunk]])
+  for lo in range(0, len(draws), size):
+    members = run(draws[lo:lo + size])
     if out is None:
-      out = torch.empty((len(draws),) + group.shape[1:], dtype=group.dtype)
-    out[lo:lo + group.shape[0]].copy_(group)
+      out = torch.empty((len(draws),) + members.shape[1:],
+                        dtype=members.dtype)
+    out[lo:lo + members.shape[0]].copy_(members)
   return out
 
 
@@ -121,16 +126,17 @@ def make_ensemble_rollout(model: nn.Module, mesh=None,
   forcings [K, B, lat, lon, C_frc], seed, members) -> this rank's share of
   the members' K-step sampled rollouts, [m, K, B, lat, lon, C_tgt] on the
   model's device. `members` are global member ids (a chunk of the
-  ensemble); rank e runs `member_range(len(members), mesh)` of them, member
-  m from the generator of (seed, m). `jit` as in `ensemble_rollout`."""
+  ensemble); rank e runs `member_range(len(members), mesh)` of them as one
+  batch, member m from the generator of (seed, m). `jit` as in
+  `ensemble_rollout`."""
 
   def run(inputs, forcings, seed: int, members: Sequence[int]):
     lo, hi = member_range(len(members), mesh)
-    return torch.stack([rollout_lib.sample_rollout(
-        model, inputs, forcings,
-        diffusion_utils.keyed_generator(seed, int(m), device=inputs.device),
+    return rollout_lib.sample_rollout(
+        model, inputs, forcings, generators=[
+            diffusion_utils.keyed_generator(seed, int(m), device=inputs.device)
+            for m in members[lo:hi]],
         teacher_targets=teacher_targets, jit=jit)
-        for m in members[lo:hi]])
 
   return run
 
@@ -140,13 +146,15 @@ def ensemble_sample(model: nn.Module, inputs: torch.Tensor,
                     mesh=None, jit: bool = True) -> torch.Tensor:
   """num_members independent samples of one step, member m from the
   generator of (seed, m): this rank's share `member_range(num_members,
-  mesh)`, [m, B, lat, lon, C] on the model's device (all of them without a
-  mesh)."""
+  mesh)`, sampled as one batch, [m, B, lat, lon, C] on the model's device
+  (all of them without a mesh)."""
   lo, hi = member_range(num_members, mesh)
-  return torch.stack([model.sample(
-      inputs, forcings,
-      diffusion_utils.keyed_generator(seed, m, device=inputs.device),
-      graphed=jit) for m in range(lo, hi)])
+  out = model.sample(
+      torch.cat([inputs] * (hi - lo)), torch.cat([forcings] * (hi - lo)),
+      generators=[diffusion_utils.keyed_generator(seed, m,
+                                                  device=inputs.device)
+                  for m in range(lo, hi)], graphed=jit)
+  return out.unflatten(0, (hi - lo, inputs.shape[0]))
 
 
 def _ensemble_group(mesh):

@@ -9,7 +9,10 @@ graph); the input window advances on the device by one channel gather per
 step. The reference splits one key into per-step keys; here the caller
 gives either one `torch.Generator`, drawn from step after step, or each
 step's precomputed noise fields (as `GenCast.sample` takes them), and the
-training loss keys each step's generator by (its keys, step).
+training loss keys each step's generator by (its keys, step). Given one
+generator or noise per member, `sample_rollout` runs the members as one
+batch (the reference's vmap over member keys); `chunked_rollout` runs one
+member.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from torch import nn
 
 from gencast_tpu_torch.data import layout as layout_lib
 from gencast_tpu_torch.models import diffusion_utils
+from gencast_tpu_torch.models import gencast as gencast_lib
 from gencast_tpu_torch.models.wrappers import find_layout_provider
 from gencast_tpu_torch.nn import remat as remat_lib
 
@@ -94,37 +98,58 @@ def sample_rollout(model: nn.Module,
                    inputs: torch.Tensor,
                    forcings: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
-                   noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+                   noise: Optional[Sequence] = None,
                    teacher_targets: Optional[torch.Tensor] = None,
-                   jit: bool = True, return_final_inputs: bool = False):
+                   jit: bool = True, return_final_inputs: bool = False,
+                   generators: Optional[Sequence[torch.Generator]] = None):
   """Diffusion-sampled autoregressive rollout of a (wrapped) GenCast model.
 
-  `model` exposes .sample(inputs, forcings, generator, noise=...) in raw
-  (unnormalized) space, e.g. InputsAndResiduals(NaNCleaner(GenCast)).
+  `model` exposes .sample(inputs, forcings, generators=..., noise=...) in
+  raw (unnormalized) space, e.g. InputsAndResiduals(NaNCleaner(GenCast)).
   Randomness comes from `generator`, drawn from step after step, or from
   `noise`: for each of the K steps the N + 1 unit noise fields that
   `GenCast.sample` takes. With teacher_targets [K, B, lat, lon, C_tgt] the
   window advances with them (teacher forcing, see `rollout`). Returns
   [K, B, lat, lon, C_tgt].
 
+  Members as one batch (the reference's vmapped ensemble): given
+  `generators` (one per member) or `noise` per member (M lists of the K
+  steps' fields), the window, forcings and teacher targets are repeated
+  per member along the batch, each denoiser call samples all M·B rows at
+  once, and each member draws from its own generator or noise as its own
+  rollout would. Returns [M, K, B, lat, lon, C_tgt]. One generator, or one
+  member's noise, runs the same path as a batch of one member.
+
   `jit` is the reference's flag: on the card, True replays each denoiser
   call from the model's CUDA graph (`GenCast.sample`), False runs every
   call eagerly; on the CPU both run eagerly. return_final_inputs also
-  returns the window after the last step (see `rollout`).
+  returns the window after the last step (see `rollout`; [M, B, ...] for
+  members).
   """
-  if (generator is None) == (noise is None):
-    raise ValueError('sample_rollout needs a generator or per-step noise')
-  if noise is not None and len(noise) != forcings.shape[0]:
-    raise ValueError(f'noise for {len(noise)} steps, forcings for '
-                     f'{forcings.shape[0]}')
+  generators, noise, one = gencast_lib.member_draws(generator, generators,
+                                                    noise, 2)
+  for steps in noise or []:
+    if len(steps) != forcings.shape[0]:
+      raise ValueError(f'noise for {len(steps)} steps, forcings for '
+                       f'{forcings.shape[0]}')
+  members = len(generators or noise)
 
   def predict(x, frc, step):
-    if noise is None:
-      return model.sample(x, frc, generator, graphed=jit)
-    return model.sample(x, frc, noise=noise[step], graphed=jit)
+    if generators is not None:
+      return model.sample(x, frc, generators=generators, graphed=jit)
+    return model.sample(x, frc, noise=[n[step] for n in noise], graphed=jit)
 
-  return rollout(predict, inputs, forcings, _maps(model), teacher_targets,
-                 return_final_inputs=return_final_inputs)
+  batch = inputs.shape[0]
+  teacher = (None if teacher_targets is None
+             else torch.cat([teacher_targets] * members, dim=1))
+  out = rollout(predict, torch.cat([inputs] * members),
+                torch.cat([forcings] * members, dim=1), _maps(model), teacher,
+                return_final_inputs=True)
+  preds = out[0].unflatten(1, (members, batch)).movedim(1, 0)
+  window = out[1].unflatten(0, (members, batch))
+  if one:
+    preds, window = preds[0], window[0]
+  return (preds, window) if return_final_inputs else preds
 
 
 def _maps(model: nn.Module) -> layout_lib.RolloutMaps:

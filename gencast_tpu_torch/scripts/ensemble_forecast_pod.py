@@ -12,10 +12,13 @@ that the member count fills, as the reference's rule, and the factor left
 over is the model axis (tensor parallelism, parallel/tensor.py): the ranks
 of one ensemble coordinate compute its members together, each holding its
 slices of the attention heads and MLP hidden widths, eagerly (their
-all_reduces are not captured into CUDA graphs). Ensemble coordinate e runs
-members [e·M/E, (e+1)·M/E), member m from the generator of (0, m), so a
-member does not depend on the rank count; its members stay on its
-devices.
+all_reduces are not captured into CUDA graphs). As the reference's pod,
+the members run in chunks of E, one call of `parallel.ensemble.
+make_ensemble_rollout` per chunk, one member per ensemble coordinate and
+call (coordinate e runs members e, e + E, ...); a member count E does not
+divide is padded to the next multiple of E and the padded members are
+discarded. Member m draws from the generator of (0, m), so a member does
+not depend on the rank count; its members stay on its devices.
 
 --score computes CRPS, ensemble-mean RMSE and spread against the source's
 targets on the devices (parallel.ensemble.ensemble_scores: members
@@ -200,18 +203,30 @@ def _forecast(args) -> dict:
 
   wrapped, statics, (inputs, forcings, targets) = build_forecast(args, device,
                                                                  mesh)
-  lo, hi = ensemble.member_range(args.members, mesh)
   run = ensemble.make_ensemble_rollout(wrapped, mesh)
+  # The reference's chunks: E members a call, this rank's the one at its
+  # ensemble coordinate; members past the count (the padding) discarded.
+  padded = -(-args.members // ens) * ens
+  starts = range(0, padded, ens)
   train._synchronize(device)
   t0 = time.perf_counter()
-  local = run(inputs, forcings, 0, range(args.members))  # [m, K, B, ...]
+  runs = [run(inputs, forcings, 0, range(lo, lo + ens)) for lo in starts]
   train._synchronize(device)
   dt = time.perf_counter() - t0
-  out = {'rank': mesh.rank, 'members': [lo, hi], 'seconds': dt,
-         'member_step_seconds': dt / ((hi - lo) * args.steps)}
-  print(f'[forecast] rank {mesh.rank}: members {lo}-{hi - 1} x {args.steps} '
-        f'steps in {dt:.2f} s ({out["member_step_seconds"]:.3f} s per '
-        'member-step, first calls included)\n', end='', flush=True)
+  ids = [lo + mesh.coords['ensemble'] for lo in starts]
+  local = torch.cat([r for r, m in zip(runs, ids)
+                     if m < args.members])  # [m, K, B, ...]
+  ids = [m for m in ids if m < args.members]
+  del runs
+  # Seconds per kept member-step: a padded member's call is work done for
+  # no member, so it is counted in the time and not in the divisor.
+  out = {'rank': mesh.rank, 'members': ids, 'seconds': dt,
+         'member_step_seconds': dt / (len(ids) * args.steps)}
+  print(f'[forecast] rank {mesh.rank}: members {ids} x {args.steps} steps '
+        f'in {dt:.2f} s ({out["member_step_seconds"]:.3f} s per kept '
+        f'member-step, {len(starts)} calls of one member, '
+        f'{len(starts) - len(ids)} of them padding; first calls '
+        'included)\n', end='', flush=True)
 
   if args.score:
     t0 = time.perf_counter()
@@ -239,10 +254,10 @@ def _forecast(args) -> dict:
       base, ext = os.path.splitext(args.out)
       path = f'{base}.p{mesh.coords["ensemble"]}{ext}'
     np.savez(path, predictions=local.cpu().numpy(),
-             members=np.arange(lo, hi, dtype=np.int32),
+             members=np.asarray(ids, dtype=np.int32),
              lat=np.asarray(statics.grid_lat),
              lon=np.asarray(statics.grid_lon))
-    print(f'[forecast] saved members {list(range(lo, hi))} to {path}',
+    print(f'[forecast] saved members {ids} to {path}',
           flush=True)
   if device.type == 'cuda':
     from gencast_tpu_torch.ops import cuda_lib

@@ -6,13 +6,14 @@ checkpoint of `--ckpt_dir` (parameters only; the bf16 serving copy is
 refreshed from them), takes the first window of the source (`--data`:
 synthetic, or an ERA5 directory as in the training CLI) as the initial
 state and its frames as the truth, samples a `--num_members` ensemble over
-`--max_rollout_steps` 12-hour steps (free-running, or teacher-forced; each
-`--member_chunk` members, default 1, move to the host as they end; with
-`--chunk_size N` each member's steps run N at a time through
-`rollout.chunked_rollout`, as the 0.25-degree model needs), or with
-`--model graphcast` predicts one deterministic forecast
-(`rollout.predict_rollout`, or `chunked_rollout(mode='predict')` under
-`--chunk_size`), and writes
+`--max_rollout_steps` 12-hour steps (free-running, or teacher-forced), its
+members batched as the reference's: all of them as one batch by default
+(the reference's vmapped ensemble), `--member_chunk N` members per batch,
+each batch moved to the host as it ends, or with `--chunk_size N` each
+member alone, its steps N at a time through `rollout.chunked_rollout`, as
+the 0.25-degree model needs; or with `--model graphcast` predicts one
+deterministic forecast (`rollout.predict_rollout`, or
+`chunked_rollout(mode='predict')` under `--chunk_size`), and writes
 `metrics.json` (per-variable RMSE of the ensemble mean; CRPS and spread
 with more than one member, the reference's keys) and `rollout.npz`
 (predictions [M, K, lat, lon, C], truth, lat, lon), with `--save_netcdf`
@@ -83,9 +84,11 @@ def parse_args(argv=None):
                       '(rollout.chunked_rollout; the same forecast, at most '
                       'a chunk of steps on the card: use it at 0.25deg)')
   p.add_argument('--member_chunk', type=int, default=None,
-                 help='run ensemble members in groups of this size, moving '
-                      'each group to the host as it ends (default 1; the '
-                      'grouping does not change a member)')
+                 help='sample this many ensemble members as one batch, '
+                      'moving each batch to the host as it ends (default: '
+                      'all members in one batch; the grouping does not '
+                      'change a member; not used with --chunk_size, whose '
+                      'members run one at a time)')
   p.add_argument('--no_overlap_offload', action='store_true',
                  help='with --chunk_size, copy each chunk to the host before '
                       'the next starts (default: while the next computes)')
@@ -98,6 +101,8 @@ def parse_args(argv=None):
   train.check_model_flags(p, args)
   if args.chunk_size is not None and args.chunk_size < 1:
     p.error(f'--chunk_size must be positive, got {args.chunk_size}')
+  if args.member_chunk is not None and args.member_chunk < 1:
+    p.error(f'--member_chunk must be positive, got {args.member_chunk}')
   return args
 
 
@@ -175,6 +180,9 @@ def main(argv=None) -> EvalRun:
     preds = preds[None]                                # one member
     members = 1
   else:
+    # The reference's three modes: --chunk_size streams members one at a
+    # time through the chunked rollout; otherwise --member_chunk members,
+    # or all of them, sample as one batch.
     preds = ensemble_lib.ensemble_rollout(
         wrapped, inputs, forcings, seed=args.seed,
         num_members=args.num_members, teacher_targets=teacher,

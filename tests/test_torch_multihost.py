@@ -121,8 +121,10 @@ def test_dp_rules_before_any_rank_starts():
 
 
 def test_pod_forecast_on_two_ranks(tmp_path):
-  """The pod module's members (2 of 3 on rank 0... 1 and 2 by the rule
-  [e·M/E, (e+1)·M/E)) are bitwise the one-device ensemble_rollout's; its
+  """The pod module's members (3 over an ensemble axis of 2, as the
+  reference's pod: padded to 4, run in chunks of 2 with one member per
+  rank and call, so members 0 and 2 on rank 0 and 1 on rank 1, the padded
+  member 3 discarded) are bitwise the one-device ensemble_rollout's; its
   scores, reduced over the ranks, match ops.metrics and JAX's
   ensemble_scores on those members."""
   out = str(tmp_path / 'forecast.npz')
@@ -133,7 +135,7 @@ def test_pod_forecast_on_two_ranks(tmp_path):
                                argv + ['--num_processes', '2'])
   assert 'mesh ensemble=2 model=1' in stdout
   got = {}
-  for rank, ids in ((0, [0]), (1, [1, 2])):
+  for rank, ids in ((0, [0, 2]), (1, [1])):
     z = np.load(str(tmp_path / f'forecast.p{rank}.npz'))
     assert z['members'].tolist() == ids
     got.update(zip(ids, z['predictions']))
