@@ -1,0 +1,8 @@
+"""Device time of ATen's elementwise kernels over all device time in the traced
+window (%). Read in the training cells."""
+
+from perfbench.lib import readers
+
+
+def read(ctx):
+  return readers.elementwise_share(ctx, 'train')
