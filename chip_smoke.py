@@ -998,9 +998,9 @@ def check_ln_film_shapes(shapes, g, card, profiled=None):
   (`start_ln_film_profile`), which loads the kernels already built under
   build/. A torch.profiler session that is not its process's first may
   record fewer kernels than were launched: in this process, one of 14
-  calls in an H100 run; in `gencast_tpu_torch.tools.profiler_sessions`, 13
-  of 14 in later sessions whatever ran between them, while every process's
-  first session recorded all 14."""
+  calls in an H100 run; in a tool that opened several sessions in one
+  process, 13 of 14 in later sessions whatever ran between them, while
+  every process's first session recorded all 14."""
   from gencast_tpu_torch.ops import ln_film
   results, calls = {}, []
   for shape, axis in shapes:
@@ -5296,8 +5296,9 @@ def main() -> int:
   # --- 1. setup ---
   log(f'[setup] {card}; torch {torch.__version__}, CUDA {torch.version.cuda};'
       ' TF32 off for matmul and cuDNN')
+  t0 = time.perf_counter()
   cuda_lib.library()
-  log(f'[setup] kernels built in {cuda_lib.LIBRARY.build_seconds:.2f} s')
+  log(f'[setup] kernels built in {time.perf_counter() - t0:.2f} s')
   entry = ''
   for line in cuda_lib.LIBRARY.compiler_log.splitlines():
     if 'Compiling entry function' in line and kernel_name(line):

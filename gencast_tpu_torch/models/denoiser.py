@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gencast_tpu_torch import utils
 from gencast_tpu_torch.data import layout as layout_lib
 from gencast_tpu_torch.data.registry import TaskSpec
 from gencast_tpu_torch.graph.compiler import GraphStatics
@@ -248,21 +249,29 @@ class DenoiserArchitecture(nn.Module):
                                 {'m2g': edge_in}, cond, outputs=('grid',))
       return nodes['grid']
 
-    g2m_args = (grid_in, bcast(self.mesh_struct), bcast(self.g2m_edge_feats),
-                cond)
-    if self.remat_gnns and torch.is_grad_enabled():
-      # Whole-GNN remat (the reference's jax.checkpoint of run_g2m and
-      # run_m2g); the streamed path's per-chunk remat nests inside.
-      latent_grid, latent_mesh = remat.checkpoint(self.grid2mesh, run_g2m,
-                                                  *g2m_args)
-    else:
-      latent_grid, latent_mesh = run_g2m(*g2m_args)
-    latent_mesh = self.processor(latent_mesh, cond).to(dtype)
-    m2g_args = (latent_grid, latent_mesh, bcast(self.m2g_edge_feats), cond)
-    if self.remat_gnns and torch.is_grad_enabled():
-      out = remat.checkpoint(self.mesh2grid, run_m2g, *m2g_args)
-    else:
-      out = run_m2g(*m2g_args)
+    device = grid_data.device
+    with utils.span('grid2mesh', device):
+      g2m_args = (grid_in, bcast(self.mesh_struct),
+                  bcast(self.g2m_edge_feats), cond)
+      if self.remat_gnns and torch.is_grad_enabled():
+        # Whole-GNN remat (the reference's jax.checkpoint of run_g2m and
+        # run_m2g); the streamed path's per-chunk remat nests inside.
+        latent_grid, latent_mesh = remat.checkpoint(self.grid2mesh, run_g2m,
+                                                    *g2m_args)
+      else:
+        latent_grid, latent_mesh = run_g2m(*g2m_args)
+    latent_grid, latent_mesh = utils.gradient_mark('grid2mesh', latent_grid,
+                                                   latent_mesh)
+    with utils.span('processor', device):
+      latent_mesh = self.processor(latent_mesh, cond).to(dtype)
+    latent_mesh = utils.gradient_mark('processor', latent_mesh)
+    with utils.span('mesh2grid', device):
+      m2g_args = (latent_grid, latent_mesh, bcast(self.m2g_edge_feats), cond)
+      if self.remat_gnns and torch.is_grad_enabled():
+        out = remat.checkpoint(self.mesh2grid, run_m2g, *m2g_args)
+      else:
+        out = run_m2g(*m2g_args)
+    out = utils.gradient_mark('mesh2grid', out)
     if self.node_axis is None:
       return out
     return tensor.gather_rows(out, self.node_rows[0], num_grid,

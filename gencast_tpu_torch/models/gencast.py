@@ -10,12 +10,14 @@ last level. The loss makes one denoiser call, as the reference.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from gencast_tpu_torch import utils
 from gencast_tpu_torch.data import layout as layout_lib
 from gencast_tpu_torch.data.registry import TaskSpec
 from gencast_tpu_torch.graph.compiler import GraphStatics
@@ -153,21 +155,24 @@ class GenCast(nn.Module):
 
   def _precond_denoise(self, inputs, forcings, noisy_targets, sigma):
     """D(x; sigma) = c_skip x + c_out F(c_in x; sigma)."""
-    s = sigma.to(noisy_targets.dtype)[:, None, None, None]
-    c_in = (s ** 2 + 1.0) ** -0.5
-    c_out = s * (s ** 2 + 1.0) ** -0.5
-    c_skip = 1.0 / (s ** 2 + 1.0)
-    raw = self.denoiser(inputs, noisy_targets * c_in, sigma, forcings)
-    return raw * c_out + noisy_targets * c_skip
+    with utils.span('denoiser', noisy_targets.device):
+      s = sigma.to(noisy_targets.dtype)[:, None, None, None]
+      c_in = (s ** 2 + 1.0) ** -0.5
+      c_out = s * (s ** 2 + 1.0) ** -0.5
+      c_skip = 1.0 / (s ** 2 + 1.0)
+      raw = self.denoiser(inputs, noisy_targets * c_in, sigma, forcings)
+      out = raw * c_out + noisy_targets * c_skip
+    return utils.gradient_mark('denoiser', out)
 
   def sphere_noise(self, generator: torch.Generator, batch: int,
                    dtype=torch.float32) -> torch.Tensor:
     """Unit-variance isotropic noise, one independent field per channel:
     [B, lat, lon, C]. The one function through which sampling draws."""
-    n = sph_harm.unit_white_noise(
-        generator, (batch, self.target_layout.num_channels),
-        self.sh_legendre, self.sh_fourier, dtype=dtype)
-    return torch.movedim(n, 1, -1)
+    with utils.span('noise', self.sh_legendre.device):
+      n = sph_harm.unit_white_noise(
+          generator, (batch, self.target_layout.num_channels),
+          self.sh_legendre, self.sh_fourier, dtype=dtype)
+      return torch.movedim(n, 1, -1)
 
   # --- Training loss ---
 
@@ -312,14 +317,18 @@ class GenCast(nn.Module):
                    inputs.new_empty(batch, dtype=torch.float32)))
       graph.load(inputs, forcings)
 
+    calls = itertools.count()
+
     def denoise(x, sigma):
       level = max(float(sigma), 1e-6)
-      if graph is not None:
-        graph.load(x, level, first=2)
-        return graph(self._precond_denoise)
-      sigma_b = torch.full((batch,), level, dtype=torch.float32,
-                           device=x.device)
-      return self._precond_denoise(inputs, forcings, x, sigma_b)
+      k = next(calls)  # calls 2i and 2i + 1 at noise level i; the last alone
+      with utils.span('sample.call', unit=f'level={k // 2} call={k}'):
+        if graph is not None:
+          graph.load(x, level, first=2)
+          return graph(self._precond_denoise)
+        sigma_b = torch.full((batch,), level, dtype=torch.float32,
+                             device=x.device)
+        return self._precond_denoise(inputs, forcings, x, sigma_b)
 
     def churn(x, sigma, churn_rate, i):
       if not use_churn:

@@ -18,6 +18,8 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from gencast_tpu_torch import utils
+
 
 class _Bound(nn.Module):
   """Runs fn(*args) while functional_call binds `module`'s parameters."""
@@ -48,8 +50,11 @@ def checkpoint(module: nn.Module, fn: Callable, *args) -> torch.Tensor:
   count = len(args)
 
   def run(*flat):
-    return call_with_parameters(module, dict(zip(names, flat[count:])), fn,
-                                *flat[:count])
+    # Marked in the forward pass and again where the backward recomputes
+    # (`utils.SPANS`); a recomputation that stops early has no end mark.
+    with utils.span('remat', flat[0].device):
+      return call_with_parameters(module, dict(zip(names, flat[count:])),
+                                  fn, *flat[:count])
 
   return torch.utils.checkpoint.checkpoint(
       run, *args, *tensors, use_reentrant=False, preserve_rng_state=False)

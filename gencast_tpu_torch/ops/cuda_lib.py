@@ -24,7 +24,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
-from gencast_tpu_torch import _build
+from gencast_tpu_torch import _build, utils
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'csrc')
@@ -83,6 +83,8 @@ _SIGNATURES = {
                        _I, _F, _P],
     # dtype, c
     'gt_ln_film_bwd_blocks_per_sm': [_I, _I],
+    # mark (its index in utils.MARKS), stream
+    'gt_span_mark': [_I, _P],
 }
 
 
@@ -170,22 +172,23 @@ class Graph:
     outputs, which each replay overwrites."""
     if self.graph is not None:
       raise RuntimeError('this graph is captured already')
-    t0 = time.perf_counter()
-    self.stream.wait_stream(torch.cuda.current_stream(self.device))
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved(self.device)
-    graph = torch.cuda.CUDAGraph()
-    with self.counts.recording():
-      # Thread-local: the packing thread (--prefetch) goes on copying
-      # batches to the card and computing TISR on streams of its own
-      # while the step thread captures.
-      with torch.cuda.graph(graph, stream=self.stream,
-                            capture_error_mode='thread_local'):
-        out = fn()
-    torch.cuda.current_stream(self.device).wait_stream(self.stream)
-    self.graph = graph
-    self.capture_seconds = time.perf_counter() - t0
-    self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+    with utils.span('graph.capture'):
+      t0 = time.perf_counter()
+      self.stream.wait_stream(torch.cuda.current_stream(self.device))
+      torch.cuda.empty_cache()
+      reserved = torch.cuda.memory_reserved(self.device)
+      graph = torch.cuda.CUDAGraph()
+      with self.counts.recording():
+        # Thread-local: the packing thread (--prefetch) goes on copying
+        # batches to the card and computing TISR on streams of its own
+        # while the step thread captures.
+        with torch.cuda.graph(graph, stream=self.stream,
+                              capture_error_mode='thread_local'):
+          out = fn()
+      torch.cuda.current_stream(self.device).wait_stream(self.stream)
+      self.graph = graph
+      self.capture_seconds = time.perf_counter() - t0
+      self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
     return out
 
   def replay(self) -> None:
@@ -260,12 +263,11 @@ class GraphedCalls:
 
 
 class _Library:
-  """The lazily built shared library, its build time and compiler log."""
+  """The lazily built shared library and its compiler log."""
 
   def __init__(self):
     self._lock = threading.Lock()
     self.lib: Optional[ctypes.CDLL] = None
-    self.build_seconds = 0.0
     self.compiler_log = ''
 
   def get(self) -> ctypes.CDLL:
@@ -282,12 +284,10 @@ class _Library:
       raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on PATH')
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu')))
     headers = sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
-    t0 = time.perf_counter()
     path, log = _build.compile_shared(
         [nvcc, *NVCC_FLAGS, f'-I{CSRC_DIR}'],
         [nvcc, '-shared', '-Xcompiler', '-fPIC'], sources,
         'gencast_tpu_torch_kernels', headers=headers)
-    self.build_seconds = time.perf_counter() - t0
     self.compiler_log = log
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
@@ -321,6 +321,14 @@ def check_aligned(addresses: Mapping[str, int]) -> None:
     if address % 16:
       raise ValueError(f'{name} starts at address {address:#x}, not a '
                        'multiple of 16 bytes')
+
+
+def span_mark(index: int, device: torch.device) -> None:
+  """Launches the span mark `index` (`utils.MARKS`; csrc/span_mark.cu) on
+  `device`'s current stream: under capture, into the graph."""
+  code = library().gt_span_mark(
+      index, torch.cuda.current_stream(device).cuda_stream)
+  check(code, 'gt_span_mark')
 
 
 def check(code: int, what: str) -> None:

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from gencast_tpu_torch import rollout as rollout_lib
+from gencast_tpu_torch import utils
 from gencast_tpu_torch.models import diffusion_utils
 from gencast_tpu_torch.ops import metrics
 
@@ -99,11 +100,13 @@ def ensemble_rollout(model: nn.Module,
     size = member_chunk or len(draws)
   out = None
   for lo in range(0, len(draws), size):
-    members = run(draws[lo:lo + size])
-    if out is None:
-      out = torch.empty((len(draws),) + members.shape[1:],
-                        dtype=members.dtype)
-    out[lo:lo + members.shape[0]].copy_(members)
+    hi = min(lo + size, len(draws))
+    with utils.span('ensemble.rollout', unit=f'members={lo}-{hi}'):
+      members = run(draws[lo:hi])
+      if out is None:
+        out = torch.empty((len(draws),) + members.shape[1:],
+                          dtype=members.dtype)
+      out[lo:hi].copy_(members)
   return out
 
 

@@ -37,6 +37,7 @@ from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from gencast_tpu_torch import utils
 from gencast_tpu_torch.models import diffusion_utils
 from gencast_tpu_torch.ops import cuda_lib
 
@@ -187,14 +188,15 @@ class Optimizer:
     """Clips and steps at the rate `set_rate` set: the part of `update()`
     that runs on the device, which a CUDA graph captures. Returns the
     gradient norm before clipping (on the device)."""
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in self.params]
-    for p, g in zip(self.params, grads):
-      p.grad = g
-    norm = clip_by_global_norm_(
-        grads, self.config.clip_norm,
-        [dim is not None for dim in self.shard_dims], self.model_axis)
-    self.adamw.step()
+    with utils.span('optimizer', self.params[0].device):
+      grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+               for p in self.params]
+      for p, g in zip(self.params, grads):
+        p.grad = g
+      norm = clip_by_global_norm_(
+          grads, self.config.clip_norm,
+          [dim is not None for dim in self.shard_dims], self.model_axis)
+      self.adamw.step()
     return norm
 
   def update(self) -> torch.Tensor:
@@ -271,7 +273,8 @@ def train_step(model: nn.Module, optimizer: Optimizer,
   optimizer.zero_grad()
   loss, diags = model.loss(inputs, targets, forcings, generator, **kwargs)
   loss = loss.mean()
-  loss.backward()
+  with utils.span('backward', loss.device):
+    loss.backward()
   loss = optimizer.average_over_ranks(loss.detach())
   optimizer.update()
   return loss, {k: v.detach() for k, v in diags.items()}
@@ -291,7 +294,8 @@ def ar_train_step(model: nn.Module, optimizer: Optimizer,
   loss, diags = rollout.autoregressive_loss(model, inputs, targets,
                                             forcings, keys=keys)
   loss = loss.mean()
-  loss.backward()
+  with utils.span('backward', loss.device):
+    loss.backward()
   optimizer.update()
   return loss.detach(), {k: v.detach() for k, v in diags.items()}
 
@@ -383,7 +387,8 @@ class FusedTrainSteps:
     else:
       loss, _ = self.model.loss(*batch, sigma=self.sigma, noise=self.noise)
     loss = loss.mean()
-    loss.backward()
+    with utils.span('backward', loss.device):
+      loss.backward()
     self.optimizer.apply()
     return loss.detach()
 
@@ -395,13 +400,14 @@ class FusedTrainSteps:
     device = pool['inputs'].device
     losses = torch.empty(len(steps), dtype=torch.float32, device=device)
     card = device.type == 'cuda'
-    if self._addresses(pool) != self.captured:
-      # A graph reads what it captured: start anew, buffers and all (on
-      # the CPU, where nothing is captured, at every call).
-      self.graph = self.captured = self.loss = None
-      self.row = self.sigma = self.noise = None
     for k, (row, step) in enumerate(zip(idx, steps)):
-      self._stage(pool, row, step, seed)
+      with utils.span('train.stage', unit=f'step={step}'):
+        if k == 0 and self._addresses(pool) != self.captured:
+          # A graph reads what it captured: start anew, buffers and all
+          # (on the CPU, where nothing is captured, at every call).
+          self.graph = self.captured = self.loss = None
+          self.row = self.sigma = self.noise = None
+        self._stage(pool, row, step, seed)
       if not card:
         losses[k] = self._step(pool)
       elif self.graph is None:
@@ -412,7 +418,8 @@ class FusedTrainSteps:
         self.loss = graph.capture(lambda: self._step(pool))
         self.graph = graph
       else:
-        self.graph.replay()
+        with utils.span('train.replay', unit=f'step={step}'):
+          self.graph.replay()
         losses[k] = self.loss
       self.optimizer.step_count += 1
     return losses

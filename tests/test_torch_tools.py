@@ -1,7 +1,7 @@
 """The port's observability utilities, tracing tools, ERA5 validator and
-launch scripts, on the CPU: `utils.Throughput` on a fake clock,
-`utils.profile_trace`, `utils.sampler_fixture` against `model.sample` on
-the same generator, `tools.trace_qdeg.parse` on a written trace,
+launch scripts, on the CPU: `utils.profile_trace`, `utils.sampler_fixture`
+against `model.sample` on the same generator, `tools.trace_qdeg.parse` on a
+written trace,
 `tools.check_era5` against the JAX package's `tools/check_era5.py` on a
 corpus of the port's `synth_era5` and corrupted copies of it, and every
 flag of `gencast_tpu_torch/scripts/*.sh` parsed by the port's CLIs.
@@ -28,20 +28,6 @@ from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(ROOT, 'gencast_tpu_torch', 'scripts')
-
-
-def test_throughput_smoothing_on_a_fake_clock(monkeypatch):
-  now = [100.0]
-  monkeypatch.setattr(utils.time, 'time', lambda: now[0])
-  meter = utils.Throughput(smoothing=0.5)
-  assert meter.tick() is None and meter.rate is None  # no interval yet
-  now[0] += 2.0
-  assert meter.tick(4) == 2.0                           # 4 steps in 2 s
-  now[0] += 1.0
-  assert meter.tick(4) == 0.5 * 2.0 + 0.5 * 4.0         # then 4 in 1 s
-  # No time passed: the interval is floored at 1e-9 s.
-  assert meter.tick() == pytest.approx(0.5 * 3.0 + 0.5 * 1e9)
-  assert meter.rate == pytest.approx(0.5 * 3.0 + 0.5 * 1e9)
 
 
 def test_profile_trace_none_is_a_no_op(tmp_path):
