@@ -403,6 +403,21 @@ TINY_SAMPLE_RTOL = 1e-3
 # (2^-8 of the element) shows.
 BWD_F32_RTOL = 1e-5
 BWD_BF16_RTOL = 1e-2
+# The LN+FiLM forward kernel against its plain version, which it differs
+# from only in the float32 summation order of the two means. In bf16 that
+# flips the rounding of x_hat on a few elements in 10^5 (FWD_BITWISE_SHARE
+# of them keep their bits), by at most one rounding step of bf16 at the
+# element's magnitude: eps * (|y| + |scale| (|x_hat| + 1)). In float32
+# x_hat keeps every ulp the sums move (a third of the elements in a CPU
+# emulation differ), so there the kernel is held to the float64 evaluation
+# of the op order: no further from it than FWD_F32_ERR_RATIO times the
+# plain version is. Both dtypes are also held bitwise to the plain op order
+# in the kernel's summation order (ln_film_fwd_lane_order).
+FWD_BITWISE_SHARE = 0.999
+FWD_F32_ERR_RATIO = 2.0
+# The member batch of the forward kernel's checks: the 1-degree forecast
+# cell's.
+FWD_MEMBERS = 8
 # Kernel G's dk and dv against kernel F's: in bf16 equal bits (G runs F's
 # per-pair routine, mma::dkv_pair, in the same order); in float32 held to
 # BWD_F32_RTOL (both run the FMA sweep, G's with its partials added).
@@ -482,6 +497,7 @@ TRACE_KERNELS = {
     'sparse_attention_dq_reduce': r'sparse_attention_dq_reduce_kernel',
     'segment_sum': r'segment_sum_kernel',
     'ln_film_bwd': r'ln_film_bwd_kernel',
+    'ln_film_fwd': r'ln_film_fwd_kernel',
     'banded_attention_fwd': r'banded_attention_fwd_(mma_)?kernel',
     'banded_attention_bwd_dq': r'banded_attention_dq_(mma_)?kernel',
     'banded_attention_bwd_dkv': r'banded_attention_dkv_(mma_)?kernel',
@@ -531,7 +547,8 @@ def card_line() -> str:
 
 KERNEL_NAME = re.compile(
     r'((?:sparse|banded)_attention_(?:fwd|dq_reduce|dq|dkvq|dkv)'
-    r'(?:_mma)?_kernel|segment_sum_kernel|ln_film_bwd_kernel)(?:I(.*?)EEv)?')
+    r'(?:_mma)?_kernel|segment_sum_kernel|ln_film_(?:bwd|fwd)_kernel)'
+    r'(?:I(.*?)EEv)?')
 
 
 def kernel_name(mangled: str) -> str:
@@ -1126,6 +1143,281 @@ def recording_ln_film_shapes(seen):
     ln_film.ln_film_bwd_cuda = launch
 
 
+def ln_film_fwd_lane_order(x, scale, offset, batch_axis) -> torch.Tensor:
+  """The plain LN+FiLM forward's op order (ln_film.ln_film_forward) with the
+  forward kernel's summation order: each lane of a row's warp adds the
+  elements of its 16-byte vectors (vector lane + 32 j) in turn, then the
+  lanes' sums fold by the xor butterfly. On the card each op here rounds as
+  the kernel's does, so the two agree bit for bit."""
+  from gencast_tpu_torch.ops import ln_film
+  lead, c = x.shape[:-1], x.shape[-1]
+  vec = 16 // x.element_size()
+  nvec = c // vec
+  nv = -(-nvec // 32)
+  x32 = x.float()
+  lanes = torch.zeros(lead + (nv * 32, vec), device=x.device)
+  lanes[..., :nvec, :] = x32.reshape(lead + (nvec, vec))
+  lanes = lanes.reshape(lead + (nv, 32, vec)).transpose(-3, -2).reshape(
+      lead + (32, nv * vec))
+  partner = {off: torch.arange(32, device=x.device) ^ off
+             for off in (16, 8, 4, 2, 1)}
+
+  def row_sum(v):
+    s = v[..., 0]
+    for i in range(1, v.shape[-1]):
+      s = s + v[..., i]
+    for off in (16, 8, 4, 2, 1):
+      s = s + s[..., partner[off]]
+    return s[..., :1]
+
+  mu = row_sum(lanes) * (1.0 / c)
+  var = (row_sum(lanes * lanes) * (1.0 / c) - mu * mu).clamp_min(0.0)
+  x_hat = ((x32 - mu) * torch.rsqrt(var + ln_film.EPS)).to(x.dtype)
+  per_batch = (lambda v: v[None]) if batch_axis == 1 else (
+      lambda v: v[:, None])
+  return x_hat * per_batch(scale) + per_batch(offset)
+
+
+def ln_film_fwd_inputs(shape, batch_axis, dtype, g):
+  """Seeded x [shape] (mean 0.5, std 2), scale (about 1) and offset (about
+  0) [B, C] in `dtype` on g's device."""
+  dev = g.device
+  b, c = shape[batch_axis], shape[2]
+  x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+  scale = (1 + 0.1 * torch.randn((b, c), generator=g, device=dev)).to(dtype)
+  offset = (0.1 * torch.randn((b, c), generator=g, device=dev)).to(dtype)
+  return x, scale, offset
+
+
+def check_ln_film_fwd(shape, batch_axis, dtype, g):
+  """The LN+FiLM forward kernel on seeded inputs (ln_film_fwd_inputs):
+  * bitwise the plain op order in the kernel's summation order
+    (ln_film_fwd_lane_order), every element;
+  * against the plain version (ln_film_forward): in bf16 bitwise on at
+    least FWD_BITWISE_SHARE of the elements and within one rounding step
+    of bf16 at the element's magnitude on the others; in float32 no
+    further from the op order evaluated in float64 than FWD_F32_ERR_RATIO
+    times the plain version is;
+  * equal bits on a second launch; at a batch, the first and last
+    members' rows launched alone equal to theirs in the batch.
+  Returns ({'bitwise_share', 'max_err', 'steps'}, {'kernel': ms, 'plain':
+  ms}, bound inputs (flops, bytes))."""
+  from gencast_tpu_torch.ops import ln_film
+  x, scale, offset = ln_film_fwd_inputs(shape, batch_axis, dtype, g)
+  b = shape[batch_axis]
+  got = ln_film.ln_film_fwd_cuda(x, scale, offset, batch_axis)
+  again = ln_film.ln_film_fwd_cuda(x, scale, offset, batch_axis)
+  ordered = ln_film_fwd_lane_order(x, scale, offset, batch_axis)
+  want = ln_film.ln_film_forward(x, scale, offset, batch_axis)
+  members = []
+  for m in sorted({0, b - 1}) if b > 1 else ():
+    alone = ln_film.ln_film_fwd_cuda(
+        x.narrow(batch_axis, m, 1).contiguous(), scale[m:m + 1],
+        offset[m:m + 1], batch_axis)
+    members.append(torch.equal(alone, got.narrow(batch_axis, m, 1)))
+  torch.cuda.synchronize()
+  same = torch.equal(got, again)
+  exact = torch.equal(got, ordered)
+  equal = got == want
+  share = float(equal.float().mean())
+  err = float((got.float() - want.float()).abs().max())
+  if dtype == torch.bfloat16:
+    mu, rstd = ln_film._mean_rstd(x.float(), ln_film.EPS)
+    per_batch = scale[None] if batch_axis == 1 else scale[:, None]
+    step = torch.finfo(dtype).eps * (
+        want.float().abs()
+        + per_batch.float().abs() * (((x.float() - mu) * rstd).abs() + 1))
+    steps = float(((got.float() - want.float()).abs() / step).max())
+    close = share >= FWD_BITWISE_SHARE and steps <= 1
+    del mu, rstd, step
+  else:
+    ref = ln_film.ln_film_forward(x.double(), scale.double(),
+                                  offset.double(), batch_axis)
+    plain_err = float((want.double() - ref).abs().max())
+    steps = float((got.double() - ref).abs().max()) / max(plain_err, 1e-30)
+    close = steps <= FWD_F32_ERR_RATIO
+    del ref
+  if not (exact and close and same and all(members)):
+    raise AssertionError(
+        f'LN+FiLM forward kernel {dtype} {list(shape)} (batch axis '
+        f'{batch_axis}): bitwise the lane-order plain op order {exact}; '
+        f'against the plain version {share:.6f} of the elements bitwise, '
+        f'max err {err:.3e}, {steps:.3f} (of 1 rounding step in bf16, of '
+        f'{FWD_F32_ERR_RATIO} times the plain version\'s float64 error in '
+        f'float32); equal bits twice {same}; members alone as in the batch '
+        f'{members}')
+  moved = nbytes(x, scale, offset, got)
+  del got, again, ordered, want, equal
+  fns = {
+      'plain': lambda: ln_film.ln_film_forward(x, scale, offset, batch_axis),
+      'kernel': lambda: ln_film.ln_film_fwd_cuda(x, scale, offset,
+                                                 batch_axis)}
+  if b == 1:
+    # The library yardstick at batch 1: LayerNorm with the FiLM scale and
+    # offset as its weight and bias (its two-pass variance).
+    fns['library'] = lambda: torch.nn.functional.layer_norm(
+        x.view(-1, shape[2]), [shape[2]], scale[0], offset[0], ln_film.EPS)
+  ms = graph_ms(fns, reps=10)
+  # About 10 operations per element (the two sums, x_hat, the FiLM).
+  cost = (10 * x.numel(), moved)
+  bound_ms, _ = bound(*cost, dtype)
+  log(f'[LN+FiLM fwd] {dtype} {list(shape)} (batch axis {batch_axis}): '
+      f'bitwise the plain op order in the kernel\'s summation order; '
+      f'against the plain version {100 * share:.4f}% of the elements '
+      f'bitwise, max err {err:.3e} ({steps:.3f} of the tolerance); equal '
+      f'bits twice; members alone as in the batch {members or "-"}; kernel '
+      f'{ms["kernel"]:.4f} ms (bound {bound_ms:.4f}, '
+      f'{100 * bound_ms / ms["kernel"]:.1f}%), plain {ms["plain"]:.3f} ms'
+      + (f', library (layer_norm) {ms["library"]:.4f} ms' if b == 1 else ''))
+  return {'bitwise_share': share, 'max_err': err, 'steps': steps}, ms, cost
+
+
+def ln_film_fwd_shapes(e_shapes, member_batch):
+  """(shape, batch axis) of the forward kernel's checks: kernel E's shapes,
+  and the transformer's and the largest GNN's rows-leading shape at the
+  member batch."""
+  transformer = next(s for s, axis in e_shapes if axis == 0)
+  gnn = max((s for s, axis in e_shapes if axis == 1), key=lambda s: s[0])
+  return list(e_shapes) + [
+      ((member_batch,) + tuple(transformer[1:]), 0),
+      ((gnn[0], member_batch, gnn[2]), 1)]
+
+
+def check_ln_film_fwd_shapes(shapes, g, card):
+  """The forward kernel at every (shape, batch axis), float32 and bf16
+  (check_ln_film_fwd); a call captured in a CUDA graph replays to the eager
+  call's bits. Returns {(shape, dtype): check_ln_film_fwd's result}."""
+  from gencast_tpu_torch.ops import ln_film
+  results = {}
+  for shape, axis in shapes:
+    for dtype in (torch.float32, torch.bfloat16):
+      results[(tuple(shape), dtype)] = check_ln_film_fwd(shape, axis, dtype,
+                                                         g)
+  shape, axis = shapes[0]
+  x, scale, offset = ln_film_fwd_inputs(shape, axis, torch.bfloat16, g)
+  eager = ln_film.ln_film_fwd_cuda(x, scale, offset, axis)
+  graph = torch.cuda.CUDAGraph()
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    ln_film.ln_film_fwd_cuda(x, scale, offset, axis)
+  torch.cuda.current_stream().wait_stream(side)
+  with torch.cuda.graph(graph):
+    captured = ln_film.ln_film_fwd_cuda(x, scale, offset, axis)
+  graph.replay()
+  torch.cuda.synchronize()
+  if not torch.equal(captured, eager):
+    raise AssertionError('LN+FiLM forward kernel in a CUDA graph: the '
+                         'replay differs from the eager call')
+  log(f'[LN+FiLM fwd] {len(shapes)} shapes x 2 dtypes checked; a call '
+      f'captured in a CUDA graph replays to the eager bits; {card}')
+  return results
+
+
+def check_ln_film_fwd_call(model, stack, args, tag, card, profile=False):
+  """One denoiser call of `stack` (args: inputs, noisy targets, sigma,
+  forcings) on the card: the LN+FiLM forward kernel launched once per
+  LN+FiLM of the call (ln_film_fwd_launches(model)) and no CUDA tensor
+  through the plain forward; with `profile`, the call under torch.profiler
+  holds as many ln_film_fwd_kernel launches and no kernel E launch
+  (TRACE_KERNELS tells the two apart; make it the process's first
+  profiler session, which records every kernel). Returns the launches."""
+  from gencast_tpu_torch.ops import ln_film
+  plain = ln_film.ln_film_forward
+  on_card = []
+
+  def counted(x, *rest):
+    if x.is_cuda:
+      on_card.append(tuple(x.shape))
+    return plain(x, *rest)
+
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  ln_film.ln_film_forward = counted
+  try:
+    ln_film.KERNEL_FWD.reset()
+    with torch.no_grad(), (torch.profiler.profile(activities=activities)
+                           if profile else contextlib.nullcontext()) as prof:
+      stack(*args)
+      torch.cuda.synchronize()
+  finally:
+    ln_film.ln_film_forward = plain
+  want = ln_film_fwd_launches(model)
+  traced = None
+  if profile:
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced = {k: sum(1 for n in names if re.search(TRACE_KERNELS[k], n))
+              for k in ('ln_film_fwd', 'ln_film_bwd')}
+  if (ln_film.KERNEL_FWD.launches != want or on_card
+      or traced not in (None, {'ln_film_fwd': want, 'ln_film_bwd': 0})):
+    raise AssertionError(
+        f'{tag} denoiser call: {ln_film.KERNEL_FWD.launches} LN+FiLM forward '
+        f'launches, derived {want}; under the profiler {traced}; CUDA '
+        f'tensors through the plain forward {on_card}')
+  log(f'[LN+FiLM fwd] {tag} denoiser call: {want} forward kernel launches, '
+      f'as derived, and no CUDA tensor through the plain forward'
+      + (f'; under torch.profiler {traced["ln_film_fwd"]} '
+         f'ln_film_fwd_kernel launches and no kernel E' if profile else '')
+      + f'; {card}')
+  return want
+
+
+def ln_film_fwd_main() -> int:
+  """`python3 chip_smoke.py --ln-film-fwd`: the LN+FiLM forward kernel's
+  checks alone, as phases 1, 5, 8, 22 and 23 make them: its build, every
+  shape of kernel E's checks at 1 degree, nano and 0.25 degrees and the
+  member batches (check_ln_film_fwd_shapes), and one 1-degree and one
+  0.25-degree denoiser call (bf16 stacks, seeded weights) with their
+  launches (check_ln_film_fwd_call)."""
+  from gencast_tpu_torch import configs
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.ops import cuda_lib
+  torch.backends.cuda.matmul.allow_tf32 = False
+  dev = torch.device('cuda', 0)
+  card = card_line()
+  t0 = time.perf_counter()
+  cuda_lib.library()
+  log(f'[setup] {card}; torch {torch.__version__}, CUDA '
+      f'{torch.version.cuda}; kernels built in '
+      f'{time.perf_counter() - t0:.2f} s')
+  entry = ''
+  for line in cuda_lib.LIBRARY.compiler_log.splitlines():
+    if 'Compiling entry function' in line and kernel_name(line):
+      entry = kernel_name(line)
+    elif 'ln_film_fwd' in entry and ('registers' in line or 'spill' in line):
+      log(f'[setup] ptxas {entry}: {line.split(":", 1)[-1].strip()}')
+  g = torch.Generator(device=dev).manual_seed(0)
+  calls = {}
+  for spec in (configs.ONE_DEG, configs.QUARTER_DEG):
+    statics = configs.build_statics(spec)
+    model, _ = configs.build_gencast(spec, seed=0, statics=statics,
+                                     device=dev)
+    if spec is configs.ONE_DEG:
+      nano = configs.NANO
+      shapes = ln_film_fwd_shapes(ln_film_shapes(
+          [(spec, statics), (nano, configs.build_statics(nano))]),
+          FWD_MEMBERS)
+    else:
+      shapes = quarter_deg_e_shapes(model)
+    check_ln_film_fwd_shapes(shapes, g, card)
+    stack = wrappers.build_stack(model, unit_stats(spec.task),
+                                 bf16=spec.cast_bf16).to(dev)
+    den = model.denoiser
+    grid = (1, statics.grid_lat.shape[0], statics.grid_lon.shape[0])
+    args = [torch.randn(grid + (lay.num_channels,), generator=g, device=dev)
+            for lay in (den.input_layout, den.target_layout)]
+    args += [torch.full((1,), 3.0, device=dev), torch.randn(
+        grid + (den.forcing_layout.num_channels,), generator=g, device=dev)]
+    calls[spec.name] = check_ln_film_fwd_call(
+        model, stack, args, spec.name, card,
+        profile=spec is configs.ONE_DEG)
+    del model, stack, args
+    torch.cuda.empty_cache()
+  print(json.dumps({'ln_film_fwd_launches_per_call': calls}), flush=True)
+  return 0
+
+
 def capped_plan(row_ptr, perm, cap):
   """The plan (row_ptr, perm) with every row cut to its first `cap` edges:
   (row_ptr, perm), perm always given and as long as the edges (the kernel
@@ -1238,14 +1530,14 @@ def check_segment_plan(name, ids, n, f, g, card, variants=True):
 
 def counters():
   """Every kernel's launch counter: A, F-dq, F-dkv, B, E, C, D-dq, D-dkv,
-  G and G's dq reduce."""
+  G, G's dq reduce and the LN+FiLM forward."""
   from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
       sparse_attention
   return (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
           sparse_attention.KERNEL_DKV, segment.KERNEL, ln_film.KERNEL,
           banded_attention.KERNEL, banded_attention.KERNEL_DQ,
           banded_attention.KERNEL_DKV, sparse_attention.KERNEL_DKVQ,
-          sparse_attention.KERNEL_DQ_REDUCE)
+          sparse_attention.KERNEL_DQ_REDUCE, ln_film.KERNEL_FWD)
 
 
 def node_chunk_rows(n: int, chunk: int) -> list:
@@ -1306,19 +1598,16 @@ def expected_step_launches(gencast) -> dict:
   own recomputation) and once per gather over such a side (its backward;
   a streamed net's sender gathers always): on the card each of them
   carries a plan, the reference's or one of its own; E once per LN+FiLM
-  whose output reaches the loss (in a streamed net, per chunk)."""
-  from gencast_tpu_torch.nn import mlp
+  whose output reaches the loss (in a streamed net, per chunk); the LN+FiLM
+  forward as `ln_film_fwd_launches` says."""
   from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
       sparse_attention
   arch = gencast.denoiser.architecture
   cfg = arch.processor.cfg
   layers = cfg.num_layers
   recompute = cfg.remat_policy == 'full'
-  planned, gnn_e = 0, 0
+  planned = 0
   for net in (arch.grid2mesh, arch.mesh2grid):
-    # The decoder updates mesh nodes it never decodes: no gradient there.
-    used = (set(net.node_decoders) if net is arch.mesh2grid
-            else set(net.num_nodes))
     if net.edge_chunk_size is not None:
       runs = 2 + arch.remat_gnns  # forward, chunk remat, GNN remat
       for topo in net.topologies:
@@ -1326,7 +1615,6 @@ def expected_step_launches(gencast) -> dict:
         if stream.uniform_k is None:
           planned += stream.num_chunks * (runs + 1)
         planned += stream.num_chunks
-      gnn_e += len(streamed_ln_film_shapes(net, used))
       continue
     for inet in net.processors:
       for topo in inet.topologies:
@@ -1337,8 +1625,6 @@ def expected_step_launches(gencast) -> dict:
           planned += 2 + arch.remat_gnns
         if send_k is None:
           planned += 1  # the sender gather's backward
-      gnn_e -= len(set(inet.node_mlps) - used)
-    gnn_e += sum(isinstance(m, mlp.CondMLP) for m in net.modules())
   if 'slot_ids' in arch.processor.operand_names:
     attn = (sparse_attention.KERNEL, sparse_attention.KERNEL_DKVQ,
             sparse_attention.KERNEL_DQ_REDUCE)
@@ -1355,8 +1641,63 @@ def expected_step_launches(gencast) -> dict:
   if attn:
     launches[attn[0].name] = layers * (2 if recompute else 1)
   launches.update({segment.KERNEL.name: planned,
-                   ln_film.KERNEL.name: 2 * layers + 1 + gnn_e})
+                   ln_film.KERNEL.name: ln_film_fwd_launches(gencast),
+                   ln_film.KERNEL_FWD.name: ln_film_fwd_launches(
+                       gencast, train=True)})
   return launches
+
+
+def gnn_ln_film_calls(model, train: bool = False) -> int:
+  """LN+FiLMs the GNNs of `model` (a GenCast or a stack around one) run in
+  a denoiser call, or with `train` in a training step. A call runs one per
+  CondMLP (in a streamed net, per chunk of its rows), less the decoder's
+  mesh-node update, which nothing reads. A step runs them again in the
+  backward's recomputations: a whole GNN under remat_gnns; in a streamed
+  net each chunk of edges, and each chunk of a node MLP with more rows than
+  a chunk, in the chunk's own recomputation (a node MLP of one chunk has
+  none); under remat_gnns a streamed GNN's recomputation stops before the
+  last chunk of its last node update when that update is chunked (the
+  checkpoint needs nothing that chunk makes)."""
+  from gencast_tpu_torch.models import wrappers
+  from gencast_tpu_torch.nn import mlp
+  arch = wrappers.find_layout_provider(model).architecture
+  again = int(arch.remat_gnns) if train else 0
+  total = 0
+  for net in (arch.grid2mesh, arch.mesh2grid):
+    used = (set(net.node_decoders) if net is arch.mesh2grid
+            else set(net.num_nodes))
+    if net.edge_chunk_size is None:
+      unused = sum(len(set(inet.node_mlps) - used) for inet in net.processors)
+      total += (sum(isinstance(m, mlp.CondMLP) for m in net.modules())
+                - unused) * (1 + again)
+      continue
+    chunk_again = 1 + again + int(train)  # the chunk's own recomputation
+    for topo in net.topologies:  # the edge embedder and the edge MLP
+      total += 2 * len(edge_chunk_rows(net, topo)) * chunk_again
+    updates = [name for name in net.processors[0].node_mlps if name in used]
+    for name in list(net.node_embedders) + updates:
+      chunks = len(node_chunk_rows(net.num_nodes[name], net.edge_chunk_size))
+      total += chunks * chunk_again if chunks > 1 else 1 + again
+    if len(node_chunk_rows(net.num_nodes[updates[-1]],
+                           net.edge_chunk_size)) > 1:
+      total -= again
+  return total
+
+
+def ln_film_fwd_launches(model, train: bool = False) -> int:
+  """Launches of the LN+FiLM forward kernel in one denoiser call (also
+  kernel E's in a training step: one per LN+FiLM whose output reaches the
+  loss), or with `train` in one training step: the call's, and those the
+  backward recomputes. The transformer's two norms a layer and its final
+  one ('save_attention' recomputes each layer's feed-forward half, 'full'
+  both halves), and the GNNs' (`gnn_ln_film_calls`). `model`: a GenCast or
+  a stack around one."""
+  from gencast_tpu_torch.models import wrappers
+  cfg = wrappers.find_layout_provider(model).architecture.processor.cfg
+  launches = 2 * cfg.num_layers + 1
+  if train:
+    launches += cfg.num_layers * (2 if cfg.remat_policy == 'full' else 1)
+  return launches + gnn_ln_film_calls(model, train)
 
 
 def train_tiny_against_cpu(dev, remat_policy, spec) -> None:
@@ -1942,7 +2283,7 @@ def fused_path(spec, statics, dev, card, f_seconds, f_peak, stats):
   `stats`. Returns each kernel's launches in the two training runs
   together."""
   from gencast_tpu_torch.nn import transformer
-  from gencast_tpu_torch.ops import segment, sparse_attention
+  from gencast_tpu_torch.ops import ln_film, segment, sparse_attention
   from gencast_tpu_torch.training import checkpoint, evaluate
   work = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                       'chip_smoke')
@@ -1997,7 +2338,9 @@ def fused_path(spec, statics, dev, card, f_seconds, f_peak, stats):
   calls = rollout_steps * (2 * spec.num_noise_levels - 1)
   expected = {c.name: 0 for c in counters()}
   expected.update({sparse_attention.KERNEL.name: calls * spec.num_layers,
-                   segment.KERNEL.name: calls})
+                   segment.KERNEL.name: calls,
+                   ln_film.KERNEL_FWD.name: calls * ln_film_fwd_launches(
+                       run.model)})
   if served != expected:
     raise AssertionError(f'evaluate launches {served}, expected {expected}')
   state = torch.load(os.path.join(ckpt, 'step_4.pt'), weights_only=True)
@@ -2213,12 +2556,13 @@ def quarter_deg_e_shapes(gencast):
 def check_quarter_deg_kernels(spec, statics, gencast, g, card):
   """Phase 22: kernels A and F at the 0.25-degree plan's padded and ragged
   shapes, B on one grid2mesh chunk's receiver and sender plans (the chunk
-  with the longest receiver row), E at every shape a 0.25-degree training
-  step gives it, float32 and bf16, each against its plain version, with
-  timings, bounds and the library calls (check_attention,
-  check_attention_bwd, check_segment_plan, check_ln_film_shapes; the slow
-  plain versions and library calls timed over fewer calls). Returns
-  ({(kernel, dtype, rows): result}, E's results, E's shapes)."""
+  with the longest receiver row), E and the LN+FiLM forward at every shape
+  a 0.25-degree training step gives E, float32 and bf16, each against its
+  plain version, with timings, bounds and the library calls
+  (check_attention, check_attention_bwd, check_segment_plan,
+  check_ln_film_shapes, check_ln_film_fwd_shapes; the slow plain versions
+  and library calls timed over fewer calls). Returns ({(kernel, dtype,
+  rows or shape): result}, E's results, E's shapes)."""
   from gencast_tpu_torch.nn import gnn
   dev = g.device
   t_phase = time.perf_counter()
@@ -2266,8 +2610,11 @@ def check_quarter_deg_kernels(spec, statics, gencast, g, card):
       e_shapes, g, card, profiled='one kernel per call under torch.profiler '
       'checked in a fresh process beside phase 42\'s pod forecast (its line '
       'there)')
-  log(f'[0.25deg kernels] A, F, B and E at the 0.25-degree shapes in '
-      f'{time.perf_counter() - t_phase:.1f} s; {card}')
+  for (shape, dtype), value in check_ln_film_fwd_shapes(e_shapes, g,
+                                                       card).items():
+    results[('LN+FiLM fwd', dtype, shape)] = value
+  log(f'[0.25deg kernels] A, F, B, E and the LN+FiLM forward at the '
+      f'0.25-degree shapes in {time.perf_counter() - t_phase:.1f} s; {card}')
   return results, e_results, e_shapes
 
 
@@ -2298,6 +2645,8 @@ def quarter_deg_denoiser(spec, statics, model, stack, plain_stack, dev, g,
       raise AssertionError(f'0.25deg denoiser call launched (A, B) '
                            f'{launched}, expected ({spec.num_layers}, '
                            f'{chunks})')
+    check_ln_film_fwd_call(model, stack, (inputs, noisy, sigma, forcings),
+                           spec.name, card)
     out_p = plain_stack(inputs, noisy, sigma, forcings)
     rel = float((out_k - out_p).abs().max() / out_p.abs().max())
     mean_rel = float((out_k - out_p).abs().mean() / out_p.abs().mean())
@@ -2476,7 +2825,7 @@ def evaluate_quarter_deg(spec, dev, card, ckpt, stats, work):
   member, 2 steps, --chunk_size 1 (each step to the host as it ends):
   launches as derived, finite predictions where the truth is, finite RMSE,
   the peak memory and the wall."""
-  from gencast_tpu_torch.ops import segment, sparse_attention
+  from gencast_tpu_torch.ops import ln_film, segment, sparse_attention
   from gencast_tpu_torch.training import evaluate
   rollout_steps = 2
   torch.cuda.reset_peak_memory_stats()
@@ -2498,7 +2847,9 @@ def evaluate_quarter_deg(spec, dev, card, ckpt, stats, work):
   calls = rollout_steps * (2 * spec.num_noise_levels - 1)
   expected = {c.name: 0 for c in counters()}
   expected.update({sparse_attention.KERNEL.name: calls * spec.num_layers,
-                   segment.KERNEL.name: calls * chunks})
+                   segment.KERNEL.name: calls * chunks,
+                   ln_film.KERNEL_FWD.name: calls * ln_film_fwd_launches(
+                       run.model)})
   rollout = np.load(os.path.join(out, 'rollout.npz'))
   preds, truth = rollout['predictions'], rollout['truth']
   with open(os.path.join(out, 'metrics.json')) as f:
@@ -2799,7 +3150,7 @@ def one_deg_era5(spec, statics, dev, card, data, work, has_h5py) -> dict:
   on its checkpoint, 1 member x 2 steps, truth from the directory (with
   --save_netcdf where h5py imports): launches as derived, finite where the
   truth is, the walls and peak memory. Returns each kernel's launches."""
-  from gencast_tpu_torch.ops import segment, sparse_attention
+  from gencast_tpu_torch.ops import ln_film, segment, sparse_attention
   from gencast_tpu_torch.training import evaluate
   ckpt = os.path.join(work, 'ckpt_1deg')
   t0 = time.perf_counter()
@@ -2815,8 +3166,9 @@ def one_deg_era5(spec, statics, dev, card, data, work, has_h5py) -> dict:
     c.reset()
   out = os.path.join(work, 'eval_1deg')
   t0 = time.perf_counter()
-  evaluate.main(['--preset', '1deg', '--num_layers', str(spec.num_layers),
-                 '--clean_sst_nans', '--data', data,
+  run = evaluate.main(['--preset', '1deg', '--num_layers',
+                       str(spec.num_layers), '--clean_sst_nans', '--data',
+                       data,
                  '--ckpt_dir', ckpt, '--num_members', '1',
                  '--max_rollout_steps', str(rollout_steps), '--out_dir', out,
                  '--plot_vars'] + (['--save_netcdf'] if has_h5py else []))
@@ -2826,7 +3178,9 @@ def one_deg_era5(spec, statics, dev, card, data, work, has_h5py) -> dict:
   calls = rollout_steps * (2 * spec.num_noise_levels - 1)
   expected = {c.name: 0 for c in counters()}
   expected.update({sparse_attention.KERNEL.name: calls * spec.num_layers,
-                   segment.KERNEL.name: calls})
+                   segment.KERNEL.name: calls,
+                   ln_film.KERNEL_FWD.name: calls * ln_film_fwd_launches(
+                       run.model)})
   rollout = np.load(os.path.join(out, 'rollout.npz'))
   preds, truth = rollout['predictions'], rollout['truth']
   with open(os.path.join(out, 'metrics.json')) as f:
@@ -2869,7 +3223,7 @@ def quarter_deg_row(result, shape, dtype) -> dict:
   bound_ms, bound_by = bound(*cost, dtype)
   return {'shape': list(shape), 'max_abs_err': err, 'ms': ms['kernel'],
           'plain_ms': ms['plain'], 'bound_ms': bound_ms, 'bound_by': bound_by,
-          'library_ms': ms['library']}
+          'library_ms': ms.get('library')}
 
 
 # --- GraphCast (phases 31-34) ---
@@ -3753,7 +4107,8 @@ def pod_ensemble_1deg(dev, card, work) -> dict:
   from gencast_tpu_torch import configs
   from gencast_tpu_torch.data import layout as layout_lib
   from gencast_tpu_torch.models import wrappers
-  from gencast_tpu_torch.ops import metrics, segment, sparse_attention
+  from gencast_tpu_torch.ops import ln_film, metrics, segment, \
+      sparse_attention
   from gencast_tpu_torch.parallel import ensemble
   from gencast_tpu_torch.scripts import ensemble_forecast_pod as pod
   t_phase = time.perf_counter()
@@ -3801,7 +4156,8 @@ def pod_ensemble_1deg(dev, card, work) -> dict:
   spec = configs.ONE_DEG
   calls = steps * (2 * spec.num_noise_levels - 1)
   per_rank = {sparse_attention.KERNEL.name: calls * spec.num_layers,
-              segment.KERNEL.name: calls}
+              segment.KERNEL.name: calls,
+              ln_film.KERNEL_FWD.name: calls * ln_film_fwd_launches(wrapped)}
   launched = {r: {k: v for k, v in lines['kernel launches in this process']
                   .items() if v} for r, lines in run['ranks'].items()}
   if not (bitwise and worst <= POD_SCORE_RTOL and sorted(launched) == [0, 1]
@@ -4478,7 +4834,8 @@ def pod_and_graphcast_mp(spec, dev, card, work, beside_pod,
   from gencast_tpu_torch import configs
   from gencast_tpu_torch.data import layout as layout_lib
   from gencast_tpu_torch.models import wrappers
-  from gencast_tpu_torch.ops import banded_attention, metrics, segment
+  from gencast_tpu_torch.ops import banded_attention, ln_film, metrics, \
+      segment
   from gencast_tpu_torch.parallel import ensemble
   from gencast_tpu_torch.scripts import ensemble_forecast_pod as pod
   t_phase = time.perf_counter()
@@ -4531,10 +4888,12 @@ def pod_and_graphcast_mp(spec, dev, card, work, beside_pod,
     for var, v in metrics.per_variable(arr, layout).items():
       w, s = np.asarray(v)[:, 0], np.asarray(scores[name][var])
       worst = max(worst, float(np.abs(s - w).max() / np.abs(w).max()))
+  pod_fwd = ln_film_fwd_launches(wrapped)
   del wrapped, mem
   calls = steps * (2 * nano.num_noise_levels - 1)
   pod_want = {banded_attention.KERNEL.name: calls * nano.num_layers,
-              segment.KERNEL.name: calls}
+              segment.KERNEL.name: calls,
+              ln_film.KERNEL_FWD.name: calls * pod_fwd}
   pod_got = rank_launches(run)
   if not (member_rel <= POD_MP_RTOL and worst <= POD_SCORE_RTOL
           and run['stdout'].count('mesh ensemble=2 model=2') == 4
@@ -4594,7 +4953,7 @@ def finish_dryrun(started, dev, card) -> dict:
   model axis, every kernel of its paths launched on every rank, B on the
   TINY kernel path as derived from each rank's grid rows. Returns each
   kernel's launches over the ranks."""
-  from gencast_tpu_torch.ops import segment
+  from gencast_tpu_torch.ops import ln_film, segment
   dry = finish_ranks(started, 'dryrun_multichip 8')
   dry_got = {int(r): json.loads(j) for r, j in re.findall(
       r'\[dryrun\] rank (\d+) launches (\{.*\})', dry['stdout'])}
@@ -4602,7 +4961,7 @@ def finish_dryrun(started, dev, card) -> dict:
       r'\[dryrun\] rank (\d+) TINY kernel path launches (\{.*\})',
       dry['stdout'])}
   tiny_b = dryrun_tiny_b_launches(dev)
-  path_kernels = {c.name for c in counters()[:8]}
+  path_kernels = {c.name for c in counters()[:8]} | {ln_film.KERNEL_FWD.name}
   seen = {k for v in dry_got.values() for k in v}
   b_name = segment.KERNEL.name
   b_by_rank = {r: v.get(b_name, 0) for r, v in sorted(tiny_got.items())}
@@ -5102,7 +5461,7 @@ def member_batch_forecast(spec, statics, dev, card) -> dict:
   runs."""
   from gencast_tpu_torch import bridge, configs, rollout
   from gencast_tpu_torch.models import wrappers
-  from gencast_tpu_torch.ops import banded_attention, segment, \
+  from gencast_tpu_torch.ops import banded_attention, ln_film, segment, \
       sparse_attention
   from gencast_tpu_torch.parallel import ensemble
   t_part = time.perf_counter()
@@ -5122,7 +5481,8 @@ def member_batch_forecast(spec, statics, dev, card) -> dict:
   attn = (banded_attention.KERNEL if spec.attention_type == 'triblock_pallas'
           else sparse_attention.KERNEL)
   calls = steps * (2 * spec.num_noise_levels - 1)
-  per_call = {attn.name: spec.num_layers, segment.KERNEL.name: 1}
+  per_call = {attn.name: spec.num_layers, segment.KERNEL.name: 1,
+              ln_film.KERNEL_FWD.name: ln_film_fwd_launches(model)}
   launches = {c.name: 0 for c in counters()}
 
   def run(**draws):
@@ -5403,6 +5763,8 @@ def main() -> int:
     if launched != (spec.num_layers, 1):
       raise AssertionError(f'denoiser call launched {launched}, expected '
                            f'({spec.num_layers}, 1)')
+    check_ln_film_fwd_call(model, stack, (inputs, noisy, sigma, forcings),
+                           spec.name, card)
     out_p = plain_stack(inputs, noisy, sigma, forcings)
     torch.cuda.synchronize()
     rel = float((out_k - out_p).abs().max() / out_p.abs().max())
@@ -5515,6 +5877,8 @@ def main() -> int:
   nano_statics = configs.build_statics(nano)
   e_shapes = ln_film_shapes([(spec, statics), (nano, nano_statics)])
   e_results = check_ln_film_shapes(e_shapes, g, card)
+  fwd_shapes = ln_film_fwd_shapes(e_shapes, FWD_MEMBERS)
+  fwd_results = check_ln_film_fwd_shapes(fwd_shapes, g, card)
   e_seen = set()
 
   clock.done(8)
@@ -5891,6 +6255,8 @@ def main() -> int:
   err_b, ms_b, cost_b = segment_results[('grid2mesh receivers', bf16)]
   err_e, ms_e, cost_e = e_results[
       ((statics.mesh2grid.num_edges, 1, spec.d_model), bf16)]
+  fwd_e, ms_fwd, cost_fwd = fwd_results[
+      ((statics.mesh2grid.num_edges, 1, spec.d_model), bf16)]
   _, ms_e_mesh, cost_e_mesh = e_results[
       ((1, plan.padded_n, spec.d_model), bf16)]
   errs_f, ms_f, costs_f = results[('F', bf16)]
@@ -5966,6 +6332,22 @@ def main() -> int:
            **{'0.25deg_' + ('mesh' if axis == 0 else 'chunk'): quarter_deg_row(
                (q_e_results[(shape, bf16)][0][1],)
                + q_e_results[(shape, bf16)][1:], shape, bf16)
+              for shape, axis in q_e_shapes
+              if axis == 0 or shape == q_e_big}),
+      # No single PyTorch call computes LN+FiLM at a batch: library_ms is
+      # layer_norm with the one member's scale and offset as its weight and
+      # bias; the member batch and 0.25-degree entries are bf16 too.
+      dict(row(ln_film.KERNEL_FWD, fwd_e['max_err'], ms_fwd['kernel'],
+               ms_fwd['plain'], ms_fwd['library'], *cost_fwd, bf16),
+           bitwise_share=fwd_e['bitwise_share'],
+           **{f'member_batch_{FWD_MEMBERS}_' + ('mesh' if axis == 0 else
+                                                'edges'): quarter_deg_row(
+               (fwd_results[(shape, bf16)][0]['max_err'],)
+               + fwd_results[(shape, bf16)][1:], shape, bf16)
+              for shape, axis in fwd_shapes[-2:]},
+           **{'0.25deg_' + ('mesh' if axis == 0 else 'chunk'): quarter_deg_row(
+               (q_results[('LN+FiLM fwd', bf16, shape)][0]['max_err'],)
+               + q_results[('LN+FiLM fwd', bf16, shape)][1:], shape, bf16)
               for shape, axis in q_e_shapes
               if axis == 0 or shape == q_e_big}),
       dict(row(sparse_attention.KERNEL_DQ, errs_f['dq'][1], ms_f['dq'],
@@ -6057,6 +6439,8 @@ def main() -> int:
 if __name__ == '__main__':
   if sys.argv[1:2] == ['--profile-ln-film']:
     sys.exit(profile_ln_film_main(sys.argv[2]))
+  if sys.argv[1:2] == ['--ln-film-fwd']:
+    sys.exit(ln_film_fwd_main())
   if sys.argv[1:2] == ['--quarter-statics']:
     sys.exit(quarter_statics_job(sys.argv[2]))
   try:

@@ -83,6 +83,11 @@ _SIGNATURES = {
                        _I, _F, _P],
     # dtype, c
     'gt_ln_film_bwd_blocks_per_sm': [_I, _I],
+    # dtype, x, scale, offset, y, batch, rows, c, row_stride, batch_stride,
+    # blocks_per_batch, eps, stream
+    'gt_ln_film_fwd': [_I, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _F, _P],
+    # dtype, c
+    'gt_ln_film_fwd_blocks_per_sm': [_I, _I],
     # mark (its index in utils.MARKS), stream
     'gt_span_mark': [_I, _P],
 }
@@ -307,7 +312,7 @@ def library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def sm_count(device_index: int) -> int:
   """Streaming multiprocessors of a card: the persistent grids (kernels B
-  and E) take a multiple of it."""
+  and E, the LN+FiLM forward) take a multiple of it."""
   return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 

@@ -1,10 +1,17 @@
-"""Kernel E's plain version (the LN+FiLM backward) against the JAX package.
+"""The LN+FiLM op's plain versions against the JAX package: kernel E's
+(the backward) and the forward's, whose op order is the forward kernel's
+contract.
 
 The JAX `ln_film` custom VJP runs its Pallas backward in interpret mode on
-the CPU, as tests/test_ln_film.py runs it. The port's autograd Function
-takes the plain version on CPU tensors; the CUDA kernel runs only on the
-card, where chip_smoke.py holds it against this same plain version.
+the CPU, as tests/test_ln_film.py runs it; its forward is plain XLA
+(`ln_film_reference`). The port's autograd Function takes the plain
+versions on CPU tensors; the CUDA kernels run only on the card, where
+chip_smoke.py holds them against these same plain versions. Here: the
+wrappers' checks, their grids' row partitions, and the kernels' launches
+per denoiser call and training step that chip_smoke.py derives.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -12,14 +19,21 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gencast_tpu.ops import ln_film as jax_lf
+from gencast_tpu_torch import configs
+from gencast_tpu_torch.models import wrappers
 from gencast_tpu_torch.nn import mlp
 from gencast_tpu_torch.ops import ln_film
+from gencast_tpu_torch.training import steps
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # float32: the same f32 formulas in another summation order; relative to
 # the largest magnitude of each gradient.
 F32_RTOL = 1e-5
+# The forward in float32 against XLA's: the same op order, the two means
+# summed in another order (2e-7 of the largest output at these inputs).
+FWD_F32_RTOL = 1e-6
 
 
 def _rel(got, want):
@@ -173,3 +187,202 @@ def test_launch_partition_covers_every_row_once(rows, batch, resident, sms):
 def test_launch_needs_a_block_per_batch_element():
   with pytest.raises(ValueError, match='resident'):
     ln_film.launch_blocks(100, 4, 3, 3)
+
+
+def _bf16_within_one_step(got, want, x, scale, batch_axis):
+  """(share of got's elements with want's bits, max |got - want| over one
+  bf16 rounding step at the element's magnitude, eps * (|want| + |scale|
+  (|x_hat| + 1)), the allowance chip_smoke.py gives the forward kernel)."""
+  got, want = got.float(), want.float()
+  x32 = x.float()
+  mu, rstd = ln_film._mean_rstd(x32, ln_film.EPS)
+  per_batch = scale[None] if batch_axis == 1 else scale[:, None]
+  step = torch.finfo(torch.bfloat16).eps * (
+      want.abs() + per_batch.float().abs() * (((x32 - mu) * rstd).abs() + 1))
+  return (float((got == want).float().mean()),
+          float(((got - want).abs() / step).max()))
+
+
+@pytest.mark.parametrize('batch_axis', [0, 1])
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+def test_plain_forward_matches_jax_reference(dtype, batch_axis):
+  """The forward's op order, which the forward kernel keeps bit for bit
+  (its float32 sums apart): one-pass variance clamped at 0, x_hat rounded
+  to x's dtype, the FiLM multiply and add each in that dtype, as the JAX
+  package's ln_film_reference."""
+  b, rows, c = 2, 700, 256
+  shape = (b, rows, c) if batch_axis == 0 else (rows, b, c)
+  x, _, scale, offset = _inputs(shape, b, c, seed=11, dtype=getattr(
+      jnp, dtype))
+  tdt = getattr(torch, dtype)
+  xt, st, ot = (torch.as_tensor(a).to(tdt) for a in (x, scale, offset))
+  got = ln_film.ln_film_forward(xt, st, ot, batch_axis)
+  assert got.dtype == tdt and got.shape == shape
+  sh = (1, b, c) if batch_axis == 1 else (b, 1, c)
+  jd = getattr(jnp, dtype)
+  want = jax_lf.ln_film_reference(jnp.asarray(x, jd),
+                                  jnp.asarray(scale, jd).reshape(sh),
+                                  jnp.asarray(offset, jd).reshape(sh))
+  want = torch.as_tensor(np.array(want, np.float32)).to(tdt)
+  if tdt == torch.bfloat16:
+    share, steps_ = _bf16_within_one_step(got, want, xt, st, batch_axis)
+    assert share >= chip_smoke.FWD_BITWISE_SHARE and steps_ <= 1
+  else:
+    assert _rel(got.numpy(), want.numpy()) <= FWD_F32_RTOL
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_lane_order_yardstick_keeps_the_plain_op_order(dtype):
+  """chip_smoke.py holds the forward kernel bitwise to the plain op order
+  summed in the kernel's lane order (ln_film_fwd_lane_order); that
+  yardstick differs from the plain version only as the kernel may."""
+  g = torch.Generator().manual_seed(3)
+  for shape, axis in (((300, 2, 512), 1), ((2, 150, 64), 0),
+                      ((40, 1, 1024), 1)):
+    x, scale, offset = chip_smoke.ln_film_fwd_inputs(shape, axis, dtype, g)
+    got = chip_smoke.ln_film_fwd_lane_order(x, scale, offset, axis)
+    want = ln_film.ln_film_forward(x, scale, offset, axis)
+    assert got.dtype == dtype and got.shape == shape
+    if dtype == torch.bfloat16:
+      share, steps_ = _bf16_within_one_step(got, want, x, scale, axis)
+      assert share >= chip_smoke.FWD_BITWISE_SHARE and steps_ <= 1
+    else:
+      ref = ln_film.ln_film_forward(x.double(), scale.double(),
+                                    offset.double(), axis)
+      plain_err = float((want.double() - ref).abs().max())
+      assert (float((got.double() - ref).abs().max())
+              <= chip_smoke.FWD_F32_ERR_RATIO * plain_err)
+
+
+def test_cpu_tensors_take_the_plain_forward():
+  """On CPU tensors the op's forward is ln_film_forward, bit for bit, and
+  the forward kernel's counter does not move; so does a CondMLP's."""
+  g = torch.Generator().manual_seed(4)
+  for shape, axis in (((50, 2, 64), 1), ((2, 30, 64), 0)):
+    for dtype in (torch.float32, torch.bfloat16):
+      x, scale, offset = chip_smoke.ln_film_fwd_inputs(shape, axis, dtype, g)
+      want = ln_film.ln_film_forward(x, scale, offset, axis)
+      assert torch.equal(ln_film.ln_film(x, scale, offset, axis), want)
+      assert torch.equal(ln_film.ln_film_fwd(x, scale, offset, axis), want)
+  net = mlp.CondMLP(20, 64, 1, 64, torch.nn.functional.silu, rng=g)
+  net(torch.randn(50, 2, 20, generator=g), torch.randn(2, 16, generator=g))
+  assert ln_film.KERNEL_FWD.launches == 0
+
+
+def test_forward_kernel_wrapper_rejects_cpu_tensors():
+  x = torch.zeros(4, 1, 64)
+  with pytest.raises(ValueError, match='must be contiguous'):
+    ln_film.ln_film_fwd_cuda(x, torch.ones(1, 64), torch.zeros(1, 64), 1)
+  assert ln_film.KERNEL_FWD.launches == 0
+
+
+@pytest.mark.parametrize('operand', ['x', 'scale', 'offset'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_forward_kernel_wrapper_rejects_misaligned_rows(dtype, operand):
+  """The kernel loads x, scale and offset and stores y in 16-byte
+  vectors."""
+  shapes = {'x': (4, 1, 64), 'scale': (1, 64), 'offset': (1, 64)}
+  args = {name: torch.zeros(shape, dtype=dtype)
+          for name, shape in shapes.items()}
+  flat = torch.zeros(args[operand].numel() + 1, dtype=dtype)
+  args[operand] = flat[1:].view(shapes[operand])  # 2 or 4 bytes past 16
+  with pytest.raises(ValueError, match=f'{operand} starts at address'):
+    ln_film.ln_film_fwd_cuda(args['x'], args['scale'], args['offset'], 1)
+  assert ln_film.KERNEL_FWD.launches == 0
+
+
+@pytest.mark.parametrize('c', [36, 48, 1056])
+def test_forward_kernel_wrapper_rejects_channels_it_does_not_vectorize(c):
+  x = torch.zeros(4, 1, c, dtype=torch.bfloat16)
+  per_batch = torch.ones(1, c, dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match='multiple of 32'):
+    ln_film.ln_film_fwd_cuda(x, per_batch, per_batch, 1)
+  with pytest.raises(TypeError, match='float32 or bfloat16'):
+    ln_film.ln_film_fwd_cuda(x.half(), per_batch.half(), per_batch.half(),
+                             1)
+  assert ln_film.KERNEL_FWD.launches == 0
+
+
+@pytest.mark.parametrize('operand', ['scale', 'offset'])
+def test_forward_kernel_wrapper_rejects_mixed_dtypes(operand):
+  """x, scale and offset of one dtype: the kernel reads all three as x's
+  (every path of the model gives it so: the conditioning is cast to the
+  activations' dtype)."""
+  args = {'x': torch.zeros(4, 1, 64, dtype=torch.bfloat16),
+          'scale': torch.ones(1, 64, dtype=torch.bfloat16),
+          'offset': torch.zeros(1, 64, dtype=torch.bfloat16)}
+  args[operand] = args[operand].float()
+  with pytest.raises(ValueError, match=f'{operand} is torch.float32'):
+    ln_film.ln_film_fwd_cuda(args['x'], args['scale'], args['offset'], 1)
+  assert ln_film.KERNEL_FWD.launches == 0
+
+
+@pytest.mark.parametrize('rows, batch', _SHAPES + [(195480, 8), (10304, 8),
+                                                   (41024, 1)])
+@pytest.mark.parametrize('resident', [132, 396, 528, 228])
+def test_forward_launch_partition_covers_every_row_once(rows, batch,
+                                                        resident):
+  """The forward kernel's grid: at most its waves of the resident blocks
+  (one a batch element at least), no warp without a row unless a block has
+  more warps than rows, and every row taken once by its warps' stride."""
+  blocks = ln_film.launch_blocks_fwd(rows, batch, resident)
+  assert 1 <= blocks and (
+      blocks == 1 or batch * blocks <= ln_film._FWD_WAVES * resident)
+  assert blocks == 1 or (blocks - 1) * 8 < rows
+  taken = np.zeros(rows, np.int64)
+  for r in ln_film.warp_rows(rows, blocks):
+    taken[list(r)] += 1
+  assert (taken == 1).all()
+
+
+@pytest.mark.parametrize('case', [
+    {},  # TINY's 'full' remat
+    {'remat_policy': 'save_attention'},  # 1 degree's
+    {'remat_gnns': True},
+    {'edge_chunk_size': 64},
+    {'edge_chunk_size': 100, 'remat_gnns': True,
+     'remat_policy': 'save_attention'},  # 0.25 degrees' structure
+    # The mesh's node MLPs in one chunk (as at 0.25 degrees), then all.
+    {'edge_chunk_size': 200, 'remat_gnns': True,
+     'remat_policy': 'save_attention'},
+    {'edge_chunk_size': 700, 'remat_gnns': True},
+])
+def test_forward_launches_per_call_and_step(monkeypatch, case):
+  """chip_smoke.py holds the forward kernel's launches per denoiser call
+  and per training step to counts derived from the model
+  (`ln_film_fwd_launches`): counted here on the CPU, where the forward's
+  dispatch runs once per LN+FiLM, the backward's recomputations (remat of
+  the transformer's halves, of the GNNs and of their chunks) included."""
+  spec = dataclasses.replace(configs.TINY_PALLAS, **case)
+  model, statics = configs.build_gencast(spec, seed=0, device='cpu')
+  task = spec.task
+  stats = chip_smoke.unit_stats(task)
+  stack = wrappers.build_stack(model, stats, bf16=False)
+  den = model.denoiser
+  rng = np.random.default_rng(0)
+  grid = (1, statics.grid_lat.shape[0], statics.grid_lon.shape[0])
+  batch = [torch.as_tensor(rng.standard_normal(grid + (lay.num_channels,)),
+                           dtype=torch.float32)
+           for lay in (den.input_layout, den.target_layout,
+                       den.forcing_layout)]
+  calls = []
+  forward = ln_film.ln_film_fwd
+
+  def counted(x, *rest):
+    calls.append(tuple(x.shape))
+    return forward(x, *rest)
+
+  monkeypatch.setattr(ln_film, 'ln_film_fwd', counted)
+  with torch.no_grad():
+    den(batch[0], batch[1], torch.ones(1), batch[2])
+  assert len(calls) == chip_smoke.ln_film_fwd_launches(model)
+  assert len(calls) == chip_smoke.expected_step_launches(model)[
+      ln_film.KERNEL.name]
+  calls.clear()
+  optimizer = steps.create_optimizer(stack,
+                                     steps.OptimizerConfig(total_steps=10))
+  steps.train_step(stack, optimizer, *batch, torch.Generator().manual_seed(1))
+  assert len(calls) == chip_smoke.expected_step_launches(model)[
+      ln_film.KERNEL_FWD.name]
+  assert len(calls) == chip_smoke.ln_film_fwd_launches(model, train=True)
+  assert ln_film.KERNEL_FWD.launches == 0

@@ -413,7 +413,7 @@ def test_captured_launches_are_added_per_replay():
   assert (a.launches, b.launches) == (before[0] + 6, before[1] + 2)
   a.launches, b.launches = before
   names = [c.name for c in cuda_lib.COUNTERS]
-  assert len(names) == len(set(names)) == 10
+  assert len(names) == len(set(names)) == 11
 
 
 def test_optimizer_state_round_trip_keeps_the_rate():

@@ -46,7 +46,7 @@ REMAT_POLICIES = ('full', 'save_attention')
 COUNTERS = (sparse_attention.KERNEL, sparse_attention.KERNEL_DQ,
             sparse_attention.KERNEL_DKV, segment.KERNEL, ln_film.KERNEL,
             banded_attention.KERNEL, banded_attention.KERNEL_DQ,
-            banded_attention.KERNEL_DKV)
+            banded_attention.KERNEL_DKV, ln_film.KERNEL_FWD)
 
 # Loss, max relative difference: float32 on both sides, one denoiser call.
 LOSS_RTOL = 1e-5
